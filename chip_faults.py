@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Plant known faults in the CUDA kernels and report which of
+`chip_smoke.py`'s checks reject them.
+
+Each fault is one textual change to one kernel source. It is made in a
+copy of ``ray_lightning_tpu_torch/ops/csrc`` under
+``ray_lightning_tpu_torch/ops/build/planted/<fault>/`` (git-ignored) and
+built from there; the sources themselves are never touched. A sound
+control (the sources as they are) runs first, then each fault:
+
+  kernels — the kernel against its plain version on chip_smoke's inputs,
+            per decode slot (lengths 4096 / 1537 / 700 / 33) and per
+            prefill offset (0 / 1024 / 3968): the share of chip_smoke's
+            tolerance that the worst element uses (above 1 rejects),
+            beside its share of a flat |err| <= 2e-2 + 2e-2 |b|.
+  lanes   — the greedy half of chip_smoke's requests served through the
+            kernel lanes built from those sources, then chip_smoke's
+            teacher-forced comparison with the reference lanes.
+
+A mask that admits one position past the slot's length changes nothing
+at length 4096: the slot's table ends there.
+
+Prints one JSON line per run, then a summary line; exits 0 when the
+control passes both checks and the kernel check rejects every fault.
+Run from the repository root: ``python3 chip_faults.py`` (about two
+minutes on one H100, with the full 32-layer model).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+
+import torch
+
+import chip_smoke as smoke
+
+#: fault -> (source file, text, the text planted in its place)
+FAULTS = {
+    "decode_mask_off_by_one": (
+        "paged_attention.cu", "w.hi[h2] = length;",
+        "w.hi[h2] = length + 1;"),
+    "decode_last_tile_skipped": (
+        "paged_attention.cu", "(length + rltt::kKeys - 1) / rltt::kKeys);",
+        "(length + rltt::kKeys - 1) / rltt::kKeys - 1);"),
+    "prefill_mask_off_by_one": (
+        "paged_prefill.cu", "w.hi[h2] = pos + j + 1;",
+        "w.hi[h2] = pos + j + 2;"),
+    "prefill_last_tile_skipped": (
+        "paged_prefill.cu", "q_end / rltt::kKeys + 1);",
+        "q_end / rltt::kKeys);"),
+}
+#: the flat tolerance, |err| <= FLAT + FLAT |b|, shown for comparison
+FLAT = 2e-2
+
+
+def use_sources(fault):
+    """Build the kernels from the sources (``fault`` None) or from a copy
+    with ``fault`` planted, and make the wrappers load those builds."""
+    from ray_lightning_tpu_torch.ops import build
+
+    csrc = os.path.join(os.path.dirname(build.__file__), "csrc")
+    out = os.path.join(os.path.dirname(build.__file__), "build")
+    if fault is not None:
+        out = os.path.join(out, "planted", fault)
+        planted = os.path.join(out, "csrc")
+        shutil.rmtree(planted, ignore_errors=True)
+        shutil.copytree(csrc, planted)
+        src, text, new = FAULTS[fault]
+        path = os.path.join(planted, src)
+        with open(path) as f:
+            code = f.read()
+        if code.count(text) != 1:
+            raise RuntimeError(f"{fault}: {text!r} is not in {src} once")
+        with open(path, "w") as f:
+            f.write(code.replace(text, new))
+        csrc = planted
+    build.CSRC, build.BUILD = csrc, out
+    build._libs.clear()  # the wrappers' next call loads the new builds
+    build.build_all(["paged_attention", "paged_prefill"])
+
+
+def flat_share(got, want) -> float:
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return ((got - want).abs() / (FLAT + FLAT * want.abs())).max().item()
+
+
+class KernelCases:
+    """chip_smoke's decode and prefill inputs and their plain outputs."""
+
+    def __init__(self):
+        from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+            paged_attention_plain)
+        from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+            paged_prefill_plain)
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(smoke.SEED)
+        inp = smoke.KernelInputs(gen)
+        self.decode = inp.decode(smoke.DECODE_LENGTHS, [0] * smoke.C)
+        self.decode_want = paged_attention_plain(*self.decode[0],
+                                                 **self.decode[1])
+        self.prefill = [inp.prefill(pos, [0]) for pos in smoke.PREFILL_POS]
+        self.prefill_want = [paged_prefill_plain(*a, **kw)
+                             for a, kw in self.prefill]
+
+    def shares(self):
+        """{shape: (share of chip_smoke's tolerance, flat share)}"""
+        from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+            paged_attention_kernel)
+        from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+            paged_prefill_kernel)
+
+        out = {}
+        got = paged_attention_kernel(*self.decode[0], **self.decode[1])
+        for c, length in enumerate(smoke.DECODE_LENGTHS):
+            want = self.decode_want[c]
+            out[f"decode length={length}"] = (
+                smoke.tolerance_ratio(got[c], want)[1],
+                flat_share(got[c], want))
+        for pos, (a, kw), want in zip(smoke.PREFILL_POS, self.prefill,
+                                      self.prefill_want):
+            got = paged_prefill_kernel(*a, **kw)
+            out[f"prefill pos={pos}"] = (smoke.tolerance_ratio(got, want)[1],
+                                         flat_share(got, want))
+        return out
+
+
+def lanes(model, reqs):
+    """chip_smoke's lanes comparison over ``reqs`` (greedy), served
+    through the kernel lanes as they are built now."""
+    ecfg = smoke.engine_config()
+    engine, sched, probe = smoke.serve(model, ecfg, use_kernels=None)
+    done = smoke.drain(sched, reqs)
+    del engine, sched
+    return smoke.compare_lanes(model, ecfg, reqs, probe, done)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        smoke.log("chip_faults: no CUDA device available")
+        return 1
+    print(smoke.nvidia_smi(), flush=True)
+    use_sources(None)
+    cases = KernelCases()
+    model = smoke.build_model(smoke.SEED, 32)
+    greedy = [r for r in smoke.make_requests(model.cfg.vocab_size,
+                                             smoke.SEED)
+              if r.temperature == 0.0]
+    verdicts = {}
+    for fault in [None, *FAULTS]:
+        if fault is not None:
+            use_sources(fault)
+        shares = cases.shares()
+        row = dict(fault=fault or "none",
+                   kernel_share={k: v[0] for k, v in shares.items()},
+                   flat_share={k: v[1] for k, v in shares.items()})
+        row["kernel_rejects"] = [k for k, v in shares.items()
+                                 if not v[0] <= 1.0]
+        row["flat_rejects"] = [k for k, v in shares.items()
+                               if not v[1] <= 1.0]
+        lane_row, problems = lanes(model, greedy)
+        row["lanes"] = {k: v for k, v in lane_row.items()
+                        if k != "argmax_differs"}
+        row["lanes"]["argmax_differs"] = len(lane_row["argmax_differs"])
+        row["lanes_rejects"] = bool(problems)
+        row["lanes_problems"] = problems[:3]
+        print(json.dumps(row), flush=True)
+        verdicts[row["fault"]] = row
+    control = verdicts.pop("none")
+    control_passes = not (control["kernel_rejects"]
+                          or control["lanes_rejects"])
+    ok = control_passes and all(v["kernel_rejects"]
+                                for v in verdicts.values())
+    print(json.dumps(dict(
+        control_passes=control_passes,
+        kernel_check_rejects={k: bool(v["kernel_rejects"])
+                              for k, v in verdicts.items()},
+        flat_tolerance_rejects={k: bool(v["flat_rejects"])
+                                for k, v in verdicts.items()},
+        lanes_check_rejects={k: v["lanes_rejects"]
+                             for k, v in verdicts.items()},
+        ok=ok)), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

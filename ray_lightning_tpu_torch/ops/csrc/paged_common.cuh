@@ -1,0 +1,200 @@
+// Device code shared by the two paged-attention kernels
+// (paged_attention.cu: decode, paged_prefill.cu: chunked prefill).
+//
+// Both walk one KV head of one slot's (or group row's) cache in tiles of
+// 16 positions, looking each position's pool block up in the row's own
+// block table (what the TPU kernels got from scalar prefetch). A tile's K
+// and V are fetched into registers one tile ahead, then staged in shared
+// memory with padded rows. A warp owns 16 query rows, one m16 tile of the
+// tensor-core product (mma.sync m16n8k16, bf16 in, f32 accumulate); rows
+// are the query heads that share the KV head (GQA in place: each K/V tile
+// is read once for all of them), times the query tokens of a prefill tile.
+//
+// Masking follows the TPU kernels: invisible scores take the -1e30
+// sentinel BEFORE the running max, and their probabilities are zeroed
+// explicitly (a fully masked tile would otherwise give
+// exp(-1e30 - -1e30) = 1 and weight scratch garbage at full probability).
+// The running max and sum stay f32; the unnormalised probabilities are
+// rounded to bf16 for the PV product, as the masked-SDPA reference rounds
+// its probabilities.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rltt {
+
+constexpr float kNegInf = -1e30f;  // never true -inf: exp(-inf - -inf) = nan
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKeys = 16;  // cache positions per tile
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One tile's K and V rows of KV head `kvh` (pool layout [n_blocks, P, Hkv,
+// HD]), fetched into registers ahead of use by `kThreads` threads, each
+// copying kPer 16-byte vectors of each, then stored to shared memory as
+// [kKeys][HD + 8] (the padding puts the fragment reads on distinct banks).
+template <int HD, int kThreads>
+struct TileFetch {
+  static constexpr int kVec = HD / 8;
+  static constexpr int kPer = kKeys * kVec / kThreads;
+  static constexpr int kStride = HD + 8;
+  static_assert(kPer * kThreads == kKeys * kVec, "threads must split a tile");
+  uint4 k[kPer], v[kPer];
+
+  __device__ __forceinline__ void fetch(const __nv_bfloat16* __restrict__ pool_k,
+                                        const __nv_bfloat16* __restrict__ pool_v,
+                                        const int* __restrict__ trow, int P,
+                                        int Hkv, int kvh, int t, int kv_limit) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int kv = t * kKeys + idx / kVec, vec = idx % kVec;
+      if (kv < kv_limit) {
+        const int64_t row = ((int64_t)trow[kv / P] * P + kv % P) * Hkv + kvh;
+        k[i] = __ldg(reinterpret_cast<const uint4*>(pool_k + row * HD) + vec);
+        v[i] = __ldg(reinterpret_cast<const uint4*>(pool_v + row * HD) + vec);
+      } else {  // past the table: zeros, masked anyway
+        k[i] = make_uint4(0, 0, 0, 0);
+        v[i] = k[i];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* sk, __nv_bfloat16* sv) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int off = (idx / kVec) * kStride + (idx % kVec) * 8;
+      *reinterpret_cast<uint4*>(sk + off) = k[i];
+      *reinterpret_cast<uint4*>(sv + off) = v[i];
+    }
+  }
+};
+
+// One warp's 16 query rows: lane (g, tig) = (lane / 4, lane % 4) holds
+// fragment rows g and g + 8. Each row sees cache positions lo <= kv < hi.
+template <int HD>
+struct WarpRows {
+  static constexpr int KK = HD / 16;  // k-steps of the QK^T product
+  static constexpr int DT = HD / 8;   // n-tiles of the PV product
+  static constexpr int kStride = HD + 8;
+  uint32_t qf[KK][4];
+  float o[DT][4];
+  float m[2], l[2];
+  int hi[2];
+  bool live[2];
+
+  // q rows for fragment rows g and g + 8 (read only where live)
+  __device__ __forceinline__ void init(const __nv_bfloat16* qa,
+                                       const __nv_bfloat16* qb, int tig) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int d = kk * 16 + tig * 2;
+      qf[kk][0] = live[0] ? ld2(qa + d) : 0u;
+      qf[kk][1] = live[1] ? ld2(qb + d) : 0u;
+      qf[kk][2] = live[0] ? ld2(qa + d + 8) : 0u;
+      qf[kk][3] = live[1] ? ld2(qb + d + 8) : 0u;
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+  }
+
+  // Fold the shared-memory tile at cache positions kv0 .. kv0 + 15 in.
+  __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ sk,
+                                       const __nv_bfloat16* __restrict__ sv,
+                                       int kv0, int lo, float scale, int g,
+                                       int tig) {
+    float s[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {  // S = Q K^T, two n-tiles of 8 keys
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const __nv_bfloat16* kr = sk + (nt * 8 + g) * kStride + tig * 2;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        mma_bf16(s[nt], qf[kk], ld2(kr + kk * 16), ld2(kr + kk * 16 + 8));
+    }
+    float corr[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kv = kv0 + nt * 8 + tig * 2 + e;
+          const bool vis = live[h2] && kv >= lo && kv < hi[h2];
+          float& x = s[nt][2 * h2 + e];
+          x = vis ? x * scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));  // the row's 4 lanes
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[h2], mx);
+      corr[h2] = expf(m[h2] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * h2 + e];
+          x = x == kNegInf ? 0.f : expf(x - m_new);
+          sum += x;
+        }
+      }
+      l[h2] = l[h2] * corr[h2] + sum;  // this lane's part; see reduce_l
+      m[h2] = m_new;
+    }
+    // O = O * corr + P V, P taken straight from the S fragments
+    const uint32_t pf[4] = {pack2(s[0][0], s[0][1]), pack2(s[0][2], s[0][3]),
+                            pack2(s[1][0], s[1][1]), pack2(s[1][2], s[1][3])};
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= corr[0];
+      o[dt][1] *= corr[0];
+      o[dt][2] *= corr[1];
+      o[dt][3] *= corr[1];
+      const __nv_bfloat16* vc = sv + (tig * 2) * kStride + dt * 8 + g;
+      mma_bf16(o[dt], pf, pack2(vc[0], vc[kStride]),
+               pack2(vc[8 * kStride], vc[9 * kStride]));
+    }
+  }
+
+  // Sum each row's l over its 4 lanes (after the last tile).
+  __device__ __forceinline__ void reduce_l() {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      l[h2] += __shfl_xor_sync(kFull, l[h2], 1);
+      l[h2] += __shfl_xor_sync(kFull, l[h2], 2);
+    }
+  }
+};
+
+}  // namespace rltt

@@ -1,0 +1,426 @@
+"""The PyTorch port's ops against the JAX package's, on the CPU.
+
+The same numpy inputs go through the JAX function (Pallas kernels in
+interpret mode, as the JAX suite runs them) and the port's counterpart:
+the plain versions that the port's kernel wrappers run on CPU tensors,
+and the reference twins. f32 throughout, at the JAX suite's own
+tolerance (rtol = atol = 2e-5). The CUDA/Triton kernels themselves are
+held against these plain versions on the card by ``chip_smoke.py``."""
+from __future__ import annotations
+
+import ast
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_lightning_tpu.ops.attention import (
+    dot_product_attention as jax_sdpa,
+    paged_attention_reference as jax_paged_ref,
+    paged_prefill_reference as jax_prefill_ref,
+)
+from ray_lightning_tpu.ops.pallas.paged_attention import (
+    paged_attention_pallas,
+)
+from ray_lightning_tpu.ops.pallas.paged_prefill import paged_prefill_pallas
+from ray_lightning_tpu.ops.pallas.rmsnorm import rms_norm_pallas
+from ray_lightning_tpu.ops.rope import (
+    apply_rope as jax_apply_rope,
+    rope_frequencies as jax_rope_frequencies,
+)
+from ray_lightning_tpu_torch.ops import dispatch
+from ray_lightning_tpu_torch.ops.attention import (
+    dot_product_attention,
+    paged_attention,
+    paged_attention_reference,
+    paged_attention_uses_kernel,
+    paged_prefill,
+    paged_prefill_reference,
+    paged_prefill_uses_kernel,
+)
+from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention_kernel,
+    paged_shapes_supported,
+    split_plan,
+)
+from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+    paged_prefill_kernel,
+    paged_prefill_shapes_supported,
+    q_tile,
+)
+from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
+from ray_lightning_tpu_torch.ops.norms import rms_norm
+from ray_lightning_tpu_torch.ops.precision import linear_f32_out
+from ray_lightning_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---- paged decode ----------------------------------------------------------
+
+
+def _decode_case(rng, C, H, hd, Hkv, P, M, N):
+    q = rng.standard_normal((C, H, hd)).astype(np.float32)
+    pk = rng.standard_normal((N, P, Hkv, hd)).astype(np.float32)
+    pv = rng.standard_normal((N, P, Hkv, hd)).astype(np.float32)
+    tables = rng.integers(0, N, (C, M)).astype(np.int32)
+    lengths = rng.integers(1, M * P + 1, (C,)).astype(np.int32)
+    return q, pk, pv, tables, lengths
+
+
+#: the JAX suite's matrix (tests/test_paged_attention.py) plus 4:1 GQA
+DECODE_MATRIX = [
+    (4, 4, 64, 2, 8, 3, 10),     # GQA 2:1
+    (3, 8, 64, 8, 16, 2, 7),     # MHA, 16-token blocks
+    (2, 4, 128, 1, 8, 4, 6),     # MQA, lane-wide head dim
+    (5, 6, 64, 2, 8, 1, 4),      # single-block table
+    (4, 8, 128, 2, 16, 4, 12),   # GQA 4:1, the 8B head layout
+]
+
+
+def _port_decode(impl, q, pk, pv, tables, lengths, pad=None):
+    args = (_t(q), _t(pk), _t(pv), _t(tables), _t(lengths))
+    pad = None if pad is None else _t(pad)
+    if impl == "kernel":
+        return paged_attention_kernel(*args, pad=pad).numpy()
+    if impl == "dispatch":
+        return paged_attention(*args, pad=pad, use_kernel=True).numpy()
+    return paged_attention_reference(*args, pad=pad).numpy()
+
+
+@pytest.mark.parametrize("impl", ["kernel", "dispatch", "reference"])
+@pytest.mark.parametrize("C,H,hd,Hkv,P,M,N", DECODE_MATRIX)
+def test_paged_decode_matches_pallas(impl, C, H, hd, Hkv, P, M, N):
+    rng = np.random.default_rng(C * 100 + P + H)
+    case = _decode_case(rng, C, H, hd, Hkv, P, M, N)
+    # the port's reference twin against JAX's, the rest against Pallas
+    jax_fn = jax_paged_ref if impl == "reference" else paged_attention_pallas
+    want = np.asarray(jax_fn(*map(jnp.asarray, case)))
+    np.testing.assert_allclose(_port_decode(impl, *case), want, **TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+def test_paged_decode_pad_masking(impl):
+    rng = np.random.default_rng(7)
+    case = _decode_case(rng, 4, 4, 64, 2, 8, 3, 9)
+    pad = np.array([0, 3, 5, 1], np.int32)
+    want = np.asarray(paged_attention_pallas(
+        *map(jnp.asarray, case), jnp.asarray(pad)))
+    got = _port_decode(impl, *case, pad=pad)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not np.allclose(_port_decode(impl, *case), got)
+
+
+def test_paged_decode_scratch_block_poison_is_masked():
+    """Table tails past a slot's length point at scratch block 0;
+    poisoning it must not move any visible output."""
+    rng = np.random.default_rng(11)
+    q, pk, pv, tables, lengths = _decode_case(rng, 3, 4, 64, 2, 8, 4, 8)
+    tables[0, 2:] = 0
+    lengths[0] = 12
+    outs = []
+    for fill in (0.0, 1e9):
+        k, v = pk.copy(), pv.copy()
+        k[0], v[0] = fill, fill
+        outs.append(_port_decode("kernel", q, k, v, tables, lengths))
+        np.testing.assert_allclose(outs[-1][0], np.asarray(
+            paged_attention_pallas(*map(jnp.asarray, (
+                q, k, v, tables, lengths))))[0], **TOL)
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+def test_paged_decode_fully_masked_slot_is_zero(impl):
+    rng = np.random.default_rng(13)
+    q, pk, pv, tables, lengths = _decode_case(rng, 2, 4, 64, 2, 8, 2, 5)
+    lengths[0] = 1
+    pad = np.array([5, 0], np.int32)  # pad > length on slot 0
+    out = _port_decode(impl, q, pk, pv, tables, lengths, pad)
+    assert np.all(out[0] == 0.0) and np.all(np.isfinite(out))
+
+
+# ---- paged prefill ---------------------------------------------------------
+
+
+def _prefill_case(rng, B, CH, H, hd, Hkv, P, M, N):
+    q = rng.standard_normal((B, CH, H, hd)).astype(np.float32)
+    pk = rng.standard_normal((N, P, Hkv, hd)).astype(np.float32)
+    pv = rng.standard_normal((N, P, Hkv, hd)).astype(np.float32)
+    tables = rng.integers(1, N, (B, M)).astype(np.int32)
+    return q, pk, pv, tables
+
+
+PREFILL_MATRIX = [
+    (2, 16, 4, 64, 2, 8, 4, 10, 8),    # GQA 2:1, mid-prompt chunk
+    (1, 8, 8, 64, 8, 16, 2, 7, 0),     # MHA, 16-token blocks, chunk 0
+    (3, 32, 4, 128, 1, 8, 5, 9, 4),    # MQA, lane-wide head dim
+    (2, 12, 4, 64, 2, 8, 4, 9, 16),    # chunk 12: not a power of two
+    (1, 16, 8, 128, 2, 16, 3, 6, 16),  # GQA 4:1, the 8B head layout
+]
+
+
+def _port_prefill(impl, q, pk, pv, tables, pos, pad=None):
+    args = (_t(q), _t(pk), _t(pv), _t(tables), pos)
+    pad = None if pad is None else _t(pad)
+    if impl == "kernel":
+        return paged_prefill_kernel(*args, pad=pad).numpy()
+    if impl == "dispatch":
+        return paged_prefill(*args, pad=pad, use_kernel=True).numpy()
+    return paged_prefill_reference(*args, pad=pad).numpy()
+
+
+@pytest.mark.parametrize("impl", ["kernel", "dispatch", "reference"])
+@pytest.mark.parametrize("B,CH,H,hd,Hkv,P,M,N,pos", PREFILL_MATRIX)
+def test_paged_prefill_matches_pallas(impl, B, CH, H, hd, Hkv, P, M, N,
+                                      pos):
+    rng = np.random.default_rng(B * 100 + CH + H)
+    case = _prefill_case(rng, B, CH, H, hd, Hkv, P, M, N)
+    jax_fn = jax_prefill_ref if impl == "reference" else paged_prefill_pallas
+    want = np.asarray(jax_fn(*map(jnp.asarray, case), pos))
+    np.testing.assert_allclose(_port_prefill(impl, *case, pos), want,
+                               **TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+def test_paged_prefill_pad_masking(impl):
+    rng = np.random.default_rng(7)
+    case = _prefill_case(rng, 3, 16, 4, 64, 2, 8, 4, 9)
+    pad = np.array([0, 5, 11], np.int32)
+    want = np.asarray(paged_prefill_pallas(
+        *map(jnp.asarray, case), 16, pad=jnp.asarray(pad)))
+    got = _port_prefill(impl, *case, 16, pad)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not np.allclose(_port_prefill(impl, *case, 16), got)
+
+
+def test_paged_prefill_scratch_block_poison_is_masked():
+    rng = np.random.default_rng(11)
+    q, pk, pv, tables = _prefill_case(rng, 2, 8, 4, 64, 2, 8, 4, 8)
+    tables[:, 2:] = 0  # positions >= 16 are never visible at pos 8
+    outs = []
+    for fill in (0.0, 1e9):
+        k, v = pk.copy(), pv.copy()
+        k[0], v[0] = fill, fill
+        outs.append(_port_prefill("kernel", q, k, v, tables, 8))
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+def test_paged_prefill_pad_columns_emit_zeros(impl):
+    """A row whose pad swallows the window, and pad-column queries
+    (q_pos < pad), see nothing and emit zeros, not NaN."""
+    rng = np.random.default_rng(13)
+    q, pk, pv, tables = _prefill_case(rng, 2, 8, 4, 64, 2, 8, 2, 5)
+    pad = np.array([4 + 8, 6], np.int32)
+    out = _port_prefill(impl, q, pk, pv, tables, 4, pad)
+    want = np.asarray(paged_prefill_pallas(
+        *map(jnp.asarray, (q, pk, pv, tables)), 4, pad=jnp.asarray(pad)))
+    np.testing.assert_allclose(out, want, **TOL)
+    assert np.all(out[0] == 0.0) and np.all(out[1, :2] == 0.0)
+    assert np.any(out[1, 2:] != 0.0) and np.all(np.isfinite(out))
+
+
+# ---- dense SDPA, RMSNorm, RoPE, precision ----------------------------------
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+def test_dot_product_attention_masked_matches_jax(H, Hkv):
+    rng = np.random.default_rng(H)
+    B, S, K, D = 2, 5, 9, 16
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, K, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, K, Hkv, D)).astype(np.float32)
+    mask = rng.random((B, 1, S, K)) < 0.6
+    mask[0, 0, 0] = False  # a fully masked row -> zeros on both
+    want = np.asarray(jax_sdpa(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=False,
+                               mask=jnp.asarray(mask)))
+    got = dot_product_attention(_t(q), _t(k), _t(v), causal=False,
+                                mask=_t(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[0, 0] == 0.0)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 3, 128), (128, 256)])
+def test_rms_norm_matches_pallas(shape):
+    rng = np.random.default_rng(len(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[-1]).astype(np.float32)
+    want = np.asarray(rms_norm_pallas(jnp.asarray(x), jnp.asarray(w)))
+    launches = rms_norm_kernel.launches
+    np.testing.assert_allclose(rms_norm(_t(x), _t(w)).numpy(), want, **TOL)
+    assert rms_norm_kernel.launches == launches  # CPU: plain version
+
+
+def test_rope_matches_jax_with_positions_and_pad():
+    rng = np.random.default_rng(3)
+    B, S, H, D, S_max = 3, 6, 2, 64, 64
+    x = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    pos, pad = 10, np.array([0, 4, 12], np.int64)
+    positions = np.maximum(pos + np.arange(S)[None, :] - pad[:, None], 0)
+    jc, js = jax_rope_frequencies(D, S_max)
+    want = np.asarray(jax_apply_rope(jnp.asarray(x), jc, js,
+                                     positions=jnp.asarray(positions)))
+    c, s = rope_frequencies(D, S_max)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), **TOL)
+    got = apply_rope(_t(x), c, s, positions=_t(positions)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    # default positions = arange(S)
+    want0 = np.asarray(jax_apply_rope(jnp.asarray(x), jc, js))
+    np.testing.assert_allclose(apply_rope(_t(x), c, s).numpy(), want0,
+                               **TOL)
+
+
+def test_linear_f32_out_keeps_f32():
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((2, 3, 8)).astype(np.float32))
+    w = _t(rng.standard_normal((5, 8)).astype(np.float32))
+    out = linear_f32_out(x, w)
+    assert out.dtype == torch.float32 and out.shape == (2, 3, 5)
+    np.testing.assert_allclose(out.numpy(), (x @ w.T).numpy(), **TOL)
+
+
+# ---- dispatch, gates, launch counters --------------------------------------
+
+
+def test_dispatch_policy_is_device_and_context():
+    cpu = torch.zeros(1)
+    assert not dispatch.use_kernel(cpu)
+    assert not dispatch.use_kernel("cpu")
+    assert dispatch.use_kernel(torch.device("cuda"))
+    with dispatch.force_reference():
+        assert not dispatch.use_kernel(torch.device("cuda"))
+        with dispatch.force_kernel():
+            assert dispatch.use_kernel(torch.device("cuda"))
+    q_shape, pool_shape = (4, 32, 128), (65, 16, 8, 128)
+    assert paged_attention_uses_kernel(q_shape, pool_shape, device="cuda")
+    assert not paged_attention_uses_kernel(q_shape, pool_shape,
+                                           device="cpu")
+    assert paged_attention_uses_kernel(q_shape, pool_shape, True)
+    assert not paged_attention_uses_kernel(q_shape, pool_shape, False,
+                                           device="cuda")
+    with dispatch.force_reference():
+        assert not paged_prefill_uses_kernel((1, 128, 32, 128), pool_shape,
+                                             device="cuda")
+    # off the card the shape gate wins over an explicit request
+    assert not paged_attention_uses_kernel((4, 4, 16), (9, 8, 2, 16), True)
+    assert not paged_attention_uses_kernel((4, 4, 16), (9, 8, 2, 16), True,
+                                           device="cpu")
+
+
+@pytest.mark.parametrize("use_kernel", [None, True])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_refused_shape_on_cuda_raises(kind, use_kernel):
+    """On the card a kernel that is wanted but refuses the shapes raises;
+    the reference runs there only when it is asked for."""
+    pool_shape = (9, 8, 2, 16)  # hd 16: no Hopper kernel takes it
+    if kind == "decode":
+        pred, q_shape = paged_attention_uses_kernel, (4, 4, 16)
+    else:
+        pred, q_shape = paged_prefill_uses_kernel, (1, 8, 4, 16)
+    with pytest.raises(ValueError, match="does not take shapes"):
+        pred(q_shape, pool_shape, use_kernel, device="cuda")
+    assert not pred(q_shape, pool_shape, False, device="cuda")
+    with dispatch.force_reference():
+        assert not pred(q_shape, pool_shape, device="cuda")
+
+
+@pytest.mark.parametrize("q_shape,pool_shape,decode_ok,prefill_ok", [
+    ((4, 32, 128), (1025, 16, 8, 128), True, True),    # llama3-8b
+    ((4, 2, 64), (9, 8, 1, 64), True, True),           # kernel-tiling tiny
+    ((4, 4, 16), (9, 8, 2, 16), False, False),         # hd 16
+    ((4, 8, 64), (9, 12, 2, 64), True, True),          # P = 12
+    ((4, 3, 64), (9, 8, 2, 64), False, False),         # ragged GQA
+    ((4, 32, 64), (9, 8, 1, 64), False, True),         # n_rep 32
+    ((4, 16, 64), (9, 8, 1, 64), True, True),          # n_rep 16
+    ((4, 128, 64), (9, 8, 1, 64), False, False),       # n_rep 128
+    ((4, 8, 64), (9, 8, 2, 128), False, False),        # hd mismatch
+])
+def test_hopper_shape_gates(q_shape, pool_shape, decode_ok, prefill_ok):
+    assert paged_shapes_supported(q_shape, pool_shape) == decode_ok
+    c, h, hd = q_shape
+    assert paged_prefill_shapes_supported(
+        (1, 128, h, hd), pool_shape) == prefill_ok
+
+
+def test_kernel_tiling_plans():
+    # 8B decode: 4 slots x 8 KV heads over 4096 positions on 132 SMs
+    assert split_plan(4, 8, 256, 132) == (64, 4)
+    assert split_plan(1, 1, 3, 132) == (1, 3)
+    n, tps = split_plan(3, 2, 37, 132)
+    assert n * tps >= 37 and (n - 1) * tps < 37
+    assert q_tile(128, 4) == 16 and q_tile(4, 1) == 4 and q_tile(64, 32) == 2
+
+
+def test_kernel_wrappers_validate_and_count_only_launches():
+    """On CPU tensors the wrappers run their plain versions and count no
+    launch; the checks a CUDA launch runs first refuse what the kernels
+    do not take; with no nvcc the build raises instead of falling back."""
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.ops.kernels import paged_attention as pa
+    from ray_lightning_tpu_torch.ops.kernels import paged_prefill as pp
+
+    rng = np.random.default_rng(29)
+    q, pk, pv, tables, lengths = map(_t, _decode_case(rng, 2, 4, 64, 2, 8,
+                                                     2, 5))
+    before = (paged_attention_kernel.launches, paged_prefill_kernel.launches)
+    paged_attention_kernel(q, pk, pv, tables, lengths)
+    paged_prefill_kernel(q[:, None], pk, pv, tables, 0)
+    assert (paged_attention_kernel.launches,
+            paged_prefill_kernel.launches) == before
+    pad = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pa._check_cuda(q, pk, pv, tables, lengths, pad)
+    bf = [t.to(torch.bfloat16) for t in (q, pk, pv)]
+    pa._check_cuda(*bf, tables, lengths, pad)
+    with pytest.raises(ValueError, match="int32"):
+        pa._check_cuda(*bf, tables.long(), lengths, pad)
+    with pytest.raises(ValueError, match="contiguous"):
+        pp._check_cuda(torch.zeros(2, 4, 2, 64, dtype=torch.bfloat16)
+                       .transpose(1, 2), *bf[1:], tables, pad)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        pp._check_cuda(bf[0][:, None], *bf[1:], tables[:1], pad)
+    if build.shutil.which("nvcc") is None and not os.path.exists(
+            "/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.build_all(["paged_attention"])
+
+
+# ---- the import rule -------------------------------------------------------
+
+
+def _port_sources():
+    root = os.path.join(REPO, "ray_lightning_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_faults.py")
+
+
+def test_port_imports_no_jax():
+    banned = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu")
+    bad = []
+    sources = list(_port_sources())
+    assert len(sources) > 15
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names
+                    if n.split(".")[0] in banned]
+    assert not bad, bad
