@@ -6,7 +6,8 @@ Each fault is one textual change to one kernel source. It is made in a
 copy of ``ray_lightning_tpu_torch/ops/csrc`` under
 ``ray_lightning_tpu_torch/ops/build/planted/<fault>/`` (git-ignored) and
 built from there; the sources themselves are never touched. A sound
-control (the sources as they are) runs first, then each fault:
+control (the sources as they are) runs first, then each fault. A paged
+(serving) fault goes through the serving checks:
 
   kernels — the kernel against its plain version on chip_smoke's inputs,
             per decode slot (lengths 4096 / 1537 / 700 / 33) and per
@@ -17,16 +18,27 @@ control (the sources as they are) runs first, then each fault:
             kernel lanes built from those sources, then chip_smoke's
             teacher-forced comparison with the reference lanes.
 
+A flash (training) fault goes through the training checks:
+
+  kernels — every output of the three flash kernels (O, lse; dK, dV; dQ)
+            against its plain version at chip_smoke's flash shapes, the
+            training shape first: the worst share of the tolerance.
+  lanes   — chip_smoke's 8-step `Trainer.fit` through the kernels built
+            from those sources, its per-step loss and grad_norm against
+            the reference lanes' (run once, they use no kernel).
+
 A mask that admits one position past the slot's length changes nothing
-at length 4096: the slot's table ends there.
+at length 4096: the slot's table ends there. A dQ that reads KV head
+``h % Hkv`` is right for MHA, where that is ``h``.
 
 Prints one JSON line per run, then a summary line; exits 0 when the
 control passes both checks and the kernel check rejects every fault.
-Run from the repository root: ``python3 chip_faults.py`` (about two
-minutes on one H100, with the full 32-layer model).
+Run from the repository root: ``python3 chip_faults.py`` (about four
+minutes on one H100, with the full 32-layer model for serving).
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -50,7 +62,24 @@ FAULTS = {
     "prefill_last_tile_skipped": (
         "paged_prefill.cu", "q_end / rltt::kKeys + 1);",
         "q_end / rltt::kKeys);"),
+    "flash_fwd_mask_off_by_one": (
+        "flash_fwd.cu", "min(Sk, q_offset + qi[h2] + 1) : Sk;",
+        "min(Sk, q_offset + qi[h2] + 2) : Sk;"),
+    "flash_fwd_last_tile_skipped": (
+        "flash_fwd.cu", "const int n_tiles = rltt::kv_tiles_seen(",
+        "const int n_tiles = -1 + rltt::kv_tiles_seen("),
+    "flash_dkv_no_delta": (
+        "flash_bwd.cu", "p * (dp[nt][2 * h2 + e] - sd[col]) * scale;",
+        "p * dp[nt][2 * h2 + e] * scale;"),
+    "flash_dkv_last_q_tile_skipped": (
+        "flash_bwd.cu", "const int per_head = nq - qt_lo;",
+        "const int per_head = nq - qt_lo - 1;"),
+    "flash_dq_kv_head_mod": (
+        "flash_bwd.cu", "const int kvh = h / (H / Hkv);",
+        "const int kvh = h % Hkv;"),
 }
+#: every kernel source, built together from the sources or a planted copy
+SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd"]
 #: the flat tolerance, |err| <= FLAT + FLAT |b|, shown for comparison
 FLAT = 2e-2
 
@@ -78,7 +107,7 @@ def use_sources(fault):
         csrc = planted
     build.CSRC, build.BUILD = csrc, out
     build._libs.clear()  # the wrappers' next call loads the new builds
-    build.build_all(["paged_attention", "paged_prefill"])
+    build.build_all(SOURCES)
 
 
 def flat_share(got, want) -> float:
@@ -139,6 +168,55 @@ def lanes(model, reqs):
     return smoke.compare_lanes(model, ecfg, reqs, probe, done)
 
 
+def flash_shares():
+    """{"<case> <output>": share of chip_smoke's tolerance} of the three
+    flash kernels as they are built now, at chip_smoke's flash shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(smoke.SEED)
+    out = {}
+    for name, dims in smoke.FLASH_CASES.items():
+        shares = smoke.FlashCase(gen, *dims).shares()
+        out.update({f"{name} {k}": v[1] for k, v in shares.items()})
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(fault, cases, model, greedy):
+    shares = cases.shares()
+    row = dict(fault=fault or "none",
+               kernel_share={k: v[0] for k, v in shares.items()},
+               flat_share={k: v[1] for k, v in shares.items()})
+    row["kernel_rejects"] = [k for k, v in shares.items()
+                             if not v[0] <= 1.0]
+    row["flat_rejects"] = [k for k, v in shares.items()
+                           if not v[1] <= 1.0]
+    lane_row, problems = lanes(model, greedy)
+    row["lanes"] = {k: v for k, v in lane_row.items()
+                    if k != "argmax_differs"}
+    row["lanes"]["argmax_differs"] = len(lane_row["argmax_differs"])
+    row["lanes_rejects"] = bool(problems)
+    row["lanes_problems"] = problems[:3]
+    return row
+
+
+def train_run(fault, ref_rows):
+    shares = flash_shares()
+    row = dict(fault=fault or "none", kernel_share=shares)
+    row["kernel_rejects"] = [k for k, v in shares.items()
+                             if not v <= 1.0]
+    cfg, tokens = smoke.train_inputs(smoke.SEED)
+    probe = smoke.train_once(cfg, tokens, smoke.SEED)[0]
+    d_loss, d_gn, problems = smoke.compare_train(probe.rows, ref_rows)
+    row["lanes"] = dict(losses=[r[0] for r in probe.rows],
+                        loss_max_abs_diff=d_loss,
+                        grad_norm_max_rel_diff=d_gn)
+    row["lanes_rejects"] = bool(problems)
+    row["lanes_problems"] = problems[:3]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         smoke.log("chip_faults: no CUDA device available")
@@ -150,26 +228,23 @@ def main() -> int:
     greedy = [r for r in smoke.make_requests(model.cfg.vocab_size,
                                              smoke.SEED)
               if r.temperature == 0.0]
+    cfg, tokens = smoke.train_inputs(smoke.SEED)
+    ref_rows = smoke.train_reference(cfg, tokens, smoke.SEED)[0].rows
     verdicts = {}
     for fault in [None, *FAULTS]:
         if fault is not None:
             use_sources(fault)
-        shares = cases.shares()
-        row = dict(fault=fault or "none",
-                   kernel_share={k: v[0] for k, v in shares.items()},
-                   flat_share={k: v[1] for k, v in shares.items()})
-        row["kernel_rejects"] = [k for k, v in shares.items()
-                                 if not v[0] <= 1.0]
-        row["flat_rejects"] = [k for k, v in shares.items()
-                               if not v[1] <= 1.0]
-        lane_row, problems = lanes(model, greedy)
-        row["lanes"] = {k: v for k, v in lane_row.items()
-                        if k != "argmax_differs"}
-        row["lanes"]["argmax_differs"] = len(lane_row["argmax_differs"])
-        row["lanes_rejects"] = bool(problems)
-        row["lanes_problems"] = problems[:3]
-        print(json.dumps(row), flush=True)
-        verdicts[row["fault"]] = row
+        runs = []
+        if fault is None or not fault.startswith("flash"):
+            runs.append(serve_run(fault, cases, model, greedy))
+        if fault is None or fault.startswith("flash"):
+            runs.append(train_run(fault, ref_rows))
+        for row in runs:
+            print(json.dumps(row), flush=True)
+        verdicts[fault or "none"] = dict(
+            kernel_rejects=any(r["kernel_rejects"] for r in runs),
+            flat_rejects=any(r.get("flat_rejects") for r in runs),
+            lanes_rejects=any(r["lanes_rejects"] for r in runs))
     control = verdicts.pop("none")
     control_passes = not (control["kernel_rejects"]
                           or control["lanes_rejects"])
@@ -177,10 +252,11 @@ def main() -> int:
                                 for v in verdicts.values())
     print(json.dumps(dict(
         control_passes=control_passes,
-        kernel_check_rejects={k: bool(v["kernel_rejects"])
+        kernel_check_rejects={k: v["kernel_rejects"]
                               for k, v in verdicts.items()},
-        flat_tolerance_rejects={k: bool(v["flat_rejects"])
-                                for k, v in verdicts.items()},
+        flat_tolerance_rejects={k: v["flat_rejects"]
+                                for k, v in verdicts.items()
+                                if not k.startswith("flash")},
         lanes_check_rejects={k: v["lanes_rejects"]
                              for k, v in verdicts.items()},
         ok=ok)), flush=True)

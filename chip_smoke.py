@@ -7,13 +7,16 @@ Phases, each of which raises (and so exits nonzero) on failure:
                power limit.
   2. build   — compiles the CUDA kernels from ``ops/csrc`` (one nvcc per
                source, all at once) and the Triton RMSNorm, timed.
-  3. kernels — each kernel's wrapper on card tensors at the serving
-               shapes of Llama-3-8B, in bf16, against its plain PyTorch
-               version on the same inputs, plus the masking edge cases;
-               one JSON line per shape with the kernel's, the plain
-               version's and one library call's time, the least time
-               the card could take, the max error and the worst share
-               of the tolerance used.
+  3. kernels — each kernel's wrapper on card tensors at the serving and
+               training shapes of Llama-3-8B, in bf16, against its plain
+               PyTorch version on the same inputs, plus the masking edge
+               cases; the flash forward (O, lse) and both backward
+               passes (dQ; dK, dV) at the training shape causal and
+               full, a query shard at an offset, MHA and a short
+               sequence; the RMSNorm gradient. One JSON line per shape
+               with the kernel's, the plain version's and one library
+               call's time, the least time the card could take, the max
+               error and the worst share of the tolerance used.
   4. serve   — Llama-3-8B at full width (random weights from a seeded
                generator) served by `Scheduler` + `DecodeEngine` through
                the kernel lanes: 8 requests, prompts of 200-1500 tokens,
@@ -23,17 +26,29 @@ Phases, each of which raises (and so exits nonzero) on failure:
                greedy half is then served again through the reference
                lanes on the same weights, teacher-forced along the kernel
                lanes' tokens, and the logits of every step are compared.
+  5. train   — Llama-3-8B at full width, 4 layers, seq 2048, batch 2
+               (random f32 master weights from a seed): 8 AdamW steps
+               through `Trainer.fit` with `SingleDevice`, fused CE, block
+               remat. The launch counters are zeroed before and read
+               after, and must match the counts the run implies; the loss
+               must fall. The same 8 steps are then run from the same
+               weights through the reference lanes
+               (`dispatch.force_reference`), which must launch no kernel,
+               and loss and grad_norm are compared at every step.
+               Last, the kernel-lanes fit runs once more with its last
+               steps under `torch.profiler`.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 ``python3 chip_smoke.py`` (``--layers N`` cuts the model's depth for a
-quicker check). ``chip_faults.py`` plants known faults in the kernels and
-runs these same checks on them.
+quicker check of the serve phase). ``chip_faults.py`` plants known faults
+in the kernels and runs these same checks on them.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -68,7 +83,18 @@ ATOL_RMS = 2e-2
 #: where the two differ. About 1.5x the largest reading of a sound run,
 #: 0.105 (PERF.md).
 LOGIT_TOL = 0.16
-#: seeds every random input: weights, prompts, kernel-check tensors
+#: flash lse (f32 from identical f32 scores in both versions) is also
+#: held to this absolute bound; the two differ by summation order only
+LSE_ATOL = 1e-3
+#: kernel lanes vs reference lanes in training: per-step bound on
+#: |delta loss| and on |delta grad_norm| / grad_norm. The lanes differ in
+#: attention (the kernels round unnormalised probabilities and dS to bf16
+#: inside tiled sums, the reference its normalised probabilities) and in
+#: RMSNorm (Triton vs plain forward). About 1.5x the largest reading of a
+#: sound run, 8.6e-4 and 2.6e-3 (PERF.md).
+TRAIN_LOSS_TOL = 1.3e-3
+TRAIN_GNORM_RTOL = 4e-3
+#: seeds every random input: weights, prompts, tokens, kernel-check tensors
 SEED = 0
 
 #: Llama-3-8B's serving shapes: slots, heads, KV heads, head dim, block
@@ -118,14 +144,15 @@ def bound(nbytes: float, flops: float):
 # ---- phase 3: kernels against their plain versions -------------------------
 
 
-def tolerance_ratio(got: torch.Tensor, want: torch.Tensor):
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, rms_dims=(-1,)):
     """(max |got - want|, the largest share of its allowance any element
-    uses) under the RTOL / ATOL_RMS rule; a share above 1 fails. A
-    non-finite output uses an infinite share, and so does any error on
-    a row the plain version leaves all zeros."""
+    uses) under the RTOL / ATOL_RMS rule; a share above 1 fails. The rms
+    is taken over ``rms_dims`` (a row by default). A non-finite output
+    uses an infinite share, and so does any error where the plain
+    version's rms is zero."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rms = want.pow(2).mean(dim=rms_dims, keepdim=True).sqrt()
     share = torch.where(err == 0, torch.zeros_like(err),
                         err / (ATOL_RMS * rms + RTOL * want.abs()))
     if not bool(torch.isfinite(got).all()):
@@ -133,9 +160,9 @@ def tolerance_ratio(got: torch.Tensor, want: torch.Tensor):
     return err.max().item(), share.max().item()
 
 
-def hold(got: torch.Tensor, want: torch.Tensor, what: str):
+def hold(got: torch.Tensor, want: torch.Tensor, what: str, rms_dims=(-1,)):
     """`tolerance_ratio`, raising when the kernel is out of tolerance."""
-    err, share = tolerance_ratio(got, want)
+    err, share = tolerance_ratio(got, want, rms_dims)
     if not share <= 1.0:
         raise AssertionError(f"{what}: max |err| {err:.4g} uses {share:.3g}x "
                              f"the tolerance")
@@ -295,6 +322,193 @@ def check_kernels(gen: torch.Generator):
     return rows
 
 
+# ---- phase 3b: flash attention and the RMSNorm gradient --------------------
+
+#: Llama-3-8B's training attention: batch, sequence, heads, KV heads, hd
+TB, TS, TH, THKV = 2, 2048, 32, 8
+#: name -> (B, Sq, Sk, H, Hkv, causal, q_offset); the first is the
+#: training step's shape, the summary's
+FLASH_CASES = {
+    "train causal": (TB, TS, TS, TH, THKV, True, 0),
+    "train full": (TB, TS, TS, TH, THKV, False, 0),
+    "q_offset": (TB, TS // 2, TS, TH, THKV, True, TS // 2),
+    "mha": (TB, TS, TS, TH, TH, True, 0),
+    "short": (TB, 128, 128, TH, THKV, True, 0),
+}
+#: gradients are held with the rms of each head's [S, hd] slab: a
+#: gradient row can cancel to zero (dQ of the first query is exactly 0)
+#: while its rounding noise does not
+SLAB = (1, 3)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs one head attends over."""
+    if not causal:
+        return sq * sk
+    return sum(max(0, min(sk, q_offset + i + 1)) for i in range(sq))
+
+
+class FlashCase:
+    """Seeded bf16 q, k, v, dO for one shape, the kernels' outputs and
+    the plain versions' on the same inputs (the backward on the kernel
+    forward's lse and delta, so each pass is held on its own)."""
+
+    def __init__(self, gen, B, Sq, Sk, H, Hkv, causal, q_offset):
+        from ray_lightning_tpu_torch.ops.kernels import flash as F
+
+        self.F, self.args = F, (causal, q_offset)
+        self.shape = (B, Sq, Sk, H, Hkv)
+        rn = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+        self.q, self.k, self.v = rn(B, Sq, H, HD), rn(B, Sk, Hkv, HD), \
+            rn(B, Sk, Hkv, HD)
+        self.do = rn(B, Sq, H, HD)
+        self.o, self.lse = F.flash_fwd_kernel(self.q, self.k, self.v,
+                                              *self.args)
+        self.delta = F.flash_delta(self.o, self.do)
+
+    def fwd(self):
+        return self.F.flash_fwd_kernel(self.q, self.k, self.v, *self.args)
+
+    def fwd_plain(self):
+        return self.F.flash_fwd_plain(self.q, self.k, self.v, *self.args)
+
+    def bwd_in(self):
+        return (self.q, self.k, self.v, self.do, self.lse, self.delta,
+                *self.args)
+
+    def dkv(self):
+        return self.F.flash_bwd_dkv_kernel(*self.bwd_in())
+
+    def dq(self):
+        return self.F.flash_bwd_dq_kernel(*self.bwd_in())
+
+    def dkv_plain(self):
+        return self.F.flash_bwd_dkv_plain(*self.bwd_in())
+
+    def dq_plain(self):
+        return self.F.flash_bwd_dq_plain(*self.bwd_in())
+
+    def shares(self):
+        """{output: (max |err|, share of the tolerance)} of every kernel
+        output against its plain version (the caller judges them)."""
+        po, plse = self.fwd_plain()
+        out = {"o": tolerance_ratio(self.o, po),
+               "lse": tolerance_ratio(self.lse, plse)}
+        lse_err = (self.lse - plse).abs().max().item()
+        out["lse_abs"] = (lse_err, lse_err / LSE_ATOL)
+        del po, plse
+        dk, dv = self.dkv()
+        pdk, pdv = self.dkv_plain()
+        out["dk"] = tolerance_ratio(dk, pdk, SLAB)
+        out["dv"] = tolerance_ratio(dv, pdv, SLAB)
+        del pdk, pdv
+        out["dq"] = tolerance_ratio(self.dq(), self.dq_plain(), SLAB)
+        torch.cuda.synchronize()
+        return out
+
+
+def sdpa_args(c: FlashCase):
+    """The same attention as one `F.scaled_dot_product_attention` call."""
+    B, Sq, Sk, H, Hkv = c.shape
+    causal, off = c.args
+    kw = dict(enable_gqa=Hkv != H)
+    if causal and off == 0 and Sq == Sk:
+        kw["is_causal"] = True
+    elif causal:
+        q_pos = off + torch.arange(Sq, device="cuda")[:, None]
+        kw["attn_mask"] = q_pos >= torch.arange(Sk, device="cuda")[None]
+    return (c.q.transpose(1, 2), c.k.transpose(1, 2),
+            c.v.transpose(1, 2)), kw
+
+
+def check_flash(gen: torch.Generator):
+    """The three flash kernels against their plain versions at every
+    shape of FLASH_CASES; one JSON row per (kernel, shape), timed."""
+    import torch.nn.functional as F
+
+    rows = []
+    for name, (B, Sq, Sk, H, Hkv, causal, off) in FLASH_CASES.items():
+        c = FlashCase(gen, B, Sq, Sk, H, Hkv, causal, off)
+        shares = c.shares()
+        bad = {k: v for k, v in shares.items() if not v[1] <= 1.0}
+        if bad:
+            raise AssertionError(f"flash {name}: out of tolerance {bad}")
+        (sq, sk, sv), kw = sdpa_args(c)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, **kw))
+        leaves = [t.detach().requires_grad_(True) for t in (sq, sk, sv)]
+        lib_out = F.scaled_dot_product_attention(*leaves, **kw)
+        do_t = c.do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do_t, retain_graph=True))
+
+        def lib_both():
+            o = F.scaled_dot_product_attention(*leaves, **kw)
+            torch.autograd.grad(o, leaves, do_t)
+
+        lib_fb = time_ms(lib_both)
+        del lib_out, leaves
+        vis = B * H * visible_pairs(Sq, Sk, causal, off)
+        q_bytes, kv_bytes, vec = B * Sq * H * HD * 2, B * Sk * Hkv * HD * 2, \
+            B * H * Sq * 4
+        shape = dict(case=name, B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=HD,
+                     causal=causal, q_offset=off)
+        for kernel, fn, plain, lib, nbytes, flops, outs in (
+                ("flash_fwd", c.fwd, c.fwd_plain, lib_fwd,
+                 2 * q_bytes + 2 * kv_bytes + vec, 4 * vis * HD,
+                 ("o", "lse", "lse_abs")),
+                ("flash_bwd_dkv", c.dkv, c.dkv_plain, lib_bwd,
+                 2 * q_bytes + 4 * kv_bytes + 2 * vec, 8 * vis * HD,
+                 ("dk", "dv")),
+                ("flash_bwd_dq", c.dq, c.dq_plain, lib_bwd,
+                 3 * q_bytes + 2 * kv_bytes + 2 * vec, 6 * vis * HD,
+                 ("dq",))):
+            b_ms, b_by = bound(nbytes, flops)
+            row = dict(kernel=kernel, shape=shape,
+                       max_abs_err=max(shares[o][0] for o in outs
+                                       if o != "lse_abs"),
+                       tolerance_share={o: shares[o][1] for o in outs},
+                       kernel_ms=time_ms(fn),
+                       plain_ms=time_ms(plain, reps=3),
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            if kernel != "flash_fwd":
+                row["library_fwd_bwd_ms"] = lib_fb
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_rms_norm_grad(gen: torch.Generator):
+    """On a CUDA tensor `rms_norm` (the Triton forward) carries a grad_fn,
+    and its dx and dw (the ported backward rule) match autograd through
+    the plain version on the same inputs."""
+    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
+        rms_norm_kernel, rms_norm_plain)
+    from ray_lightning_tpu_torch.ops.norms import rms_norm
+
+    x = torch.randn(TB * TS, D, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+         ).requires_grad_(True)
+    g = torch.randn(TB * TS, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    before = rms_norm_kernel.launches
+    y = rms_norm(x, w)
+    if y.grad_fn is None or rms_norm_kernel.launches != before + 1:
+        raise AssertionError("rms_norm on CUDA: no grad_fn or no launch")
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    pdx, pdw = torch.autograd.grad(rms_norm_plain(x, w), (x, w), g)
+    err_x, share_x = hold(dx, pdx, "rms_norm dx")
+    err_w, share_w = hold(dw, pdw, "rms_norm dw")
+    row = dict(check="rms_norm_grad", N=TB * TS, D=D,
+               max_abs_err={"dx": err_x, "dw": err_w},
+               tolerance_share={"dx": share_x, "dw": share_w})
+    print(json.dumps(row), flush=True)
+
+
 # ---- phase 4: serving at full width ----------------------------------------
 
 
@@ -372,6 +586,15 @@ def drain(sched, requests):
     return done
 
 
+def device_kernels(prof):
+    """The profile's device events by name, without the device-side copies
+    of user annotations (such as the optimizer's step range), whose time
+    is that of the kernels inside them."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_window(sched, reqs):
     """Serve ``reqs`` again under `torch.profiler` and print where the
     device time went: the busy share of the window's wall time and the
@@ -384,8 +607,7 @@ def profile_window(sched, reqs):
         drain(sched, [dataclasses.replace(r, rid=f"p{r.rid}")
                       for r in reqs])
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
@@ -474,17 +696,10 @@ def compare_lanes(model, ecfg, reqs, kernel_probe, kernel_done):
 
 
 def serve_phase(seed: int, n_layers: int):
-    from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention_kernel)
-    from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
-        paged_prefill_kernel)
-    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
-
     model = build_model(seed, n_layers)
     ecfg = engine_config()
     reqs = make_requests(model.cfg.vocab_size, seed)
-    kernels = (paged_attention_kernel, paged_prefill_kernel,
-               rms_norm_kernel)
+    kernels = all_kernels()
     engine, sched, probe = serve(model, ecfg, use_kernels=None)
     if (engine.attention_path, engine.prefill_path) != ("paged-kernel",
                                                         "paged-kernel"):
@@ -497,10 +712,11 @@ def serve_phase(seed: int, n_layers: int):
     done = drain(sched, reqs)
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    want = {"paged_attention_kernel": n_layers * probe.ticks,
-            "paged_prefill_kernel": n_layers * probe.chunks,
-            "rms_norm_kernel": (2 * n_layers + 1)
-            * (probe.ticks + probe.chunks)}
+    want = {k.__name__: 0 for k in kernels}
+    want.update(paged_attention_kernel=n_layers * probe.ticks,
+                paged_prefill_kernel=n_layers * probe.chunks,
+                rms_norm_kernel=(2 * n_layers + 1)
+                * (probe.ticks + probe.chunks))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if sorted(done) != sorted(r.rid for r in reqs):
@@ -537,6 +753,215 @@ def serve_phase(seed: int, n_layers: int):
     return launches
 
 
+# ---- phase 5: training at full width ----------------------------------------
+
+#: the train phase: depth, optimizer steps, batch, sequence; the tokens
+#: are uniform over the first TRAIN_TOKENS ids, so there is something to
+#: learn in 8 steps (the model starts uniform over all 128256)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_TOKENS = 4, 8, 8192
+
+
+class StepProbe:
+    """Per-step host metrics and the host clock at each step's end (the
+    metrics fetch at ``log_every_n_steps=1`` synchronises every step)."""
+
+    def __init__(self):
+        from ray_lightning_tpu_torch.core.callbacks import Callback
+
+        probe = self
+
+        class _CB(Callback):
+            def on_train_batch_end(self, trainer, module, metrics,
+                                   batch_idx):
+                probe.rows.append((float(metrics["loss"]),
+                                   float(metrics["grad_norm"])))
+                probe.t.append(time.perf_counter())
+
+        self.rows, self.t, self.callback = [], [], _CB()
+
+
+def train_once(cfg, tokens, seed: int, callbacks=()):
+    """One `Trainer.fit` of `LlamaModule` over ``tokens``; returns the
+    StepProbe, the fit's wall time, the peak device memory and the
+    parameter count."""
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.llama import LlamaModule
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    probe = StepProbe()
+    module = LlamaModule(cfg, lr=3e-4, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(strategy=SingleDevice(), max_steps=TRAIN_STEPS,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed,
+                      callbacks=[probe.callback, *callbacks])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if trainer.global_step != TRAIN_STEPS:
+        raise AssertionError(f"fit ran {trainer.global_step} steps")
+    n_params = module.num_params()
+    del trainer, module
+    return probe, wall, torch.cuda.max_memory_allocated(), n_params
+
+
+def train_inputs(seed: int):
+    """The train phase's config and its seeded tokens [steps * B, S + 1]."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(max_seq_len=TS, n_layers=TRAIN_LAYERS)
+    tokens = np.random.default_rng(seed).integers(
+        0, TRAIN_TOKENS, (TRAIN_STEPS * TB, TS + 1)).astype(np.int64)
+    return cfg, tokens
+
+
+def train_reference(cfg, tokens, seed: int):
+    """The fit through the reference lanes, which must launch no kernel."""
+    from ray_lightning_tpu_torch.ops import dispatch
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    with dispatch.force_reference():
+        out = train_once(cfg, tokens, seed)
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    if launched:
+        raise AssertionError(f"reference lanes launched {launched}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_train(rows, ref_rows):
+    """(max |delta loss|, max |delta grad_norm| / grad_norm, problems)
+    of the kernel lanes' per-step metrics against the reference lanes'."""
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(rows, ref_rows))
+    d_gn = max(abs(a[1] - b[1]) / b[1] for a, b in zip(rows, ref_rows))
+    problems = []
+    if len(rows) != len(ref_rows):
+        problems.append(f"{len(rows)} steps against {len(ref_rows)}")
+    if not d_loss <= TRAIN_LOSS_TOL:
+        problems.append(f"loss differs by {d_loss:.4g} > {TRAIN_LOSS_TOL}")
+    if not d_gn <= TRAIN_GNORM_RTOL:
+        problems.append(f"grad_norm differs by {d_gn:.4g} (relative) > "
+                        f"{TRAIN_GNORM_RTOL}")
+    return d_loss, d_gn, problems
+
+
+def profile_train(cfg, tokens, seed: int, first: int = 3):
+    """The kernel-lanes fit again, under `torch.profiler` from step
+    ``first`` to its end: the device's busy share of that window's wall
+    time and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_lightning_tpu_torch.core.callbacks import Callback
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    class Window(Callback):
+        def on_train_batch_start(self, trainer, module, batch, batch_idx):
+            if batch_idx == first:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+
+    train_once(cfg, tokens, seed, callbacks=[Window()])
+    wall = time.perf_counter() - window["t0"]  # the fit ends synchronised
+    prof.stop()
+    events = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:16]
+    steps = TRAIN_STEPS - first
+    print(json.dumps(dict(
+        phase="train_profile", steps=steps, wall_s=wall,
+        device_busy_s=busy, device_busy_share=busy / wall,
+        top=[dict(name=e.key[:160], ms_per_step=e.self_device_time_total
+                  / 1e3 / steps, calls_per_step=e.count / steps)
+             for e in top])), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(seed: int):
+    """Returns the kernels' launch counts of the kernel-lanes fit."""
+    import numpy as np
+
+    cfg, tokens = train_inputs(seed)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    probe, wall, peak, n_params = train_once(cfg, tokens, seed)
+    launches = {k.__name__: k.launches for k in kernels}
+    L, n = TRAIN_LAYERS, TRAIN_STEPS
+    want = {k.__name__: 0 for k in kernels}
+    want.update(flash_fwd_kernel=2 * L * n, flash_bwd_dkv_kernel=L * n,
+                flash_bwd_dq_kernel=L * n, rms_norm_kernel=(4 * L + 1) * n)
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    losses = [r[0] for r in probe.rows]
+    if not all(map(np.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps from the same weights through the reference lanes
+    ref, ref_wall, ref_peak, _ = train_reference(cfg, tokens, seed)
+    d_loss, d_gn, problems = compare_train(probe.rows, ref.rows)
+
+    step_s = statistics.median(b - a for a, b in zip(probe.t[2:],
+                                                     probe.t[3:]))
+    ref_step_s = statistics.median(b - a for a, b in zip(ref.t[2:],
+                                                         ref.t[3:]))
+    tok = TB * TS
+    d, f, v = cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    per_layer = d * (TH + 2 * hkv) * hd + TH * hd * d + 3 * d * f
+    n_matmul = L * per_layer + v * d
+    attn = 12 * L * TB * TH * visible_pairs(TS, TS, True, 0) * hd
+    flops = 6 * n_matmul * tok + attn
+    row = dict(
+        phase="train", layers=L, steps=n, batch=TB, seq=TS, params=n_params,
+        matmul_params=n_matmul, losses=losses,
+        grad_norms=[r[1] for r in probe.rows],
+        ref_losses=[r[0] for r in ref.rows],
+        ref_grad_norms=[r[1] for r in ref.rows],
+        loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+        fit_wall_s=wall, step_s_p50=step_s, tokens_per_s=tok / step_s,
+        flops_per_step=flops, mfu=flops / step_s / BF16_FLOPS_PER_S,
+        max_memory_allocated_gib=peak / 2**30, ref_fit_wall_s=ref_wall,
+        ref_step_s_p50=ref_step_s,
+        ref_max_memory_allocated_gib=ref_peak / 2**30, launches=launches)
+    print(json.dumps(row), flush=True)
+    if problems:
+        raise AssertionError("train kernel vs reference lanes: "
+                             + "; ".join(problems))
+    profile_train(cfg, tokens, seed)
+    return launches
+
+
+def all_kernels():
+    """Every kernel wrapper with a launch counter."""
+    from ray_lightning_tpu_torch.ops.kernels import flash
+    from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel)
+    from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+        paged_prefill_kernel)
+    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
+
+    return (paged_attention_kernel, paged_prefill_kernel, rms_norm_kernel,
+            flash.flash_fwd_kernel, flash.flash_bwd_dkv_kernel,
+            flash.flash_bwd_dq_kernel)
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -562,7 +987,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build_all(["paged_attention", "paged_prefill"])
+    build.build_all(["paged_attention", "paged_prefill", "flash_fwd",
+                     "flash_bwd"])
     for name, text in build.build_logs.items():
         log(f"--- nvcc {name} ---\n{text}")
     nvcc_s = time.perf_counter() - t0
@@ -578,11 +1004,20 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    rows = check_kernels(gen)
+    rows = check_kernels(gen) + check_flash(gen)
+    check_rms_norm_grad(gen)
 
     # 4. serving at full width, through the kernel lanes
-    launches = serve_phase(SEED, args.layers)
+    serve_launches = serve_phase(SEED, args.layers)
 
+    # 5. training at full width, 4 layers deep
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_phase(SEED)
+
+    # each kernel's launches on the path that runs it (RMSNorm: both)
+    launches = {k: serve_launches.get(k, 0) + train_launches[k]
+                for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/paged_attention.cu",
@@ -593,11 +1028,22 @@ def main() -> int:
         "rms_norm": ("rms_norm_kernel", "triton",
                      "ray_lightning_tpu_torch/ops/kernels/rmsnorm_triton.py",
                      "ray_lightning_tpu/ops/pallas/rmsnorm.py:20"),
+        "flash_fwd": ("flash_fwd_kernel", "cuda",
+                      "ray_lightning_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "ray_lightning_tpu/ops/pallas/flash.py:73"),
+        "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "cuda",
+                          "ray_lightning_tpu_torch/ops/csrc/flash_bwd.cu",
+                          "ray_lightning_tpu/ops/pallas/flash.py:166"),
+        "flash_bwd_dq": ("flash_bwd_dq_kernel", "cuda",
+                         "ray_lightning_tpu_torch/ops/csrc/flash_bwd.cu",
+                         "ray_lightning_tpu/ops/pallas/flash.py:221"),
     }
     summary = []
     for name, (fn, route, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main_shape = mine[-1]  # decode ragged; prefill at 3968; N=4
+        # decode ragged; prefill at 3968; RMSNorm N=4; flash: the
+        # training step's shape (the first case)
+        main_shape = mine[0] if name.startswith("flash") else mine[-1]
         summary.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[fn],

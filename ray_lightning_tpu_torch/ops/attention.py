@@ -1,21 +1,24 @@
-"""Attention ops for the serving path (twin of
-`ray_lightning_tpu/ops/attention.py`).
+"""Attention ops (twin of `ray_lightning_tpu/ops/attention.py`).
 
   1. `dot_product_attention` — the masked SDPA reference (materializes
-     the score matrix); the dense-cache lanes use it.
-  2. `paged_attention` — single-token decode attention over the serving
+     the score matrix); the dense-cache lanes and the reference lanes use
+     it.
+  2. `flash_attention` — tiled causal/full attention for training and
+     prefill-from-zero: the hand-written forward and backward kernels
+     (`ops/kernels/flash.py`) through an autograd function; only a
+     ``mask`` or `dispatch.force_reference` sends it to (1).
+  3. `paged_attention` — single-token decode attention over the serving
      engine's block-paged KV pool through per-slot block tables. The
      kernel path is the hand-written CUDA kernel
      (`ops/kernels/paged_attention.py`); the reference path gathers a
      dense per-slot view first (identical semantics — that copy is what
      the kernel retires).
-  3. `paged_prefill` — the chunked causal twin for the prefill lane
+  4. `paged_prefill` — the chunked causal twin for the prefill lane
      (`ops/kernels/paged_prefill.py`).
 
-(1) takes [B, S, H, D] and supports GQA by repeating KV heads; (2) takes
-one query token per slot, [C, H, D]; (3) the group's chunk, [B, CH, H, D].
-The flash-attention kernel is not on the serving path and waits for the
-training slice.
+(1) and (2) take [B, S, H, D] and support GQA (by repeating KV heads in
+(1), in place in the kernels of (2)); (3) takes one query token per slot,
+[C, H, D]; (4) the group's chunk, [B, CH, H, D].
 """
 from __future__ import annotations
 
@@ -25,6 +28,10 @@ from typing import Optional
 import torch
 
 from ray_lightning_tpu_torch.ops import dispatch
+from ray_lightning_tpu_torch.ops.kernels.flash import (
+    flash_attention_kernel,
+    flash_shapes_supported,
+)
 from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_kernel,
     paged_shapes_supported,
@@ -75,6 +82,40 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     probs = torch.where(any_visible, probs, torch.zeros_like(probs))
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def flash_uses_kernel(q_shape, k_shape, device=None,
+                      masked: bool = False) -> bool:
+    """Would `flash_attention` take the kernels for these shapes and
+    arguments (twin of `flash_uses_pallas`)? False for a masked call or
+    under `dispatch.force_reference`; otherwise True: on the CPU the
+    kernel wrappers run their plain versions, and on CUDA a shape the
+    Hopper gate refuses raises (the card takes the reference only when
+    asked for)."""
+    if masked or dispatch.reference_forced():
+        return False
+    if (device is not None and torch.device(device).type == "cuda"
+            and not flash_shapes_supported(q_shape, k_shape)):
+        raise ValueError(
+            f"flash_attention: the Hopper kernels do not take shapes "
+            f"{tuple(q_shape)}, {tuple(k_shape)}; ask for the reference "
+            "path (dispatch.force_reference())")
+    return True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    mask: Optional[torch.Tensor] = None, q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Tiled attention on [B, S, H, D] (twin of the JAX `flash_attention`):
+    the flash kernels, forward and backward, unless a ``mask`` is given or
+    the reference is forced, which take `dot_product_attention`."""
+    if flash_uses_kernel(q.shape, k.shape, q.device,
+                         masked=mask is not None):
+        return flash_attention_kernel(q, k, v, causal=causal,
+                                      q_offset=q_offset, scale=scale)
+    return dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                 q_offset=q_offset, scale=scale)
 
 
 # ---- paged decode attention (the serving engine's fused hot op) -----------

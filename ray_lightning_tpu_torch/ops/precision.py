@@ -36,15 +36,35 @@ def linear_f32_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w)
 
 
+def _mm_f32_out(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x2.is_cuda and x2.dtype != torch.float32 and _MM_OUT_DTYPE:
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+    return torch.mm(x2.float(), w.float().t())
+
+
+class _LinearF32Out(torch.autograd.Function):
+    """The f32-out GEMM with its gradient. The f32 cotangent is rounded to
+    the operands' dtype for the two backward GEMMs (bf16 in, f32
+    accumulate, one rounding out), as a TPU's default-precision dot takes
+    an f32 operand; in f32 every step is exact, as in the JAX backward."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32_out(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gn = g.to(x2.dtype)
+        return torch.mm(gn, w.to(x2.dtype)), torch.mm(gn.t(), x2).to(w.dtype)
+
+
 def linear_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w.T`` from narrow operands, returned as the f32
     accumulator. On CUDA this is one GEMM with ``out_dtype=float32``
     (``aten::mm.dtype``, where the installed torch has it); elsewhere
     the f32 product of the operands as given, which is the same sum:
     the operands are already rounded to their dtype."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32 and _MM_OUT_DTYPE:
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
-    else:
-        out = torch.mm(x2.float(), w.float().t())
+    out = _LinearF32Out.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[0])

@@ -199,11 +199,13 @@ def build_step(model, cfg: EngineConfig, fused: bool = False,
                                    write_offset=put(off), use_kernel=True)
             return model(emitted[:, None], (pool_k, pool_v), pos_d,
                          pad=slot_pad, paged=view)[:, 0]
-        # one dense gathered view per tick — the copy the kernel retires
+        # one dense gathered view per tick — the copy the kernel retires;
+        # the reference lane runs every op's plain version
         idx = tables_d.long()
         gk = pool_k[:, idx].reshape(L, C, G, HKV, HD)
         gv = pool_v[:, idx].reshape(L, C, G, HKV, HD)
-        logits = model(emitted[:, None], (gk, gv), pos_d, pad=slot_pad)
+        with dispatch.force_reference():
+            logits = model(emitted[:, None], (gk, gv), pos_d, pad=slot_pad)
         rows = torch.arange(C, device=dev)
         bi_d, off_d = put(bi).long(), put(off).long()
         pool_k[:, bi_d, off_d] = gk[:, rows, pos_d.long()]
@@ -242,7 +244,8 @@ def build_step(model, cfg: EngineConfig, fused: bool = False,
             idx = rows_d.long()
             kc = pool_k[:, idx].reshape(L, nb, G, HKV, HD)
             vc = pool_v[:, idx].reshape(L, nb, G, HKV, HD)
-            h = model.hidden(toks_d, (kc, vc), ppos, pad=pad)
+            with dispatch.force_reference():  # incl. flash at pos 0
+                h = model.hidden(toks_d, (kc, vc), ppos, pad=pad)
             wbi_d, woff_d = put(wbi).long(), put(woff).long()
             pool_k[:, wbi_d, woff_d] = kc[:, :, ppos:ppos + CH]
             pool_v[:, wbi_d, woff_d] = vc[:, :, ppos:ppos + CH]
