@@ -29,11 +29,12 @@ A flash (training) fault goes through the training checks:
 
 A mask that admits one position past the slot's length changes nothing
 at length 4096: the slot's table ends there. A dQ that reads KV head
-``h % Hkv`` is right for MHA, where that is ``h``.
+``h % Hkv``, or a dK/dV that walks only the first query head of its GQA
+group, is right for MHA, where the group is one head.
 
 Prints one JSON line per run, then a summary line; exits 0 when the
 control passes both checks and the kernel check rejects every fault.
-Run from the repository root: ``python3 chip_faults.py`` (about four
+Run from the repository root: ``python3 chip_faults.py`` (about five
 minutes on one H100, with the full 32-layer model for serving).
 """
 from __future__ import annotations
@@ -66,14 +67,19 @@ FAULTS = {
         "flash_fwd.cu", "min(Sk, q_offset + qi[h2] + 1) : Sk;",
         "min(Sk, q_offset + qi[h2] + 2) : Sk;"),
     "flash_fwd_last_tile_skipped": (
-        "flash_fwd.cu", "const int n_tiles = rltt::kv_tiles_seen(",
-        "const int n_tiles = -1 + rltt::kv_tiles_seen("),
+        "flash_fwd.cu", "const int n_tiles = kv_tiles_seen<",
+        "const int n_tiles = -1 + kv_tiles_seen<"),
+    "flash_fwd_no_rescale": (
+        "flash_fwd.cu", "acc[i] *= corr[(i >> 1) & 1];", "acc[i] *= 1.f;"),
     "flash_dkv_no_delta": (
-        "flash_bwd.cu", "p * (dp[nt][2 * h2 + e] - sd[col]) * scale;",
-        "p * dp[nt][2 * h2 + e] * scale;"),
+        "flash_bwd.cu", "dpt[i] = st[i] * (dpt[i] - sd[col]) * scale;",
+        "dpt[i] = st[i] * dpt[i] * scale;"),
     "flash_dkv_last_q_tile_skipped": (
         "flash_bwd.cu", "const int per_head = nq - qt_lo;",
         "const int per_head = nq - qt_lo - 1;"),
+    "flash_dkv_first_head_only": (
+        "flash_bwd.cu", "const int n_items = n_rep * per_head;",
+        "const int n_items = per_head;"),
     "flash_dq_kv_head_mod": (
         "flash_bwd.cu", "const int kvh = h / (H / Hkv);",
         "const int kvh = h % Hkv;"),

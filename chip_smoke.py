@@ -12,10 +12,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
                PyTorch version on the same inputs, plus the masking edge
                cases; the flash forward (O, lse) and both backward
                passes (dQ; dK, dV) at the training shape causal and
-               full, a query shard at an offset, MHA and a short
-               sequence; the RMSNorm gradient. One JSON line per shape
+               full, a query shard at an offset, MHA, a short sequence,
+               head dim 64, and queries that see no key (held to exact
+               zeros); the RMSNorm gradient. One JSON line per shape
                with the kernel's, the plain version's and one library
-               call's time, the least time the card could take, the max
+               call's time (and, for flash, the two backward kernels'
+               together), the least time the card could take, the max
                error and the worst share of the tolerance used.
   4. serve   — Llama-3-8B at full width (random weights from a seeded
                generator) served by `Scheduler` + `DecodeEngine` through
@@ -326,14 +328,18 @@ def check_kernels(gen: torch.Generator):
 
 #: Llama-3-8B's training attention: batch, sequence, heads, KV heads, hd
 TB, TS, TH, THKV = 2, 2048, 32, 8
-#: name -> (B, Sq, Sk, H, Hkv, causal, q_offset); the first is the
-#: training step's shape, the summary's
+#: name -> (B, Sq, Sk, H, Hkv, hd, causal, q_offset); the first is the
+#: training step's shape, the summary's. "hd 64" is the other head size
+#: the shape gate admits; in "empty rows" the first 64 queries see no key
+#: (q_offset -64) and must give O = 0, lse = -1e30 and zero gradients.
 FLASH_CASES = {
-    "train causal": (TB, TS, TS, TH, THKV, True, 0),
-    "train full": (TB, TS, TS, TH, THKV, False, 0),
-    "q_offset": (TB, TS // 2, TS, TH, THKV, True, TS // 2),
-    "mha": (TB, TS, TS, TH, TH, True, 0),
-    "short": (TB, 128, 128, TH, THKV, True, 0),
+    "train causal": (TB, TS, TS, TH, THKV, HD, True, 0),
+    "train full": (TB, TS, TS, TH, THKV, HD, False, 0),
+    "q_offset": (TB, TS // 2, TS, TH, THKV, HD, True, TS // 2),
+    "mha": (TB, TS, TS, TH, TH, HD, True, 0),
+    "short": (TB, 128, 128, TH, THKV, HD, True, 0),
+    "hd 64": (TB, TS, TS, TH, THKV, 64, True, 0),
+    "empty rows": (TB, 256, 256, TH, THKV, HD, True, -64),
 }
 #: gradients are held with the rms of each head's [S, hd] slab: a
 #: gradient row can cancel to zero (dQ of the first query is exactly 0)
@@ -353,16 +359,16 @@ class FlashCase:
     the plain versions' on the same inputs (the backward on the kernel
     forward's lse and delta, so each pass is held on its own)."""
 
-    def __init__(self, gen, B, Sq, Sk, H, Hkv, causal, q_offset):
+    def __init__(self, gen, B, Sq, Sk, H, Hkv, hd, causal, q_offset):
         from ray_lightning_tpu_torch.ops.kernels import flash as F
 
         self.F, self.args = F, (causal, q_offset)
-        self.shape = (B, Sq, Sk, H, Hkv)
+        self.shape = (B, Sq, Sk, H, Hkv, hd)
         rn = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
                                     device="cuda").to(torch.bfloat16)
-        self.q, self.k, self.v = rn(B, Sq, H, HD), rn(B, Sk, Hkv, HD), \
-            rn(B, Sk, Hkv, HD)
-        self.do = rn(B, Sq, H, HD)
+        self.q, self.k, self.v = rn(B, Sq, H, hd), rn(B, Sk, Hkv, hd), \
+            rn(B, Sk, Hkv, hd)
+        self.do = rn(B, Sq, H, hd)
         self.o, self.lse = F.flash_fwd_kernel(self.q, self.k, self.v,
                                               *self.args)
         self.delta = F.flash_delta(self.o, self.do)
@@ -410,7 +416,7 @@ class FlashCase:
 
 def sdpa_args(c: FlashCase):
     """The same attention as one `F.scaled_dot_product_attention` call."""
-    B, Sq, Sk, H, Hkv = c.shape
+    B, Sq, Sk, H, Hkv, _ = c.shape
     causal, off = c.args
     kw = dict(enable_gqa=Hkv != H)
     if causal and off == 0 and Sq == Sk:
@@ -422,47 +428,72 @@ def sdpa_args(c: FlashCase):
             c.v.transpose(1, 2)), kw
 
 
+def check_empty_rows(c: FlashCase):
+    """A causal case at a negative q_offset: the first -q_offset queries
+    see no key and give O = 0 and lse = -1e30, and their dQ is zero, as
+    are dK and dV of the keys no query sees (SDPA gives NaN on such rows,
+    so the kernels are held to exact values here)."""
+    Sq, off = c.shape[1], c.args[1]
+    dk, dv = c.dkv()
+    dq = c.dq()
+    n = -off
+    unseen = max(0, off + Sq)  # keys from here on are seen by no query
+    bad = [what for what, ok in (
+        ("O", bool((c.o[:, :n] == 0).all())),
+        ("lse", bool((c.lse[:, :, :n] == c.F.NEG_INF).all())),
+        ("dQ", bool((dq[:, :n] == 0).all())),
+        ("dK", bool((dk[:, unseen:] == 0).all())),
+        ("dV", bool((dv[:, unseen:] == 0).all()))) if not ok]
+    if bad:
+        raise AssertionError(f"flash empty rows: {bad} not exact")
+
+
 def check_flash(gen: torch.Generator):
     """The three flash kernels against their plain versions at every
     shape of FLASH_CASES; one JSON row per (kernel, shape), timed."""
     import torch.nn.functional as F
 
     rows = []
-    for name, (B, Sq, Sk, H, Hkv, causal, off) in FLASH_CASES.items():
-        c = FlashCase(gen, B, Sq, Sk, H, Hkv, causal, off)
+    for name, (B, Sq, Sk, H, Hkv, hd, causal, off) in FLASH_CASES.items():
+        c = FlashCase(gen, B, Sq, Sk, H, Hkv, hd, causal, off)
         shares = c.shares()
         bad = {k: v for k, v in shares.items() if not v[1] <= 1.0}
         if bad:
             raise AssertionError(f"flash {name}: out of tolerance {bad}")
-        (sq, sk, sv), kw = sdpa_args(c)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, **kw))
-        leaves = [t.detach().requires_grad_(True) for t in (sq, sk, sv)]
-        lib_out = F.scaled_dot_product_attention(*leaves, **kw)
-        do_t = c.do.transpose(1, 2)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, do_t, retain_graph=True))
+        bwd_pair = time_ms(lambda: (c.dkv(), c.dq()))
+        if causal and off < 0:
+            check_empty_rows(c)
+            lib_fwd = lib_bwd = lib_fb = None  # SDPA: NaN on empty rows
+        else:
+            (sq, sk, sv), kw = sdpa_args(c)
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, **kw))
+            leaves = [t.detach().requires_grad_(True) for t in (sq, sk, sv)]
+            lib_out = F.scaled_dot_product_attention(*leaves, **kw)
+            do_t = c.do.transpose(1, 2)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do_t, retain_graph=True))
 
-        def lib_both():
-            o = F.scaled_dot_product_attention(*leaves, **kw)
-            torch.autograd.grad(o, leaves, do_t)
+            def lib_both():
+                o = F.scaled_dot_product_attention(*leaves, **kw)
+                torch.autograd.grad(o, leaves, do_t)
 
-        lib_fb = time_ms(lib_both)
-        del lib_out, leaves
+            lib_fb = time_ms(lib_both)
+            del lib_out, leaves
         vis = B * H * visible_pairs(Sq, Sk, causal, off)
-        q_bytes, kv_bytes, vec = B * Sq * H * HD * 2, B * Sk * Hkv * HD * 2, \
+        q_bytes, kv_bytes, vec = B * Sq * H * hd * 2, B * Sk * Hkv * hd * 2, \
             B * H * Sq * 4
-        shape = dict(case=name, B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=HD,
+        shape = dict(case=name, B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv, hd=hd,
                      causal=causal, q_offset=off)
         for kernel, fn, plain, lib, nbytes, flops, outs in (
                 ("flash_fwd", c.fwd, c.fwd_plain, lib_fwd,
-                 2 * q_bytes + 2 * kv_bytes + vec, 4 * vis * HD,
+                 2 * q_bytes + 2 * kv_bytes + vec, 4 * vis * hd,
                  ("o", "lse", "lse_abs")),
                 ("flash_bwd_dkv", c.dkv, c.dkv_plain, lib_bwd,
-                 2 * q_bytes + 4 * kv_bytes + 2 * vec, 8 * vis * HD,
+                 2 * q_bytes + 4 * kv_bytes + 2 * vec, 8 * vis * hd,
                  ("dk", "dv")),
                 ("flash_bwd_dq", c.dq, c.dq_plain, lib_bwd,
-                 3 * q_bytes + 2 * kv_bytes + 2 * vec, 6 * vis * HD,
+                 3 * q_bytes + 2 * kv_bytes + 2 * vec, 6 * vis * hd,
                  ("dq",))):
             b_ms, b_by = bound(nbytes, flops)
             row = dict(kernel=kernel, shape=shape,
@@ -471,7 +502,8 @@ def check_flash(gen: torch.Generator):
                        tolerance_share={o: shares[o][1] for o in outs},
                        kernel_ms=time_ms(fn),
                        plain_ms=time_ms(plain, reps=3),
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                       library_ms=lib, bwd_pair_ms=bwd_pair,
+                       bound_ms=b_ms, bound_by=b_by)
             if kernel != "flash_fwd":
                 row["library_fwd_bwd_ms"] = lib_fb
             print(json.dumps(row), flush=True)

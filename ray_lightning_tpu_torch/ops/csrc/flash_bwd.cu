@@ -23,23 +23,31 @@
 // other axis itself, so nothing crosses blocks and no atomics are needed
 // (the backward is deterministic, as on the TPU).
 //
-//   * dK/dV: one block per (64-key tile, KV head, batch row). It walks all
-//     n_rep query heads that share the KV head and every query tile that
-//     can see its keys (the causal skip), so dK and dV are summed over the
+//   * dK/dV (FlashAttention-3's dK/dV half, without its dQ atomics): one
+//     block per (128-key tile, KV head, batch row), key tile 0 (the one
+//     every causal query tile sees) launched first. Warpgroup 0 is the
+//     producer: after giving up its registers (setmaxnreg) it loads K and
+//     V once by TMA, then streams the 64-row Q and dO tiles of all n_rep
+//     query heads that share the KV head and of every query tile that can
+//     see the keys (the causal skip) through a two-stage TMA ring guarded
+//     by full and empty mbarriers; a second producer warp stores each
+//     tile's lse (times log2 e) and delta beside it. Warpgroups 1 and 2 own
+//     64 keys each: S^T = K Q^T and dP^T = V dO^T on wgmma from shared
+//     memory put keys on the accumulator rows, so P^T and dS^T, computed
+//     in f32 registers (exp2f; mask arithmetic only on tiles that cross
+//     the diagonal or a sequence end), are rounded to bf16 in registers as
+//     the A operands of dV += P^T dO and dK += dS^T Q, whose B operands
+//     are the dO and Q tiles read MN-major. dK and dV are summed over the
 //     GQA group in f32 registers and written once at [B, Sk, Hkv, HD]; the
-//     TPU kernel writes per-query-head [B, H, Sk, HD] and sums outside. A
-//     warp owns 16 keys: S^T = K Q^T and dP^T = V dO^T put keys on the
-//     fragment rows, so P^T and dS^T leave the accumulators already in the
-//     A-operand layout of dV += P^T dO and dK += dS^T Q (no shared-memory
-//     round trip). Each query tile (Q, dO, lse, delta) arrives by cp.async
-//     two stages deep and is consumed 16 query rows at a time.
+//     TPU kernel writes per-query-head [B, H, Sk, HD] and sums outside.
 //   * dQ: one block per (64-row query tile, head, batch row), four warps of
 //     16 rows whose Q and dO fragments, lse, delta and f32 dQ accumulator
 //     stay in registers while the block walks the KV tiles its last query
-//     can see, two stages deep, 16 keys at a time.
+//     can see, by cp.async two stages deep, 16 keys at a time (mma.sync).
 //
 // P and dS are rounded to bf16 as tensor-core operands; every sum is f32.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -52,133 +60,207 @@ struct Frag {
 };
 
 template <int HD>
-__global__ void __launch_bounds__(rltt::kFlashThreads)
-flash_bwd_dkv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+struct Dkv {
+  static constexpr int kWG = 2;        // consumer warpgroups
+  static constexpr int kN = 64 * kWG;  // keys per block
+  static constexpr int kM = 64;        // query rows per streamed tile
+  static constexpr int kStages = 2;
+  static constexpr int kProducerRegs = 24;  // setmaxnreg: 128 x 24 + 256 x 240
+  static constexpr int kConsumerRegs = 240;  // fits the 384 x 168 the launch gets
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kKVBytes = kN * HD * 2;  // one of K or V
+  static constexpr int kQBytes = kM * HD * 2;   // one of Q or dO
+  static constexpr int kVecBytes = 2 * kM * 4;  // lse * log2 e, delta
+  static constexpr int kBars = 1 + 2 * kStages;
+  static constexpr int kSmem =
+      1024 + 2 * kKVBytes + kStages * (2 * kQBytes + kVecBytes) + 8 * kBars;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Dkv<HD>::kThreads, 1)
+flash_bwd_dkv(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
+              __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
-              int H, int Hkv, int causal, int q_offset, float scale) {
-  using F = Frag<HD>;
-  constexpr int S = F::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [K | V | stage 0: Q, dO | stage 1: Q, dO | stage 0: lse, delta | stage 1: lse, delta]
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + F::kTile;
-  __nv_bfloat16* sqd = sv + F::kTile;
-  float* sld = reinterpret_cast<float*>(sqd + 4 * F::kTile);
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
+              int H, int Hkv, int causal, int q_offset, float scale, float scale_log2) {
+  using namespace rltt::sm90;
+  using C = Dkv<HD>;
+  unsigned char* smem = smem_base();
+  unsigned char* sk = smem;                     // [HD / 64][kN][64]
+  unsigned char* sv = sk + C::kKVBytes;
+  unsigned char* sqd = sv + C::kKVBytes;        // stage s: Q then dO, [HD / 64][kM][64] each
+  float* svec = reinterpret_cast<float*>(sqd + C::kStages * 2 * C::kQBytes);  // stage s: [2][kM]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(svec + C::kStages * 2 * C::kM);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::kStages;
+
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;  // key tile 0 first
   const int n_rep = H / Hkv;
-  const int kv0 = kt * rltt::kTileRows;
-  const int nq = (Sq + rltt::kTileRows - 1) / rltt::kTileRows;
+  const int kv0 = kt * C::kN;
+  const int nq = (Sq + C::kM - 1) / C::kM;
   // the first query tile whose last row sees this KV tile's first key
   int qt_lo = 0;
   if (causal)
-    while (qt_lo < nq && q_offset + min(Sq, (qt_lo + 1) * rltt::kTileRows) - 1 < kv0) ++qt_lo;
+    while (qt_lo < nq && q_offset + min(Sq, (qt_lo + 1) * C::kM) - 1 < kv0) ++qt_lo;
   const int per_head = nq - qt_lo;
   const int n_items = n_rep * per_head;
 
-  const int64_t kv_stride = (int64_t)Hkv * HD, q_stride = (int64_t)H * HD;
-  rltt::load_tile_async<HD>(sk, k + ((int64_t)b * Sk * Hkv + kvh) * HD, kv_stride, kv0, Sk);
-  rltt::load_tile_async<HD>(sv, v + ((int64_t)b * Sk * Hkv + kvh) * HD, kv_stride, kv0, Sk);
-  rltt::cp_async_commit();
-  auto fetch = [&](int it) {
-    const int h = kvh * n_rep + it / per_head, qt = qt_lo + it % per_head;
-    __nv_bfloat16* sq = sqd + (it & 1) * 2 * F::kTile;
-    const int64_t off = ((int64_t)b * Sq * H + h) * HD;
-    rltt::load_tile_async<HD>(sq, q + off, q_stride, qt * rltt::kTileRows, Sq);
-    rltt::load_tile_async<HD>(sq + F::kTile, dout + off, q_stride, qt * rltt::kTileRows, Sq);
-    float* sl = sld + (it & 1) * 2 * rltt::kTileRows;
-    const int64_t voff = ((int64_t)b * H + h) * Sq;
-    rltt::load_vec_async(sl, lse + voff, qt * rltt::kTileRows, Sq);
-    rltt::load_vec_async(sl + rltt::kTileRows, delta + voff, qt * rltt::kTileRows, Sq);
-    rltt::cp_async_commit();
-  };
-
-  float dk_acc[F::DT][4], dv_acc[F::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < F::DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-  const int kr0 = warp * 16;  // this warp's keys within the tile: kr0 + g, + 8
-
-  if (n_items > 0) fetch(0);
-  for (int it = 0; it < n_items; ++it) {
-    if (it + 1 < n_items) {
-      fetch(it + 1);
-      rltt::cp_async_wait<1>();
-    } else {
-      rltt::cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);      // the loading thread, the vector warp
+      mbar_init(&empty[s], 4 * C::kWG);  // one arrival per consumer warp
     }
-    __syncthreads();
-    const __nv_bfloat16* sq = sqd + (it & 1) * 2 * F::kTile;
-    const __nv_bfloat16* sdo = sq + F::kTile;
-    const float* sl = sld + (it & 1) * 2 * rltt::kTileRows;
-    const float* sd = sl + rltt::kTileRows;
-    const int i0 = (qt_lo + it % per_head) * rltt::kTileRows;
-#pragma unroll 1
-    for (int c = 0; c < rltt::kTileRows / 16; ++c) {  // 16 query rows at a time
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < F::KK; ++kk) {
-        uint32_t ak[4], av[4];
-        rltt::row_frag<HD>(sk, kr0, kk * 16, g, tig, ak);
-        rltt::row_frag<HD>(sv, kr0, kk * 16, g, tig, av);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const __nv_bfloat16* qr = sq + (c * 16 + nt * 8 + g) * S + kk * 16 + tig * 2;
-          rltt::mma_bf16(s[nt], ak, rltt::ld2(qr), rltt::ld2(qr + 8));
-          const __nv_bfloat16* dr = sdo + (c * 16 + nt * 8 + g) * S + kk * 16 + tig * 2;
-          rltt::mma_bf16(dp[nt], av, rltt::ld2(dr), rltt::ld2(dr + 8));
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: warp 0 loads tiles, warp 1 vectors
+    regs_dec<C::kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::kKVBytes);
+      load_rows<HD>(sk, &tm_k, kv_full, C::kN, kvh, kv0, b);
+      load_rows<HD>(sv, &tm_v, kv_full, C::kN, kvh, kv0, b);
+      int h = kvh * n_rep, qt = qt_lo;  // item it's query head and tile
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kQBytes);
+        unsigned char* sq = sqd + s * 2 * C::kQBytes;
+        load_rows<HD>(sq, &tm_q, &full[s], C::kM, h, qt * C::kM, b);
+        load_rows<HD>(sq + C::kQBytes, &tm_do, &full[s], C::kM, h, qt * C::kM, b);
+        if (++qt == qt_lo + per_head) {
+          qt = qt_lo;
+          ++h;
         }
       }
-      // element (key kr0 + g + 8 * h2, query c * 16 + nt * 8 + tig * 2 + e)
+    } else if (warp == 1) {  // each tile's lse * log2 e and delta beside it
+      int h = kvh * n_rep, qt = qt_lo;
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        float* sl = svec + s * 2 * C::kM;
+        const int64_t voff = ((int64_t)b * H + h) * Sq;
+        for (int r = lane; r < C::kM; r += 32) {
+          const int qi = qt * C::kM + r;
+          sl[r] = qi < Sq ? lse[voff + qi] * kLog2e : 0.f;
+          sl[C::kM + r] = qi < Sq ? delta[voff + qi] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+        if (++qt == qt_lo + per_head) {
+          qt = qt_lo;
+          ++h;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  regs_inc<C::kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = kv0 + cw * 64;  // this warpgroup's first key
+  float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint32_t k_addr = smem_u32(sk) + cw * 64 * 128;
+  const uint32_t v_addr = smem_u32(sv) + cw * 64 * 128;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int qt = qt_lo + it % per_head;
+    const int i0 = qt * C::kM;
+    const int s = it % C::kStages;
+    mbar_wait(&full[s], (it / C::kStages) & 1);
+    if (kw0 < Sk && (!causal || q_offset + min(Sq, i0 + C::kM) - 1 >= kw0)) {
+      const uint32_t q_addr = smem_u32(sqd + s * 2 * C::kQBytes);
+      const uint32_t do_addr = q_addr + C::kQBytes;
+      float st[32], dpt[32];  // S^T, dP^T: 64 keys x 64 queries
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      // four products in turn, each overlapping the arithmetic that
+      // follows the one before: S^T, dP^T; P^T while dP^T runs; dV while
+      // dS^T is computed; dK
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(st, desc_k(k_addr, C::kN, kk), desc_k(q_addr, C::kM, kk), 1);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(dpt, desc_k(v_addr, C::kN, kk), desc_k(do_addr, C::kM, kk), 1);
+      wgmma_commit();
+      fence_regs(dpt);
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // element i = 4 j + 2 h2 + e: key kw0 + 16 warp + g + 8 h2, query
+      // i0 + 8 j + 2 t4 + e
+      const float* sl = svec + s * 2 * C::kM;
+      const float* sd = sl + C::kM;
+      const bool edge = i0 + C::kM > Sq || kw0 + 64 > Sk || (causal && q_offset + i0 < kw0 + 63);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = c * 16 + nt * 8 + tig * 2 + e;
-            const int qi = i0 + col, key = kv0 + kr0 + g + 8 * h2;
-            const bool vis = qi < Sq && key < Sk && (!causal || q_offset + qi >= key);
-            const float p = vis ? expf(s[nt][2 * h2 + e] * scale - sl[col]) : 0.f;
-            s[nt][2 * h2 + e] = p;
-            dp[nt][2 * h2 + e] = p * (dp[nt][2 * h2 + e] - sd[col]) * scale;
+            const int i = 4 * j + 2 * h2 + e, col = 8 * j + 2 * t4 + e;
+            const int qi = i0 + col, key = kw0 + warp * 16 + g + 8 * h2;
+            const bool vis = !edge || (qi < Sq && key < Sk && (!causal || q_offset + qi >= key));
+            st[i] = vis ? exp2f(st[i] * scale_log2 - sl[col]) : 0.f;
           }
-      const uint32_t pf[4] = {rltt::pack2(s[0][0], s[0][1]), rltt::pack2(s[0][2], s[0][3]),
-                              rltt::pack2(s[1][0], s[1][1]), rltt::pack2(s[1][2], s[1][3])};
-      const uint32_t df[4] = {rltt::pack2(dp[0][0], dp[0][1]), rltt::pack2(dp[0][2], dp[0][3]),
-                              rltt::pack2(dp[1][0], dp[1][1]), rltt::pack2(dp[1][2], dp[1][3])};
+      uint32_t pf[4][4];
 #pragma unroll
-      for (int dt = 0; dt < F::DT; ++dt) {
-        uint32_t b0, b1;
-        rltt::col_frag<HD>(sdo, c * 16, dt * 8 + g, tig, b0, b1);
-        rltt::mma_bf16(dv_acc[dt], pf, b0, b1);
-        rltt::col_frag<HD>(sq, c * 16, dt * 8 + g, tig, b0, b1);
-        rltt::mma_bf16(dk_acc[dt], df, b0, b1);
-      }
+      for (int kk = 0; kk < 4; ++kk) to_a(st, kk, pf[kk]);
+      fence_regs(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dv_acc, pf[kk], desc_mn(do_addr, C::kM, kk), 1);
+      wgmma_commit();
+      fence_regs(dv_acc);
+      wgmma_wait<1>();
+      fence_regs(dpt);
+
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = 8 * j + 2 * t4 + (e & 1);
+          dpt[i] = st[i] * (dpt[i] - sd[col]) * scale;
+        }
+      uint32_t df[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_a(dpt, kk, df[kk]);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dk_acc, df[kk], desc_mn(q_addr, C::kM, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
     }
-    __syncthreads();  // this stage is consumed before it is refilled
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
-  rltt::cp_async_wait<0>();  // the K/V group, when there was no item
 
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    const int key = kv0 + kr0 + g + 8 * h2;
+    const int key = kw0 + warp * 16 + g + 8 * h2;
     if (key >= Sk) continue;
-    const int64_t off = (((int64_t)b * Sk + key) * Hkv + kvh) * HD + tig * 2;
+    const int64_t off = (((int64_t)b * Sk + key) * Hkv + kvh) * HD + 2 * t4;
 #pragma unroll
-    for (int dt = 0; dt < F::DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) =
-          rltt::pack2(dk_acc[dt][2 * h2], dk_acc[dt][2 * h2 + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
-          rltt::pack2(dv_acc[dt][2 * h2], dv_acc[dt][2 * h2 + 1]);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          pack2(dk_acc[4 * j + 2 * h2], dk_acc[4 * j + 2 * h2 + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          pack2(dv_acc[4 * j + 2 * h2], dv_acc[4 * j + 2 * h2 + 1]);
     }
   }
 }
@@ -306,31 +388,24 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 }
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int smem, bool& configured) {
-  if (configured) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  configured = true;
-  return 0;
-}
-
 template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv,
                int causal, int q_offset, float scale, cudaStream_t stream) {
-  const int smem = 6 * Frag<HD>::kTile * (int)sizeof(__nv_bfloat16)
-                   + 4 * rltt::kTileRows * (int)sizeof(float);
+  using C = Dkv<HD>;
+  using rltt::sm90_host::rows_map;
   static bool configured = false;
-  if (int err = set_smem(flash_bwd_dkv<HD>, smem, configured)) return err;
-  const dim3 grid((Sk + rltt::kTileRows - 1) / rltt::kTileRows, Hkv, B);
-  flash_bwd_dkv<HD><<<grid, rltt::kFlashThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  if (int err = rltt::sm90_host::allow_smem(flash_bwd_dkv<HD>, C::kSmem, configured)) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = rows_map(&tq, q, B, Sq, H, HD, C::kM)) return err;
+  if (int err = rows_map(&tk, k, B, Sk, Hkv, HD, C::kN)) return err;
+  if (int err = rows_map(&tv, v, B, Sk, Hkv, HD, C::kN)) return err;
+  if (int err = rows_map(&tdo, dout, B, Sq, H, HD, C::kM)) return err;
+  const dim3 grid(Hkv, B, (Sk + C::kN - 1) / C::kN);
+  flash_bwd_dkv<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, Hkv, causal,
-      q_offset, scale);
+      q_offset, scale, scale * rltt::sm90::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -340,7 +415,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               int q_offset, float scale, cudaStream_t stream) {
   const int smem = 4 * Frag<HD>::kTile * (int)sizeof(__nv_bfloat16);
   static bool configured = false;
-  if (int err = set_smem(flash_bwd_dq<HD>, smem, configured)) return err;
+  if (int err = rltt::sm90_host::allow_smem(flash_bwd_dq<HD>, smem, configured)) return err;
   const dim3 grid((Sq + rltt::kTileRows - 1) / rltt::kTileRows, H, B);
   flash_bwd_dq<HD><<<grid, rltt::kFlashThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -351,7 +426,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 }
 
 bool valid(int B, int Sq, int Sk, int H, int Hkv) {
-  return B >= 1 && Sq >= 1 && Sk >= 1 && Hkv >= 1 && H % Hkv == 0;
+  return B >= 1 && Sq >= 1 && Sk >= 1 && Hkv >= 1 && H % Hkv == 0 && B <= 65535;
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Device code shared by the three flash-attention kernels (flash_fwd.cu:
-// forward; flash_bwd.cu: dK/dV and dQ).
+// Device code of the mma.sync flash-attention kernel, dQ (flash_bwd.cu;
+// the forward and dK/dV use hopper_common.cuh).
 //
 // Layout: the framework's [B, S, H, HD] bf16 tensors, read in place (row i
 // of head h sits at ((b * S + i) * H + h) * HD); lse and delta are f32
@@ -25,12 +25,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -60,15 +54,6 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   }
 }
 
-// Values [r0, r0 + 64) of a contiguous f32 vector of n into dst[64] (zeros
-// past n). Uses the first 64 threads.
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src, int r0, int n) {
-  if (threadIdx.x < kTileRows) {
-    const bool ok = r0 + (int)threadIdx.x < n;
-    cp_async4(dst + threadIdx.x, src + (ok ? r0 + threadIdx.x : 0), ok);
-  }
-}
-
 // B fragment of a product whose k index runs down the rows of a
 // shared-memory tile [rows][HD + 8] and whose n index runs along them:
 // rows k0 + tig * 2 (+1, +8, +9), column n.
@@ -79,19 +64,6 @@ __device__ __forceinline__ void col_frag(const __nv_bfloat16* tile, int k0, int 
   const __nv_bfloat16* c = tile + (k0 + tig * 2) * S + n;
   b0 = pack2(c[0], c[S]);
   b1 = pack2(c[8 * S], c[9 * S]);
-}
-
-// A fragment (16 x 16) whose rows r0 + g (+8) and columns c0 + tig * 2
-// (+1, +8, +9) lie along the rows of a shared-memory tile [rows][HD + 8].
-template <int HD>
-__device__ __forceinline__ void row_frag(const __nv_bfloat16* tile, int r0, int c0, int g,
-                                         int tig, uint32_t (&a)[4]) {
-  constexpr int S = HD + 8;
-  const __nv_bfloat16* r = tile + (r0 + g) * S + c0 + tig * 2;
-  a[0] = ld2(r);
-  a[1] = ld2(r + 8 * S);
-  a[2] = ld2(r + 8);
-  a[3] = ld2(r + 8 * S + 8);
 }
 
 // The last KV tile a causal query tile ending at query index q_last can
