@@ -11,7 +11,8 @@ control (the sources as they are) runs first, then each fault. A paged
 
   kernels — the kernel against its plain version on chip_smoke's inputs,
             per decode slot (lengths 4096 / 1537 / 700 / 33) and per
-            prefill offset (0 / 1024 / 3968): the share of chip_smoke's
+            prefill case (offsets 0 / 1024 / 3968, and the two-row chunks
+            with a pad): the share of chip_smoke's
             tolerance that the worst element uses (above 1 rejects),
             beside its share of a flat |err| <= 2e-2 + 2e-2 |b|.
   lanes   — the greedy half of chip_smoke's requests served through the
@@ -30,7 +31,10 @@ A flash (training) fault goes through the training checks:
 A mask that admits one position past the slot's length changes nothing
 at length 4096: the slot's table ends there. A dQ that reads KV head
 ``h % Hkv``, or a dK/dV that walks only the first query head of its GQA
-group, is right for MHA, where the group is one head.
+group, is right for MHA, where the group is one head. The merge of split
+partials is shared by the decode and the prefill (``paged_common.cuh``),
+so a merge that drops the last split shows in both; the prefill at
+position 0 walks one range and launches no merge.
 
 Prints one JSON line per run, then a summary line; exits 0 when the
 control passes both checks and the kernel check rejects every fault.
@@ -58,11 +62,17 @@ FAULTS = {
         "paged_attention.cu", "(length + rltt::kKeys - 1) / rltt::kKeys);",
         "(length + rltt::kKeys - 1) / rltt::kKeys - 1);"),
     "prefill_mask_off_by_one": (
-        "paged_prefill.cu", "w.hi[h2] = pos + j + 1;",
-        "w.hi[h2] = pos + j + 2;"),
+        "paged_prefill.cu", "min(kv_limit, pos + j + 1)",
+        "min(kv_limit, pos + j + 2)"),
     "prefill_last_tile_skipped": (
-        "paged_prefill.cu", "q_end / rltt::kKeys + 1);",
-        "q_end / rltt::kKeys);"),
+        "paged_prefill.cu", "(hi_max + C::kN - 1) / C::kN);",
+        "(hi_max + C::kN - 1) / C::kN - 1);"),
+    "prefill_wrong_pool_block": (
+        "paged_prefill.cu", "(int64_t)trow[kv / P] * P + kv % P",
+        "(int64_t)trow[t * C::kN / P] * P + kv % P"),
+    "prefill_merge_drops_last_split": (
+        "paged_common.cuh", "for (int s = 0; s < n_split; ++s) {",
+        "for (int s = 0; s < n_split - 1; ++s) {"),
     "flash_fwd_mask_off_by_one": (
         "flash_fwd.cu", "min(Sk, q_offset + qi[h2] + 1) : Sk;",
         "min(Sk, q_offset + qi[h2] + 2) : Sk;"),
@@ -83,6 +93,12 @@ FAULTS = {
     "flash_dq_kv_head_mod": (
         "flash_bwd.cu", "const int kvh = h / (H / Hkv);",
         "const int kvh = h % Hkv;"),
+    "flash_dq_last_tile_skipped": (
+        "flash_bwd.cu", "const int n_tiles = kv_tiles_seen<",
+        "const int n_tiles = -1 + kv_tiles_seen<"),
+    "flash_dq_no_delta": (
+        "flash_bwd.cu", "dp[i] = sc[i] * (dp[i] - row_delta[e >> 1]) * scale;",
+        "dp[i] = sc[i] * dp[i] * scale;"),
 }
 #: every kernel source, built together from the sources or a planted copy
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd"]
@@ -138,7 +154,10 @@ class KernelCases:
         self.decode = inp.decode(smoke.DECODE_LENGTHS, [0] * smoke.C)
         self.decode_want = paged_attention_plain(*self.decode[0],
                                                  **self.decode[1])
-        self.prefill = [inp.prefill(pos, [0]) for pos in smoke.PREFILL_POS]
+        self.prefill_cases = [(pos, (0,)) for pos in smoke.PREFILL_POS] + \
+            list(smoke.PREFILL_PADS)
+        self.prefill = [inp.prefill(pos, list(pad))
+                        for pos, pad in self.prefill_cases]
         self.prefill_want = [paged_prefill_plain(*a, **kw)
                              for a, kw in self.prefill]
 
@@ -156,11 +175,13 @@ class KernelCases:
             out[f"decode length={length}"] = (
                 smoke.tolerance_ratio(got[c], want)[1],
                 flat_share(got[c], want))
-        for pos, (a, kw), want in zip(smoke.PREFILL_POS, self.prefill,
-                                      self.prefill_want):
+        for (pos, pad), (a, kw), want in zip(self.prefill_cases, self.prefill,
+                                             self.prefill_want):
             got = paged_prefill_kernel(*a, **kw)
-            out[f"prefill pos={pos}"] = (smoke.tolerance_ratio(got, want)[1],
-                                         flat_share(got, want))
+            name = f"prefill pos={pos}" + (f" pad={list(pad)}" if any(pad)
+                                           else "")
+            out[name] = (smoke.tolerance_ratio(got, want)[1],
+                         flat_share(got, want))
         return out
 
 

@@ -10,7 +10,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
   3. kernels — each kernel's wrapper on card tensors at the serving and
                training shapes of Llama-3-8B, in bf16, against its plain
                PyTorch version on the same inputs, plus the masking edge
-               cases; the flash forward (O, lse) and both backward
+               cases (for the prefill: two-row chunks whose pad covers
+               whole ranges of its split walk or falls inside one, pad
+               columns, a poisoned scratch block); the flash forward (O,
+               lse) and both backward
                passes (dQ; dK, dV) at the training shape causal and
                full, a query shard at an offset, MHA, a short sequence,
                head dim 64, and queries that see no key (held to exact
@@ -43,8 +46,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 ``python3 chip_smoke.py`` (``--layers N`` cuts the model's depth for a
-quicker check of the serve phase). ``chip_faults.py`` plants known faults
-in the kernels and runs these same checks on them.
+quicker check of the serve phase). Two other modes build the kernels and
+then only measure: ``--train-spread N`` runs phase 5's lane comparison at
+seeds 0..N-1 (the spread the train limits are set from), and ``--ab-old
+CSRC`` times the dQ and prefill kernels in turns with a build of older
+sources. ``chip_faults.py`` plants known faults in the kernels and runs
+these same checks on them.
 """
 from __future__ import annotations
 
@@ -92,10 +99,12 @@ LSE_ATOL = 1e-3
 #: |delta loss| and on |delta grad_norm| / grad_norm. The lanes differ in
 #: attention (the kernels round unnormalised probabilities and dS to bf16
 #: inside tiled sums, the reference its normalised probabilities) and in
-#: RMSNorm (Triton vs plain forward). About 1.5x the largest reading of a
-#: sound run, 8.6e-4 and 2.6e-3 (PERF.md).
-TRAIN_LOSS_TOL = 1.3e-3
-TRAIN_GNORM_RTOL = 4e-3
+#: RMSNorm (Triton vs plain forward). About 1.5x the largest reading of
+#: sound kernels over eight weight-and-data seeds (``--train-spread 8``),
+#: 1.36e-3 and 8.0e-3 (PERF.md); the planted faults read 9e-3 and 2.7% or
+#: more.
+TRAIN_LOSS_TOL = 2.1e-3
+TRAIN_GNORM_RTOL = 1.2e-2
 #: seeds every random input: weights, prompts, tokens, kernel-check tensors
 SEED = 0
 
@@ -106,6 +115,18 @@ C, H, HKV, HD, P, M, D, CH = 4, 32, 8, 128, 16, 256, 4096, 128
 #: chunk offsets the kernels are checked at
 DECODE_LENGTHS = (4096, 1537, 700, 33)
 PREFILL_POS = (0, 1024, 3968)
+#: two-row prefill chunks (pos, pads): at 3968 row 1's pad covers the
+#: first ranges of the split walk whole (they merge as empty partials);
+#: at 1024 it falls inside a range
+PREFILL_PADS = ((3968, (0, 2100)), (1024, (0, 700)))
+
+
+def prefill_splits(b: int, pos: int) -> int:
+    """The ranges the prefill kernel splits a chunk's walk into."""
+    from ray_lightning_tpu_torch.ops.kernels import paged_prefill as pp
+    from ray_lightning_tpu_torch.ops.kernels.paged_attention import sm_count
+
+    return pp.launch_plan(b, CH, H, HKV, M * P, pos, sm_count(0))[1]
 
 
 def log(msg: str) -> None:
@@ -274,7 +295,8 @@ def check_kernels(gen: torch.Generator):
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError("paged_decode: scratch poison leaked")
 
-    # -- paged prefill: B = 1, CH = 128 at three depths -------------------
+    # -- paged prefill: B = 1, CH = 128 at three depths; two rows with a
+    # pad that covers whole ranges of the split walk or falls inside one
     def prefill_case(pos, pad, time_it=True):
         args, kw = inp.prefill(pos, pad)
         got = paged_prefill_kernel(*args, **kw)
@@ -299,15 +321,36 @@ def check_kernels(gen: torch.Generator):
         vis_kv = sum(max(0, pos + CH - p) for p in pad)
         nbytes = 2 * b * CH * H * HD * 2 + vis_kv * HKV * HD * 4 + b * M * 4
         record("paged_prefill", dict(B=b, CH=CH, H=H, Hkv=HKV, hd=HD, P=P,
-                                     M=M, pos=pos, pad=list(pad)),
+                                     M=M, pos=pos, pad=list(pad),
+                                     n_split=prefill_splits(b, pos)),
                err, share, ms, plain_ms, lib_ms, nbytes, 4 * H * HD * seen)
         return got
 
+    if prefill_splits(1, 0) != 1:
+        raise AssertionError("paged_prefill: pos 0 should walk one range")
     for pos in PREFILL_POS:
         prefill_case(pos, [0])
+    for pos, pad in PREFILL_PADS:
+        prefill_case(pos, pad)
     out = prefill_case(0, [0, 40], time_it=False)
     if bool((out[1, :40] != 0).any()) or not bool((out[1, 40:] != 0).any()):
         raise AssertionError("paged_prefill: pad-column queries not zero")
+    # scratch block 0 named by the table from the block after the chunk's
+    # last position, poisoned: its tile is walked but masked, so no
+    # visible change
+    pos = 1000
+    tab0 = inp.tables[:1].clone()
+    tab0[0, -(-(pos + CH) // P):] = 0
+    q = inp.randn(1, CH, H, HD)
+    outs = []
+    for fill in (0.0, 1e4):
+        inp.pool_k[0], inp.pool_v[0] = fill, fill
+        outs.append(paged_prefill_kernel(q, inp.pool_k, inp.pool_v, tab0,
+                                         pos))
+    hold(outs[0], paged_prefill_plain(q, inp.pool_k, inp.pool_v, tab0, pos),
+         "paged_prefill poison")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("paged_prefill: scratch poison leaked")
 
     # -- RMSNorm ----------------------------------------------------------
     w = torch.randn(D, generator=gen, device="cuda")
@@ -980,6 +1023,109 @@ def train_phase(seed: int):
     return launches
 
 
+def ab_phase(old_csrc: str):
+    """Interleaved reading (old, new, new, old) of the redesigned flash dQ
+    and paged prefill at every shape chip_smoke checks them at, on the
+    same inputs in one process. The old build
+    comes from the sources in ``old_csrc`` (a copy of the ``ops/csrc`` of
+    the commit before the redesign), compiled into ``ops/build/ab_old/``;
+    its C entry points are called directly: ``flash_bwd_dq_bf16`` takes
+    the arguments it takes now, ``paged_prefill_bf16`` (q, pool_k,
+    pool_v, tables, pad, out, B, CH, H, Hkv, HD, P, M, pos, bq, scale,
+    stream)."""
+    import ctypes
+    import os
+
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+        paged_prefill_kernel, q_tile)
+
+    csrc, out = build.CSRC, build.BUILD
+    build.CSRC, build.BUILD = old_csrc, os.path.join(out, "ab_old")
+    try:
+        build.build_all(["flash_bwd", "paged_prefill"])
+        old_dq = ctypes.CDLL(build._lib_path("flash_bwd")).flash_bwd_dq_bf16
+        old_pf = ctypes.CDLL(
+            build._lib_path("paged_prefill")).paged_prefill_bf16
+    finally:
+        build.CSRC, build.BUILD = csrc, out
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    old_dq.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, vp]
+    old_pf.argtypes = [vp] * 6 + [ci] * 9 + [ctypes.c_float, vp]
+    old_dq.restype = old_pf.restype = ci
+
+    def turns(what, shape, old_fn, new_fn):
+        t = [time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+        row = dict(ab=what, shape=shape, old_ms=[t[0], t[3]],
+                   new_ms=[t[1], t[2]], old_over_new=(t[0] + t[3])
+                   / (t[1] + t[2]))
+        print(json.dumps(row), flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, dims in FLASH_CASES.items():
+        c = FlashCase(gen, *dims)
+        B, Sq, Sk, H_, Hkv, hd = c.shape
+        dq = torch.empty_like(c.q)
+        ptrs = [t.data_ptr() for t in (c.q, c.k, c.v, c.do, c.lse, c.delta,
+                                       dq)]
+
+        def old_fn():
+            build.check(old_dq(*ptrs, B, Sq, Sk, H_, Hkv, hd, int(c.args[0]),
+                               c.args[1], hd ** -0.5, stream), "old dq")
+
+        old_fn()
+        hold(dq, c.dq_plain(), f"old dq {name}", SLAB)
+        turns("flash_bwd_dq", dict(case=name), old_fn, c.dq)
+        del c
+        torch.cuda.empty_cache()
+
+    inp = KernelInputs(gen)
+    for pos, pad in [(pos, (0,)) for pos in PREFILL_POS] + list(PREFILL_PADS):
+        args, kw = inp.prefill(pos, list(pad))
+        q, pool_k, pool_v, tab, _ = args
+        o = torch.empty_like(q)
+        b = len(pad)
+        ptrs = [t.data_ptr() for t in (q, pool_k, pool_v, tab, kw["pad"], o)]
+
+        def old_fn():
+            build.check(old_pf(*ptrs, b, CH, H, HKV, HD, P, M, pos,
+                               q_tile(CH, H // HKV), HD ** -0.5, stream),
+                        "old prefill")
+
+        old_fn()
+        hold(o, paged_prefill_kernel(*args, **kw), f"old prefill {pos}")
+        turns("paged_prefill", dict(B=b, pos=pos, pad=list(pad)), old_fn,
+              lambda: paged_prefill_kernel(*args, **kw))
+
+
+def train_spread(seeds):
+    """The train phase's lane comparison (8 steps through `Trainer.fit`,
+    kernel lanes against reference lanes) at each of ``seeds``, which
+    draw both the weights and the tokens: the spread of sound kernels'
+    readings that TRAIN_LOSS_TOL and TRAIN_GNORM_RTOL are set from."""
+    readings = []
+    for seed in seeds:
+        cfg, tokens = train_inputs(seed)
+        probe = train_once(cfg, tokens, seed)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = train_reference(cfg, tokens, seed)[0]
+        d_loss, d_gn, _ = compare_train(probe.rows, ref.rows)
+        row = dict(phase="train_spread", seed=seed, loss_max_abs_diff=d_loss,
+                   grad_norm_max_rel_diff=d_gn,
+                   losses=[r[0] for r in probe.rows],
+                   ref_losses=[r[0] for r in ref.rows])
+        print(json.dumps(row), flush=True)
+        readings.append(row)
+    print(json.dumps(dict(
+        phase="train_spread_summary", seeds=list(seeds),
+        loss_max_abs_diff=max(r["loss_max_abs_diff"] for r in readings),
+        grad_norm_max_rel_diff=max(r["grad_norm_max_rel_diff"]
+                                   for r in readings))), flush=True)
+
+
 def all_kernels():
     """Every kernel wrapper with a launch counter."""
     from ray_lightning_tpu_torch.ops.kernels import flash
@@ -1005,6 +1151,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="model depth (32 = the full Llama-3-8B)")
+    ap.add_argument("--train-spread", type=int, default=0, metavar="N",
+                    help="only build, then run the train lanes' comparison "
+                         "at seeds 0..N-1 and print each seed's readings")
+    ap.add_argument("--ab-old", metavar="CSRC",
+                    help="only build, then time the redesigned dQ and "
+                         "prefill in turns with an old build of the "
+                         "sources in CSRC")
     args = ap.parse_args()
 
     # 1. device
@@ -1032,6 +1185,12 @@ def main() -> int:
     torch.cuda.synchronize()
     print(json.dumps(dict(phase="build", nvcc_s=nvcc_s,
                           triton_s=time.perf_counter() - t0)), flush=True)
+    if args.train_spread:
+        train_spread(range(args.train_spread))
+        return 0
+    if args.ab_old:
+        ab_phase(args.ab_old)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -1073,9 +1232,12 @@ def main() -> int:
     summary = []
     for name, (fn, route, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
-        # decode ragged; prefill at 3968; RMSNorm N=4; flash: the
+        # decode ragged; prefill B 1 at 3968; RMSNorm N=4; flash: the
         # training step's shape (the first case)
-        main_shape = mine[0] if name.startswith("flash") else mine[-1]
+        main_shape = mine[-1] if name in ("paged_decode", "rms_norm") else \
+            mine[0] if name.startswith("flash") else next(
+                r for r in mine if r["shape"]["B"] == 1
+                and r["shape"]["pos"] == PREFILL_POS[-1])
         summary.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[fn],

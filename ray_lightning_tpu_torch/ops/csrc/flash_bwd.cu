@@ -40,24 +40,24 @@
 //     are the dO and Q tiles read MN-major. dK and dV are summed over the
 //     GQA group in f32 registers and written once at [B, Sk, Hkv, HD]; the
 //     TPU kernel writes per-query-head [B, H, Sk, HD] and sums outside.
-//   * dQ: one block per (64-row query tile, head, batch row), four warps of
-//     16 rows whose Q and dO fragments, lse, delta and f32 dQ accumulator
-//     stay in registers while the block walks the KV tiles its last query
-//     can see, by cp.async two stages deep, 16 keys at a time (mma.sync).
+//   * dQ (the forward's design with two score products): one block per
+//     (128-row query tile, head, batch row), the last query tiles (the
+//     longest causal walks) launched first. The producer warpgroup loads
+//     the Q and dO tiles once by TMA, then streams the K and V tiles its
+//     last query can see (64 keys each) through a two-stage TMA ring
+//     guarded by full and empty mbarriers. Warpgroups 1 and 2 own 64 query
+//     rows each, whose lse (times log2 e) and delta stay in registers for
+//     the whole walk: S = Q K^T and dP = dO V^T on wgmma from shared
+//     memory, P (exp2f on pre-scaled scores) computed while dP is on the
+//     tensor cores, dS formed in f32 registers (mask arithmetic only on
+//     tiles that cross the diagonal or a sequence end) and rounded to bf16
+//     in registers as the A operand of dQ += dS K, whose B operand is the
+//     K tile read MN-major. dQ is written in bf16 once.
 //
 // P and dS are rounded to bf16 as tensor-core operands; every sum is f32.
-#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
-
-template <int HD>
-struct Frag {
-  static constexpr int KK = HD / 16;  // k-steps over the head dimension
-  static constexpr int DT = HD / 8;   // n-tiles over the head dimension
-  static constexpr int kStride = HD + 8;
-  static constexpr int kTile = rltt::kTileRows * kStride;
-};
 
 template <int HD>
 struct Dkv {
@@ -266,125 +266,172 @@ flash_bwd_dkv(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const 
 }
 
 template <int HD>
-__global__ void __launch_bounds__(rltt::kFlashThreads)
-flash_bwd_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+struct Dq {
+  static constexpr int kWG = 2;        // consumer warpgroups
+  static constexpr int kM = 64 * kWG;  // query rows per block
+  static constexpr int kN = 64;        // keys per streamed K/V tile
+  static constexpr int kStages = 2;
+  static constexpr int kProducerRegs = 24;  // setmaxnreg: 128 x 24 + 256 x 240
+  static constexpr int kConsumerRegs = 240;  // fits the 384 x 168 the launch gets
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kQBytes = kM * HD * 2;   // one of Q or dO
+  static constexpr int kKVBytes = kN * HD * 2;  // one of K or V
+  static constexpr int kBars = 1 + 2 * kStages;
+  static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Dq<HD>::kThreads, 1)
+flash_bwd_dq(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
+             __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_do,
              const float* __restrict__ lse, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int Hkv, int causal,
-             int q_offset, float scale) {
-  using F = Frag<HD>;
-  constexpr int S = F::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][K | V]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int kvh = h / (H / Hkv);
-  const int i0 = qt * rltt::kTileRows;
+             int q_offset, float scale, float scale_log2) {
+  using namespace rltt::sm90;
+  using C = Dq<HD>;
+  unsigned char* smem = smem_base();
+  unsigned char* sq = smem;                     // [HD / 64][kM][64]
+  unsigned char* sdo = sq + C::kQBytes;         // the same for dO
+  unsigned char* skv = sdo + C::kQBytes;        // stage s: K then V, [HD / 64][kN][64] each
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + 2 * C::kStages * C::kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::kStages;
 
-  int qi[2];
-  bool live[2];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest causal walks first
+  const int kvh = h / (H / Hkv);
+  const int i0 = qt * C::kM;
+  const int n_tiles = kv_tiles_seen<C::kN>((Sk + C::kN - 1) / C::kN, causal, q_offset,
+                                           min(Sq, i0 + C::kM) - 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::kWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+      load_rows<HD>(sq, &tm_q, q_full, C::kM, h, i0, b);
+      load_rows<HD>(sdo, &tm_do, q_full, C::kM, h, i0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::kStages;
+        mbar_wait(&empty[s], ((t / C::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::kKVBytes);
+        unsigned char* sk = skv + s * 2 * C::kKVBytes;
+        load_rows<HD>(sk, &tm_k, &full[s], C::kN, kvh, t * C::kN, b);
+        load_rows<HD>(sk + C::kKVBytes, &tm_v, &full[s], C::kN, kvh, t * C::kN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  regs_inc<C::kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = i0 + cw * 64;            // this warpgroup's first query row
+  const int r_hi = min(Sq, r_lo + 64) - 1;  // and its last live one
+  // the rows' own lse (times log2 e) and delta stay in registers: a
+  // block's rows are fixed for its whole walk
+  int qi[2], hi[2];
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    qi[h2] = i0 + warp * 16 + g + 8 * h2;
-    live[h2] = qi[h2] < Sq;
+    qi[h2] = r_lo + warp * 16 + g + 8 * h2;
+    const bool live = qi[h2] < Sq;
+    hi[h2] = !live ? 0 : causal ? min(Sk, q_offset + qi[h2] + 1) : Sk;  // sees keys < hi
     const int64_t voff = ((int64_t)b * H + h) * Sq + qi[h2];
-    row_lse[h2] = live[h2] ? lse[voff] : 0.f;
-    row_delta[h2] = live[h2] ? delta[voff] : 0.f;
+    row_lse[h2] = live ? lse[voff] * kLog2e : 0.f;
+    row_delta[h2] = live ? delta[voff] : 0.f;
   }
-  // Q and dO fragments of rows g and g + 8 (zeros where not live)
-  uint32_t qf[F::KK][4], df[F::KK][4];
-  {
-    const __nv_bfloat16* qa = q + (((int64_t)b * Sq + (live[0] ? qi[0] : 0)) * H + h) * HD;
-    const __nv_bfloat16* qb = q + (((int64_t)b * Sq + (live[1] ? qi[1] : 0)) * H + h) * HD;
-    const __nv_bfloat16* da = dout + (qa - q);
-    const __nv_bfloat16* db = dout + (qb - q);
+  float acc[HD / 2];
 #pragma unroll
-    for (int kk = 0; kk < F::KK; ++kk) {
-      const int d = kk * 16 + tig * 2;
-      qf[kk][0] = live[0] ? rltt::ld2(qa + d) : 0u;
-      qf[kk][1] = live[1] ? rltt::ld2(qb + d) : 0u;
-      qf[kk][2] = live[0] ? rltt::ld2(qa + d + 8) : 0u;
-      qf[kk][3] = live[1] ? rltt::ld2(qb + d + 8) : 0u;
-      df[kk][0] = live[0] ? rltt::ld2(da + d) : 0u;
-      df[kk][1] = live[1] ? rltt::ld2(db + d) : 0u;
-      df[kk][2] = live[0] ? rltt::ld2(da + d + 8) : 0u;
-      df[kk][3] = live[1] ? rltt::ld2(db + d + 8) : 0u;
-    }
-  }
-  float dq_acc[F::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < F::DT; ++dt) dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(sq) + cw * 64 * 128;
+  const uint32_t do_addr = smem_u32(sdo) + cw * 64 * 128;
 
-  const int n_tiles = rltt::kv_tiles_seen((Sk + rltt::kTileRows - 1) / rltt::kTileRows,
-                                          causal, q_offset, min(Sq, i0 + rltt::kTileRows) - 1);
-  const int64_t kv_stride = (int64_t)Hkv * HD;
-  const __nv_bfloat16* kbase = k + ((int64_t)b * Sk * Hkv + kvh) * HD;
-  const __nv_bfloat16* vbase = v + ((int64_t)b * Sk * Hkv + kvh) * HD;
-  auto fetch = [&](int t) {
-    __nv_bfloat16* sk = smem + (t & 1) * 2 * F::kTile;
-    rltt::load_tile_async<HD>(sk, kbase, kv_stride, t * rltt::kTileRows, Sk);
-    rltt::load_tile_async<HD>(sk + F::kTile, vbase, kv_stride, t * rltt::kTileRows, Sk);
-    rltt::cp_async_commit();
-  };
-  if (n_tiles > 0) fetch(0);
+  mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      fetch(t + 1);
-      rltt::cp_async_wait<1>();
-    } else {
-      rltt::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sk = smem + (t & 1) * 2 * F::kTile;
-    const __nv_bfloat16* sv = sk + F::kTile;
-#pragma unroll 1
-    for (int sub = 0; sub < rltt::kTileRows / 16; ++sub) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
+    const int s = t % C::kStages;
+    mbar_wait(&full[s], (t / C::kStages) & 1);
+    const int kv0 = t * C::kN;
+    if (r_hi >= r_lo && (!causal || kv0 <= q_offset + r_hi)) {
+      const uint32_t k_addr = smem_u32(skv + s * 2 * C::kKVBytes);
+      const uint32_t v_addr = k_addr + C::kKVBytes;
+      float sc[C::kN / 2], dp[C::kN / 2];  // S and dP: 64 queries x kN keys
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int i = 0; i < C::kN / 2; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      // S = Q K^T and dP = dO V^T; P is computed while dP is on the
+      // tensor cores
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        const __nv_bfloat16* kr = sk + (sub * 16 + nt * 8 + g) * S + tig * 2;
-        const __nv_bfloat16* vr = sv + (sub * 16 + nt * 8 + g) * S + tig * 2;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(sc, desc_k(q_addr, C::kM, kk), desc_k(k_addr, C::kN, kk), 1);
+      wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < F::KK; ++kk) {
-          rltt::mma_bf16(s[nt], qf[kk], rltt::ld2(kr + kk * 16), rltt::ld2(kr + kk * 16 + 8));
-          rltt::mma_bf16(dp[nt], df[kk], rltt::ld2(vr + kk * 16), rltt::ld2(vr + kk * 16 + 8));
-        }
-      }
-      // element (query row g + 8 * h2, key sub * 16 + nt * 8 + tig * 2 + e)
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(dp, desc_k(do_addr, C::kM, kk), desc_k(v_addr, C::kN, kk), 1);
+      wgmma_commit();
+      fence_regs(dp);
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // element i = 4 j + 2 h2 + e: query qi[h2], key kv0 + 8 j + 2 t4 + e
+      const bool edge = kv0 + C::kN > Sk || r_lo + 64 > Sq ||
+                        (causal && q_offset + r_lo < kv0 + C::kN - 1);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int j = 0; j < C::kN / 8; ++j)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int key = t * rltt::kTileRows + sub * 16 + nt * 8 + tig * 2 + e;
-            const bool vis = live[h2] && key < Sk && (!causal || q_offset + qi[h2] >= key);
-            const float p = vis ? expf(s[nt][2 * h2 + e] * scale - row_lse[h2]) : 0.f;
-            dp[nt][2 * h2 + e] = p * (dp[nt][2 * h2 + e] - row_delta[h2]) * scale;
+            float& x = sc[4 * j + 2 * h2 + e];
+            const bool vis = !edge || kv0 + 8 * j + 2 * t4 + e < hi[h2];
+            x = vis ? exp2f(x * scale_log2 - row_lse[h2]) : 0.f;
           }
-      const uint32_t dsf[4] = {rltt::pack2(dp[0][0], dp[0][1]), rltt::pack2(dp[0][2], dp[0][3]),
-                               rltt::pack2(dp[1][0], dp[1][1]), rltt::pack2(dp[1][2], dp[1][3])};
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-      for (int dt = 0; dt < F::DT; ++dt) {
-        uint32_t b0, b1;
-        rltt::col_frag<HD>(sk, sub * 16, dt * 8 + g, tig, b0, b1);
-        rltt::mma_bf16(dq_acc[dt], dsf, b0, b1);
-      }
+      for (int j = 0; j < C::kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dp[i] = sc[i] * (dp[i] - row_delta[e >> 1]) * scale;
+        }
+
+      // dQ += dS K: dS from registers, K MN-major from shared memory
+      uint32_t df[C::kN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C::kN / 16; ++kk) to_a(dp, kk, df[kk]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::kN / 16; ++kk) wgmma_rs(acc, df[kk], desc_mn(k_addr, C::kN, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
+
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    if (!live[h2]) continue;
-    __nv_bfloat16* row = dq + (((int64_t)b * Sq + qi[h2]) * H + h) * HD + tig * 2;
+    if (qi[h2] >= Sq) continue;
+    __nv_bfloat16* row = dq + (((int64_t)b * Sq + qi[h2]) * H + h) * HD + 2 * t4;
 #pragma unroll
-    for (int dt = 0; dt < F::DT; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8) =
-          rltt::pack2(dq_acc[dt][2 * h2], dq_acc[dt][2 * h2 + 1]);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]);
   }
 }
 
@@ -413,15 +460,20 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int Sq, int Sk, int H, int Hkv, int causal,
               int q_offset, float scale, cudaStream_t stream) {
-  const int smem = 4 * Frag<HD>::kTile * (int)sizeof(__nv_bfloat16);
+  using C = Dq<HD>;
+  using rltt::sm90_host::rows_map;
   static bool configured = false;
-  if (int err = rltt::sm90_host::allow_smem(flash_bwd_dq<HD>, smem, configured)) return err;
-  const dim3 grid((Sq + rltt::kTileRows - 1) / rltt::kTileRows, H, B);
-  flash_bwd_dq<HD><<<grid, rltt::kFlashThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, Hkv, causal, q_offset, scale);
+  if (int err = rltt::sm90_host::allow_smem(flash_bwd_dq<HD>, C::kSmem, configured)) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = rows_map(&tq, q, B, Sq, H, HD, C::kM)) return err;
+  if (int err = rows_map(&tk, k, B, Sk, Hkv, HD, C::kN)) return err;
+  if (int err = rows_map(&tv, v, B, Sk, Hkv, HD, C::kN)) return err;
+  if (int err = rows_map(&tdo, dout, B, Sq, H, HD, C::kM)) return err;
+  const dim3 grid(H, B, (Sq + C::kM - 1) / C::kM);
+  flash_bwd_dq<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, Hkv, causal, q_offset, scale,
+      scale * rltt::sm90::kLog2e);
   return (int)cudaGetLastError();
 }
 

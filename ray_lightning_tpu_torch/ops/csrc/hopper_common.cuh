@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the redesigned flash-attention
-// kernels (flash_fwd.cu: forward; flash_bwd.cu: dK/dV): TMA tile loads
-// tracked by mbarriers, warpgroup matrix multiplies (wgmma) on operands in
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// (flash_fwd.cu: forward; flash_bwd.cu: dK/dV and dQ) and the paged
+// prefill (paged_prefill.cu): TMA tile loads tracked by mbarriers, cp.async
+// copies into the same swizzled layout (for tiles gathered through a block
+// table), warpgroup matrix multiplies (wgmma) on operands in
 // 128-byte-swizzled shared memory, and the register hand-over between a
 // producer warpgroup and its consumers (setmaxnreg).
 //
@@ -117,6 +119,40 @@ __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map, uin
   for (int x = 0; x < HD / kBoxCols; ++x)
     tma_load_4d(static_cast<unsigned char*>(dst) + x * rows * 128, map, bar, x * kBoxCols, head,
                 row0, b);
+}
+
+// ---- cp.async into the same layout ---------------------------------------------
+
+// Where 16-byte chunk c (of HD / 8) of row r lands in a [HD / 64][rows][64]
+// tile with the 128-byte swizzle, as TMA writes it: the chunk's index
+// within its 128-byte row is XORed with the row's index within its
+// 8-row atom.
+__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
+  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 16 bytes from device memory to shared address dst, or 16 zeros when
+// !pred (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes (st.shared, cp.async)
+// visible to the async proxy that wgmma reads its operands through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- warp specialisation -----------------------------------------------------

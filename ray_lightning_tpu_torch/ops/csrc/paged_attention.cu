@@ -23,8 +23,9 @@
 // hold visible positions, the next tile's loads in flight while this
 // tile's tensor-core products run (paged_common.cuh). Each block leaves an
 // unnormalised partial (acc, m, l) per query head in f32 scratch; a small
-// second kernel merges the n_split partials of each (slot, head) and
-// writes the bf16 output.
+// second kernel (paged_common.cuh `merge_partials`, shared with the
+// prefill) merges the n_split partials of each (slot, head) and writes the
+// bf16 output.
 #include "paged_common.cuh"
 
 namespace {
@@ -95,28 +96,6 @@ decode_partial(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Merge the n_split partials of one (slot, head): one thread per head-dim
-// element. An empty split holds m = -1e30, l = 0, acc = 0 and weighs
-// nothing; a head that saw nothing anywhere writes zeros.
-template <int HD>
-__global__ void __launch_bounds__(HD)
-decode_combine(const float* __restrict__ part_acc,
-               const float* __restrict__ part_ml, __nv_bfloat16* __restrict__ out,
-               int n_split) {
-  const int64_t row = blockIdx.x;  // c * H + h
-  const int d = threadIdx.x;
-  const float* ml = part_ml + row * n_split * 2;
-  float mx = rltt::kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml[2 * s]);
-  float l = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float wgt = expf(ml[2 * s] - mx);
-    l = fmaf(wgt, ml[2 * s + 1], l);
-    a = fmaf(wgt, part_acc[(row * n_split + s) * HD + d], a);
-  }
-  out[row * HD + d] = __float2bfloat16(l == 0.f ? 0.f : a / l);
-}
-
 template <int HD>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* tables, const void* lengths, const void* pad,
@@ -131,7 +110,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
       n_split, tps, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine<HD><<<C * H, HD, 0, stream>>>(
+  rltt::merge_partials<HD><<<C * H, HD, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<__nv_bfloat16*>(out), n_split);
   return (int)cudaGetLastError();

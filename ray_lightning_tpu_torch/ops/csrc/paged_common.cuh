@@ -1,14 +1,19 @@
 // Device code shared by the two paged-attention kernels
 // (paged_attention.cu: decode, paged_prefill.cu: chunked prefill).
 //
-// Both walk one KV head of one slot's (or group row's) cache in tiles of
-// 16 positions, looking each position's pool block up in the row's own
-// block table (what the TPU kernels got from scalar prefetch). A tile's K
-// and V are fetched into registers one tile ahead, then staged in shared
-// memory with padded rows. A warp owns 16 query rows, one m16 tile of the
-// tensor-core product (mma.sync m16n8k16, bf16 in, f32 accumulate); rows
-// are the query heads that share the KV head (GQA in place: each K/V tile
-// is read once for all of them), times the query tokens of a prefill tile.
+// Both may cut a row's cache walk into n_split ranges, each left by its
+// block as an unnormalised partial (acc, m, l) per query row in f32
+// scratch, [rows, n_split, HD] and [rows, n_split, 2]; `merge_partials`
+// combines them and writes the bf16 output.
+//
+// The rest serves the decode: it walks one KV head of one slot's cache in
+// tiles of 16 positions, looking each position's pool block up in the
+// slot's own block table (what the TPU kernel got from scalar prefetch).
+// A tile's K and V are fetched into registers one tile ahead, then staged
+// in shared memory with padded rows. A warp owns 16 query rows, one m16
+// tile of the tensor-core product (mma.sync m16n8k16, bf16 in, f32
+// accumulate); rows are the query heads that share the KV head (GQA in
+// place: each K/V tile is read once for all of them).
 //
 // Masking follows the TPU kernels: invisible scores take the -1e30
 // sentinel BEFORE the running max, and their probabilities are zeroed
@@ -196,5 +201,28 @@ struct WarpRows {
     }
   }
 };
+
+// Merge the n_split partials of one query row (blockIdx.x: a decode
+// slot's head, or a prefill token's head), one thread per head-dim
+// element; m is in natural-log units. An empty split holds m = -1e30,
+// l = 0, acc = 0 and weighs nothing; a row that saw nothing anywhere
+// writes zeros.
+template <int HD>
+__global__ void __launch_bounds__(HD)
+merge_partials(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+               __nv_bfloat16* __restrict__ out, int n_split) {
+  const int64_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = part_ml + row * n_split * 2;
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float wgt = expf(ml[2 * s] - mx);
+    l = fmaf(wgt, ml[2 * s + 1], l);
+    a = fmaf(wgt, part_acc[(row * n_split + s) * HD + d], a);
+  }
+  out[row * HD + d] = __float2bfloat16(l == 0.f ? 0.f : a / l);
+}
 
 }  // namespace rltt

@@ -7,11 +7,10 @@ The kernels (`ops/csrc/flash_fwd.cu`, `ops/csrc/flash_bwd.cu`) replace
 and `_bwd_dq_kernel`. All three are bound by operations on the H100 at
 the training shape (about 1000 FLOPs per byte read, against the card's
 ~295), so every product runs on the tensor cores, bf16 in, f32
-accumulate. The forward and dK/dV use Hopper's own machinery: a producer
-warpgroup fills a two-stage ring of tiles by TMA, tracked by mbarriers,
-and two consumer warpgroups multiply them with wgmma from swizzled shared
-memory, the probabilities passed on in registers. dQ keeps mma.sync with
-64-row tiles copied by cp.async two stages deep. The TPU kernels carry
+accumulate. All three use Hopper's own machinery: a producer warpgroup
+fills a two-stage ring of tiles by TMA, tracked by mbarriers, and two
+consumer warpgroups multiply them with wgmma from swizzled shared memory,
+the probabilities (and dS) passed on in registers. The TPU kernels carry
 their accumulators across a sequential grid axis; here one block owns an
 output tile and walks the other axis itself. dK/dV are summed over the
 GQA group inside the block, and dQ is a second pass with no atomics, as

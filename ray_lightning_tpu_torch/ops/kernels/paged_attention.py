@@ -73,7 +73,8 @@ def paged_attention_plain(q, pool_k, pool_v, tables, lengths, pad=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
+    """The card's streaming multiprocessors (the split plans' input)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -145,7 +146,7 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
     m = tables.shape[1]
     scale = scale if scale is not None else hd ** -0.5
     n_split, tps = split_plan(c, hkv, -(-m * p // TILE),
-                              _sm_count(q.device.index))
+                              sm_count(q.device.index))
     part_acc = torch.empty((c, h, n_split, hd), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((c, h, n_split, 2), dtype=torch.float32,

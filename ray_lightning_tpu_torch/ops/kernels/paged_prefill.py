@@ -1,13 +1,14 @@
 """Paged chunked-prefill attention: the CUDA kernel's wrapper, its plain
-PyTorch version and its Hopper shape gate.
+PyTorch version, its split plan and its Hopper shape gate.
 
 The kernel (`ops/csrc/paged_prefill.cu`) replaces
 `ray_lightning_tpu/ops/pallas/paged_prefill.py` `_prefill_kernel`: both
-products on the tensor cores (mma.sync), one thread block per (query
-tile, KV head, group row). The query tile is ``64 // n_rep`` tokens so
-that each block holds 64 query rows, 16 per warp, one m16n8k16 row
-block each (the TPU kernel's 128-token tile follows the TPU's matrix
-unit, not this card).
+products on wgmma, tiles copied by cp.async into swizzled shared memory.
+One thread block (one warpgroup) holds 64 query rows, ``64 // n_rep``
+chunk tokens times the n_rep query heads of one KV head (the TPU kernel's
+128-token tile follows the TPU's matrix unit, not this card), and walks
+one of ``n_split`` ranges of 64-position cache tiles; a merge kernel
+combines the ranges' partials, as the decode does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,13 @@ from typing import Optional
 import torch
 
 from ray_lightning_tpu_torch.ops import build
+from ray_lightning_tpu_torch.ops.kernels.paged_attention import sm_count
+
+#: cache positions per kernel tile
+TILE = 64
+#: tiles each split covers at least, so a split's fixed cost (its Q load
+#: and partial write) stays small against its K/V reads
+_MIN_TILES_PER_SPLIT = 2
 
 
 def q_tile(ch: int, n_rep: int) -> int:
@@ -24,11 +32,33 @@ def q_tile(ch: int, n_rep: int) -> int:
     return max(1, min(ch, 64 // n_rep))
 
 
+def split_plan(b: int, hkv: int, n_q_tiles: int, n_tiles: int, sms: int):
+    """(n_split, tiles per split) for B group rows x Hkv heads x
+    ``n_q_tiles`` query tiles over a walk of ``n_tiles`` 64-position
+    tiles: about four blocks per SM in all (two fit an SM at once), each
+    range at least two tiles long. One range needs no merge."""
+    want = max(1, -(-4 * sms // (b * hkv * n_q_tiles)))
+    n_split = max(1, min(want, n_tiles // _MIN_TILES_PER_SPLIT))
+    tps = -(-n_tiles // n_split)
+    return -(-n_tiles // tps), tps
+
+
+def launch_plan(b: int, ch: int, h: int, hkv: int, cache: int, pos: int,
+                sms: int):
+    """(query tokens per block, n_split, tiles per split) of one chunk:
+    the walk covers the 64-position tiles up to the chunk's last position
+    or the table's end (``cache`` = M * P positions), whichever is
+    first."""
+    bq = q_tile(ch, h // hkv)
+    n_tiles = max(1, -(-min(cache, pos + ch) // TILE))
+    return (bq, *split_plan(b, hkv, -(-ch // bq), n_tiles, sms))
+
+
 def paged_prefill_shapes_supported(q_shape, pool_shape) -> bool:
     """Would the prefill kernel accept these shapes? q [B, CH, H, hd],
     pool [n_blocks, P, Hkv, hd]: hd 64 or 128 (whole k-steps of 16),
-    any block size (the kernel walks the cache in 16-position tiles and
-    looks each position's block up), whole GQA ratio with at most 64
+    any block size (the kernel copies each cache position on its own,
+    looked up in the row's table), whole GQA ratio with at most 64
     query heads per KV head (one block's 64 rows)."""
     if len(q_shape) != 4 or len(pool_shape) != 4:
         return False
@@ -75,7 +105,7 @@ def _lib():
     lib = build.load("paged_prefill")
     fn = lib.paged_prefill_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -114,8 +144,9 @@ def paged_prefill_kernel(q: torch.Tensor, pool_k: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Chunked causal prefill attention over the paged pool,
     [B, CH, H, hd] out; ``pos`` is the host int write offset. CPU
-    tensors run `paged_prefill_plain`; CUDA tensors launch the kernel or
-    raise."""
+    tensors run `paged_prefill_plain`; CUDA tensors launch the kernel
+    (with a split walk two CUDA launches, partials and merge, counted as
+    one) or raise."""
     if not q.is_cuda:
         return paged_prefill_plain(q, pool_k, pool_v, tables, pos,
                                    pad=pad, scale=scale)
@@ -126,12 +157,22 @@ def paged_prefill_kernel(q: torch.Tensor, pool_k: torch.Tensor,
     _, p, hkv, _ = pool_k.shape
     m = tables.shape[1]
     scale = scale if scale is not None else hd ** -0.5
+    bq, n_split, tps = launch_plan(b, ch, h, hkv, m * p, int(pos),
+                                   sm_count(q.device.index))
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty((b, ch, h, n_split, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, ch, h, n_split, 2), dtype=torch.float32,
+                              device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                tables.data_ptr(), pad.data_ptr(), out.data_ptr(),
-                b, ch, h, hkv, hd, p, m, int(pos), q_tile(ch, h // hkv),
-                float(scale), stream)
+                tables.data_ptr(), pad.data_ptr(),
+                None if part_acc is None else part_acc.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(),
+                out.data_ptr(), b, ch, h, hkv, hd, p, m, int(pos), bq,
+                n_split, tps, float(scale), stream)
     build.check(rc, "paged_prefill_bf16")
     paged_prefill_kernel.launches += 1
     return out

@@ -46,9 +46,12 @@ from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
     split_plan,
 )
 from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+    TILE as PREFILL_TILE,
+    launch_plan as prefill_launch_plan,
     paged_prefill_kernel,
     paged_prefill_shapes_supported,
     q_tile,
+    split_plan as prefill_split_plan,
 )
 from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
 from ray_lightning_tpu_torch.ops.norms import rms_norm
@@ -225,6 +228,87 @@ def test_paged_prefill_pad_columns_emit_zeros(impl):
     np.testing.assert_allclose(out, want, **TOL)
     assert np.all(out[0] == 0.0) and np.all(out[1, :2] == 0.0)
     assert np.any(out[1, 2:] != 0.0) and np.all(np.isfinite(out))
+
+
+@pytest.mark.parametrize("b,hkv,n_q_tiles,n_tiles,want", [
+    (1, 8, 8, 64, (8, 8)),     # 8B serving chunk at pos 3968
+    (1, 8, 8, 18, (9, 2)),     # at pos 1024
+    (1, 8, 8, 2, (1, 2)),      # at pos 0: one range, no merge
+    (2, 8, 8, 64, (5, 13)),    # B 2 at pos 3968
+    (1, 1, 1, 1, (1, 1)),      # one tile
+    (1, 1, 1, 3, (1, 3)),      # more splits wanted than tiles allow
+    (3, 2, 2, 37, (13, 3)),    # ragged tail
+])
+def test_prefill_split_plan(b, hkv, n_q_tiles, n_tiles, want):
+    n_split, tps = prefill_split_plan(b, hkv, n_q_tiles, n_tiles, 132)
+    assert (n_split, tps) == want
+    # the ranges cover every tile, and the last one is not empty
+    assert n_split * tps >= n_tiles and (n_split - 1) * tps < n_tiles
+    assert tps >= min(2, n_tiles)
+
+
+def _split_merge_prefill(q, pk, pv, tables, pos, pad, n_split, span):
+    """The prefill kernel's split walk in plain f32: one unnormalised
+    partial (acc, m, l) per query row and range of ``span`` positions,
+    masked scores at the -1e30 sentinel and their probabilities zeroed,
+    then `merge_partials`' arithmetic (an empty range weighs nothing, a
+    row that saw nothing writes zeros)."""
+    b, ch, h, hd = q.shape
+    _, p, hkv, _ = pk.shape
+    m = tables.shape[1]
+    idx = tables.long()
+    k = pk[idx].reshape(b, m * p, hkv, hd)
+    v = pv[idx].reshape(b, m * p, hkv, hd)
+    qg = q.reshape(b, ch, hkv, h // hkv, hd)
+    s = torch.einsum("bjgrd,bkgd->bgrjk", qg, k) * hd ** -0.5
+    kv_pos = torch.arange(m * p)[None, None, :]
+    visible = (kv_pos <= (pos + torch.arange(ch))[None, :, None]) & (
+        kv_pos >= pad[:, None, None])
+    parts = []
+    for sp in range(n_split):
+        vis = (visible & (kv_pos >= sp * span)
+               & (kv_pos < (sp + 1) * span))[:, None, None]
+        s_sp = s.masked_fill(~vis, -1e30)
+        mx = s_sp.amax(dim=-1, keepdim=True)
+        pr = torch.exp(s_sp - mx) * vis
+        parts.append((torch.einsum("bgrjk,bkgd->bgrjd", pr, v), mx,
+                      pr.sum(dim=-1, keepdim=True)))
+    mx = torch.stack([mp for _, mp, _ in parts]).amax(dim=0)
+    acc = sum(torch.exp(mp - mx) * a for a, mp, _ in parts)
+    l = sum(torch.exp(mp - mx) * lp for _, mp, lp in parts)
+    o = torch.where(l == 0, torch.zeros_like(acc),
+                    acc / torch.where(l == 0, torch.ones_like(l), l))
+    return o.permute(0, 3, 1, 2, 4).reshape(b, ch, h, hd)
+
+
+@pytest.mark.parametrize("case", [
+    "plan", "one range", "more ranges than positions", "pad covers ranges",
+    "pad inside a range"])
+def test_prefill_split_merge_matches_pallas(case):
+    """Splitting the walk and merging the partials gives the Pallas
+    kernel's output: at the kernel's own 64-position tiles and split plan,
+    and at shorter ranges that leave whole ranges empty (past the table
+    or under the pad)."""
+    B, CH, H, hd, Hkv, P, M, N, pos = 2, 16, 8, 64, 2, 16, 20, 45, 250
+    pad = np.zeros(B, np.int32)
+    n_split, span = 1, M * P
+    if case == "plan":
+        _, n_split, tps = prefill_launch_plan(B, CH, H, Hkv, M * P, pos, 132)
+        span = tps * PREFILL_TILE
+        assert n_split > 1
+    elif case == "more ranges than positions":
+        n_split, span = 12, 32  # ranges 10-11 lie past the table's 320
+    elif case == "pad covers ranges":
+        n_split, span, pad[:] = 9, 32, (0, 100)  # row 1: ranges 0-2 empty
+    elif case == "pad inside a range":
+        n_split, span, pad[:] = 6, 48, (7, 60)
+    rng = np.random.default_rng(17)
+    q, pk, pv, tables = _prefill_case(rng, B, CH, H, hd, Hkv, P, M, N)
+    want = np.asarray(paged_prefill_pallas(
+        *map(jnp.asarray, (q, pk, pv, tables)), pos, pad=jnp.asarray(pad)))
+    got = _split_merge_prefill(_t(q), _t(pk), _t(pv), _t(tables), pos,
+                               _t(pad), n_split, span).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 # ---- dense SDPA, RMSNorm, RoPE, precision ----------------------------------
