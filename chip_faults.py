@@ -6,15 +6,16 @@ Each fault is one textual change to one kernel source. It is made in a
 copy of ``ray_lightning_tpu_torch/ops/csrc`` under
 ``ray_lightning_tpu_torch/ops/build/planted/<fault>/`` (git-ignored) and
 built from there; the sources themselves are never touched. A sound
-control (the sources as they are) runs first, then each fault. A paged
-(serving) fault goes through the serving checks:
+control (the sources as they are) runs first, then each fault. A paged or
+RMSNorm (serving) fault goes through the serving checks:
 
   kernels — the kernel against its plain version on chip_smoke's inputs,
-            per decode slot (lengths 4096 / 1537 / 700 / 33) and per
-            prefill case (offsets 0 / 1024 / 3968, and the two-row chunks
-            with a pad): the share of chip_smoke's
-            tolerance that the worst element uses (above 1 rejects),
-            beside its share of a flat |err| <= 2e-2 + 2e-2 |b|.
+            per decode slot (lengths 4096 / 1537 / 700 / 33), per prefill
+            case (offsets 0 / 1024 / 3968, and the two-row chunks with a
+            pad) and per RMSNorm case (chip_smoke's RMS_CASES): the share
+            of chip_smoke's tolerance that the worst element uses (above
+            1 rejects), beside its share of a flat |err| <= 2e-2 +
+            2e-2 |b|.
   lanes   — the greedy half of chip_smoke's requests served through the
             kernel lanes built from those sources, then chip_smoke's
             teacher-forced comparison with the reference lanes.
@@ -31,10 +32,13 @@ A flash (training) fault goes through the training checks:
 A mask that admits one position past the slot's length changes nothing
 at length 4096: the slot's table ends there. A dQ that reads KV head
 ``h % Hkv``, or a dK/dV that walks only the first query head of its GQA
-group, is right for MHA, where the group is one head. The merge of split
-partials is shared by the decode and the prefill (``paged_common.cuh``),
-so a merge that drops the last split shows in both; the prefill at
-position 0 walks one range and launches no merge.
+group, is right for MHA, where the group is one head. The prefill's
+merge of split partials (``paged_common.cuh``) is its own; the prefill at
+position 0 walks one range and launches no merge. The decode merges its
+ranges inside a cluster: at length 33 the one tile is the last range's,
+so a merge that drops the last range drops the whole slot. The serving
+model's RMSNorm gains are all one, so a kernel that ignores the gain
+shows only in the kernel check, whose gains are random.
 
 Prints one JSON line per run, then a summary line; exits 0 when the
 control passes both checks and the kernel check rejects every fault.
@@ -56,11 +60,15 @@ import chip_smoke as smoke
 #: fault -> (source file, text, the text planted in its place)
 FAULTS = {
     "decode_mask_off_by_one": (
-        "paged_attention.cu", "w.hi[h2] = length;",
-        "w.hi[h2] = length + 1;"),
+        "paged_attention.cu", "w.hi[h2] = hi;", "w.hi[h2] = hi + 1;"),
     "decode_last_tile_skipped": (
-        "paged_attention.cu", "(length + rltt::kKeys - 1) / rltt::kKeys);",
-        "(length + rltt::kKeys - 1) / rltt::kKeys - 1);"),
+        "paged_attention.cu", "n_tiles = run.y - run.x;",
+        "n_tiles = run.y - run.x - 1;"),
+    "decode_merge_drops_last_range": (
+        "paged_attention.cu", "      if (s < R) {", "      if (s < R - 1) {"),
+    "decode_range_plan_uncovers_a_tile": (
+        "paged_attention.cu", "(hi + kTile - 1) / kTile - t0",
+        "hi / kTile - t0"),
     "prefill_mask_off_by_one": (
         "paged_prefill.cu", "min(kv_limit, pos + j + 1)",
         "min(kv_limit, pos + j + 2)"),
@@ -73,6 +81,15 @@ FAULTS = {
     "prefill_merge_drops_last_split": (
         "paged_common.cuh", "for (int s = 0; s < n_split; ++s) {",
         "for (int s = 0; s < n_split - 1; ++s) {"),
+    "rms_sumsq_misses_scalar_tail": (
+        "rmsnorm.cu", "for (int j = tail + t; j < D; j += G) {  // the scalar tail",
+        "for (int j = D + t; j < D; j += G) {  // the scalar tail"),
+    "rms_sumsq_misses_last_vector": (
+        "rmsnorm.cu", "if (t + k * G < nvec) ss += xv[k].sumsq();",
+        "if (t + k * G < nvec - 1) ss += xv[k].sumsq();"),
+    "rms_w_ignored_on_one_vector": (
+        "rmsnorm.cu", "to_f(xv[k].v[e]) * rstd * to_f(wv[k].v[e])",
+        "to_f(xv[k].v[e]) * rstd * (i == 0 ? 1.f : to_f(wv[k].v[e]))"),
     "flash_fwd_mask_off_by_one": (
         "flash_fwd.cu", "min(Sk, q_offset + qi[h2] + 1) : Sk;",
         "min(Sk, q_offset + qi[h2] + 2) : Sk;"),
@@ -101,7 +118,7 @@ FAULTS = {
         "dp[i] = sc[i] * dp[i] * scale;"),
 }
 #: every kernel source, built together from the sources or a planted copy
-SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd"]
+SOURCES = smoke.SOURCES
 #: the flat tolerance, |err| <= FLAT + FLAT |b|, shown for comparison
 FLAT = 2e-2
 
@@ -140,7 +157,8 @@ def flat_share(got, want) -> float:
 
 
 class KernelCases:
-    """chip_smoke's decode and prefill inputs and their plain outputs."""
+    """chip_smoke's decode, prefill and RMSNorm inputs and their plain
+    outputs."""
 
     def __init__(self):
         from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
@@ -160,6 +178,14 @@ class KernelCases:
                         for pos, pad in self.prefill_cases]
         self.prefill_want = [paged_prefill_plain(*a, **kw)
                              for a, kw in self.prefill]
+        from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
+            rms_norm_plain)
+
+        self.rms = []
+        for n, d, wdt in smoke.RMS_CASES:
+            x, w = smoke.rms_inputs(gen, n, d, wdt)
+            self.rms.append((f"rms_norm N={n} D={d} w={wdt}".replace(
+                "torch.", ""), x, w, rms_norm_plain(x, w)))
 
     def shares(self):
         """{shape: (share of chip_smoke's tolerance, flat share)}"""
@@ -167,6 +193,8 @@ class KernelCases:
             paged_attention_kernel)
         from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
             paged_prefill_kernel)
+        from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
+            rms_norm_kernel)
 
         out = {}
         got = paged_attention_kernel(*self.decode[0], **self.decode[1])
@@ -180,6 +208,10 @@ class KernelCases:
             got = paged_prefill_kernel(*a, **kw)
             name = f"prefill pos={pos}" + (f" pad={list(pad)}" if any(pad)
                                            else "")
+            out[name] = (smoke.tolerance_ratio(got, want)[1],
+                         flat_share(got, want))
+        for name, x, w, want in self.rms:
+            got = rms_norm_kernel(x, w)
             out[name] = (smoke.tolerance_ratio(got, want)[1],
                          flat_share(got, want))
         return out

@@ -5,23 +5,33 @@ Phases, each of which raises (and so exits nonzero) on failure:
 
   1. device  — a CUDA card is required; prints ``nvidia-smi``'s name and
                power limit.
-  2. build   — compiles the CUDA kernels from ``ops/csrc`` (one nvcc per
-               source, all at once) and the Triton RMSNorm, timed.
+  2. build   — compiles the five CUDA sources of ``ops/csrc`` (one nvcc
+               per source, all at once), timed.
   3. kernels — each kernel's wrapper on card tensors at the serving and
                training shapes of Llama-3-8B, in bf16, against its plain
                PyTorch version on the same inputs, plus the masking edge
-               cases (for the prefill: two-row chunks whose pad covers
-               whole ranges of its split walk or falls inside one, pad
-               columns, a poisoned scratch block); the flash forward (O,
-               lse) and both backward
-               passes (dQ; dK, dV) at the training shape causal and
-               full, a query shard at an offset, MHA, a short sequence,
-               head dim 64, and queries that see no key (held to exact
-               zeros); the RMSNorm gradient. One JSON line per shape
-               with the kernel's, the plain version's and one library
-               call's time (and, for flash, the two backward kernels'
-               together), the least time the card could take, the max
-               error and the worst share of the tolerance used.
+               cases (for the decode: pads, a slot that sees nothing, a
+               poisoned scratch block, two calls that must be bitwise
+               equal, one CUDA launch a call; for the prefill: two-row
+               chunks whose pad covers whole ranges of its split walk or
+               falls inside one, pad columns, a poisoned scratch block);
+               the flash forward (O, lse) and both backward passes (dQ;
+               dK, dV) at the training shape causal and full, a query
+               shard at an offset, MHA, a short sequence, head dim 64,
+               and queries that see no key (held to exact zeros);
+               RMSNorm at N 4, 128 and 4096, with f32 and bf16 gains and
+               at a D with a scalar tail; the RMSNorm gradient. One JSON
+               line per timed shape with the kernel's, the plain
+               version's and one library call's time (and, for flash,
+               the two backward kernels' together), the least time the
+               card could take, the max error and the worst share of the
+               tolerance used; for the decode and RMSNorm also the host
+               microseconds of one wrapper call. Then, untimed, every
+               other shape the kernels' gates admit that the serving and
+               training shapes do not cover (decode and prefill: hd 64,
+               other GQA ratios, block sizes 5 / 24 / 32, lengths 0 and
+               1, a ragged chunk; flash: ragged lengths 1000 / 65 / 1
+               causal, full and at an offset, B 1, n_rep 2).
   4. serve   — Llama-3-8B at full width (random weights from a seeded
                generator) served by `Scheduler` + `DecodeEngine` through
                the kernel lanes: 8 requests, prompts of 200-1500 tokens,
@@ -49,9 +59,11 @@ The line before the last is the kernels' JSON summary; the last line is
 quicker check of the serve phase). Two other modes build the kernels and
 then only measure: ``--train-spread N`` runs phase 5's lane comparison at
 seeds 0..N-1 (the spread the train limits are set from), and ``--ab-old
-CSRC`` times the dQ and prefill kernels in turns with a build of older
-sources. ``chip_faults.py`` plants known faults in the kernels and runs
-these same checks on them.
+CSRC`` times the decode and RMSNorm (and, as a control on the turns,
+the dQ and prefill) in turns with a build of older sources.
+``chip_faults.py`` plants known faults in the kernels and runs these same
+checks on them; ``chip_variants.py`` times variants of the decode and
+RMSNorm sources.
 """
 from __future__ import annotations
 
@@ -99,7 +111,7 @@ LSE_ATOL = 1e-3
 #: |delta loss| and on |delta grad_norm| / grad_norm. The lanes differ in
 #: attention (the kernels round unnormalised probabilities and dS to bf16
 #: inside tiled sums, the reference its normalised probabilities) and in
-#: RMSNorm (Triton vs plain forward). About 1.5x the largest reading of
+#: RMSNorm (kernel vs plain forward). About 1.5x the largest reading of
 #: sound kernels over eight weight-and-data seeds (``--train-spread 8``),
 #: 1.36e-3 and 8.0e-3 (PERF.md); the planted faults read 9e-3 and 2.7% or
 #: more.
@@ -119,6 +131,43 @@ PREFILL_POS = (0, 1024, 3968)
 #: first ranges of the split walk whole (they merge as empty partials);
 #: at 1024 it falls inside a range
 PREFILL_PADS = ((3968, (0, 2100)), (1024, (0, 700)))
+#: decode shapes the gate admits beyond the serving one, checked untimed:
+#: name -> (H, Hkv, hd, P, M, lengths, pads); each table holds 4096
+#: positions or, at P 5, 4100
+DECODE_OWED = {
+    "hd 64": (H, HKV, 64, P, M, DECODE_LENGTHS, (0, 100, 17, 3)),
+    "n_rep 1": (HKV, HKV, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "n_rep 2": (2 * HKV, HKV, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "n_rep 8": (8 * HKV, HKV, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "n_rep 16": (H, 2, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "P 5": (H, HKV, HD, 5, 820, (4100, 1537, 700, 33), (0, 0, 9, 0)),
+    "P 32": (H, HKV, HD, 32, 128, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "length 1": (H, HKV, HD, P, M, (1, 4096, 2, 1), (0, 4095, 1, 0)),
+    "length 0": (H, HKV, HD, P, M, (0, 1537, 0, 33), (0, 0, 0, 0)),
+}
+#: prefill shapes beyond the serving one, checked untimed: name -> (CH,
+#: H, Hkv, hd, P, M, pos, one pad per row)
+PREFILL_OWED = {
+    "hd 64": (CH, H, HKV, 64, P, M, 1000, (0,)),
+    "n_rep 1": (CH, HKV, HKV, HD, P, M, 1000, (0,)),
+    "H 24 / Hkv 8": (CH, 24, HKV, HD, P, M, 1000, (0, 300)),
+    "P 5": (CH, H, HKV, HD, 5, 820, 3900, (0,)),
+    "P 24": (CH, H, HKV, HD, 24, 171, 1000, (0, 50)),
+    "P 32": (CH, H, HKV, HD, 32, 128, 3968, (0,)),
+    "CH 100": (100, H, HKV, HD, P, M, 1000, (0, 7)),
+}
+#: a massive activation, as Llama residual streams carry in a few channels:
+#: each RMSNorm check row holds it in three columns, so a kernel that drops
+#: any vector or scalar holding one from the sum of squares moves the whole
+#: row far past the tolerance (a dropped vector of unit-scale values moves
+#: the row by ~0.1%, below bf16's rounding)
+RMS_SPIKE = 50.0
+#: RMSNorm cases (N, D, gain dtype): the serving and training models keep
+#: their gains in f32; at D + 1 rows start at every 2-byte offset, so the
+#: kernel peels a scalar head and tail
+RMS_CASES = ((4, D, torch.float32), (4, D, torch.bfloat16),
+             (128, D, torch.float32), (4096, D, torch.float32),
+             (4, D + 1, torch.bfloat16), (4096, D + 1, torch.float32))
 
 
 def prefill_splits(b: int, pos: int) -> int:
@@ -127,6 +176,15 @@ def prefill_splits(b: int, pos: int) -> int:
     from ray_lightning_tpu_torch.ops.kernels.paged_attention import sm_count
 
     return pp.launch_plan(b, CH, H, HKV, M * P, pos, sm_count(0))[1]
+
+
+def rms_inputs(gen: torch.Generator, n: int, d: int, wdt):
+    """Seeded RMSNorm inputs: x [n, d] bf16 of unit scale with RMS_SPIKE
+    in the first, middle and last column, a gain [d] of ``wdt`` near one."""
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    x[:, [0, d // 2, d - 1]] = RMS_SPIKE
+    w = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    return x.to(torch.bfloat16), w.to(wdt)
 
 
 def log(msg: str) -> None:
@@ -156,6 +214,38 @@ def time_ms(fn, reps: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (a kernel wrapper): the card is
+    held busy by a sleep kernel, so the calls only enqueue and the time is
+    the host's own (checks, allocation, the launch call)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def kernel_profile(fn, calls: int = 1):
+    """{kernel name: {"launches", "ms"}} per call of ``fn`` over ``calls``
+    back-to-back calls after a warm-up, from torch.profiler's device
+    events: what ``fn`` launches and the kernels' own device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: dict(launches=e.count / calls,
+                             ms=e.self_device_time_total / 1e3 / calls)
+            for e in device_kernels(prof)}
 
 
 def bound(nbytes: float, flops: float):
@@ -197,17 +287,17 @@ def i32(x):
 
 
 class KernelInputs:
-    """Seeded bf16 inputs at the serving shapes: one pool of K and V
-    whose slots own distinct blocks in shuffled order (block 0, the
-    scratch block, is in no table)."""
+    """Seeded bf16 inputs, by default at the serving shapes: one pool of K
+    and V whose C slots own distinct blocks in shuffled order (block 0,
+    the scratch block, is in no table)."""
 
-    def __init__(self, gen: torch.Generator):
-        self.gen = gen
-        nb = 1 + C * M
-        self.pool_k = self.randn(nb, P, HKV, HD)
-        self.pool_v = self.randn(nb, P, HKV, HD)
+    def __init__(self, gen: torch.Generator, h=H, hkv=HKV, hd=HD, p=P, m=M):
+        self.gen, self.h, self.hd = gen, h, hd
+        nb = 1 + C * m
+        self.pool_k = self.randn(nb, p, hkv, hd)
+        self.pool_v = self.randn(nb, p, hkv, hd)
         perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
-        self.tables = perm[:C * M].reshape(C, M).to(torch.int32).contiguous()
+        self.tables = perm[:C * m].reshape(C, m).to(torch.int32).contiguous()
 
     def randn(self, *shape):
         return torch.randn(shape, generator=self.gen,
@@ -215,14 +305,22 @@ class KernelInputs:
 
     def decode(self, lengths, pad):
         """Arguments of one decode call over all C slots."""
-        return ((self.randn(C, H, HD), self.pool_k, self.pool_v,
+        return ((self.randn(C, self.h, self.hd), self.pool_k, self.pool_v,
                  self.tables, i32(list(lengths))), dict(pad=i32(list(pad))))
 
-    def prefill(self, pos, pad):
+    def prefill(self, pos, pad, ch=CH):
         """Arguments of one prefill chunk over the first len(pad) rows."""
         tab = self.tables[:len(pad)].contiguous()
-        return ((self.randn(len(pad), CH, H, HD), self.pool_k, self.pool_v,
-                 tab, pos), dict(pad=i32(list(pad))))
+        return ((self.randn(len(pad), ch, self.h, self.hd), self.pool_k,
+                 self.pool_v, tab, pos), dict(pad=i32(list(pad))))
+
+
+def decode_bytes(lengths, pad, hkv, hd, q_heads, m):
+    """Bytes the decode must move: q in and out once, each visible K and
+    V row once, the tables, lengths and pads."""
+    vis = sum(max(0, l - p) for l, p in zip(lengths, pad))
+    return (2 * len(lengths) * q_heads * hd * 2 + vis * hkv * hd * 2 * 2
+            + len(lengths) * m * 4 + 2 * len(lengths) * 4), vis
 
 
 def check_kernels(gen: torch.Generator):
@@ -239,11 +337,11 @@ def check_kernels(gen: torch.Generator):
     rows = []
 
     def record(kernel, shape, err, share, ms, plain_ms, lib_ms, nbytes,
-               flops):
+               flops, **extra):
         b_ms, b_by = bound(nbytes, flops)
         row = dict(kernel=kernel, shape=shape, max_abs_err=err,
                    tolerance_share=share, kernel_ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
         print(json.dumps(row), flush=True)
         rows.append(row)
 
@@ -255,6 +353,11 @@ def check_kernels(gen: torch.Generator):
                           f"paged_decode {name}")
         if not time_it:
             return got
+        if not torch.equal(got, paged_attention_kernel(*args, **kw)):
+            raise AssertionError("paged_decode: two calls differ")
+        launched = kernel_profile(lambda: paged_attention_kernel(*args, **kw))
+        if sum(k["launches"] for k in launched.values()) != 1:
+            raise AssertionError(f"paged_decode: launches {launched}, not one")
         ms = time_ms(lambda: paged_attention_kernel(*args, **kw))
         plain_ms = time_ms(lambda: paged_attention_plain(*args, **kw),
                            reps=5)
@@ -266,13 +369,13 @@ def check_kernels(gen: torch.Generator):
                 & (kv_pos[None] >= kw["pad"][:, None]))[:, None, None, :]
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], gk, gv, attn_mask=mask, enable_gqa=True))
-        vis = sum(max(0, l - p) for l, p in zip(lengths, pad))
-        nbytes = (2 * C * H * HD * 2 + vis * HKV * HD * 2 * 2
-                  + C * M * 4 + 2 * C * 4)
+        nbytes, vis = decode_bytes(lengths, pad, HKV, HD, H, M)
         record("paged_decode", dict(C=C, H=H, Hkv=HKV, hd=HD, P=P, M=M,
                                     lengths=list(lengths), pad=list(pad)),
                err, share, ms, plain_ms, lib_ms, nbytes,
-               4 * H * HD * vis)
+               4 * H * HD * vis,
+               launches_per_call={k: v["launches"] for k, v in launched.items()},
+               host_us=host_us(lambda: paged_attention_kernel(*args, **kw)))
         return got
 
     decode_case("ragged", DECODE_LENGTHS, [0, 0, 0, 0])
@@ -351,20 +454,56 @@ def check_kernels(gen: torch.Generator):
          "paged_prefill poison")
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError("paged_prefill: scratch poison leaked")
+    del inp, outs
 
-    # -- RMSNorm ----------------------------------------------------------
-    w = torch.randn(D, generator=gen, device="cuda")
-    for n in (128, 4):  # the last shape (decode's) is the summary's
-        x = inp.randn(n, D)
+    # -- RMSNorm: the serving shapes, the train shape, a scalar tail ------
+    for n, d, wdt in RMS_CASES:
+        x, w = rms_inputs(gen, n, d, wdt)
         got = rms_norm_kernel(x, w)
-        err, share = hold(got, rms_norm_plain(x, w), f"rms_norm N={n}")
+        err, share = hold(got, rms_norm_plain(x, w),
+                          f"rms_norm N={n} D={d} w {wdt}")
         ms = time_ms(lambda: rms_norm_kernel(x, w))
         plain_ms = time_ms(lambda: rms_norm_plain(x, w))
-        wb = w.to(torch.bfloat16)
-        lib_ms = time_ms(lambda: F.rms_norm(x, (D,), wb, 1e-5))
-        record("rms_norm", dict(N=n, D=D), err, share, ms, plain_ms,
-               lib_ms, 2 * n * D * 2 + D * 4, 4 * n * D)
+        wx = w.to(x.dtype)
+        lib_ms = time_ms(lambda: F.rms_norm(x, (d,), wx, 1e-5))
+        record("rms_norm", dict(N=n, D=d, w=str(wdt).split(".")[-1]), err,
+               share, ms, plain_ms, lib_ms,
+               2 * n * d * 2 + d * w.element_size(), 4 * n * d,
+               host_us=host_us(lambda: rms_norm_kernel(x, w)))
     return rows
+
+
+def check_owed(gen: torch.Generator):
+    """The decode and prefill at every shape of DECODE_OWED and
+    PREFILL_OWED against their plain versions, untimed; a slot of
+    length 0 must give exact zeros. One JSON line per shape."""
+    from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
+        paged_prefill_kernel, paged_prefill_plain)
+
+    for name, (h, hkv, hd, p, m, lengths, pad) in DECODE_OWED.items():
+        args, kw = KernelInputs(gen, h, hkv, hd, p, m).decode(lengths, pad)
+        got = paged_attention_kernel(*args, **kw)
+        err, share = hold(got, paged_attention_plain(*args, **kw),
+                          f"paged_decode {name}")
+        empty = [c for c, (l, pd) in enumerate(zip(lengths, pad)) if l <= pd]
+        if any(bool((got[c] != 0).any()) for c in empty):
+            raise AssertionError(f"paged_decode {name}: empty slot not zero")
+        print(json.dumps(dict(check="paged_decode", case=name, H=h, Hkv=hkv,
+                              hd=hd, P=p, M=m, lengths=list(lengths),
+                              pad=list(pad), max_abs_err=err,
+                              tolerance_share=share)), flush=True)
+    for name, (ch, h, hkv, hd, p, m, pos, pad) in PREFILL_OWED.items():
+        args, kw = KernelInputs(gen, h, hkv, hd, p, m).prefill(pos, pad, ch)
+        got = paged_prefill_kernel(*args, **kw)
+        err, share = hold(got, paged_prefill_plain(*args, **kw),
+                          f"paged_prefill {name}")
+        print(json.dumps(dict(check="paged_prefill", case=name, CH=ch,
+                              H=h, Hkv=hkv, hd=hd, P=p, M=m, pos=pos,
+                              pad=list(pad), max_abs_err=err,
+                              tolerance_share=share)), flush=True)
+    torch.cuda.empty_cache()
 
 
 # ---- phase 3b: flash attention and the RMSNorm gradient --------------------
@@ -384,6 +523,20 @@ FLASH_CASES = {
     "hd 64": (TB, TS, TS, TH, THKV, 64, True, 0),
     "empty rows": (TB, 256, 256, TH, THKV, HD, True, -64),
 }
+#: flash shapes the gate admits beyond FLASH_CASES, checked untimed (same
+#: fields): ragged lengths in the three modes (at an offset: the last
+#: half of the sequence's queries), B 1, n_rep 2
+FLASH_OWED = {
+    **{f"{mode} {n}": (1, sq, n, TH, THKV, HD, mode != "full", n - sq)
+       for n in (1000, 65, 1)
+       for mode, sq in (("causal", n), ("full", n), ("q_offset", -(-n // 2)))},
+    "n_rep 2": (TB, 512, 512, 16, 8, HD, True, 0),
+}
+#: at Sk = 1 every softmax has one key: P = 1 and dS = P (dP - delta) = 0,
+#: so dQ and dK are zero in exact arithmetic and both versions hold only
+#: the rounding of dP - delta (two f32 sums of the same products, ~1e-6);
+#: there they are held to this absolute bound, not to a share of a zero rms
+ZERO_GRAD_ATOL = 1e-4
 #: gradients are held with the rms of each head's [S, hd] slab: a
 #: gradient row can cancel to zero (dQ of the first query is exactly 0)
 #: while its rounding noise does not
@@ -556,8 +709,25 @@ def check_flash(gen: torch.Generator):
     return rows
 
 
+def check_flash_owed(gen: torch.Generator):
+    """The three flash kernels against their plain versions at every
+    shape of FLASH_OWED, untimed; one JSON line per shape."""
+    for name, dims in FLASH_OWED.items():
+        shares = FlashCase(gen, *dims).shares()
+        zero = ("dq", "dk") if dims[2] == 1 else ()
+        bad = {k: v for k, v in shares.items()
+               if not (v[0] <= ZERO_GRAD_ATOL if k in zero else v[1] <= 1.0)}
+        if bad:
+            raise AssertionError(f"flash {name}: out of tolerance {bad}")
+        print(json.dumps(dict(check="flash", case=name, shape=dims,
+                              max_abs_err={k: v[0] for k, v in shares.items()},
+                              tolerance_share={k: v[1] for k, v in
+                                               shares.items()})), flush=True)
+    torch.cuda.empty_cache()
+
+
 def check_rms_norm_grad(gen: torch.Generator):
-    """On a CUDA tensor `rms_norm` (the Triton forward) carries a grad_fn,
+    """On a CUDA tensor `rms_norm` (the CUDA forward) carries a grad_fn,
     and its dx and dw (the ported backward rule) match autograd through
     the plain version on the same inputs."""
     from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
@@ -1023,81 +1193,166 @@ def train_phase(seed: int):
     return launches
 
 
+def old_split_plan(c: int, hkv: int, n_tiles: int, sms: int):
+    """The parent build's decode plan: (n_split, tiles per split) over
+    ``n_tiles`` 16-position tiles, about sixteen one-warp blocks an SM."""
+    want = max(1, -(-16 * sms // (c * hkv)))
+    n_split = max(1, min(want, n_tiles // 2))
+    tps = -(-n_tiles // n_split)
+    return -(-n_tiles // tps), tps
+
+
 def ab_phase(old_csrc: str):
-    """Interleaved reading (old, new, new, old) of the redesigned flash dQ
-    and paged prefill at every shape chip_smoke checks them at, on the
-    same inputs in one process. The old build
-    comes from the sources in ``old_csrc`` (a copy of the ``ops/csrc`` of
-    the commit before the redesign), compiled into ``ops/build/ab_old/``;
-    its C entry points are called directly: ``flash_bwd_dq_bf16`` takes
-    the arguments it takes now, ``paged_prefill_bf16`` (q, pool_k,
-    pool_v, tables, pad, out, B, CH, H, Hkv, HD, P, M, pos, bq, scale,
-    stream)."""
+    """Interleaved reading (old, new, new, old) of the paged decode and
+    RMSNorm against a build of older sources, on the same inputs in one
+    process: ``old_csrc`` is a copy of an older commit's ``ops/csrc``,
+    with its ``ops/kernels/rmsnorm_triton.py`` beside it in
+    ``../kernels``. The dQ and prefill, whose sources this tree shares
+    with its parent, are timed the same way as a control on the turns.
+    Old kernels are called as their wrappers called them: the decode
+    through ``paged_decode_bf16`` (q, pool_k, pool_v, tables, lengths,
+    pad, part_acc, part_ml, out, C, H, Hkv, HD, P, M, n_split, tps,
+    scale, stream) with `old_split_plan`'s ranges and its f32 scratch,
+    RMSNorm through the Triton source's ``launch``. Also printed: the
+    host microseconds of one wrapper call, old and new, and where the
+    old and new decode's device time goes, by kernel."""
     import ctypes
+    import importlib.util
     import os
 
     from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, sm_count)
     from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
-        paged_prefill_kernel, q_tile)
+        launch_plan, paged_prefill_kernel)
+    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
 
     csrc, out = build.CSRC, build.BUILD
     build.CSRC, build.BUILD = old_csrc, os.path.join(out, "ab_old")
     try:
-        build.build_all(["flash_bwd", "paged_prefill"])
+        build.build_all(["flash_bwd", "paged_prefill", "paged_attention"])
         old_dq = ctypes.CDLL(build._lib_path("flash_bwd")).flash_bwd_dq_bf16
         old_pf = ctypes.CDLL(
             build._lib_path("paged_prefill")).paged_prefill_bf16
+        old_pd = ctypes.CDLL(
+            build._lib_path("paged_attention")).paged_decode_bf16
     finally:
         build.CSRC, build.BUILD = csrc, out
+    spec = importlib.util.spec_from_file_location("old_rmsnorm", os.path.join(
+        old_csrc, os.pardir, "kernels", "rmsnorm_triton.py"))
+    old_triton = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old_triton)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     old_dq.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, vp]
-    old_pf.argtypes = [vp] * 6 + [ci] * 9 + [ctypes.c_float, vp]
-    old_dq.restype = old_pf.restype = ci
+    old_pf.argtypes = [vp] * 8 + [ci] * 11 + [ctypes.c_float, vp]
+    old_pd.argtypes = [vp] * 9 + [ci] * 8 + [ctypes.c_float, vp]
+    old_dq.restype = old_pf.restype = old_pd.restype = ci
 
-    def turns(what, shape, old_fn, new_fn):
+    def turns(what, shape, old_fn, new_fn, host=False):
         t = [time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
         row = dict(ab=what, shape=shape, old_ms=[t[0], t[3]],
                    new_ms=[t[1], t[2]], old_over_new=(t[0] + t[3])
                    / (t[1] + t[2]))
+        if host:
+            h = [host_us(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+            row.update(old_host_us=[h[0], h[3]], new_host_us=[h[1], h[2]])
         print(json.dumps(row), flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    stream = torch.cuda.current_stream().cuda_stream
-    for name, dims in FLASH_CASES.items():
-        c = FlashCase(gen, *dims)
-        B, Sq, Sk, H_, Hkv, hd = c.shape
-        dq = torch.empty_like(c.q)
-        ptrs = [t.data_ptr() for t in (c.q, c.k, c.v, c.do, c.lse, c.delta,
-                                       dq)]
+    sms = sm_count(0)
 
-        def old_fn():
-            build.check(old_dq(*ptrs, B, Sq, Sk, H_, Hkv, hd, int(c.args[0]),
-                               c.args[1], hd ** -0.5, stream), "old dq")
-
-        old_fn()
-        hold(dq, c.dq_plain(), f"old dq {name}", SLAB)
-        turns("flash_bwd_dq", dict(case=name), old_fn, c.dq)
-        del c
-        torch.cuda.empty_cache()
-
-    inp = KernelInputs(gen)
-    for pos, pad in [(pos, (0,)) for pos in PREFILL_POS] + list(PREFILL_PADS):
-        args, kw = inp.prefill(pos, list(pad))
-        q, pool_k, pool_v, tab, _ = args
+    # -- the decode: the parent's host path and two kernels
+    def old_decode(q, pool_k, pool_v, tables, lengths, pad):
+        c, h, hd = q.shape
+        _, p, hkv, _ = pool_k.shape
+        m = tables.shape[1]
+        n_split, tps = old_split_plan(c, hkv, -(-m * p // 16), sms)
+        part_acc = torch.empty((c, h, n_split, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((c, h, n_split, 2), dtype=torch.float32,
+                              device=q.device)
         o = torch.empty_like(q)
-        b = len(pad)
-        ptrs = [t.data_ptr() for t in (q, pool_k, pool_v, tab, kw["pad"], o)]
+        build.check(old_pd(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                           tables.data_ptr(), lengths.data_ptr(),
+                           pad.data_ptr(), part_acc.data_ptr(),
+                           part_ml.data_ptr(), o.data_ptr(), c, h, hkv, hd, p,
+                           m, n_split, tps, hd ** -0.5,
+                           torch.cuda.current_stream(q.device).cuda_stream),
+                    "old decode")
+        return o
 
-        def old_fn():
-            build.check(old_pf(*ptrs, b, CH, H, HKV, HD, P, M, pos,
-                               q_tile(CH, H // HKV), HD ** -0.5, stream),
-                        "old prefill")
+    cases = {"serving": (H, HKV, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+             **DECODE_OWED}
+    for name, (h, hkv, hd, p, m, lengths, pad) in cases.items():
+        args, kw = KernelInputs(gen, h, hkv, hd, p, m).decode(lengths, pad)
+        hold(old_decode(*args, **kw), paged_attention_kernel(*args, **kw),
+             f"old decode {name}")
+        turns("paged_decode", dict(case=name),
+              lambda: old_decode(*args, **kw),
+              lambda: paged_attention_kernel(*args, **kw),
+              host=name == "serving")
+        if name == "serving":
+            print(json.dumps(dict(ab="paged_decode device ms by kernel",
+                                  old=kernel_profile(
+                                      lambda: old_decode(*args, **kw), 50),
+                                  new=kernel_profile(
+                                      lambda: paged_attention_kernel(
+                                          *args, **kw), 50))), flush=True)
+    torch.cuda.empty_cache()
 
-        old_fn()
-        hold(o, paged_prefill_kernel(*args, **kw), f"old prefill {pos}")
-        turns("paged_prefill", dict(B=b, pos=pos, pad=list(pad)), old_fn,
-              lambda: paged_prefill_kernel(*args, **kw))
+    # -- RMSNorm: the parent's Triton kernel
+    def old_rms(x, w):
+        o = torch.empty_like(x)
+        n = x.numel() // x.shape[-1]
+        old_triton.launch(x.view(n, -1), w, o.view(n, -1), 1e-5)
+        return o
+
+    for n, d, wdt in RMS_CASES:
+        x, w = rms_inputs(gen, n, d, wdt)
+        hold(old_rms(x, w), rms_norm_kernel(x, w), f"old rms_norm {n} {d}")
+        turns("rms_norm", dict(N=n, D=d, w=str(wdt).split(".")[-1]),
+              lambda: old_rms(x, w), lambda: rms_norm_kernel(x, w),
+              host=(n, d, wdt) == RMS_CASES[0])
+
+    # -- control: dQ and prefill, unchanged sources
+    stream = torch.cuda.current_stream().cuda_stream
+    c = FlashCase(gen, *FLASH_CASES["train causal"])
+    B, Sq, Sk, H_, Hkv, hd = c.shape
+    dq = torch.empty_like(c.q)
+    ptrs = [t.data_ptr() for t in (c.q, c.k, c.v, c.do, c.lse, c.delta, dq)]
+
+    def old_dq_fn():
+        build.check(old_dq(*ptrs, B, Sq, Sk, H_, Hkv, hd, int(c.args[0]),
+                           c.args[1], hd ** -0.5, stream), "old dq")
+
+    old_dq_fn()
+    hold(dq, c.dq_plain(), "old dq", SLAB)
+    turns("flash_bwd_dq (control)", dict(case="train causal"), old_dq_fn,
+          c.dq)
+    del c
+    torch.cuda.empty_cache()
+    inp = KernelInputs(gen)
+    pos = PREFILL_POS[-1]
+    args, kw = inp.prefill(pos, [0])
+    q, pool_k, pool_v, tab, _ = args
+    bq, n_split, tps = launch_plan(1, CH, H, HKV, M * P, pos, sms)
+    part_acc = torch.empty((1, CH, H, n_split, HD), dtype=torch.float32,
+                           device="cuda")
+    part_ml = torch.empty((1, CH, H, n_split, 2), dtype=torch.float32,
+                          device="cuda")
+    o = torch.empty_like(q)
+    ptrs = [t.data_ptr() for t in (q, pool_k, pool_v, tab, kw["pad"],
+                                   part_acc, part_ml, o)]
+
+    def old_pf_fn():
+        build.check(old_pf(*ptrs, 1, CH, H, HKV, HD, P, M, pos, bq, n_split,
+                           tps, HD ** -0.5, stream), "old prefill")
+
+    old_pf_fn()
+    hold(o, paged_prefill_kernel(*args, **kw), "old prefill")
+    turns("paged_prefill (control)", dict(B=1, pos=pos), old_pf_fn,
+          lambda: paged_prefill_kernel(*args, **kw))
 
 
 def train_spread(seeds):
@@ -1124,6 +1379,11 @@ def train_spread(seeds):
         loss_max_abs_diff=max(r["loss_max_abs_diff"] for r in readings),
         grad_norm_max_rel_diff=max(r["grad_norm_max_rel_diff"]
                                    for r in readings))), flush=True)
+
+
+#: every CUDA source the kernels are built from
+SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
+           "rmsnorm"]
 
 
 def all_kernels():
@@ -1155,9 +1415,9 @@ def main() -> int:
                     help="only build, then run the train lanes' comparison "
                          "at seeds 0..N-1 and print each seed's readings")
     ap.add_argument("--ab-old", metavar="CSRC",
-                    help="only build, then time the redesigned dQ and "
-                         "prefill in turns with an old build of the "
-                         "sources in CSRC")
+                    help="only build, then time the decode and RMSNorm "
+                         "(and the dQ and prefill) in turns with an old "
+                         "build of the sources in CSRC")
     args = ap.parse_args()
 
     # 1. device
@@ -1172,19 +1432,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build_all(["paged_attention", "paged_prefill", "flash_fwd",
-                     "flash_bwd"])
+    build.build_all(SOURCES)
     for name, text in build.build_logs.items():
         log(f"--- nvcc {name} ---\n{text}")
-    nvcc_s = time.perf_counter() - t0
-    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
-
-    t0 = time.perf_counter()
-    x = torch.ones(2, 4096, dtype=torch.bfloat16, device="cuda")
-    rms_norm_kernel(x, torch.ones(4096, device="cuda"))
-    torch.cuda.synchronize()
-    print(json.dumps(dict(phase="build", nvcc_s=nvcc_s,
-                          triton_s=time.perf_counter() - t0)), flush=True)
+    print(json.dumps(dict(phase="build", sources=SOURCES,
+                          nvcc_s=time.perf_counter() - t0)), flush=True)
     if args.train_spread:
         train_spread(range(args.train_spread))
         return 0
@@ -1196,6 +1448,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = check_kernels(gen) + check_flash(gen)
+    check_owed(gen)
+    check_flash_owed(gen)
     check_rms_norm_grad(gen)
 
     # 4. serving at full width, through the kernel lanes
@@ -1216,8 +1470,8 @@ def main() -> int:
         "paged_prefill": ("paged_prefill_kernel", "cuda",
                           "ray_lightning_tpu_torch/ops/csrc/paged_prefill.cu",
                           "ray_lightning_tpu/ops/pallas/paged_prefill.py:104"),
-        "rms_norm": ("rms_norm_kernel", "triton",
-                     "ray_lightning_tpu_torch/ops/kernels/rmsnorm_triton.py",
+        "rms_norm": ("rms_norm_kernel", "cuda",
+                     "ray_lightning_tpu_torch/ops/csrc/rmsnorm.cu",
                      "ray_lightning_tpu/ops/pallas/rmsnorm.py:20"),
         "flash_fwd": ("flash_fwd_kernel", "cuda",
                       "ray_lightning_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1232,12 +1486,11 @@ def main() -> int:
     summary = []
     for name, (fn, route, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
-        # decode ragged; prefill B 1 at 3968; RMSNorm N=4; flash: the
-        # training step's shape (the first case)
-        main_shape = mine[-1] if name in ("paged_decode", "rms_norm") else \
-            mine[0] if name.startswith("flash") else next(
-                r for r in mine if r["shape"]["B"] == 1
-                and r["shape"]["pos"] == PREFILL_POS[-1])
+        # decode ragged; prefill B 1 at 3968; RMSNorm N 4 (the decode's,
+        # f32 gains); flash: the training step's shape (the first case)
+        main_shape = mine[0] if name != "paged_prefill" else next(
+            r for r in mine if r["shape"]["B"] == 1
+            and r["shape"]["pos"] == PREFILL_POS[-1])
         summary.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[fn],

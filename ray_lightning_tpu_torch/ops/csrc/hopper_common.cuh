@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cu: forward; flash_bwd.cu: dK/dV and dQ) and the paged
-// prefill (paged_prefill.cu): TMA tile loads tracked by mbarriers, cp.async
+// (flash_fwd.cu: forward; flash_bwd.cu: dK/dV and dQ), the paged prefill
+// (paged_prefill.cu) and the paged decode (paged_attention.cu, which uses
+// only the mbarriers): TMA tile loads tracked by mbarriers, cp.async
 // copies into the same swizzled layout (for tiles gathered through a block
 // table), warpgroup matrix multiplies (wgmma) on operands in
 // 128-byte-swizzled shared memory, and the register hand-over between a

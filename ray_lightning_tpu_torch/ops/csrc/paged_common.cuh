@@ -1,19 +1,17 @@
 // Device code shared by the two paged-attention kernels
 // (paged_attention.cu: decode, paged_prefill.cu: chunked prefill).
 //
-// Both may cut a row's cache walk into n_split ranges, each left by its
-// block as an unnormalised partial (acc, m, l) per query row in f32
-// scratch, [rows, n_split, HD] and [rows, n_split, 2]; `merge_partials`
-// combines them and writes the bf16 output.
+// `merge_partials` serves the prefill, which may cut a row's cache walk
+// into n_split ranges, each left by its block as an unnormalised partial
+// (acc, m, l) per query row in f32 scratch, [rows, n_split, HD] and
+// [rows, n_split, 2]; it combines them and writes the bf16 output. (The
+// decode merges its ranges inside one cluster, in shared memory.)
 //
-// The rest serves the decode: it walks one KV head of one slot's cache in
-// tiles of 16 positions, looking each position's pool block up in the
-// slot's own block table (what the TPU kernel got from scalar prefetch).
-// A tile's K and V are fetched into registers one tile ahead, then staged
-// in shared memory with padded rows. A warp owns 16 query rows, one m16
-// tile of the tensor-core product (mma.sync m16n8k16, bf16 in, f32
-// accumulate); rows are the query heads that share the KV head (GQA in
-// place: each K/V tile is read once for all of them).
+// `WarpRows` serves the decode: a warp owns 16 query rows, one m16 tile of
+// the tensor-core product (mma.sync m16n8k16, bf16 in, f32 accumulate);
+// rows are the query heads that share the KV head (GQA in place: each K/V
+// tile is read once for all of them), and it folds in 16-position tiles
+// of K and V staged in shared memory with padded rows, read by ldmatrix.
 //
 // Masking follows the TPU kernels: invisible scores take the -1e30
 // sentinel BEFORE the running max, and their probabilities are zeroed
@@ -32,7 +30,6 @@ namespace rltt {
 
 constexpr float kNegInf = -1e30f;  // never true -inf: exp(-inf - -inf) = nan
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kKeys = 16;  // cache positions per tile
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -48,61 +45,30 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// One tile's K and V rows of KV head `kvh` (pool layout [n_blocks, P, Hkv,
-// HD]), fetched into registers ahead of use by `kThreads` threads, each
-// copying kPer 16-byte vectors of each, then stored to shared memory as
-// [kKeys][HD + 8] (the padding puts the fragment reads on distinct banks).
-template <int HD, int kThreads>
-struct TileFetch {
-  static constexpr int kVec = HD / 8;
-  static constexpr int kPer = kKeys * kVec / kThreads;
-  static constexpr int kStride = HD + 8;
-  static_assert(kPer * kThreads == kKeys * kVec, "threads must split a tile");
-  uint4 k[kPer], v[kPer];
+// Four 8x8 b16 matrices from shared memory: lane i gives the address of
+// row i % 8 of matrix i / 8, and gets in r[j] its fragment of matrix j
+// (rows lane / 4, columns 2 (lane % 4) and + 1; with .trans the matrix is
+// read transposed).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
 
-  __device__ __forceinline__ void fetch(const __nv_bfloat16* __restrict__ pool_k,
-                                        const __nv_bfloat16* __restrict__ pool_v,
-                                        const int* __restrict__ trow, int P,
-                                        int Hkv, int kvh, int t, int kv_limit) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int kv = t * kKeys + idx / kVec, vec = idx % kVec;
-      if (kv < kv_limit) {
-        const int64_t row = ((int64_t)trow[kv / P] * P + kv % P) * Hkv + kvh;
-        k[i] = __ldg(reinterpret_cast<const uint4*>(pool_k + row * HD) + vec);
-        v[i] = __ldg(reinterpret_cast<const uint4*>(pool_v + row * HD) + vec);
-      } else {  // past the table: zeros, masked anyway
-        k[i] = make_uint4(0, 0, 0, 0);
-        v[i] = k[i];
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(__nv_bfloat16* sk, __nv_bfloat16* sv) const {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int off = (idx / kVec) * kStride + (idx % kVec) * 8;
-      *reinterpret_cast<uint4*>(sk + off) = k[i];
-      *reinterpret_cast<uint4*>(sv + off) = v[i];
-    }
-  }
-};
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
 
 // One warp's 16 query rows: lane (g, tig) = (lane / 4, lane % 4) holds
 // fragment rows g and g + 8. Each row sees cache positions lo <= kv < hi.
+// Scores are kept pre-scaled by scale * log2(e), so m is in log2 units and
+// the exponentials are exp2f.
 template <int HD>
 struct WarpRows {
   static constexpr int KK = HD / 16;  // k-steps of the QK^T product
@@ -131,19 +97,23 @@ struct WarpRows {
     l[0] = l[1] = 0.f;
   }
 
-  // Fold the shared-memory tile at cache positions kv0 .. kv0 + 15 in.
+  // Fold in the 16 cache positions kv0 .. kv0 + 15 staged at sk and sv
+  // ([16][kStride] each); the K and V fragments come by ldmatrix.
   __device__ __forceinline__ void tile(const __nv_bfloat16* __restrict__ sk,
                                        const __nv_bfloat16* __restrict__ sv,
-                                       int kv0, int lo, float scale, int g,
-                                       int tig) {
+                                       int kv0, int lo, float scale_log2, int lane) {
+    const int g = lane >> 2, tig = lane & 3, r8 = lane & 7, mi = lane >> 3;
     float s[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {  // S = Q K^T, two n-tiles of 8 keys
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = sk + (nt * 8 + g) * kStride + tig * 2;
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-        mma_bf16(s[nt], qf[kk], ld2(kr + kk * 16), ld2(kr + kk * 16 + 8));
+      for (int k2 = 0; k2 < KK / 2; ++k2) {  // two k-steps a load
+        uint32_t b[4];
+        ldsm_x4(b, sk + (nt * 8 + r8) * kStride + k2 * 32 + mi * 8);
+        mma_bf16(s[nt], qf[2 * k2], b[0], b[1]);
+        mma_bf16(s[nt], qf[2 * k2 + 1], b[2], b[3]);
+      }
     }
     float corr[2];
 #pragma unroll
@@ -156,39 +126,44 @@ struct WarpRows {
           const int kv = kv0 + nt * 8 + tig * 2 + e;
           const bool vis = live[h2] && kv >= lo && kv < hi[h2];
           float& x = s[nt][2 * h2 + e];
-          x = vis ? x * scale : kNegInf;
+          x = vis ? x * scale_log2 : kNegInf;
           mx = fmaxf(mx, x);
         }
       }
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));  // the row's 4 lanes
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
       const float m_new = fmaxf(m[h2], mx);
-      corr[h2] = expf(m[h2] - m_new);
+      corr[h2] = exp2f(m[h2] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[nt][2 * h2 + e];
-          x = x == kNegInf ? 0.f : expf(x - m_new);
+          x = x == kNegInf ? 0.f : exp2f(x - m_new);
           sum += x;
         }
       }
       l[h2] = l[h2] * corr[h2] + sum;  // this lane's part; see reduce_l
       m[h2] = m_new;
     }
-    // O = O * corr + P V, P taken straight from the S fragments
+    // O = O * corr + P V, P taken straight from the S fragments, V's
+    // fragments by a transposing ldmatrix (two n-tiles a load)
     const uint32_t pf[4] = {pack2(s[0][0], s[0][1]), pack2(s[0][2], s[0][3]),
                             pack2(s[1][0], s[1][1]), pack2(s[1][2], s[1][3])};
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-      const __nv_bfloat16* vc = sv + (tig * 2) * kStride + dt * 8 + g;
-      mma_bf16(o[dt], pf, pack2(vc[0], vc[kStride]),
-               pack2(vc[8 * kStride], vc[9 * kStride]));
+    for (int d2 = 0; d2 < DT / 2; ++d2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, sv + ((mi & 1) * 8 + r8) * kStride + (2 * d2 + (mi >> 1)) * 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float(&od)[4] = o[2 * d2 + j];
+        od[0] *= corr[0];
+        od[1] *= corr[0];
+        od[2] *= corr[1];
+        od[3] *= corr[1];
+        mma_bf16(od, pf, b[2 * j], b[2 * j + 1]);
+      }
     }
   }
 

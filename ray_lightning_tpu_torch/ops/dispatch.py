@@ -1,7 +1,7 @@
 """Single home for the kernel-dispatch policy (twin of
 `ray_lightning_tpu/ops/dispatch.py`).
 
-An op takes its hand-written CUDA/Triton kernel exactly when its input
+An op takes its hand-written CUDA kernel exactly when its input
 lies on a CUDA device and nothing in the current context forces the
 plain reference path. There is no backend probe and no fallback: a
 kernel that cannot build or launch raises.

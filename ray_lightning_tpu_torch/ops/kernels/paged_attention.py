@@ -1,13 +1,14 @@
 """Paged decode attention: the CUDA kernel's wrapper, its plain PyTorch
-version and its Hopper shape gate.
+version, its launch plan (with a Python twin of the kernel's range
+arithmetic) and its Hopper shape gate.
 
 The kernel (`ops/csrc/paged_attention.cu`) replaces
 `ray_lightning_tpu/ops/pallas/paged_attention.py` `_decode_kernel`. It is
-bound by the bytes of the visible K/V it must read; its design (the cache
-split into ranges of 16-position tiles so a 4-slot decode still fills
-the card, one warp per range and KV head holding all of that head's
-query heads in one tensor-core row tile, a small merge kernel) is
-described in the source.
+bound by the bytes of the visible K/V it must read. One launch: each
+(slot, KV head) is a thread-block cluster of R blocks; each block cuts the
+slot's visible span into R runs of 64-position tiles from the lengths on
+the device, walks its own run with two tiles in flight, and the cluster
+merges its partials in shared memory (described in the source).
 """
 from __future__ import annotations
 
@@ -19,11 +20,11 @@ import torch
 
 from ray_lightning_tpu_torch.ops import build
 
-#: cache positions per kernel tile
-TILE = 16
-#: tiles each split covers at least, so a split's fixed cost (its q load
-#: and partial write) stays small against its K/V reads
-_MIN_TILES_PER_SPLIT = 2
+#: cache positions per kernel tile (16 for each of a block's four warps)
+TILE = 64
+#: blocks (ranges) per (slot, KV head) cluster at most; 8 is the portable
+#: cluster size, 16 the largest the card allows
+MAX_RANGES = 8
 
 
 def paged_shapes_supported(q_shape, pool_shape) -> bool:
@@ -74,26 +75,38 @@ def paged_attention_plain(q, pool_k, pool_v, tables, lengths, pad=None,
 
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
-    """The card's streaming multiprocessors (the split plans' input)."""
+    """The card's streaming multiprocessors (the launch plans' input)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(c: int, hkv: int, n_tiles: int, sms: int):
-    """(n_split, tiles per split) for C slots x Hkv heads over a cache of
-    ``n_tiles`` 16-position tiles: about sixteen single-warp blocks per
-    SM in all, so an SM has enough loads in flight to cover their
-    latency."""
-    want = max(1, -(-16 * sms // (c * hkv)))
-    n_split = max(1, min(want, n_tiles // _MIN_TILES_PER_SPLIT))
-    tps = -(-n_tiles // n_split)
-    return -(-n_tiles // tps), tps
+def decode_plan(c: int, hkv: int, cache: int, sms: int) -> int:
+    """R, the ranges (blocks of one cluster) of each (slot, KV head) for C
+    slots x Hkv heads over a table of ``cache`` positions: about two
+    blocks per SM in all (three fit an SM at once), at most `MAX_RANGES`,
+    and no more than the table has tiles. The lengths are on the device;
+    each block cuts its own run from them (`decode_ranges`)."""
+    want = -(-2 * sms // (c * hkv))
+    return max(1, min(MAX_RANGES, want, -(-cache // TILE)))
+
+
+def decode_ranges(length: int, pad: int, cache: int, ranges: int,
+                  tile: int = TILE):
+    """[(first tile, end tile)] that each of the ``ranges`` blocks of one
+    (slot, KV head) walks: the visible span [pad, length), cut to the
+    table's ``cache`` positions, in whole tiles, split into near-equal
+    runs in range order (twin of paged_attention.cu `run_of`)."""
+    lo, hi = max(pad, 0), max(0, min(length, cache))
+    t0 = lo // tile
+    n = -(-hi // tile) - t0 if hi > lo else 0
+    return [(t0 + r * n // ranges, t0 + (r + 1) * n // ranges)
+            for r in range(ranges)]
 
 
 def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_decode_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -121,6 +134,7 @@ def _check_cuda(q, pool_k, pool_v, tables, lengths, pad):
     c, h, hd = q.shape
     if not paged_shapes_supported(q.shape, pool_k.shape) or \
             pool_v.shape != pool_k.shape or tables.shape[0] != c or \
+            tables.dim() != 2 or tables.shape[1] < 1 or \
             lengths.shape != (c,) or pad.shape != (c,):
         raise ValueError(
             f"paged_attention: unsupported shapes q {tuple(q.shape)}, pool "
@@ -133,8 +147,8 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
                            pad: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over the paged pool, [C, H, hd] out. CPU tensors
-    run `paged_attention_plain`; CUDA tensors launch the kernel (two
-    CUDA launches: partials and merge, counted as one) or raise."""
+    run `paged_attention_plain`; CUDA tensors launch the kernel (one
+    CUDA launch) or raise."""
     if not q.is_cuda:
         return paged_attention_plain(q, pool_k, pool_v, tables, lengths,
                                      pad=pad, scale=scale)
@@ -145,18 +159,12 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
     _, p, hkv, _ = pool_k.shape
     m = tables.shape[1]
     scale = scale if scale is not None else hd ** -0.5
-    n_split, tps = split_plan(c, hkv, -(-m * p // TILE),
-                              sm_count(q.device.index))
-    part_acc = torch.empty((c, h, n_split, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((c, h, n_split, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), pad.data_ptr(),
-                part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                c, h, hkv, hd, p, m, n_split, tps, float(scale), stream)
+                out.data_ptr(), c, h, hkv, hd, p, m,
+                decode_plan(c, hkv, m * p, sm_count(q.device.index)),
+                float(scale), torch._C._cuda_getCurrentRawStream(q.device.index))
     build.check(rc, "paged_decode_bf16")
     paged_attention_kernel.launches += 1
     return out

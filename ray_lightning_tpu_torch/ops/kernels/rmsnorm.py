@@ -1,17 +1,11 @@
-"""Fused RMSNorm forward for Hopper (Triton).
+"""Fused RMSNorm forward for Hopper (CUDA C++).
 
 Replaces `ray_lightning_tpu/ops/pallas/rmsnorm.py` `_kernel` (driven by
 `_rmsnorm_fwd_2d`): ``x * rsqrt(mean(x^2) + eps) * w`` in f32, cast back
-to x's dtype.
-
-Bound on the H100: bytes. Per row it reads D activations and writes D
-(the gain vector stays in L2), a handful of FLOPs per element, so the
-least time is ``(2 * N * D * itemsize + D * 4) / 3.35 TB/s``. Design:
-one program per row holds the whole row (D = 4096 at 8B) in registers,
-so the activation is read from device memory exactly once and the
-normalised row written once; the mean of squares is one in-register
-reduction. The kernel source is `rmsnorm_triton.py`, imported only
-when a CUDA tensor arrives (this host may have no Triton).
+to x's dtype. The kernel (`ops/csrc/rmsnorm.cu`) is bound by bytes, and at
+the decode shape by its fixed costs; its design (every load issued before
+the reduction, 16-byte vectors with a scalar head and tail, one block a
+row) is described in the source.
 
 The gradient (`RMSNormFunction`) wraps this forward: its backward is the
 port of the JAX package's analytic `_bwd_rule` in plain PyTorch, on the
@@ -19,7 +13,14 @@ card too, as the JAX backward is jnp and not a Pallas kernel.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from ray_lightning_tpu_torch.ops import build
+
+#: the kernel's dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -31,12 +32,18 @@ def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
-def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis. CPU tensors run `rms_norm_plain`;
-    CUDA tensors launch the Triton kernel or raise."""
-    if not x.is_cuda:
-        return rms_norm_plain(x, weight, eps)
+def _lib():
+    fn = build.load("rmsnorm").rmsnorm_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(x: torch.Tensor, weight: torch.Tensor) -> None:
+    """Refuse what the kernel does not take: x bf16, f16 or f32; weight
+    [D] in x's dtype or f32, on x's device; both contiguous."""
     d = x.shape[-1]
     if weight.shape != (d,) or weight.device != x.device:
         raise ValueError(
@@ -44,19 +51,33 @@ def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor,
             f"does not match x {tuple(x.shape)} on {x.device}")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("rms_norm: x and weight must be contiguous")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _DTYPES:
         raise ValueError(f"rms_norm: unsupported dtype {x.dtype}")
-    from ray_lightning_tpu_torch.ops.kernels.rmsnorm_triton import launch
+    if weight.dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"rms_norm: weight dtype {weight.dtype} is neither "
+                         f"x's ({x.dtype}) nor float32")
 
+
+def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis. CPU tensors run `rms_norm_plain`;
+    CUDA tensors launch the CUDA kernel (one launch) or raise."""
+    if not x.is_cuda:
+        return rms_norm_plain(x, weight, eps)
+    _check_cuda(x, weight)
+    d = x.shape[-1]
     out = torch.empty_like(x)
-    n = x.numel() // d
+    n = x.numel() // d if d else 0
     if n:
-        launch(x.view(n, d), weight, out.view(n, d), eps)
+        rc = _lib()(x.data_ptr(), weight.data_ptr(), out.data_ptr(), n, d,
+                    _DTYPES[x.dtype], _DTYPES[weight.dtype], eps,
+                    torch._C._cuda_getCurrentRawStream(x.device.index))
+        build.check(rc, "rmsnorm_fwd")
         rms_norm_kernel.launches += 1
     return out
 
 
-#: launches of the Triton kernel since the last reset
+#: wrapper calls that launched the kernel since the last reset
 rms_norm_kernel.launches = 0
 
 
@@ -76,7 +97,7 @@ def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """RMSNorm whose forward is `rms_norm_kernel` (the Triton kernel on a
+    """RMSNorm whose forward is `rms_norm_kernel` (the CUDA kernel on a
     CUDA tensor) and whose backward is `rms_norm_bwd` (twin of the
     custom-vjp `_rmsnorm`). The kernel writes into a fresh tensor that
     autograd cannot see through; this function is what gives the norm

@@ -1,6 +1,6 @@
 """Normalization ops (twin of `ray_lightning_tpu/ops/norms.py`).
 
-`rms_norm` on a CUDA tensor runs the hand-written Triton kernel
+`rms_norm` on a CUDA tensor runs the hand-written CUDA kernel
 (`ops/kernels/rmsnorm.py`) through `RMSNormFunction`, whose backward is
 the JAX package's analytic rule; on a CPU tensor the same function runs
 the kernel's plain version. Under `dispatch.force_reference` it is the

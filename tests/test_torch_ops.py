@@ -4,7 +4,7 @@ The same numpy inputs go through the JAX function (Pallas kernels in
 interpret mode, as the JAX suite runs them) and the port's counterpart:
 the plain versions that the port's kernel wrappers run on CPU tensors,
 and the reference twins. f32 throughout, at the JAX suite's own
-tolerance (rtol = atol = 2e-5). The CUDA/Triton kernels themselves are
+tolerance (rtol = atol = 2e-5). The CUDA kernels themselves are
 held against these plain versions on the card by ``chip_smoke.py``."""
 from __future__ import annotations
 
@@ -41,9 +41,11 @@ from ray_lightning_tpu_torch.ops.attention import (
     paged_prefill_uses_kernel,
 )
 from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+    TILE as DECODE_TILE,
+    decode_plan,
+    decode_ranges,
     paged_attention_kernel,
     paged_shapes_supported,
-    split_plan,
 )
 from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
     TILE as PREFILL_TILE,
@@ -53,6 +55,7 @@ from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
     q_tile,
     split_plan as prefill_split_plan,
 )
+from ray_lightning_tpu_torch.ops.kernels import rmsnorm as rms_mod
 from ray_lightning_tpu_torch.ops.kernels.rmsnorm import rms_norm_kernel
 from ray_lightning_tpu_torch.ops.norms import rms_norm
 from ray_lightning_tpu_torch.ops.precision import linear_f32_out
@@ -147,6 +150,111 @@ def test_paged_decode_fully_masked_slot_is_zero(impl):
     pad = np.array([5, 0], np.int32)  # pad > length on slot 0
     out = _port_decode(impl, q, pk, pv, tables, lengths, pad)
     assert np.all(out[0] == 0.0) and np.all(np.isfinite(out))
+
+
+@pytest.mark.parametrize("length,pad,cache,ranges", [
+    (4096, 0, 4096, 8),     # the 8B smoke's full slot: 8 runs of 8 tiles
+    (1537, 0, 4096, 8),     # 25 tiles: runs of 3 and 4
+    (33, 0, 4096, 8),       # one tile: seven empty runs
+    (700, 130, 4096, 3),    # pad inside the first run's first tile
+    (0, 0, 4096, 4),        # length 0: every run empty
+    (50, 60, 4096, 4),      # pad past the length: every run empty
+    (5000, 0, 320, 16),     # length past the table, more runs than tiles
+])
+def test_decode_ranges_cover_the_span(length, pad, cache, ranges):
+    """The runs partition the span's tiles in range order, near-equal."""
+    runs = decode_ranges(length, pad, cache, ranges)
+    assert len(runs) == ranges
+    hi = min(length, cache)
+    want = (list(range(pad // DECODE_TILE, -(-hi // DECODE_TILE)))
+            if hi > pad else [])
+    assert [t for lo, end in runs for t in range(lo, end)] == want
+    sizes = [end - lo for lo, end in runs]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+
+
+def _merge(parts):
+    """`merge_partials`' arithmetic over (acc, m, l) partials, in order:
+    an empty partial (m = -1e30, l = 0) weighs nothing."""
+    mx = torch.stack([mp for _, mp, _ in parts]).amax(dim=0)
+    acc = sum(torch.exp(mp - mx) * a for a, mp, _ in parts)
+    l = sum(torch.exp(mp - mx) * lp for _, mp, lp in parts)
+    return acc, mx, l
+
+
+def _split_merge_decode(q, pk, pv, tables, lengths, pad, ranges, warps=4):
+    """The decode kernel's walk in plain f32: each of the ``ranges`` blocks
+    of a (slot, KV head) walks the run `decode_ranges` gives it, each of
+    its ``warps`` warps the same 16-position quarter of every 64-position
+    tile; an unnormalised partial (acc, m, l) per warp with masked scores
+    at the -1e30 sentinel and their probabilities zeroed; the warps merged
+    in order into the block's partial, the blocks in range order into the
+    output (a row that saw nothing writes zeros)."""
+    c, h, hd = q.shape
+    _, p, hkv, _ = pk.shape
+    m = tables.shape[1]
+    idx = tables.long()
+    k = pk[idx].reshape(c, m * p, hkv, hd)
+    v = pv[idx].reshape(c, m * p, hkv, hd)
+    s = torch.einsum("cgrd,ckgd->cgrk", q.reshape(c, hkv, h // hkv, hd),
+                     k) * hd ** -0.5
+    kv_pos = torch.arange(m * p)
+    quarter = (kv_pos % DECODE_TILE) // (DECODE_TILE // warps)
+    out = []
+    for ci in range(c):
+        visible = (kv_pos >= pad[ci]) & (kv_pos < lengths[ci])
+        blocks = []
+        for t_lo, t_hi in decode_ranges(int(lengths[ci]), int(pad[ci]),
+                                        m * p, ranges):
+            in_run = (kv_pos >= t_lo * DECODE_TILE) & (
+                kv_pos < t_hi * DECODE_TILE)
+            parts = []
+            for w in range(warps):
+                vis = visible & in_run & (quarter == w)
+                s_w = s[ci].masked_fill(~vis, -1e30)
+                mx = s_w.amax(dim=-1, keepdim=True)
+                pr = torch.exp(s_w - mx) * vis
+                parts.append((torch.einsum("grk,kgd->grd", pr, v[ci]), mx,
+                              pr.sum(dim=-1, keepdim=True)))
+            blocks.append(_merge(parts))
+        acc, _, l = _merge(blocks)
+        out.append(torch.where(l == 0, torch.zeros_like(acc),
+                               acc / torch.where(l == 0, torch.ones_like(l),
+                                                 l)))
+    return torch.stack(out).reshape(c, h, hd)
+
+
+@pytest.mark.parametrize("case", [
+    "plan", "empty runs", "pad inside a run", "length 0",
+    "more ranges than tiles"])
+def test_decode_split_merge_matches_pallas(case):
+    """Cutting each slot's visible span into the kernel's runs, each run
+    into its warps' quarters, and merging the partials gives the Pallas
+    kernel's output: at the plan's R, and at R that leaves runs empty
+    (short slots, a slot of length 0, more runs than tiles)."""
+    C, H, hd, Hkv, P, M, N = 4, 8, 64, 2, 16, 20, 45
+    lengths, pad = [320, 150, 77, 5], [0, 0, 0, 0]
+    ranges = decode_plan(C, Hkv, M * P, 132)
+    if case == "plan":
+        assert ranges == 5  # the table's five tiles
+    elif case == "empty runs":
+        ranges = 8
+    elif case == "pad inside a run":
+        lengths, pad, ranges = [320, 300, 200, 100], [7, 70, 130, 99], 3
+    elif case == "length 0":
+        lengths, ranges = [0, 64, 1, 320], 4
+    elif case == "more ranges than tiles":
+        lengths, ranges = [320, 40, 65, 128], 16
+    rng = np.random.default_rng(19)
+    q, pk, pv, tables, _ = _decode_case(rng, C, H, hd, Hkv, P, M, N)
+    lengths, pad = np.array(lengths, np.int32), np.array(pad, np.int32)
+    want = np.asarray(paged_attention_pallas(
+        *map(jnp.asarray, (q, pk, pv, tables, lengths)), jnp.asarray(pad)))
+    got = _split_merge_decode(_t(q), _t(pk), _t(pv), _t(tables), _t(lengths),
+                              _t(pad), ranges).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    if case == "length 0":
+        assert np.all(got[0] == 0.0)
 
 
 # ---- paged prefill ---------------------------------------------------------
@@ -436,10 +544,10 @@ def test_hopper_shape_gates(q_shape, pool_shape, decode_ok, prefill_ok):
 
 def test_kernel_tiling_plans():
     # 8B decode: 4 slots x 8 KV heads over 4096 positions on 132 SMs
-    assert split_plan(4, 8, 256, 132) == (64, 4)
-    assert split_plan(1, 1, 3, 132) == (1, 3)
-    n, tps = split_plan(3, 2, 37, 132)
-    assert n * tps >= 37 and (n - 1) * tps < 37
+    assert decode_plan(4, 8, 4096, 132) == 8
+    assert decode_plan(1, 1, 48, 132) == 1  # one tile
+    r = decode_plan(3, 2, 37 * 16, 132)
+    assert r == min(8, -(-37 * 16 // DECODE_TILE))
     assert q_tile(128, 4) == 16 and q_tile(4, 1) == 4 and q_tile(64, 32) == 2
 
 
@@ -477,6 +585,45 @@ def test_kernel_wrappers_validate_and_count_only_launches():
             build.build_all(["paged_attention"])
 
 
+@pytest.mark.parametrize("x_dtype,w_dtype,d,error", [
+    (torch.bfloat16, torch.bfloat16, 4096, None),   # serving gains
+    (torch.bfloat16, torch.float32, 4096, None),    # f32 masters
+    (torch.float16, torch.float16, 4096, None),
+    (torch.float16, torch.float32, 4097, None),     # a D with a scalar tail
+    (torch.float32, torch.float32, 100, None),
+    (torch.bfloat16, torch.float16, 4096, "weight dtype"),
+    (torch.float32, torch.bfloat16, 4096, "weight dtype"),
+    (torch.int32, torch.float32, 4096, "unsupported dtype"),
+])
+def test_rms_norm_wrapper_validates_dtypes(x_dtype, w_dtype, d, error):
+    """What `rms_norm_kernel` checks before it launches, on CPU tensors:
+    x bf16, f16 or f32, the gain in x's dtype or f32, any D."""
+    x = torch.ones(3, d, dtype=x_dtype)
+    w = torch.ones(d, dtype=w_dtype)
+    if error is None:
+        rms_mod._check_cuda(x, w)
+    else:
+        with pytest.raises(ValueError, match=error):
+            rms_mod._check_cuda(x, w)
+
+
+@pytest.mark.parametrize("case", ["D", "contiguity", "device"])
+def test_rms_norm_wrapper_refuses_layouts(case):
+    x = torch.ones(4, 64, dtype=torch.bfloat16)
+    w = torch.ones(64, dtype=torch.float32)
+    if case == "D":
+        w, match = torch.ones(63), "does not match"
+    elif case == "contiguity":
+        x, match = torch.ones(64, 4, dtype=torch.bfloat16).t(), "contiguous"
+    else:
+        w, match = torch.ones(64, device="meta"), "does not match"
+    with pytest.raises(ValueError, match=match):
+        rms_mod._check_cuda(x, w)
+    before = rms_norm_kernel.launches
+    rms_norm_kernel(torch.ones(4, 64), torch.ones(64))  # CPU: plain
+    assert rms_norm_kernel.launches == before
+
+
 # ---- the import rule -------------------------------------------------------
 
 
@@ -488,6 +635,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_faults.py")
+    yield os.path.join(REPO, "chip_variants.py")
 
 
 def test_port_imports_no_jax():
