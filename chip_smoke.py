@@ -52,6 +52,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
                and loss and grad_norm are compared at every step.
                Last, the kernel-lanes fit runs once more with its last
                steps under `torch.profiler`.
+  6. dist    — training across processes on the card (one rank: NCCL
+               refuses two ranks on one card): (a) phase 5's fit through
+               `fit_distributed(num_processes=1)` under `FSDP` in a worker
+               process; (b) the same fit under `DataParallel` in this
+               process (a one-rank NCCL group the strategy starts); (c) a
+               `fit_distributed` run that saves at step 4
+               (`ModelCheckpoint`, 23 GB of f32 weights and AdamW moments)
+               and a fresh one resumed from that checkpoint through step
+               8, with the bytes and the save, verify and restore
+               seconds; (d) the reference's MNIST matrix: fit with
+               `EarlyStopping` and `ModelCheckpoint` under `RayXlaPlugin`,
+               predict from the best checkpoint in a worker, load it here
+               and predict again. Every fit's per-step loss and grad_norm
+               must equal phase 5's single-device kernel lane exactly (the
+               same kernels at world size 1), and every fit's kernel
+               launches (counted in the worker, sent back over the side
+               channel) must match the counts its steps imply.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -69,14 +86,20 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+
+from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
+from ray_lightning_tpu_torch.models.llama import LlamaModule
 
 #: H100 SXM peaks (NVIDIA data sheet) for the least-time bound
 HBM_BYTES_PER_S = 3.35e12
@@ -1025,10 +1048,10 @@ class StepProbe:
         self.rows, self.t, self.callback = [], [], _CB()
 
 
-def train_once(cfg, tokens, seed: int, callbacks=()):
-    """One `Trainer.fit` of `LlamaModule` over ``tokens``; returns the
-    StepProbe, the fit's wall time, the peak device memory and the
-    parameter count."""
+def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
+    """One `Trainer.fit` of `LlamaModule` over ``tokens`` (``strategy``
+    default `SingleDevice()`); returns the StepProbe, the fit's wall
+    time, the peak device memory and the parameter count."""
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.llama import LlamaModule
@@ -1037,7 +1060,8 @@ def train_once(cfg, tokens, seed: int, callbacks=()):
     probe = StepProbe()
     module = LlamaModule(cfg, lr=3e-4, warmup_steps=2,
                          total_steps=TRAIN_STEPS)
-    trainer = Trainer(strategy=SingleDevice(), max_steps=TRAIN_STEPS,
+    trainer = Trainer(strategy=strategy or SingleDevice(),
+                      max_steps=TRAIN_STEPS,
                       log_every_n_steps=1, enable_checkpointing=False,
                       enable_progress_bar=False, seed=seed,
                       callbacks=[probe.callback, *callbacks])
@@ -1136,7 +1160,8 @@ def profile_train(cfg, tokens, seed: int, first: int = 3):
 
 
 def train_phase(seed: int):
-    """Returns the kernels' launch counts of the kernel-lanes fit."""
+    """Returns the kernels' launch counts of the kernel-lanes fit and its
+    per-step (loss, grad_norm)."""
     import numpy as np
 
     cfg, tokens = train_inputs(seed)
@@ -1190,7 +1215,375 @@ def train_phase(seed: int):
         raise AssertionError("train kernel vs reference lanes: "
                              + "; ".join(problems))
     profile_train(cfg, tokens, seed)
-    return launches
+    return launches, probe.rows
+
+# ---- phase 6: training across processes -------------------------------------
+#
+# The workers of `fit_distributed` import this file by its name
+# (`chip_smoke`; the standard pickle sends the factories below by
+# reference), so everything they run is defined at module level.
+
+#: the resume leg's first run stops and saves here; the second resumes
+RESUME_AT = 4
+#: limit of one `fit_distributed` call, in seconds
+DIST_TIMEOUT_S = 600
+#: where the phase writes its checkpoints (git-ignored; removed after)
+DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rlt_logs", "chip_smoke")
+
+
+#: what the workers' side-channel callables delivered (in the driver)
+RECEIVED = []
+
+
+def _receive(item) -> None:
+    RECEIVED.append(item)
+
+
+def _to_driver(item) -> None:
+    """Rank 0 sends ``item`` to the driver as a callable that the
+    driver's pump runs there (the side channel's trampoline)."""
+    from ray_lightning_tpu_torch.runtime import session
+
+    if session.get_actor_rank() == 0:
+        session.put_queue(functools.partial(_receive, item))
+
+
+class DistProbe(Callback):
+    """Runs in a worker: the per-step (step, loss, grad_norm) and the host
+    clock at each step's end (the metrics fetch at ``log_every_n_steps=1``
+    synchronises every step), the kernels' launches over the fit (zeroed
+    at its start, read at its end) and its peak device memory; rank 0
+    sends them to the driver when the fit ends."""
+
+    def on_fit_start(self, trainer, module):
+        for k in all_kernels():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        self.rows, self.t = [], [time.perf_counter()]
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        self.rows.append((trainer.global_step, float(metrics["loss"]),
+                          float(metrics["grad_norm"])))
+        self.t.append(time.perf_counter())
+
+    def on_fit_end(self, trainer, module):
+        import torch.distributed as dist
+
+        torch.cuda.synchronize()
+        _to_driver(dict(
+            kind="fit", rows=self.rows, t=self.t,
+            launches={k.__name__: k.launches for k in all_kernels()},
+            peak=torch.cuda.max_memory_allocated(),
+            strategy=type(trainer.strategy).__name__,
+            world=trainer.strategy.world_size,
+            backend=dist.get_backend(), device=str(trainer.strategy.device)))
+
+
+class TimedLlama(LlamaModule):
+    """`LlamaModule` that times a resume's restore in the worker: from
+    the optimizer's construction, which the trainer runs just before the
+    restore, to ``on_load_checkpoint``, which it runs just after."""
+
+    def configure_optimizers(self):
+        self._t_restore = time.perf_counter()
+        return super().configure_optimizers()
+
+    def on_load_checkpoint(self, checkpoint):
+        torch.cuda.synchronize()
+        _to_driver(dict(kind="restore",
+                        restore_s=time.perf_counter() - self._t_restore))
+
+
+class TimedCheckpoint(ModelCheckpoint):
+    """`ModelCheckpoint` that times each save (DCP write, barrier, digest
+    and meta.json) in the worker."""
+
+    def _maybe_save(self, trainer, module, metrics, step_based=False):
+        t0 = time.perf_counter()
+        super()._maybe_save(trainer, module, metrics, step_based)
+        _to_driver(dict(kind="save", step=trainer.global_step,
+                        path=self.best_model_path,
+                        save_s=time.perf_counter() - t0))
+
+
+def dist_module(seed: int):
+    cfg, _ = train_inputs(seed)
+    return TimedLlama(cfg, lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+
+def dist_trainer(strategy: str, max_steps: int, seed: int,
+                 ckpt_dir=None):
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import FSDP, DataParallel
+
+    callbacks = [DistProbe()]
+    if ckpt_dir is not None:
+        callbacks.append(TimedCheckpoint(dirpath=ckpt_dir,
+                                         every_n_train_steps=RESUME_AT,
+                                         save_top_k=-1))
+    return Trainer(strategy={"fsdp": FSDP, "ddp": DataParallel}[strategy](),
+                   max_steps=max_steps, log_every_n_steps=1,
+                   enable_checkpointing=False, enable_progress_bar=False,
+                   seed=seed, callbacks=callbacks)
+
+
+def dist_data(seed: int):
+    from ray_lightning_tpu_torch.core.data import DataLoader
+
+    _, tokens = train_inputs(seed)
+    return DataLoader({"tokens": tokens}, batch_size=TB)
+
+
+def free_card(what: str) -> None:
+    """Release the driver's cached device memory before a worker takes
+    the card, and say what is free."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(json.dumps(dict(phase="card_memory", before=what,
+                          free_gib=free / 2**30, total_gib=total / 2**30,
+                          driver_allocated_gib=torch.cuda.memory_allocated()
+                          / 2**30)), flush=True)
+
+
+def run_dist(kind: str, module_factory, trainer_factory, data_factory,
+             **kw):
+    """One `fit_distributed` / `predict_distributed` on one process (the
+    card's machine holds one card; NCCL refuses two ranks on it); returns
+    the result and the side channel's items by kind."""
+    import chip_smoke as me  # the module the trampoline's items land in
+    from ray_lightning_tpu_torch.runtime import fit as fit_mod
+
+    me.RECEIVED.clear()
+    t0 = time.perf_counter()
+    res = fit_mod.run_distributed(
+        kind, module_factory, trainer_factory, data_factory, 1,
+        timeout=DIST_TIMEOUT_S, log_dir=os.path.join(DIST_DIR, "workers"),
+        return_weights=False, **kw)
+    by_kind = {}
+    for item in me.RECEIVED:
+        by_kind.setdefault(item["kind"], []).append(item)
+    return res, by_kind, time.perf_counter() - t0
+
+
+def expected_launches(steps: int):
+    """The kernels' launches of ``steps`` train steps (phase 5's counts)."""
+    L = TRAIN_LAYERS
+    want = {k.__name__: 0 for k in all_kernels()}
+    want.update(flash_fwd_kernel=2 * L * steps,
+                flash_bwd_dkv_kernel=L * steps,
+                flash_bwd_dq_kernel=L * steps,
+                rms_norm_kernel=(4 * L + 1) * steps)
+    return want
+
+
+def same_steps(rows, ref_rows, what: str, problems: list):
+    """``rows`` [(loss, grad_norm)] against phase 5's single-device kernel
+    lane: the same kernels at world size 1 give the same numbers, so any
+    difference is a fault (no tolerance)."""
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(rows, ref_rows))
+    d_gn = max(abs(a[1] - b[1]) for a, b in zip(rows, ref_rows))
+    if len(rows) != len(ref_rows) or rows != ref_rows:
+        problems.append(f"{what}: per-step loss/grad_norm differ from the "
+                        f"single-device lane by {d_loss:.3g} / {d_gn:.3g}")
+    return d_loss, d_gn
+
+
+def fit_row(phase: str, probe: dict, wall: float, ref_rows, want,
+            problems: list, **extra):
+    rows = [(r[1], r[2]) for r in probe["rows"]]
+    d_loss, d_gn = same_steps(rows, ref_rows, phase, problems)
+    if probe["launches"] != want:
+        problems.append(f"{phase}: launches {probe['launches']} != {want}")
+    t = probe["t"]
+    steps = [b - a for a, b in zip(t[1:], t[2:])]
+    row = dict(
+        phase=phase, strategy=probe["strategy"], world=probe["world"],
+        backend=probe["backend"], device=probe["device"],
+        steps=[r[0] for r in probe["rows"]], losses=[r[0] for r in rows],
+        grad_norms=[r[1] for r in rows], loss_max_abs_diff=d_loss,
+        grad_norm_max_abs_diff=d_gn,
+        step_s_p50=statistics.median(steps) if steps else None,
+        max_memory_allocated_gib=probe["peak"] / 2**30,
+        launches=probe["launches"], call_wall_s=wall, **extra)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def dist_phase(seed: int, ref_rows):
+    """Phase 6; returns the kernels' launches over its four fits."""
+    import numpy as np
+
+    import chip_smoke as me  # the name the workers import
+    from ray_lightning_tpu_torch.checkpoint import verify_checkpoint
+    from ray_lightning_tpu_torch.checkpoint.io import compute_state_digest
+    from ray_lightning_tpu_torch.parallel.strategy import DataParallel
+
+    problems = []
+    total = {k.__name__: 0 for k in all_kernels()}
+    P = functools.partial
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+
+    # (a) fit_distributed, FSDP, one NCCL rank
+    free_card("dist_fsdp")
+    _, got, wall = run_dist("fit", P(me.dist_module, seed),
+                            P(me.dist_trainer, "fsdp", TRAIN_STEPS, seed),
+                            P(me.dist_data, seed))
+    fsdp = got["fit"][0]
+    fit_row("dist_fsdp", fsdp, wall, ref_rows, expected_launches(TRAIN_STEPS),
+            problems)
+    if fsdp["backend"] != "nccl":
+        problems.append(f"dist_fsdp ran on {fsdp['backend']}")
+    for k, v in fsdp["launches"].items():
+        total[k] += v
+
+    # (b) DataParallel in this process: a one-rank NCCL group the
+    # strategy starts itself
+    cfg, tokens = train_inputs(seed)
+    for k in all_kernels():
+        k.launches = 0
+    strategy = DataParallel()
+    probe, wall, peak, _ = train_once(cfg, tokens, seed, strategy=strategy)
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    strategy.teardown()
+    launches = {k.__name__: k.launches for k in all_kernels()}
+    for k, v in launches.items():
+        total[k] += v
+    fit_row("dist_ddp_in_process", dict(
+        rows=[(i + 1, *r) for i, r in enumerate(probe.rows)], t=probe.t,
+        launches=launches, peak=peak, strategy="DataParallel", world=1,
+        backend=backend, device="cuda:0"), wall, ref_rows,
+        expected_launches(TRAIN_STEPS), problems)
+    del probe, strategy
+
+    # (c) resume: save at RESUME_AT, resume in a fresh job from it
+    free_card("dist_resume")
+    ckdir = os.path.join(DIST_DIR, "ckpt")
+    disk = shutil.disk_usage(DIST_DIR)
+    # the JAX package's own digest knob for 8B-scale checkpoints:
+    # (relpath, size) of every file instead of 23 GB of sha256
+    env = {"RLT_CKPT_DIGEST": "size"}
+    _, got1, wall1 = run_dist("fit", P(me.dist_module, seed),
+                              P(me.dist_trainer, "fsdp", RESUME_AT, seed,
+                                ckdir), P(me.dist_data, seed), env=env)
+    save = got1["save"][0]
+    path = save["path"]
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    compute_state_digest(path, "size")
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok, reason = verify_checkpoint(path)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        problems.append(f"verify_checkpoint({path}): {reason}")
+    _, got2, wall2 = run_dist("fit", P(me.dist_module, seed),
+                              P(me.dist_trainer, "fsdp", TRAIN_STEPS, seed),
+                              P(me.dist_data, seed), ckpt_path=path, env=env)
+    first, resumed = got1["fit"][0], got2["fit"][0]
+    if [r[0] for r in resumed["rows"]] != list(
+            range(RESUME_AT + 1, TRAIN_STEPS + 1)):
+        problems.append(f"resume ran steps {[r[0] for r in resumed['rows']]}")
+    fsdp_rows = [(r[1], r[2]) for r in fsdp["rows"]]
+    fit_row("dist_resume_first", first, wall1, fsdp_rows[:RESUME_AT],
+            expected_launches(RESUME_AT), problems)
+    fit_row("dist_resume_second", resumed, wall2, fsdp_rows[RESUME_AT:],
+            expected_launches(TRAIN_STEPS - RESUME_AT), problems,
+            restore_s=got2["restore"][0]["restore_s"])
+    for probe in (first, resumed):
+        for k, v in probe["launches"].items():
+            total[k] += v
+    print(json.dumps(dict(
+        phase="dist_checkpoint", path=os.path.relpath(path, DIST_DIR),
+        bytes=nbytes, files=sum(len(fs) for _, _, fs in os.walk(path)),
+        save_s=save["save_s"], digest_mode="size", digest_s=digest_s,
+        verify_s=verify_s,
+        verify=reason, restore_s=got2["restore"][0]["restore_s"],
+        disk_total_gib=disk.total / 2**30, disk_free_gib=disk.free / 2**30,
+        disk_free_after_save_gib=shutil.disk_usage(DIST_DIR).free / 2**30)),
+        flush=True)
+    shutil.rmtree(ckdir)
+
+    # (d) the reference's matrix: fit, load the best checkpoint, predict
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.mlp import MNISTClassifier
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    mdir = os.path.join(DIST_DIR, "mnist")
+    res, _, wall = run_dist("fit", me.mnist_module,
+                            P(me.mnist_trainer, mdir), me.mnist_data)
+    best = res.best_model_path
+    pred, _, pwall = run_dist("predict", me.mnist_module,
+                              P(me.mnist_trainer, None), me.mnist_eval_data,
+                              ckpt_path=best)
+    # no device given: the port's default, the card
+    loaded = MNISTClassifier.load_from_checkpoint(best)
+    if next(loaded.model.parameters()).device.type != "cuda":
+        problems.append("load_from_checkpoint built the model on "
+                        f"{next(loaded.model.parameters()).device}")
+    local = Trainer(strategy=SingleDevice(), enable_checkpointing=False,
+                    enable_progress_bar=False).predict(
+        loaded, me.mnist_eval_data())
+    acc = float(np.mean(np.concatenate(local)
+                        == me.mnist_eval_data().data["y"]))
+    same = all(np.array_equal(a, b) for a, b in zip(pred.predictions, local))
+    if not (acc >= 0.5 and same and len(pred.predictions) == len(local)):
+        problems.append(f"mnist matrix: accuracy {acc}, reload predictions "
+                        f"equal the fit's: {same}")
+    print(json.dumps(dict(
+        phase="dist_mnist", best_model_path=os.path.relpath(best, DIST_DIR),
+        val_accuracy=res.metrics.get("ptl/val_accuracy"), accuracy=acc,
+        reload_equals_fit=same, fit_wall_s=wall, predict_wall_s=pwall)),
+        flush=True)
+    shutil.rmtree(DIST_DIR)
+    if problems:
+        raise AssertionError("distributed training: " + "; ".join(problems))
+    return total
+
+
+def mnist_module():
+    from ray_lightning_tpu_torch.models.mlp import MNISTClassifier
+
+    return MNISTClassifier(lr=1e-2)
+
+
+def mnist_trainer(ckpt_dir):
+    from ray_lightning_tpu_torch.core.callbacks import EarlyStopping
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import RayXlaPlugin
+
+    callbacks = []
+    if ckpt_dir is not None:
+        callbacks = [
+            EarlyStopping(monitor="ptl/val_accuracy", mode="max",
+                          patience=2),
+            ModelCheckpoint(dirpath=ckpt_dir, monitor="ptl/val_accuracy",
+                            mode="max")]
+    return Trainer(strategy=RayXlaPlugin(num_workers=1), max_epochs=3,
+                   enable_checkpointing=False, enable_progress_bar=False,
+                   callbacks=callbacks, seed=SEED)
+
+
+def mnist_data():
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.models.mlp import synthetic_mnist
+
+    data = synthetic_mnist(1024, seed=SEED)
+    return (DataLoader(data, batch_size=32, shuffle=True, seed=SEED),
+            DataLoader(data, batch_size=32))
+
+
+def mnist_eval_data():
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.models.mlp import synthetic_mnist
+
+    return DataLoader(synthetic_mnist(1024, seed=SEED), batch_size=32)
 
 
 def old_split_plan(c: int, hkv: int, n_tiles: int, sms: int):
@@ -1458,11 +1851,16 @@ def main() -> int:
     # 5. training at full width, 4 layers deep
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train_phase(SEED)
+    train_launches, train_rows = train_phase(SEED)
 
-    # each kernel's launches on the path that runs it (RMSNorm: both)
+    # 6. training across processes: fit_distributed under FSDP,
+    # DataParallel in this process, a checkpoint and its resume, and the
+    # MNIST train/load/predict matrix
+    dist_launches = dist_phase(SEED, train_rows)
+
+    # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
-                for k in train_launches}
+                + dist_launches[k] for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/paged_attention.cu",

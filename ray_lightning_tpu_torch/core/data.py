@@ -3,8 +3,10 @@
 
 Batches are dicts (or tuples) of numpy arrays with a leading batch axis;
 the strategy moves them to the device. ``drop_last`` defaults to True so
-every step sees one shape. The native prefetching batcher and
-`ensure_sharded` (multi-process sharding) are not ported yet.
+every step sees one shape. In a multi-process job each process yields
+only its shard (the DistributedSampler semantics), which
+`ensure_sharded` forces onto the loaders. The native prefetching batcher
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ class DataLoader:
         num_shards: int = 1,
         shard_index: int = 0,
         prefetch: bool = False,
+        sharded_externally: bool = False,
     ):
         if prefetch:
             raise NotImplementedError(
@@ -41,6 +44,9 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_shards = num_shards
         self.shard_index = shard_index
+        #: ``data`` already holds or yields just THIS process's rows;
+        #: `ensure_sharded` then leaves the loader alone
+        self.sharded_externally = sharded_externally
         self._epoch = 0
         self._stream = callable(data)
         if self._stream:
@@ -118,3 +124,59 @@ def _tree_take(data, idx):
     if isinstance(data, (tuple, list)):
         return type(data)(np.asarray(v)[idx] for v in data)
     return np.asarray(data)[idx]
+
+
+def resolve_loaders(module, data) -> tuple:
+    """Accept a DataModule or (train, val) iterables and normalize."""
+    if isinstance(data, DataModule):
+        data.setup()
+        return data.train_dataloader(), data.val_dataloader()
+    return data, None
+
+
+def ensure_sharded(loader: Any, num_shards: int, shard_index: int,
+                   stage: str = "train") -> Any:
+    """Force distributed shard semantics onto a loader (the reference's
+    forced DistributedSampler, ray_ddp.py:293-303): forgetting them would
+    have every process train on identical rows, silently.
+
+    Returns the loader with ``num_shards``/``shard_index`` set. Raises on
+    anything it cannot make safe:
+      * a `DataLoader` already sharded differently;
+      * a streaming `DataLoader`, unless constructed with
+        ``sharded_externally=True``;
+      * a plain iterable (list/generator), which has no shard handle.
+    """
+    if loader is None or num_shards <= 1:
+        return loader
+    if isinstance(loader, DataLoader):
+        if loader.sharded_externally:
+            return loader
+        if loader._stream:
+            raise ValueError(
+                f"streaming {stage} DataLoader in a {num_shards}-process "
+                "job: the data callable is opaque, so per-process "
+                "sharding cannot be injected. Make the callable yield "
+                "only this process's rows (torch.distributed.get_rank()) "
+                "and construct the DataLoader with sharded_externally=True."
+            )
+        if loader.num_shards == 1:
+            loader.num_shards = num_shards
+            loader.shard_index = shard_index
+            return loader
+        if (loader.num_shards == num_shards
+                and loader.shard_index == shard_index):
+            return loader
+        raise ValueError(
+            f"{stage} DataLoader is sharded {loader.shard_index}/"
+            f"{loader.num_shards} but this job runs as process "
+            f"{shard_index}/{num_shards}. Drop the manual num_shards/"
+            "shard_index arguments (the distributed launcher injects "
+            "them) or make them match the job."
+        )
+    raise TypeError(
+        f"{stage} data in a {num_shards}-process job must be a "
+        f"ray_lightning_tpu_torch DataLoader (got {type(loader).__name__}): "
+        "a plain iterable has no shard handle, so every process would "
+        "train on identical rows. Wrap the data in DataLoader(...)."
+    )

@@ -152,10 +152,28 @@ class TpuModule:
         self.hparams.update(kwargs)
 
     @classmethod
-    def load_from_checkpoint(cls, path: str, **override_hparams):
-        raise NotImplementedError(
-            "load_from_checkpoint needs checkpoint/io, which is not ported "
-            "yet (ROADMAP Queue 1 item 5)")
+    def load_from_checkpoint(cls, path: str, device=None,
+                             **override_hparams) -> "TpuModule":
+        """Rebuild a module from a checkpoint directory: the hparams from
+        its meta.json (overridden by ``override_hparams``), then the
+        weights read into the model, built on ``device`` (None: the CUDA
+        card, raising without one; ``"cpu"`` for the CPU). Parity:
+        `Model.load_from_checkpoint(best_model_path)` in the reference
+        tests (tests/utils.py:184-189)."""
+        from ray_lightning_tpu_torch.checkpoint import load_checkpoint
+        from ray_lightning_tpu_torch.utils.devices import resolve_device
+
+        ckpt = load_checkpoint(path)
+        hparams = dict(ckpt.get("hparams") or {})
+        hparams.update(override_hparams)
+        module = cls(**hparams)
+        module.device = resolve_device(device)
+        module.setup()
+        with torch.no_grad():
+            module.model.load_state_dict(ckpt["params"], strict=True)
+        module.params = dict(module.model.named_parameters())
+        module.on_load_checkpoint(ckpt)
+        return module
 
     def __call__(self, *args, **kwargs):
         if self.params is None:

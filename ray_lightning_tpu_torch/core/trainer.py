@@ -12,28 +12,45 @@ the optimizer and schedule updates, issued in order on the device:
     as ``optax.clip_by_global_norm`` (no epsilon);
   * the step's metrics carry ``loss`` and ``grad_norm`` (of the unclipped
     gradients) and stay on the device; they are fetched to the host only
-    every ``log_every_n_steps`` and at the end of an epoch.
+    every ``log_every_n_steps`` and at the end of an epoch, averaged over
+    the data-parallel ranks first, so every rank holds the JAX trainer's
+    global values and takes the same callback decisions.
+
+The strategy wraps the model (DDP, FSDP2) after its weights are in and
+before ``configure_optimizers``, so the optimizer holds the wrapped
+parameters. Checkpoints (`save_checkpoint`, ``fit(ckpt_path=)``,
+`ModelCheckpoint`) resume as the JAX trainer does: one saved inside an
+epoch replays the rest of that epoch, one saved at its end starts the
+next.
 
 Knobs whose machinery is not ported yet raise `NotImplementedError` when
 set, naming the ROADMAP item: ``guard``, ``telemetry``, ``profile``,
-``profiler_dir``, ``compile_cache_dir``, ``enable_checkpointing=True``
-(the default, as in JAX: callers in this slice pass False) and
-``ckpt_path``.
+``profiler_dir`` and ``compile_cache_dir``.
 """
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from ray_lightning_tpu_torch.core.callbacks import Callback, ProgressLogger
+from ray_lightning_tpu_torch.checkpoint.io import wait_for_checkpoints
+from ray_lightning_tpu_torch.core.callbacks import (
+    Callback,
+    ModelCheckpoint,
+    ProgressLogger,
+)
 from ray_lightning_tpu_torch.core.data import DataModule
 from ray_lightning_tpu_torch.core.module import TpuModule
 from ray_lightning_tpu_torch.core.state import TrainState
 from ray_lightning_tpu_torch.parallel.strategy import SingleDevice, Strategy
+from ray_lightning_tpu_torch.utils.dist import (  # noqa: F401 (re-exported)
+    clip_by_global_norm_,
+    global_norm,
+)
 from ray_lightning_tpu_torch.utils.seeding import seed_everything
 
 log = logging.getLogger(__name__)
@@ -45,7 +62,6 @@ _NOT_PORTED = {
     "profile": "Queue 1 item 11 (telemetry/profiler.py)",
     "profiler_dir": "Queue 1 item 11 (telemetry/profiler.py)",
     "compile_cache_dir": "Queue 1 item 7 (pipeline/compile_cache.py)",
-    "enable_checkpointing": "Queue 1 item 5 (checkpoint/io.py)",
 }
 
 
@@ -87,8 +103,7 @@ class Trainer:
         for knob, value in (("guard", guard), ("telemetry", telemetry),
                             ("profile", profile),
                             ("profiler_dir", profiler_dir),
-                            ("compile_cache_dir", compile_cache_dir),
-                            ("enable_checkpointing", enable_checkpointing)):
+                            ("compile_cache_dir", compile_cache_dir)):
             if value:
                 raise _not_ported(knob)
         if precision not in ("f32", "bf16"):
@@ -107,7 +122,8 @@ class Trainer:
         self.gradient_clip_val = gradient_clip_val
         self.precision = precision
         self.seed = seed
-        self.default_root_dir = default_root_dir
+        self.default_root_dir = default_root_dir or os.path.join(
+            os.getcwd(), "rlt_logs")
         self.num_sanity_val_steps = num_sanity_val_steps
         # Eager PyTorch has no ahead-of-time step to warm, so warm_start
         # changes nothing here; the device-prefetch stage that
@@ -117,6 +133,9 @@ class Trainer:
         self.warm_start = warm_start
 
         self.callbacks: List[Callback] = list(callbacks or [])
+        if enable_checkpointing and not any(
+                isinstance(c, ModelCheckpoint) for c in self.callbacks):
+            self.callbacks.append(ModelCheckpoint())
         if enable_progress_bar and not any(
                 isinstance(c, ProgressLogger) for c in self.callbacks):
             self.callbacks.append(ProgressLogger(log_every_n_steps))
@@ -129,11 +148,24 @@ class Trainer:
         self.should_stop = False
         self.has_validation = False
         self._last_val_step = -1
+        # mid-epoch bookkeeping for checkpoint/resume: whether we are
+        # inside a partially consumed train epoch, how many batches of it
+        # ran, and how many to skip after a mid-epoch resume
+        self._mid_epoch = False
+        self._epoch_batches_done = 0
+        self._resume_skip_batches = 0
         self.last_batch_size: Optional[int] = None
         self._seed = 0
         self.is_fitted = False
 
     # ------------------------------------------------------------------ fit
+
+    @property
+    def checkpoint_callback(self) -> Optional[ModelCheckpoint]:
+        for c in self.callbacks:
+            if isinstance(c, ModelCheckpoint):
+                return c
+        return None
 
     def fit(
         self,
@@ -143,10 +175,6 @@ class Trainer:
         datamodule: Optional[DataModule] = None,
         ckpt_path: Optional[str] = None,
     ) -> Dict[str, Any]:
-        if ckpt_path:
-            raise NotImplementedError(
-                "fit(ckpt_path=...) is not ported yet (ROADMAP Queue 1 "
-                "item 5, checkpoint/io.py)")
         self._seed = seed_everything(self.seed)
         self.module = module
         module.trainer = self
@@ -161,10 +189,11 @@ class Trainer:
             raise ValueError("fit() needs train_dataloaders or a datamodule")
         self.has_validation = val_dataloaders is not None
         example_batch, train_dataloaders = self._peek(train_dataloaders)
-        self.state = self._init_state(module, example_batch)
+        self.state = self._init_state(module, example_batch, ckpt_path)
 
         module.on_fit_start(self)
         self._invoke("on_fit_start")
+        fit_error: Optional[BaseException] = None
         try:
             if self.num_sanity_val_steps and self.has_validation:
                 self._run_eval_epoch(val_dataloaders, module.validation_step,
@@ -172,9 +201,20 @@ class Trainer:
                                      sanity=True)
             self._fit_loop(train_dataloaders, val_dataloaders)
         except BaseException as exc:  # surface to callbacks, then re-raise
+            fit_error = exc
             self._invoke("on_exception", exc)
             raise
         finally:
+            # join in-flight async checkpoint writes; a deferred write
+            # error must not displace a training exception, but on the
+            # success path it IS the failure (best_model_path must never
+            # point at an unfinalized checkpoint)
+            try:
+                wait_for_checkpoints()
+            except Exception:  # noqa: BLE001
+                if fit_error is None:
+                    raise
+                log.exception("async checkpoint write failed")
             # the caller's module holds the trained weights (JAX :291)
             if self.state is not None:
                 module.params = self.state.params
@@ -203,19 +243,34 @@ class Trainer:
 
     def _run_train_epoch(self, loader, val_loader=None) -> None:
         pending: Dict[str, Any] = {}
-        for batch_idx, batch in enumerate(loader):
+        # mid-epoch resume: fast-forward past the batches the checkpoint
+        # had consumed (loaders reshuffle per epoch from their seed, so
+        # the offsets are stable)
+        skip = self._resume_skip_batches
+        self._resume_skip_batches = 0
+        self._mid_epoch = True
+        self._epoch_batches_done = skip
+        it = iter(loader)
+        for _ in range(skip):
+            if next(it, None) is None:
+                break
+        completed = False
+        for batch_idx, batch in enumerate(it, start=skip):
             if (self.limit_train_batches is not None
-                    and batch_idx >= self.limit_train_batches):
+                    and self._epoch_batches_done >= self.limit_train_batches):
+                # the limit defines the epoch's length: completion
+                completed = True
                 break
             self.last_batch_size = _leading_dim(batch)
             device_batch = self._place_train_batch(batch)
             device_batch = self._invoke_batch_start(device_batch, batch_idx)
             metrics = self._train_step(device_batch)
             self.global_step += 1
+            self._epoch_batches_done += 1
             pending = metrics
             # lazy metric fetch: a host sync only on the logging cadence
             if self.global_step % max(1, self.log_every_n_steps) == 0:
-                pending = _to_host(metrics)
+                pending = self._host_metrics(metrics)
                 self.callback_metrics.update(pending)
             self._invoke("on_train_batch_end", pending, batch_idx)
             if (self.val_check_interval and self.has_validation
@@ -224,8 +279,21 @@ class Trainer:
                 self._validate_now(val_loader)
             if self.should_stop or self._hit_max_steps():
                 break
+        else:
+            completed = True
+        if completed:
+            # every batch of this epoch ran: later saves (epoch-end
+            # validation, on_train_epoch_end) resume at the NEXT epoch
+            self._mid_epoch = False
         if pending:
-            self.callback_metrics.update(_to_host(pending))
+            self.callback_metrics.update(self._host_metrics(pending))
+
+    def _host_metrics(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """Device metrics averaged over the data-parallel ranks, on the
+        host (host values pass through)."""
+        if any(isinstance(v, torch.Tensor) for v in metrics.values()):
+            metrics = self.strategy.reduce_mean(metrics)
+        return _to_host(metrics)
 
     def _validate_now(self, val_loader) -> None:
         metrics = self._run_eval_epoch(val_loader,
@@ -268,9 +336,10 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in trainable]
-        grad_norm = global_norm(grads)
+        grad_norm = self.strategy.global_norm(grads)
         if self.gradient_clip_val:
-            clip_by_global_norm_(grads, grad_norm, self.gradient_clip_val)
+            clip_by_global_norm_(self.strategy.local_tensors(grads),
+                                 grad_norm, self.gradient_clip_val)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -316,8 +385,14 @@ class Trainer:
                 weights += bs
         if sanity or weights == 0:
             return {}
-        host = _to_host(totals)
-        return {k: float(v) / weights for k, v in host.items()}
+        # batch-size-weighted sums over every data-parallel rank
+        keys = sorted(totals)
+        sums = self.strategy.reduce_sum(torch.stack(
+            [totals[k] for k in keys] + [torch.tensor(
+                weights, dtype=torch.float32,
+                device=totals[keys[0]].device)]))
+        host = _host_array(sums)
+        return {k: float(v) / float(host[-1]) for k, v in zip(keys, host)}
 
     def validate(self, module: Optional[TpuModule] = None, dataloaders=None,
                  datamodule: Optional[DataModule] = None) -> Dict[str, float]:
@@ -357,9 +432,87 @@ class Trainer:
         return outs
 
     def save_checkpoint(self, path: str, block: bool = True) -> str:
-        raise NotImplementedError(
-            "save_checkpoint is not ported yet (ROADMAP Queue 1 item 5, "
-            "checkpoint/io.py)")
+        """The model, optimizer and schedule state (DCP, each rank its
+        own shards; every rank must call this) and the trainer's place in
+        the run (meta.json)."""
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+
+        from ray_lightning_tpu_torch.checkpoint.io import (
+            io_stats,
+            save_checkpoint,
+            sharding_provenance,
+        )
+
+        state = self.state
+        if state is None:
+            raise RuntimeError("nothing to save; fit first")
+        meta = {
+            "epoch": self.current_epoch,
+            "global_step": self.global_step,
+            # a mid-epoch save records the batch offset, so resume
+            # replays the REST of the epoch instead of skipping it
+            "mid_epoch": self._mid_epoch,
+            "epoch_batch": self._epoch_batches_done,
+            "module_class": type(self.module).__name__,
+            "hparams": self.module.hparams,
+            # no trainguard yet: every checkpoint is blessed
+            "blessed": True,
+        }
+        if state.optimizer is not None:
+            params, opt_state = get_state_dict(self.module.model,
+                                               state.optimizer)
+        else:
+            params, opt_state = state.model.state_dict(), {}
+        checkpoint = {"params": params, "opt_state": opt_state,
+                      "step": state.step}
+        if state.scheduler is not None:
+            checkpoint["scheduler"] = state.scheduler.state_dict()
+        meta.update(sharding_provenance(self.strategy.mesh, state.params))
+        self.module.on_save_checkpoint(checkpoint)
+        self._invoke("on_save_checkpoint", checkpoint)
+        out = save_checkpoint(path, checkpoint, meta, block=block)
+        self.callback_metrics.update(io_stats())
+        return out
+
+    def _restore(self, ckpt_path: str, state: TrainState) -> None:
+        """Load a checkpoint into the freshly built state, in place."""
+        from torch.distributed.checkpoint.state_dict import (
+            get_state_dict,
+            set_state_dict,
+        )
+
+        from ray_lightning_tpu_torch.checkpoint.io import (
+            read_meta,
+            restore_checkpoint,
+        )
+
+        meta = read_meta(ckpt_path)
+        if not meta:
+            raise FileNotFoundError(
+                f"no checkpoint at {ckpt_path!r} (no meta.json)")
+        model = self.module.model
+        params, opt_state = get_state_dict(model, state.optimizer)
+        target = {"params": params, "opt_state": opt_state, "step": 0}
+        if state.scheduler is not None:
+            target["scheduler"] = state.scheduler.state_dict()
+        restored = restore_checkpoint(ckpt_path, target)
+        set_state_dict(model, state.optimizer,
+                       model_state_dict=restored["params"],
+                       optim_state_dict=restored["opt_state"])
+        if state.scheduler is not None:
+            state.scheduler.load_state_dict(restored["scheduler"])
+        state.step = int(restored["step"])
+        saved_epoch = int(meta.get("epoch", -1))
+        if meta.get("mid_epoch", False):
+            # taken inside a partially trained epoch: resume the SAME
+            # epoch, skipping the consumed batches
+            self.current_epoch = max(0, saved_epoch)
+            self._resume_skip_batches = int(meta.get("epoch_batch", 0))
+        else:
+            self.current_epoch = saved_epoch + 1
+        self.global_step = int(meta.get("global_step", 0))
+        self.module.on_load_checkpoint(restored)
+        self._invoke("on_load_checkpoint", restored)
 
     # ------------------------------------------------------------ plumbing
 
@@ -376,6 +529,10 @@ class Trainer:
         else:
             self.strategy.bind_module(module)
         module.setup()
+        if self.state is None and module.model is not None:
+            # a module built elsewhere (load_from_checkpoint) moves to
+            # this trainer's device
+            module.model.to(self.strategy.device)
         return module
 
     def _ensure_state(self, module: TpuModule, loader):
@@ -392,31 +549,45 @@ class Trainer:
             module.init_params(self._init_generator(), self._place(batch))
         else:
             self._load_params(module)
-        module.params = dict(module.model.named_parameters())
-        self.state = TrainState(step=0, model=module.model)
+        self._wrap(module)
+        self.state = TrainState(step=0, model=self.strategy.unwrap(
+            module.model))
         return loader
 
-    def _init_state(self, module: TpuModule, example_batch) -> TrainState:
+    def _init_state(self, module: TpuModule, example_batch,
+                    ckpt_path: Optional[str] = None) -> TrainState:
         if module.params is not None:
             # pre-loaded weights (e.g. params_from_jax)
             self._load_params(module)
         else:
             module.init_params(self._init_generator(),
                                self._place(example_batch))
-        module.params = dict(module.model.named_parameters())
+        self._wrap(module)
         out = module.configure_optimizers()
         opt, sched = out if isinstance(out, tuple) else (out, None)
-        return TrainState(step=0, model=module.model, optimizer=opt,
-                          scheduler=sched)
+        state = TrainState(step=0, model=self.strategy.unwrap(module.model),
+                           optimizer=opt, scheduler=sched)
+        if ckpt_path:
+            self._restore(ckpt_path, state)
+        return state
+
+    def _wrap(self, module: TpuModule) -> None:
+        """The strategy's wrapper around the model, after its weights
+        are in and before the optimizer sees its parameters."""
+        module.model = self.strategy.wrap_model(module.model)
+        module.params = dict(
+            self.strategy.unwrap(module.model).named_parameters())
 
     def _load_params(self, module: TpuModule) -> None:
-        own = dict(module.model.named_parameters())
+        own = dict(self.strategy.unwrap(module.model).named_parameters())
         if module.params is own or all(
                 module.params.get(k) is v for k, v in own.items()):
             return
         with torch.no_grad():
-            module.model.load_state_dict(module.params, strict=True)
-        module.params = dict(module.model.named_parameters())
+            self.strategy.unwrap(module.model).load_state_dict(
+                module.params, strict=True)
+        module.params = dict(
+            self.strategy.unwrap(module.model).named_parameters())
 
     def _init_generator(self) -> torch.Generator:
         """The parameter-initialisation stream, apart from the steps'."""
@@ -480,24 +651,6 @@ class Trainer:
             if out is not None:
                 batch = out
         return batch
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32
-    (`optax.global_norm`)."""
-    if not tensors:
-        return torch.zeros(())
-    norms = torch._foreach_norm([t.float() if t.dtype != torch.float32
-                                 else t for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
-def clip_by_global_norm_(grads, norm: torch.Tensor, max_norm: float) -> None:
-    """`optax.clip_by_global_norm` in place: unchanged when the norm is
-    below ``max_norm``, else scaled by max_norm / norm."""
-    factor = torch.where(norm < max_norm, torch.ones_like(norm),
-                         max_norm / norm)
-    torch._foreach_mul_(grads, factor)
 
 
 def _tree_map(fn, tree):

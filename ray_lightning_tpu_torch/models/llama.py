@@ -10,6 +10,12 @@ at each use: the trainer keeps f32 master weights (the twin of flax's
 the cast is a no-op. The embedding row is taken from the table and
 rounded afterwards, so its gradient scatters into the table in f32.
 
+The training loss is one call of the model, ``Llama(tokens,
+targets=..., mask=...)`` (the chunked fused CE, or the materialized
+logits' CE), so a strategy's wrapper (DDP, FSDP2) sees every weight the
+loss reads; `LlamaModule` makes it the token mean over the global batch
+of all data-parallel ranks.
+
 Four attention paths, as in `LlamaBlock.__call__`:
 
   * TRAINING (``cache is None``): RoPE on the first S positions, then
@@ -57,7 +63,7 @@ from ray_lightning_tpu_torch.ops.attention import (
     paged_attention,
     paged_prefill,
 )
-from ray_lightning_tpu_torch.ops.fused_ce import fused_cross_entropy
+from ray_lightning_tpu_torch.ops.fused_ce import fused_cross_entropy_sum
 from ray_lightning_tpu_torch.ops.norms import rms_norm
 from ray_lightning_tpu_torch.ops.precision import (
     linear_f32_acc,
@@ -109,6 +115,12 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    @property
+    def use_fused_ce(self) -> bool:
+        if self.fused_ce is not None:
+            return self.fused_ce
+        return self.vocab_size >= 2**16
+
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
         return cls(**{**dict(
@@ -129,6 +141,9 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class LlamaBlock(nn.Module):
+    #: `parallel.strategy.FSDP` shards each block as its own unit
+    fsdp_unit = True
+
     def __init__(self, cfg: LlamaConfig, device: torch.device,
                  param_dtype=None):
         super().__init__()
@@ -306,9 +321,28 @@ class Llama(nn.Module):
         return linear_f32_out(h.contiguous(), self.lm_head.to(self.cfg.dtype))
 
     def forward(self, tokens: torch.Tensor, cache=None, pos=None, pad=None,
-                paged=None) -> torch.Tensor:
-        return self.logits(self.hidden(tokens, cache, pos, pad=pad,
-                                       paged=paged))
+                paged=None, *, targets: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits, or with ``targets`` the training loss: the
+        mask-weighted sum of the token losses over ``denominator``
+        (default: the mask's sum, at least 1), through the chunked fused
+        CE when ``cfg.use_fused_ce``. The loss is one call of the model,
+        so a wrapper (DDP, FSDP) sees every weight it reads."""
+        h = self.hidden(tokens, cache, pos, pad=pad, paged=paged)
+        if targets is None:
+            return self.logits(h)
+        cfg = self.cfg
+        if cfg.use_fused_ce:
+            loss_sum, count = fused_cross_entropy_sum(
+                h, self.lm_head, targets, mask,
+                chunk_tokens=cfg.ce_chunk_tokens, compute_dtype=cfg.dtype,
+                inline_backward=cfg.ce_inline_bwd)
+        else:
+            loss_sum, count = token_loss_sum(self.logits(h), targets, mask)
+        if denominator is None:
+            denominator = torch.clamp_min(count, 1.0)
+        return loss_sum / denominator
 
 
 def init_params_(model: Llama, generator: torch.Generator) -> Llama:
@@ -372,17 +406,16 @@ def params_from_jax(params_np: Dict[str, Any], cfg: LlamaConfig,
     return sd
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token-level CE in f32; ``mask`` (0/1) excludes padding (twin of
-    `cross_entropy_loss`, optax's integer-label softmax CE)."""
+def token_loss_sum(logits: torch.Tensor, targets: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None):
+    """(sum of the mask-weighted token CE, sum of the mask), f32 scalars:
+    the JAX `cross_entropy_loss` (optax's integer-label softmax CE, the
+    mask excluding padding) before its division."""
     logits = logits.float()
     losses = (torch.logsumexp(logits, dim=-1)
               - logits.gather(-1, targets.long()[..., None]).squeeze(-1))
-    if mask is not None:
-        mask = mask.float()
-        return (losses * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return losses.mean()
+    m = (torch.ones_like(losses) if mask is None else mask.float())
+    return (losses * m).sum(), m.sum()
 
 
 def warmup_cosine_decay(step: int, init_value: float, peak_value: float,
@@ -461,24 +494,23 @@ class LlamaModule(TpuModule):
             return toks[:, :-1], toks[:, 1:], batch.get("mask")
         return batch["inputs"], batch["targets"], batch.get("mask")
 
-    def _use_fused_ce(self) -> bool:
-        if self.cfg.fused_ce is not None:
-            return self.cfg.fused_ce
-        return self.cfg.vocab_size >= 2**16
-
     def _loss(self, params, inputs, targets, mask):
-        cfg = self.cfg
-        if not self._use_fused_ce():
-            return cross_entropy_loss(self.apply(params, inputs), targets,
-                                      mask)
-        if params is not None and params is not self.params:
-            raise ValueError("the fused-CE loss runs the module's own "
-                             "parameters")
-        hidden = self.model.hidden(inputs)
-        return fused_cross_entropy(
-            hidden, self.model.lm_head, targets, mask,
-            chunk_tokens=cfg.ce_chunk_tokens, compute_dtype=cfg.dtype,
-            inline_backward=cfg.ce_inline_bwd)
+        """The token mean over the GLOBAL batch, as the JAX module's loss
+        over its global array: each rank divides its mask-weighted sum by
+        the token count of every data-parallel rank together, times their
+        number, so the mean over ranks (of the loss, and of the gradients
+        DDP and FSDP average) is the global mean even where the ranks'
+        masks keep different numbers of tokens."""
+        count = (mask.float().sum() if mask is not None
+                 else torch.tensor(float(targets.numel()),
+                                   device=targets.device))
+        strategy = getattr(self.trainer, "strategy", None)
+        dp = strategy.dp_size if strategy is not None else 1
+        if dp > 1:
+            count = strategy.reduce_sum(count)
+        denominator = torch.clamp_min(count, 1.0) / dp
+        return self.apply(params, inputs, targets=targets, mask=mask,
+                          denominator=denominator)
 
     def training_step(self, params, batch, rng):
         inputs, targets, mask = self._split(batch)

@@ -72,6 +72,24 @@ def fused_cross_entropy(
 
     Returns the scalar f32 loss, weighted by the mask.
     """
+    loss_sum, count = fused_cross_entropy_sum(
+        hidden, lm_head, targets, mask, chunk_tokens, compute_dtype,
+        inline_backward)
+    return loss_sum / torch.clamp_min(count, 1.0)
+
+
+def fused_cross_entropy_sum(
+    hidden: torch.Tensor,
+    lm_head: torch.Tensor,
+    targets: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    chunk_tokens: int = 1024,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    inline_backward: bool = False,
+):
+    """(sum of the mask-weighted token losses, sum of the mask), both f32
+    scalars: `fused_cross_entropy` before its division, for a caller whose
+    denominator spans more than this batch (data-parallel ranks)."""
     if inline_backward:
         raise NotImplementedError(
             "fused_cross_entropy(inline_backward=True) is not ported yet "
@@ -86,4 +104,4 @@ def fused_cross_entropy(
         losses = (checkpoint(_chunk_loss, x_c, t_c, w, use_reentrant=False)
                   if grad else _chunk_loss(x_c, t_c, w))
         loss_sum = loss_sum + (losses * m[i * C:(i + 1) * C]).sum()
-    return loss_sum / torch.clamp_min(m.sum(), 1.0)
+    return loss_sum, m.sum()

@@ -636,6 +636,8 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_faults.py")
     yield os.path.join(REPO, "chip_variants.py")
+    # the jobs the tests ship to workers
+    yield os.path.join(REPO, "tests", "torch_jobs.py")
 
 
 def test_port_imports_no_jax():

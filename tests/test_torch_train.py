@@ -410,7 +410,6 @@ def test_datamodule_and_loader_order_match_jax(shards):
 @pytest.mark.parametrize("knob,value", [
     ("guard", True), ("telemetry", True), ("profile", True),
     ("profiler_dir", "prof"), ("compile_cache_dir", "cache"),
-    ("enable_checkpointing", True),
 ])
 def test_unported_trainer_knobs_raise(knob, value):
     kw = dict(enable_checkpointing=False)
@@ -420,15 +419,6 @@ def test_unported_trainer_knobs_raise(knob, value):
 
 
 def test_unported_entry_points_raise():
-    t = Trainer(strategy=SingleDevice(device="cpu"),
-                enable_checkpointing=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.fit(_Quadratic(), [{"y": np.zeros(2, np.float32)}],
-              ckpt_path="ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.save_checkpoint("ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _Quadratic.load_from_checkpoint("ckpt")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DataLoader({"a": np.zeros(2)}, prefetch=True)
     # the default device is the card: without one, fit raises
