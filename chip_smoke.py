@@ -69,6 +69,32 @@ Phases, each of which raises (and so exits nonzero) on failure:
                same kernels at world size 1), and every fit's kernel
                launches (counted in the worker, sent back over the side
                channel) must match the counts its steps imply.
+  7. sweep   — `sweep.run` on the card's pool (the probe finds one card,
+               so one trial at a time, each in its own process pinned by
+               ``CUDA_VISIBLE_DEVICES``): (a) three Llama trials of phase
+               5's fit at lr 3e-4, 1e-3 and 0, each validating one
+               held-out batch every 2 steps and reporting its loss under
+               ASHA (max_t 4, grace 1, factor 2). The lr-3e-4 trial's
+               rows must equal phase 5's kernel lane exactly; ASHA must
+               stop the lr-0 arm, and every status must equal a replay of
+               the recorded reports through a fresh scheduler; each
+               trial's launches (counted in its process) must match its
+               steps and validation passes; each must see card 0 only,
+               and the card as free as the first did. (b) the reference's
+               Tune example at one card: three MNIST trials (lr 3e-5, 0,
+               1e-4), each a `fit_distributed` worker under
+               `RayXlaPlugin(use_gpu=True)` reporting through the trial
+               with `TuneReportCheckpointCallback`, under ASHA over the
+               epochs: the lr-0 arm must be stopped (the verdict raises
+               in its trial's pump), no trial's worker may still run as
+               the trial returns, the same checks of card, order, free
+               memory and replay as (a); the best checkpoint must
+               verify, load on the card with no device given, and give
+               the accuracy and validation loss its trial reported,
+               where no other report lies within the loss tolerance. One
+               JSON line per trial (status, iterations, wall, the start
+               split, step time, peak memory, free memory at its start)
+               and one per sweep (wall, the report round trip).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -100,6 +126,10 @@ import torch
 
 from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.models.llama import LlamaModule
+
+#: wall clock when this module's imports (torch and the port's training
+#: modules) ended: the second mark of a sweep trial's start split
+IMPORTED_AT = time.time()
 
 #: H100 SXM peaks (NVIDIA data sheet) for the least-time bound
 HBM_BYTES_PER_S = 3.35e12
@@ -254,6 +284,10 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
+#: profiler sessions the decode's launch count may take (see decode_case)
+PROFILE_SESSIONS = 3
+
+
 def kernel_profile(fn, calls: int = 1):
     """{kernel name: {"launches", "ms"}} per call of ``fn`` over ``calls``
     back-to-back calls after a warm-up, from torch.profiler's device
@@ -378,7 +412,16 @@ def check_kernels(gen: torch.Generator):
             return got
         if not torch.equal(got, paged_attention_kernel(*args, **kw)):
             raise AssertionError("paged_decode: two calls differ")
-        launched = kernel_profile(lambda: paged_attention_kernel(*args, **kw))
+        # a profiler session that records no device event at all has
+        # lost its events (two of this script's runs on the card did, at
+        # this first session of the process; the cause is not known), so
+        # it is taken again, and the row says how often; a wrapper that
+        # launches nothing still reads {} after the last
+        for retakes in range(PROFILE_SESSIONS):
+            launched = kernel_profile(
+                lambda: paged_attention_kernel(*args, **kw))
+            if launched:
+                break
         if sum(k["launches"] for k in launched.values()) != 1:
             raise AssertionError(f"paged_decode: launches {launched}, not one")
         ms = time_ms(lambda: paged_attention_kernel(*args, **kw))
@@ -398,6 +441,7 @@ def check_kernels(gen: torch.Generator):
                err, share, ms, plain_ms, lib_ms, nbytes,
                4 * H * HD * vis,
                launches_per_call={k: v["launches"] for k, v in launched.items()},
+               profile_retakes=retakes,
                host_us=host_us(lambda: paged_attention_kernel(*args, **kw)))
         return got
 
@@ -1027,6 +1071,8 @@ def serve_phase(seed: int, n_layers: int):
 #: are uniform over the first TRAIN_TOKENS ids, so there is something to
 #: learn in 8 steps (the model starts uniform over all 128256)
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_TOKENS = 4, 8, 8192
+#: the train phase's peak learning rate (AdamW, warmup 2, cosine)
+TRAIN_LR = 3e-4
 
 
 class StepProbe:
@@ -1058,7 +1104,7 @@ def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
     from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
 
     probe = StepProbe()
-    module = LlamaModule(cfg, lr=3e-4, warmup_steps=2,
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
                          total_steps=TRAIN_STEPS)
     trainer = Trainer(strategy=strategy or SingleDevice(),
                       max_steps=TRAIN_STEPS,
@@ -1310,7 +1356,8 @@ class TimedCheckpoint(ModelCheckpoint):
 
 def dist_module(seed: int):
     cfg, _ = train_inputs(seed)
-    return TimedLlama(cfg, lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    return TimedLlama(cfg, lr=TRAIN_LR, warmup_steps=2,
+                      total_steps=TRAIN_STEPS)
 
 
 def dist_trainer(strategy: str, max_steps: int, seed: int,
@@ -1547,10 +1594,10 @@ def dist_phase(seed: int, ref_rows):
     return total
 
 
-def mnist_module():
+def mnist_module(lr: float = 1e-2):
     from ray_lightning_tpu_torch.models.mlp import MNISTClassifier
 
-    return MNISTClassifier(lr=1e-2)
+    return MNISTClassifier(lr=lr)
 
 
 def mnist_trainer(ckpt_dir):
@@ -1584,6 +1631,445 @@ def mnist_eval_data():
     from ray_lightning_tpu_torch.models.mlp import synthetic_mnist
 
     return DataLoader(synthetic_mnist(1024, seed=SEED), batch_size=32)
+
+
+# ---- phase 7: the sweep -----------------------------------------------------
+#
+# Trial processes import this file by its name (`chip_smoke`), as phase
+# 6's workers do: the trainables, callbacks and factories below are
+# module level, and the trainables go to `sweep.run` as partials.
+
+#: the Llama trials' learning rates: phase 5's (whose steps the trial
+#: must repeat bit for bit), a faster one, and 0, which cannot learn and
+#: which ASHA must stop
+SWEEP_LRS = (TRAIN_LR, 1e-3, 0.0)
+#: a validation pass every SWEEP_VAL_EVERY steps: four reports in 8 steps
+SWEEP_VAL_EVERY = 2
+SWEEP_ASHA = dict(max_t=4, grace_period=1, reduction_factor=2)
+#: the reference's Tune example at one card (BASELINE config 5): the
+#: MNIST trials' learning rates and epochs, under ASHA over the epochs.
+#: At these rates no two (trial, epoch) reports share a validation loss,
+#: so the best checkpoint's reload can tell them apart; the lr-0 arm
+#: cannot learn, ASHA must stop it at its first report, and a trial
+#: follows it on the card
+SWEEP_MNIST_LRS = (3e-5, 0.0, 1e-4)
+SWEEP_MNIST_EPOCHS = 2
+SWEEP_MNIST_ASHA = dict(max_t=SWEEP_MNIST_EPOCHS, grace_period=1,
+                        reduction_factor=2)
+#: the best checkpoint's validation loss on reload against its trial's
+#: last report, relative; the phase fails unless every other report lies
+#: outside it
+SWEEP_LOSS_RTOL = 1e-5
+#: card memory (GiB) a trial may find taken beyond what the sweep's first
+#: trial found: less than one CUDA context, so a process of an earlier
+#: trial left on the card shows
+SWEEP_FREE_SLACK_GIB = 0.25
+#: limit of one trial, in seconds
+SWEEP_TRIAL_TIMEOUT_S = 600
+#: where the phase keeps its trials (git-ignored; removed after)
+SWEEP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "rlt_sweeps", "chip_smoke")
+#: what a trial leaves in its dir: its record, also when the scheduler
+#: stops it (a stopped trial returns nothing)
+TRIAL_RECORD = "smoke_record.json"
+
+
+def timed_report(metrics: dict, times: list):
+    """A `TuneReportCallback` that appends to ``times`` the seconds of
+    each report, from the call to the scheduler's verdict (the duplex
+    channel's round trip)."""
+    from ray_lightning_tpu_torch.sweep.callbacks import TuneReportCallback
+
+    class TimedReport(TuneReportCallback):
+        def _fire(self, trainer, extra=None):
+            t0 = time.perf_counter()
+            try:
+                super()._fire(trainer, extra)
+            finally:
+                times.append(time.perf_counter() - t0)
+
+    return TimedReport(metrics=metrics)
+
+
+class WorkerPid(Callback):
+    """In a trial's `fit_distributed` worker: leaves the worker's pid in
+    the trial dir (``RLT_TRIAL_DIR``, which workers inherit)."""
+
+    def on_fit_start(self, trainer, module):
+        d = os.path.join(os.environ["RLT_TRIAL_DIR"], "worker_pids")
+        os.makedirs(d, exist_ok=True)
+        open(os.path.join(d, str(os.getpid())), "w").close()
+
+
+def live_worker_pids() -> list:
+    """The pids `WorkerPid` left in this trial's dir whose processes are
+    still running."""
+    from ray_lightning_tpu_torch import sweep
+
+    d = os.path.join(sweep.get_trial_dir(), "worker_pids")
+    live = []
+    for name in (os.listdir(d) if os.path.isdir(d) else ()):
+        try:
+            os.kill(int(name), 0)
+        except ProcessLookupError:
+            continue
+        live.append(int(name))
+    return live
+
+
+class SweepProbe(Callback):
+    """In a trial: the per-step (loss, grad_norm), the validation passes
+    and the wall clock when the model is built (fit start) and when the
+    first step ends. Listed before the report callback, so a stop
+    verdict at a validation pass comes after it is counted."""
+
+    def __init__(self, record: dict):
+        self.record = record
+        record.update(rows=[], val_passes=0)
+
+    def on_fit_start(self, trainer, module):
+        torch.cuda.synchronize()
+        self.record["t_model"] = time.time()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        rows = self.record["rows"]
+        rows.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        if len(rows) == 1:
+            self.record["t_first_step"] = time.time()
+
+    def on_validation_epoch_end(self, trainer, module, metrics):
+        self.record["val_passes"] += 1
+
+
+def _trial_record() -> dict:
+    """A trial's identity and the start of its start split: the wall
+    clock of its process's start and of this module's imports, the cards
+    it sees, the card memory free before it allocates anything."""
+    from ray_lightning_tpu_torch.runtime import session
+
+    free, _ = torch.cuda.mem_get_info()  # the trial's CUDA context
+    return dict(t_start=session.get_session().started_at,
+                t_imported=IMPORTED_AT,
+                cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device_count=torch.cuda.device_count(),
+                device_name=torch.cuda.get_device_name(),
+                mem_free_gib=free / 2**30)
+
+
+def _write_record(record: dict) -> None:
+    from ray_lightning_tpu_torch import sweep
+
+    record["t_end"] = time.time()
+    with open(os.path.join(sweep.get_trial_dir(), TRIAL_RECORD), "w") as f:
+        json.dump(record, f)
+
+
+def llama_trainable(config, seed: int):
+    """A trial of (a): phase 5's fit at ``config["lr"]`` in this trial
+    process, validating one held-out batch every SWEEP_VAL_EVERY steps
+    and reporting its loss. Returns (and leaves in the trial dir) its
+    record: rows, launches, peak memory, the start split."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.callbacks import (
+        MemoryMonitor,
+        ThroughputMonitor,
+    )
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    record = dict(lr=config["lr"], **_trial_record())
+    trainer = None
+    try:
+        for name in ("flash_fwd", "flash_bwd", "rmsnorm"):
+            build.load(name)
+        record["t_kernels"] = time.time()
+        for k in all_kernels():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        cfg, tokens = train_inputs(seed)
+        val = np.random.default_rng(seed + 1).integers(
+            0, TRAIN_TOKENS, (TB, TS + 1)).astype(np.int64)
+        record["report_s"] = []
+        trainer = Trainer(
+            strategy=SingleDevice(), max_steps=TRAIN_STEPS,
+            val_check_interval=SWEEP_VAL_EVERY, log_every_n_steps=1,
+            enable_checkpointing=False, enable_progress_bar=False, seed=seed,
+            callbacks=[SweepProbe(record), ThroughputMonitor(),
+                       MemoryMonitor(log_stats=False),
+                       timed_report({"loss": "val_loss"},
+                                    record["report_s"])])
+        trainer.fit(LlamaModule(cfg, lr=config["lr"], warmup_steps=2,
+                                total_steps=TRAIN_STEPS),
+                    DataLoader({"tokens": tokens}, batch_size=TB),
+                    DataLoader({"tokens": val}, batch_size=TB))
+        return record
+    finally:
+        torch.cuda.synchronize()
+        metrics = trainer.callback_metrics if trainer is not None else {}
+        record.update(
+            launches={k.__name__: k.launches for k in all_kernels()},
+            peak=torch.cuda.max_memory_allocated(),
+            step_time_s=metrics.get("step_time_s"),
+            hbm_peak_bytes=metrics.get("hbm_peak_bytes"))
+        _write_record(record)
+
+
+def sweep_mnist_trainer():
+    """The reference example's trainer: `RayXlaPlugin` on the card (one
+    NCCL worker), checkpoint-then-report every epoch."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import RayXlaPlugin
+    from ray_lightning_tpu_torch.sweep import TuneReportCheckpointCallback
+
+    return Trainer(
+        strategy=RayXlaPlugin(num_workers=1, use_gpu=True),
+        max_epochs=SWEEP_MNIST_EPOCHS,
+        callbacks=[WorkerPid(), TuneReportCheckpointCallback(
+            metrics={"loss": "ptl/val_loss", "acc": "ptl/val_accuracy"})],
+        enable_checkpointing=False, enable_progress_bar=False, seed=SEED)
+
+
+def mnist_trainable(config):
+    """A trial of (b): the MNIST fit through `fit_distributed` in one
+    worker of its own; the worker's reports reach the sweep through this
+    process's pump. A stop verdict raises in that pump, and the worker
+    group must be down when it reaches here: the record lists the
+    trial's workers still running as it returns."""
+    import chip_smoke as me  # the name this trial's worker imports
+    from ray_lightning_tpu_torch import sweep
+    from ray_lightning_tpu_torch.runtime import fit_distributed
+
+    record = dict(lr=config["lr"], **_trial_record())
+    try:
+        t0 = time.time()
+        res = fit_distributed(
+            functools.partial(me.mnist_module, config["lr"]),
+            me.sweep_mnist_trainer, me.mnist_data, 1,
+            return_weights=False, timeout=DIST_TIMEOUT_S,
+            log_dir=os.path.join(sweep.get_trial_dir(), "workers"))
+        record.update(fit_call_s=time.time() - t0,
+                      val_accuracy=res.metrics["ptl/val_accuracy"])
+        return record
+    finally:
+        record["workers_alive"] = live_worker_pids()
+        _write_record(record)
+
+
+def trial_line(sweep_name: str, t, record: dict, **extra) -> dict:
+    """One JSON line of a trial: status, iterations, wall and start
+    split."""
+    row = dict(
+        phase="sweep_trial", sweep=sweep_name, trial=t.trial_id,
+        lr=t.config["lr"], status=t.status, iterations=t.iterations,
+        losses=[h["loss"] for h in t.history],
+        trial_wall_s=record["t_end"] - record["t_start"],
+        imports_s=record["t_imported"] - record["t_start"],
+        mem_free_gib_at_start=record["mem_free_gib"],
+        cuda_visible_devices=record["cuda_visible_devices"],
+        device_count=record["device_count"], **extra)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def sweep_phase(seed: int, ref_rows):
+    """Phase 7; returns the kernels' launches over the Llama trials."""
+    import numpy as np
+
+    import chip_smoke as me  # the name the trial processes import
+    from ray_lightning_tpu_torch import sweep
+    from ray_lightning_tpu_torch.checkpoint import verify_checkpoint
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.mlp import MNISTClassifier
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+    from ray_lightning_tpu_torch.sweep.analysis import Trial
+
+    problems = []
+    total = {k.__name__: 0 for k in all_kernels()}
+    card = torch.cuda.get_device_name(0)
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+
+    def records(analysis):
+        out = []
+        for t in analysis.trials:
+            with open(os.path.join(t.trial_dir, TRIAL_RECORD)) as f:
+                out.append(json.load(f))
+        return out
+
+    def check_trials(analysis, recs, asha: dict):
+        """What every trial of a sweep on the one card must show: card 0
+        only; one trial after another (the runner saw their reports in
+        trial order); the card as free at each start as at the first;
+        the status and reports a replay of the histories through a fresh
+        ASHA gives; the lr-0 arm, which cannot learn, stopped before
+        ``max_t``."""
+        replay = sweep.ASHAScheduler(metric="loss", mode="min", **asha)
+        for i, (t, rec) in enumerate(zip(analysis.trials, recs)):
+            if (rec["cuda_visible_devices"], rec["device_count"],
+                    rec["device_name"]) != ("0", 1, card):
+                problems.append(
+                    f"{t.trial_id} saw CUDA_VISIBLE_DEVICES="
+                    f"{rec['cuda_visible_devices']}, {rec['device_count']} "
+                    f"card(s) ({rec['device_name']})")
+            if i and rec["t_start"] < recs[i - 1]["t_end"]:
+                problems.append(f"{t.trial_id} started before "
+                                f"{analysis.trials[i - 1].trial_id} ended")
+            if i and (rec["mem_free_gib"]
+                      < recs[0]["mem_free_gib"] - SWEEP_FREE_SLACK_GIB):
+                problems.append(
+                    f"{t.trial_id} found {rec['mem_free_gib']:.3f} GiB "
+                    f"free, {recs[0]['mem_free_gib']:.3f} before the first "
+                    "trial")
+            status, seen = Trial.DONE, 0
+            for seen, h in enumerate(t.history, start=1):
+                if replay.on_result(t.trial_id, seen, h["loss"]) == "stop":
+                    status = Trial.STOPPED
+                    break
+            if (status, seen) != (t.status, t.iterations):
+                problems.append(f"{t.trial_id}: {t.status} after "
+                                f"{t.iterations} reports; the replay says "
+                                f"{status} after {seen}")
+        arm = next(t for t in analysis.trials if t.config["lr"] == 0.0)
+        if not (arm.status == Trial.STOPPED
+                and arm.iterations < asha["max_t"]):
+            problems.append(f"the lr-0 arm ended {arm.status} after "
+                            f"{arm.iterations} reports")
+
+    # (a) Llama-3-8B trials, one card, so one at a time
+    free_card("sweep_llama")
+    t0 = time.perf_counter()
+    llama = sweep.run(
+        functools.partial(me.llama_trainable, seed=seed),
+        config={"lr": sweep.grid_search(list(SWEEP_LRS))}, metric="loss",
+        mode="min", scheduler=sweep.ASHAScheduler(**SWEEP_ASHA),
+        executor="process", resources_per_trial=sweep.GpuResources(gpus=1),
+        storage_dir=os.path.join(SWEEP_DIR, "llama"),
+        trial_timeout=SWEEP_TRIAL_TIMEOUT_S)
+    llama_wall = time.perf_counter() - t0
+    recs = records(llama)
+    check_trials(llama, recs, SWEEP_ASHA)
+    L = TRAIN_LAYERS
+    round_trips = []
+    for t, rec in zip(llama.trials, recs):
+        steps = len(rec["rows"])
+        passes = steps // SWEEP_VAL_EVERY
+        if (t.iterations, rec["val_passes"]) != (passes, passes):
+            problems.append(f"{t.trial_id}: {steps} steps, "
+                            f"{rec['val_passes']} validation passes, "
+                            f"{t.iterations} reports")
+        want = expected_launches(steps)
+        want["flash_fwd_kernel"] += L * passes
+        want["rms_norm_kernel"] += (2 * L + 1) * passes
+        if rec["launches"] != want:
+            problems.append(f"{t.trial_id}: launches {rec['launches']} "
+                            f"!= {want}")
+        for k, v in rec["launches"].items():
+            total[k] += v
+        rows = [tuple(r) for r in rec["rows"]]
+        same = None
+        if t.config["lr"] == TRAIN_LR:
+            same = rows == ref_rows[:steps]
+            if not same:
+                problems.append(f"{t.trial_id} (lr {TRAIN_LR}): rows differ "
+                                "from phase 5's kernel lane")
+        round_trips += rec["report_s"]
+        trial_line(
+            "llama", t, rec, steps=steps, val_passes=rec["val_passes"],
+            kernels_s=rec["t_kernels"] - rec["t_imported"],
+            model_s=rec["t_model"] - rec["t_kernels"],
+            first_step_s=rec["t_first_step"] - rec["t_model"],
+            step_ms_mean=(rec["step_time_s"] * 1e3
+                          if rec["step_time_s"] else None),
+            peak_gib=rec["peak"] / 2**30,
+            hbm_peak_gib=(rec["hbm_peak_bytes"] / 2**30
+                          if rec["hbm_peak_bytes"] else None),
+            report_ms=[s * 1e3 for s in rec["report_s"]],
+            rows_equal_phase5=same, launches=rec["launches"])
+    print(json.dumps(dict(
+        phase="sweep", sweep="llama", trials=len(llama.trials),
+        wall_s=llama_wall, best_config=llama.best_config,
+        statuses=[t.status for t in llama.trials],
+        report_round_trip_ms_p50=statistics.median(round_trips) * 1e3,
+        report_round_trip_ms_max=max(round_trips) * 1e3,
+        reports=len(round_trips))), flush=True)
+
+    # (b) the reference's Tune example: sweep driver -> trial process ->
+    # fit_distributed worker (NCCL), checkpoint-then-report every epoch,
+    # under ASHA: the stopped arm's verdict raises in its trial's pump,
+    # which must take its worker off the card before the next trial
+    free_card("sweep_mnist")
+    t0 = time.perf_counter()
+    mnist = sweep.run(
+        me.mnist_trainable,
+        config={"lr": sweep.grid_search(list(SWEEP_MNIST_LRS))},
+        metric="loss", mode="min",
+        scheduler=sweep.ASHAScheduler(**SWEEP_MNIST_ASHA),
+        executor="process", resources_per_trial=sweep.GpuResources(gpus=1),
+        storage_dir=os.path.join(SWEEP_DIR, "mnist"),
+        trial_timeout=SWEEP_TRIAL_TIMEOUT_S)
+    mnist_wall = time.perf_counter() - t0
+    recs = records(mnist)
+    check_trials(mnist, recs, SWEEP_MNIST_ASHA)
+    for t, rec in zip(mnist.trials, recs):
+        if (len(t.checkpoints) != t.iterations
+                or (t.status == Trial.DONE
+                    and t.iterations != SWEEP_MNIST_EPOCHS)):
+            problems.append(f"{t.trial_id}: {t.status}, {t.iterations} "
+                            f"reports, {len(t.checkpoints)} checkpoints")
+        if rec["workers_alive"]:
+            problems.append(f"{t.trial_id}: worker(s) "
+                            f"{rec['workers_alive']} still ran as the trial "
+                            "returned")
+        trial_line("mnist", t, rec, fit_call_s=rec.get("fit_call_s"),
+                   accs=[h["acc"] for h in t.history],
+                   checkpoints=len(t.checkpoints),
+                   workers_alive_at_return=rec["workers_alive"])
+    best_trial = mnist.best_trial
+    best = mnist.best_checkpoint
+    ok, reason = verify_checkpoint(best)
+    if not ok:
+        problems.append(f"verify_checkpoint({best}): {reason}")
+    # no device given: the port's default, the card
+    loaded = MNISTClassifier.load_from_checkpoint(best)
+    device = next(loaded.model.parameters()).device
+    if device.type != "cuda":
+        problems.append(f"load_from_checkpoint built the model on {device}")
+    evaluator = Trainer(strategy=SingleDevice(), enable_checkpointing=False,
+                        enable_progress_bar=False)
+    preds = np.concatenate(evaluator.predict(loaded, me.mnist_eval_data()))
+    acc = float(np.mean(preds == me.mnist_eval_data().data["y"]))
+    loss = float(evaluator.validate(loaded, me.mnist_data()[1])[
+        "ptl/val_loss"])
+    reported = best_trial.last_result
+    tol = SWEEP_LOSS_RTOL * abs(reported["loss"])
+    if acc != reported["acc"] or abs(loss - reported["loss"]) > tol:
+        problems.append(f"the best checkpoint gives accuracy {acc}, loss "
+                        f"{loss}; its trial reported {reported['acc']}, "
+                        f"{reported['loss']} (loss to {tol})")
+    # the reload check must be able to fail: no other report of the
+    # sweep (another trial, an earlier epoch) lies inside its tolerance
+    others = [h["loss"] for t in mnist.trials
+              for h in (t.history[:-1] if t is best_trial else t.history)]
+    gap = min(abs(v - reported["loss"]) for v in others)
+    if gap <= tol:
+        problems.append(f"another report's loss lies {gap} from the best "
+                        f"one's, inside the reload tolerance {tol}")
+    print(json.dumps(dict(
+        phase="sweep", sweep="mnist", trials=len(mnist.trials),
+        wall_s=mnist_wall, best_config=mnist.best_config,
+        statuses=[t.status for t in mnist.trials],
+        best_checkpoint=os.path.relpath(best, SWEEP_DIR),
+        reload_device=str(device), reload_accuracy=acc,
+        reported_accuracy=reported["acc"], reload_loss=loss,
+        reported_loss=reported["loss"], loss_tolerance=tol,
+        nearest_other_loss_gap=gap)), flush=True)
+    del loaded
+    shutil.rmtree(SWEEP_DIR)
+    if problems:
+        raise AssertionError("sweep: " + "; ".join(problems))
+    return total
 
 
 def old_split_plan(c: int, hkv: int, n_tiles: int, sms: int):
@@ -1858,9 +2344,14 @@ def main() -> int:
     # MNIST train/load/predict matrix
     dist_launches = dist_phase(SEED, train_rows)
 
+    # 7. the sweep: Llama-3-8B trials under ASHA, each in its own process
+    # on the card, and the reference's Tune example over fit_distributed
+    sweep_launches = sweep_phase(SEED, train_rows)
+
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
-                + dist_launches[k] for k in train_launches}
+                + dist_launches[k] + sweep_launches[k]
+                for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/paged_attention.cu",

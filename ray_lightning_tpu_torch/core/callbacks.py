@@ -1,12 +1,12 @@
 """Callback bus (twin of `ray_lightning_tpu/core/callbacks.py`): the
-`Callback` base, `EarlyStopping`, `ModelCheckpoint` and `ProgressLogger`.
+`Callback` base, `EarlyStopping`, `ModelCheckpoint`, `ThroughputMonitor`,
+`MemoryMonitor` and `ProgressLogger`.
 
 In a multi-process job every rank runs the same callbacks on the same
 metrics (the trainer reduces them across ranks first), so every rank
 takes the same decisions: each enters every checkpoint save, which is
 collective, and stops at the same step. Rank 0 alone writes meta.json
-and removes pruned checkpoints. `ThroughputMonitor` and `MemoryMonitor`
-are not ported yet (ROADMAP Queue 1 item 2).
+and removes pruned checkpoints.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import logging
 import math
 import os
 import shutil
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -208,6 +209,88 @@ class ModelCheckpoint(Callback):
     def on_train_epoch_end(self, trainer, module) -> None:
         if not trainer.has_validation and not self.every_n_train_steps:
             self._maybe_save(trainer, module, trainer.callback_metrics)
+
+
+class ThroughputMonitor(Callback):
+    """Step time and examples per second into ``callback_metrics``
+    (``step_time_s``: the mean of the last ``window`` intervals between
+    train-batch ends; ``examples_per_sec``).
+
+    An interval is host time. The trainer's metrics fetch, every
+    ``log_every_n_steps``, waits for the card, so at
+    ``log_every_n_steps=1`` each interval is a whole step; otherwise it
+    is the time to enqueue one. An interval that holds a mid-epoch
+    validation counts it. The first ``skip_first`` intervals of each fit
+    are dropped (the JAX monitor drops its cold compile; here the first
+    step allocates the optimizer state and the kernels' first calls
+    load their libraries). ``clock`` is injectable for deterministic
+    tests."""
+
+    def __init__(self, window: int = 20, skip_first: int = 1,
+                 clock=None):
+        self.window = window
+        self.skip_first = max(0, skip_first)
+        self._clock = clock or time.perf_counter
+        self._times: list[float] = []
+        self._t0: Optional[float] = None
+        self._intervals_seen = 0
+
+    def on_fit_start(self, trainer, module) -> None:
+        # the skip window re-arms per fit, not per construction
+        self._times = []
+        self._t0 = None
+        self._intervals_seen = 0
+
+    def on_train_epoch_start(self, trainer, module) -> None:
+        self._t0 = self._clock()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx) -> None:
+        t = self._clock()
+        if self._t0 is not None:
+            self._intervals_seen += 1
+            if self._intervals_seen > self.skip_first:
+                self._times.append(t - self._t0)
+                self._times = self._times[-self.window:]
+        self._t0 = t
+        if self._times:
+            step_time = float(np.mean(self._times))
+            trainer.callback_metrics["step_time_s"] = step_time
+            bs = trainer.last_batch_size
+            if bs:
+                trainer.callback_metrics["examples_per_sec"] = bs / step_time
+
+
+class MemoryMonitor(Callback):
+    """Per-epoch device memory (bytes allocated now and at the peak) from
+    ``torch.cuda.memory_stats`` of the module's device, into
+    ``hbm_bytes_in_use`` / ``hbm_peak_bytes`` (the JAX monitor's names)
+    and the log. Inert on the CPU, which keeps no such stats."""
+
+    def __init__(self, log_stats: bool = True):
+        self.log_stats = log_stats
+
+    @staticmethod
+    def _stats(device) -> Optional[dict]:
+        import torch
+
+        if device is None or torch.device(device).type != "cuda":
+            return None
+        return torch.cuda.memory_stats(device) or None
+
+    def on_train_epoch_end(self, trainer, module) -> None:
+        stats = self._stats(module.device)
+        if stats is None:
+            return
+        in_use = stats.get("allocated_bytes.all.current")
+        peak = stats.get("allocated_bytes.all.peak")
+        if in_use is not None:
+            trainer.callback_metrics["hbm_bytes_in_use"] = float(in_use)
+        if peak is not None:
+            trainer.callback_metrics["hbm_peak_bytes"] = float(peak)
+        if self.log_stats and peak is not None:
+            log.info("epoch %d HBM peak %.2f GiB (in use %.2f GiB)",
+                     trainer.current_epoch, peak / 2**30,
+                     (in_use or 0) / 2**30)
 
 
 class ProgressLogger(Callback):

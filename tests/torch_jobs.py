@@ -195,14 +195,14 @@ def mnist_trainer(ckpt_dir=None):
                    callbacks=callbacks, seed=0)
 
 
-def mnist_data():
+def mnist_data(rows=256, batch_size=16):
     """(shuffled train, unshuffled val) loaders over `synthetic_mnist`."""
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.models.mlp import synthetic_mnist
 
-    data = synthetic_mnist(256)
-    return (DataLoader(data, batch_size=16, shuffle=True, seed=0),
-            DataLoader(data, batch_size=16))
+    data = synthetic_mnist(rows)
+    return (DataLoader(data, batch_size=batch_size, shuffle=True, seed=0),
+            DataLoader(data, batch_size=batch_size))
 
 
 def mnist_eval_data():
@@ -210,3 +210,148 @@ def mnist_eval_data():
     from ray_lightning_tpu_torch.models.mlp import synthetic_mnist
 
     return DataLoader(synthetic_mnist(256), batch_size=16)
+
+
+# ---- sweep trainables ----------------------------------------------------------
+#
+# Trial processes import this module by name: each trainable is a
+# module-level function, configured through its config dict or a
+# functools.partial.
+
+
+def constant_trainable(config):
+    """Reports ``loss = config["q"]`` twelve times."""
+    from ray_lightning_tpu_torch import sweep
+
+    for _ in range(12):
+        sweep.report(loss=float(config["q"]))
+    return "done"
+
+
+def card_trainable(config, rendezvous_dir, timeout_s=60.0):
+    """Writes its start into ``rendezvous_dir``, then waits until every
+    trial of the sweep (``config["n"]``) has written one, so it ends only
+    if they all ran at once; returns the ``CUDA_VISIBLE_DEVICES`` its
+    process saw."""
+    from ray_lightning_tpu_torch import sweep
+
+    with open(os.path.join(rendezvous_dir, sweep.get_trial_id()), "w") as f:
+        f.write(str(os.getpid()))
+    deadline = time.monotonic() + timeout_s
+    while len(os.listdir(rendezvous_dir)) < config["n"]:
+        if time.monotonic() > deadline:
+            raise TimeoutError("the other trials never started")
+        time.sleep(0.05)
+    sweep.report(loss=float(config["i"]))
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "pid": os.getpid()}
+
+
+def failing_trainable(config):
+    raise ValueError("process kaboom")
+
+
+class _CrashAfterEpoch(Callback):
+    """Kills its process at the end of epoch ``epoch`` (a mid-sweep
+    preemption), unless the fit resumed from a checkpoint."""
+
+    def __init__(self, epoch, resumed):
+        self.epoch, self.resumed = epoch, resumed
+
+    def on_train_epoch_end(self, trainer, module):
+        if not self.resumed and trainer.current_epoch >= self.epoch:
+            os._exit(1)
+
+
+def resumable_trainable(config, runs_file):
+    """Four epochs of the small MNIST classifier on the CPU, a checkpoint
+    registered every epoch; the process dies after epoch 1 unless it
+    resumed from the sweep's checkpoint. Appends a line to ``runs_file``
+    each time it starts."""
+    from ray_lightning_tpu_torch import sweep
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    ckpt = sweep.get_checkpoint()
+    with open(runs_file, "a") as f:
+        f.write(f"{os.getpid()} {ckpt}\n")
+    trainer = Trainer(
+        strategy=SingleDevice(device="cpu"), max_epochs=4,
+        callbacks=[
+            # fires before the crash: epochs 0-1 get registered
+            sweep.TuneReportCheckpointCallback(on="train_epoch_end"),
+            _CrashAfterEpoch(1, ckpt is not None)],
+        enable_checkpointing=False, enable_progress_bar=False, seed=0)
+    train, _ = mnist_data(rows=64, batch_size=32)
+    trainer.fit(mnist_module(), train, ckpt_path=ckpt)
+    return {"final_step": trainer.global_step, "resumed": ckpt is not None}
+
+
+class _WorkerPid(Callback):
+    """Leaves this worker's pid in its trial's dir (``RLT_TRIAL_DIR``,
+    which a trial's `fit_distributed` workers inherit)."""
+
+    def on_fit_start(self, trainer, module):
+        d = os.path.join(os.environ["RLT_TRIAL_DIR"], "worker_pids")
+        os.makedirs(d, exist_ok=True)
+        open(os.path.join(d, str(os.getpid())), "w").close()
+
+
+def live_worker_pids(trial_dir):
+    """The pids `_WorkerPid` left in ``trial_dir`` whose processes still
+    run."""
+    d = os.path.join(trial_dir, "worker_pids")
+    live = []
+    for name in (os.listdir(d) if os.path.isdir(d) else ()):
+        try:
+            os.kill(int(name), 0)
+        except ProcessLookupError:
+            continue
+        live.append(int(name))
+    return live
+
+
+def sweep_mnist_trainer(max_epochs, device="cpu"):
+    """`RayXlaPlugin` with `TuneReportCheckpointCallback` reporting the
+    validation loss and accuracy each epoch; each worker leaves its pid
+    in the trial's dir."""
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import RayXlaPlugin
+    from ray_lightning_tpu_torch.sweep import TuneReportCheckpointCallback
+
+    return Trainer(
+        strategy=RayXlaPlugin(device=device), max_epochs=max_epochs,
+        callbacks=[_WorkerPid(), TuneReportCheckpointCallback(
+            metrics={"loss": "ptl/val_loss", "acc": "ptl/val_accuracy"})],
+        enable_progress_bar=False, enable_checkpointing=False, seed=0)
+
+
+#: what `nested_mnist_trainable` leaves in its trial dir: the pids of its
+#: workers still running as it returns (a stopped trial returns nothing)
+WORKERS_ALIVE = "workers_alive.json"
+
+
+def nested_mnist_trainable(config, log_dir):
+    """A trial that fits the MNIST classifier through
+    `fit_distributed(num_processes=2, device="cpu")`: the workers' rank 0
+    reports over the side channel, through this trial process, to the
+    sweep. A stop verdict raises in this process's pump, and the worker
+    group must be down when it reaches here: the trial leaves the
+    workers still running in ``WORKERS_ALIVE``."""
+    import functools
+    import json
+
+    from ray_lightning_tpu_torch import sweep
+    from ray_lightning_tpu_torch.runtime import fit_distributed
+
+    try:
+        res = fit_distributed(
+            functools.partial(mnist_module, config["lr"]),
+            functools.partial(sweep_mnist_trainer, config["max_epochs"]),
+            mnist_data, num_processes=2, device="cpu", return_weights=False,
+            log_dir=log_dir, timeout=120)
+        return res.metrics["ptl/val_accuracy"]
+    finally:
+        trial_dir = sweep.get_trial_dir()
+        with open(os.path.join(trial_dir, WORKERS_ALIVE), "w") as f:
+            json.dump(live_worker_pids(trial_dir), f)
