@@ -32,8 +32,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
                other GQA ratios, block sizes 5 / 24 / 32, lengths 0 and
                1, a ragged chunk; flash: ragged lengths 1000 / 65 / 1
                causal, full and at an offset, B 1, n_rep 2).
-  4. serve   — Llama-3-8B at full width (random weights from a seeded
-               generator) served by `Scheduler` + `DecodeEngine` through
+  4. serve   — Llama-3-8B at full width, 16 of its 32 layers
+               (``--layers``; random weights from a seeded
+               generator), served by `Scheduler` + `DecodeEngine` through
                the kernel lanes: 8 requests, prompts of 200-1500 tokens,
                32 new tokens each, half greedy and half sampled. Every
                kernel's launch counter is zeroed just before and read
@@ -95,11 +96,34 @@ Phases, each of which raises (and so exits nonzero) on failure:
                JSON line per trial (status, iterations, wall, the start
                split, step time, peak memory, free memory at its start)
                and one per sweep (wall, the report round trip).
+  8. resilience — (a) phase 5's fit under `FSDP` through
+               `fit_distributed(resilience=ResilienceConfig(...))` in one
+               supervised worker, SIGKILL'd by the fault injector at step
+               6 and resumed from its step-4 checkpoint: two attempts,
+               steps 1-6 and 5-8 equal to phase 5's kernel lane bitwise,
+               the card as free at the second start as at the first, each
+               attempt's launches (sent per step from the worker) as its
+               steps imply, with the save, restore and relaunch seconds;
+               (b) the trainguard in this process: phase 5's fit guard
+               off and on under ``set_sync_debug_mode("warn")`` (rows
+               equal to phase 5's, no more synchronising calls guarded),
+               then 8 masked batches against 9 whose extra batch is
+               poisoned with a NaN at step 3 (one skipped update; every
+               kept update and the final weights bitwise the clean
+               run's); (c) one supervised MNIST run (`RayXlaPlugin(
+               use_gpu=True)`) through a preemption at step 3, a hang at
+               6 caught by the stall watchdog and a corrupted newest
+               checkpoint plus a kill at 9, whose resumes start at steps
+               4, 6 and 6 and whose final weights equal an uninterrupted
+               supervised run's bitwise; a ``raise`` that fails as FATAL
+               after one attempt; no worker left running; (d) the
+               parameter digest of the trained weights on the card, timed,
+               against numpy's digest of the same bytes on the host.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
-``python3 chip_smoke.py`` (``--layers N`` cuts the model's depth for a
-quicker check of the serve phase). Two other modes build the kernels and
+``python3 chip_smoke.py`` (``--layers N`` sets the serve phase's depth,
+16 by default, 32 the whole model). Two other modes build the kernels and
 then only measure: ``--train-spread N`` runs phase 5's lane comparison at
 seeds 0..N-1 (the spread the train limits are set from), and ``--ab-old
 CSRC`` times the decode and RMSNorm (and, as a control on the turns,
@@ -147,7 +171,8 @@ BF16_FLOPS_PER_S = 989e12
 #: chip_faults.py plants use 7 or more of it (PERF.md).
 RTOL = 2e-2
 ATOL_RMS = 2e-2
-#: kernel lanes vs reference lanes at full depth, on the f32 logits of
+#: kernel lanes vs reference lanes (set at the full 32 layers; the serve
+#: phase runs SERVE_LAYERS, where less compounds), on the f32 logits of
 #: every greedy step (the reference lanes are teacher-forced along the
 #: kernel lanes' tokens, so every step is compared). The reference rounds
 #: the normalised softmax probabilities to bf16 before the PV product and
@@ -172,6 +197,10 @@ TRAIN_LOSS_TOL = 2.1e-3
 TRAIN_GNORM_RTOL = 1.2e-2
 #: seeds every random input: weights, prompts, tokens, kernel-check tensors
 SEED = 0
+#: the serve phase's depth: Llama-3-8B's full width, half its 32 layers,
+#: so the whole script keeps a margin under its time limit (on an H100 80GB
+#: HBM3 at 32 layers the phase took 118 s of a 944 s run)
+SERVE_LAYERS = 16
 
 #: Llama-3-8B's serving shapes: slots, heads, KV heads, head dim, block
 #: size, blocks per slot, model width, prefill chunk
@@ -2072,6 +2101,472 @@ def sweep_phase(seed: int, ref_rows):
     return total
 
 
+# ---- phase 8: resilience on the card -----------------------------------------
+#
+# (a) and (c) run `fit_distributed(resilience=...)`, whose workers import
+# this file by its name, as phase 6's do; (b) and (d) run in this process.
+
+#: where the phase keeps its supervised runs (git-ignored; removed after)
+RES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "rlt_logs", "chip_smoke_resilience")
+#: (a): the supervisor's step cadence and the step whose batch end kills
+#: the worker
+RES_SAVE_EVERY, RES_KILL_AT = 4, 6
+#: (a) keeps at most two 23 GB checkpoints (steps 4 and 8) at once
+RES_DISK_NEED_GIB = 50.0
+#: card memory (GiB) the second attempt may find taken beyond the first's:
+#: less than one CUDA context, so the killed rank's memory must be gone
+RES_FREE_SLACK_GIB = 0.25
+#: (c): the silent-heartbeat budget and the heartbeat interval (s)
+RES_STALL_S, RES_HEARTBEAT_S = 20.0, 2.0
+#: (c): preempt at 3 (drained at 4's boundary), hang at 6, corrupt the
+#: newest checkpoint and die at 9; saves every 3 steps
+RES_MNIST_SAVE_EVERY = 3
+RES_MNIST_FAULTS = ("preempt:rank=0,step=3;hang:rank=0,step=6,secs=600;"
+                    "corrupt_latest:rank=0,step=9,dir={d};kill:rank=0,step=9")
+
+
+def _res_policy(max_restarts: int):
+    from ray_lightning_tpu_torch.resilience import RetryPolicy
+
+    return RetryPolicy(max_restarts=max_restarts, backoff_base_s=1.0,
+                       jitter=0.0)
+
+
+def res_module(seed: int):
+    """(a)'s module: the card's free memory is read first, in the fresh
+    worker before it allocates anything (its CUDA context exists)."""
+    free, _ = torch.cuda.mem_get_info()
+    _to_driver(dict(kind="mem", free=free, t=time.time()))
+    return dist_module(seed)
+
+
+class ResProbe(Callback):
+    """In (a)'s worker: each step's (step, loss, grad_norm) and the
+    kernels' launches since the fit started, sent at once (a killed
+    attempt's steps arrive too); the save's seconds (from the trainer's
+    save hook to the next batch's start)."""
+
+    def on_fit_start(self, trainer, module):
+        from ray_lightning_tpu_torch.runtime import session
+
+        for k in all_kernels():
+            k.launches = 0
+        self._save_t0 = None
+        _to_driver(dict(kind="start", step=trainer.global_step,
+                        pid=os.getpid(), t=time.time(),
+                        proc_start=session.get_session().started_at))
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self._save_t0 is not None:
+            torch.cuda.synchronize()
+            _to_driver(dict(kind="save",
+                            save_s=time.perf_counter() - self._save_t0))
+            self._save_t0 = None
+
+    def on_save_checkpoint(self, trainer, module, checkpoint):
+        torch.cuda.synchronize()
+        self._save_t0 = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        _to_driver(dict(
+            kind="step", step=trainer.global_step,
+            loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+            launches={k.__name__: k.launches for k in all_kernels()}))
+
+
+def res_trainer(seed: int):
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import FSDP
+
+    return Trainer(strategy=FSDP(), max_steps=TRAIN_STEPS,
+                   log_every_n_steps=1, enable_checkpointing=False,
+                   enable_progress_bar=False, seed=seed,
+                   callbacks=[ResProbe()])
+
+
+class ResMnistProbe(Callback):
+    """In (c)'s workers: the pid (to check no worker outlives its
+    attempt) and the step each attempt starts from."""
+
+    def on_fit_start(self, trainer, module):
+        d = os.path.join(RES_DIR, "pids")
+        os.makedirs(d, exist_ok=True)
+        open(os.path.join(d, str(os.getpid())), "w").close()
+        _to_driver(dict(kind="start", step=trainer.global_step))
+
+
+def res_mnist_trainer():
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import RayXlaPlugin
+
+    return Trainer(strategy=RayXlaPlugin(num_workers=1, use_gpu=True),
+                   max_epochs=2, log_every_n_steps=1,
+                   enable_checkpointing=False, enable_progress_bar=False,
+                   seed=SEED, callbacks=[ResMnistProbe()])
+
+
+def res_fit(module_factory, trainer_factory, data_factory, cfg, **kw):
+    """One supervised `fit_distributed` on the card; the result (or the
+    SupervisedFailure), the side channel's items and the call's wall."""
+    import chip_smoke as me
+    from ray_lightning_tpu_torch.resilience import supervise
+    from ray_lightning_tpu_torch.resilience.supervisor import (
+        SupervisedFailure,
+    )
+
+    me.RECEIVED.clear()
+    t0 = time.perf_counter()
+    try:
+        out = supervise("fit", module_factory, trainer_factory,
+                        data_factory, 1, resilience=cfg,
+                        timeout=DIST_TIMEOUT_S,
+                        log_dir=os.path.join(RES_DIR, "workers"), **kw)
+    except SupervisedFailure as exc:
+        out = exc
+    return out, list(me.RECEIVED), time.perf_counter() - t0
+
+
+def resilience_kill(seed: int, ref_rows, problems: list):
+    """(a): phase 5's fit under FSDP in a supervised worker, SIGKILL'd at
+    step 6 and resumed from the step-4 checkpoint."""
+    import chip_smoke as me
+    from ray_lightning_tpu_torch.resilience import ResilienceConfig
+
+    P = functools.partial
+    free_card("res_kill")
+    ckdir = os.path.join(RES_DIR, "llama")
+    cfg = ResilienceConfig(
+        checkpoint_dir=ckdir, policy=_res_policy(1),
+        save_every_n_steps=RES_SAVE_EVERY, async_save=False,
+        heartbeat_interval_s=RES_HEARTBEAT_S,
+        faults=f"kill:rank=0,step={RES_KILL_AT}")
+    # the JAX package's digest knob for 8B checkpoints (as phase 6)
+    sup, items, wall = res_fit(P(me.res_module, seed),
+                               P(me.res_trainer, seed), P(me.dist_data, seed),
+                               cfg, env={"RLT_CKPT_DIGEST": "size"},
+                               return_weights=False)
+    by = {}
+    for it in items:
+        by.setdefault(it["kind"], []).append(it)
+    starts, mems = by.get("start", []), by.get("mem", [])
+    # split the step items by attempt: a step number that does not grow
+    # starts the next attempt
+    attempts, last = [], None
+    for it in by.get("step", []):
+        if last is None or it["step"] <= last:
+            attempts.append([])
+        attempts[-1].append(it)
+        last = it["step"]
+    row = dict(phase="resilience_kill", wall_s=wall)
+    if not hasattr(sup, "failures"):
+        problems.append(f"(a) supervised fit failed: {sup}")
+        print(json.dumps(row), flush=True)
+        return {}
+    [failure] = sup.failures or [{}]
+    if not (sup.total_attempts == 2 and failure.get("kind") == "retryable"
+            and "SIGKILL" in failure.get("cause", "")):
+        problems.append(f"(a) attempts {sup.total_attempts}, failures "
+                        f"{sup.failures}")
+    if [s["step"] for s in starts] != [0, RES_SAVE_EVERY] or \
+            len(attempts) != 2:
+        problems.append(f"(a) attempts started at {[s['step'] for s in starts]}"
+                        f" and ran {[[i['step'] for i in a] for a in attempts]}")
+        print(json.dumps(row), flush=True)
+        return {}
+    first, second = attempts
+    rows1 = [(i["loss"], i["grad_norm"]) for i in first]
+    rows2 = [(i["loss"], i["grad_norm"]) for i in second]
+    if [i["step"] for i in first] != list(range(1, RES_KILL_AT + 1)) or \
+            rows1 != ref_rows[:RES_KILL_AT]:
+        problems.append("(a) the killed attempt's steps differ from phase 5's")
+    if [i["step"] for i in second] != list(range(RES_SAVE_EVERY + 1,
+                                                 TRAIN_STEPS + 1)) or \
+            rows2 != ref_rows[RES_SAVE_EVERY:]:
+        problems.append("(a) the resumed attempt's steps 5-8 differ from "
+                        "phase 5's")
+    launches = [a[-1]["launches"] for a in attempts]
+    if launches[1] != expected_launches(TRAIN_STEPS - RES_SAVE_EVERY):
+        problems.append(f"(a) resumed launches {launches[1]}")
+    if launches[0] != expected_launches(RES_KILL_AT):
+        problems.append(f"(a) killed attempt's launches {launches[0]}")
+    free = [m["free"] / 2**30 for m in mems]
+    if len(free) != 2 or free[1] < free[0] - RES_FREE_SLACK_GIB:
+        problems.append(f"(a) free card memory at the attempts' starts "
+                        f"{free} GiB")
+    saves = [s["save_s"] for s in by.get("save", [])]
+    restore = [r["restore_s"] for r in by.get("restore", [])]
+    row.update(
+        attempts=sup.total_attempts, failure=failure,
+        starts=[s["step"] for s in starts],
+        losses=[r[0] for r in rows1 + rows2],
+        rows_equal_phase5=rows1 == ref_rows[:RES_KILL_AT]
+        and rows2 == ref_rows[RES_SAVE_EVERY:],
+        free_gib_at_attempt_start=free, save_s=saves, restore_s=restore,
+        # failure classified (driver clock) -> the relaunched worker's
+        # process start; then its imports, rendezvous, build and restore
+        relaunch_s=starts[1]["proc_start"] - failure["at"],
+        worker_setup_s=[s["t"] - s["proc_start"] for s in starts],
+        launches=launches)
+    print(json.dumps(row), flush=True)
+    total = {k: launches[0][k] + launches[1][k] for k in launches[0]}
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return total
+
+
+def guard_fit(cfg, tokens, seed: int, guard, mask: bool = False,
+              faults=(), max_steps: int = TRAIN_STEPS, sync_debug=False):
+    """Phase 5's fit in this process with the trainguard: optionally a
+    float mask of ones in every batch, a fault plan, and
+    ``torch.cuda.set_sync_debug_mode("warn")`` with its warnings counted.
+    Returns (probe, wall, peak, metrics, syncs, module, launches)."""
+    import warnings
+
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    for k in all_kernels():
+        k.launches = 0
+    probe = StepProbe()
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(strategy=SingleDevice(), max_steps=max_steps,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed, guard=guard,
+                      default_root_dir=RES_DIR,
+                      callbacks=[probe.callback, *faults])
+    data = {"tokens": tokens}
+    if mask:
+        data["mask"] = np.ones((len(tokens), TS), np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    syncs = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            probe.t.append(t0)
+            trainer.fit(module, DataLoader(data, batch_size=TB))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if sync_debug:
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    launches = {k.__name__: k.launches for k in all_kernels()}
+    return (probe, wall, torch.cuda.max_memory_allocated(),
+            dict(trainer.callback_metrics), syncs, module, launches)
+
+
+def _step_ms(probe) -> float:
+    return statistics.median(b - a for a, b in zip(probe.t[2:],
+                                                   probe.t[3:])) * 1e3
+
+
+def resilience_guard(seed: int, ref_rows, problems: list):
+    """(b): the trainguard in this process (SingleDevice) and (d): the
+    SDC digest of the weights on the card against the host's."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.resilience import GuardConfig
+    from ray_lightning_tpu_torch.resilience.faults import (
+        Fault,
+        FaultInjector,
+    )
+    from ray_lightning_tpu_torch.resilience.guard import local_digest
+
+    cfg, tokens = train_inputs(seed)
+    total = {k.__name__: 0 for k in all_kernels()}
+    free_card("res_guard")
+
+    def add(launches, steps, what):
+        if launches != expected_launches(steps):
+            problems.append(f"(b) {what}: launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+
+    # (b1) guard off and on over phase 5's steps, both under the sync
+    # debug mode: the rows equal phase 5's, the guard adds no sync
+    runs = {}
+    for name, guard in (("unguarded", None), ("guarded", GuardConfig())):
+        probe, wall, peak, metrics, syncs, module, launches = guard_fit(
+            cfg, tokens, seed, guard, sync_debug=True)
+        del module
+        gc.collect()
+        torch.cuda.empty_cache()
+        add(launches, TRAIN_STEPS, name)
+        if probe.rows != ref_rows:
+            problems.append(f"(b1) {name} rows differ from phase 5's")
+        runs[name] = dict(step_ms_p50=_step_ms(probe), fit_wall_s=wall,
+                          peak_gib=peak / 2**30, syncs=syncs,
+                          syncs_per_step=syncs / TRAIN_STEPS,
+                          rows_equal_phase5=probe.rows == ref_rows)
+    if runs["guarded"]["syncs"] > runs["unguarded"]["syncs"]:
+        problems.append(f"(b1) the guarded fit synchronised "
+                        f"{runs['guarded']['syncs']} times, the unguarded "
+                        f"{runs['unguarded']['syncs']}")
+    print(json.dumps(dict(
+        phase="resilience_guard_on_off", **{
+            f"{n}_{k}": v for n, r in runs.items() for k, v in r.items()},
+        guard_step_ms=runs["guarded"]["step_ms_p50"]
+        - runs["unguarded"]["step_ms_p50"],
+        guard_peak_gib=runs["guarded"]["peak_gib"]
+        - runs["unguarded"]["peak_gib"])), flush=True)
+
+    # (b2) 8 clean masked batches against 9 with a poisoned one at step
+    # 3: the skip leaves every update (loss, grad_norm) and the final
+    # weights bitwise as the clean run's
+    guard = GuardConfig()
+    probe_c, wall_c, peak_c, _, _, module, launches = guard_fit(
+        cfg, tokens, seed, guard, mask=True)
+    add(launches, TRAIN_STEPS, "masked clean")
+    clean_params = {k: v.detach().cpu() for k, v in module.params.items()}
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the extra batch, poisoned, becomes step 3; the rest are phase 5's
+    nine = np.concatenate([tokens[:2 * TB], tokens[2 * TB:3 * TB],
+                           tokens[2 * TB:]])
+    probe_n, wall_n, peak_n, metrics, _, module, launches = guard_fit(
+        cfg, nine, seed, guard, mask=True, max_steps=TRAIN_STEPS + 1,
+        faults=[FaultInjector([Fault("nan_loss", None, 3, {})])])
+    add(launches, TRAIN_STEPS + 1, "masked nan")
+    kept = probe_n.rows[:2] + probe_n.rows[3:]
+    same_params = all(torch.equal(p.detach().cpu(), clean_params[k])
+                      for k, p in module.params.items())
+    counters = {k: metrics.get(k) for k in (
+        "guard_skipped_steps", "guard_last_anomaly", "guard_streak")}
+    if not (counters["guard_skipped_steps"] == 1
+            and counters["guard_last_anomaly"] == 2
+            and np.isnan(probe_n.rows[2][0]) and kept == probe_c.rows
+            and same_params):
+        problems.append(f"(b2) counters {counters}, updates equal "
+                        f"{kept == probe_c.rows}, params equal {same_params}")
+    print(json.dumps(dict(
+        phase="resilience_guard_nan", steps=len(probe_n.rows),
+        updates=len(kept), **counters, updates_equal_clean=kept == probe_c.rows,
+        params_equal_clean=same_params, clean_step_ms_p50=_step_ms(probe_c),
+        nan_fit_wall_s=wall_n, clean_fit_wall_s=wall_c,
+        clean_peak_gib=peak_c / 2**30, nan_peak_gib=peak_n / 2**30)),
+        flush=True)
+
+    # (d) the SDC digest of the weights on the card: timed, and equal to
+    # the digest of the same bytes on the host (the clean run's copy,
+    # bitwise these weights), summed in numpy
+    params = dict(module.params)
+    on_card = int(local_digest(params))
+    ms = time_ms(lambda: local_digest(params), reps=5)
+    host = 0
+    for i, name in enumerate(sorted(clean_params)):
+        words = clean_params[name].numpy().view(np.uint32)
+        leaf = int(words.sum(dtype=np.uint64)) & 0xFFFFFFFF
+        host = (host + leaf * (2 * i + 1)) & 0xFFFFFFFF
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    if on_card != host:
+        problems.append(f"(d) digest on the card {on_card} != host {host}")
+    print(json.dumps(dict(
+        phase="resilience_sdc_digest", digest=on_card, host_digest=host,
+        equal=on_card == host, leaves=len(params), bytes=nbytes, ms=ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        note="world size 1: the probe records, no peer to compare")),
+        flush=True)
+    del module, params, clean_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def resilience_mnist(problems: list):
+    """(c): preemption, a stall and a corrupted checkpoint under one
+    supervised MNIST run on the card, against an uninterrupted one; a
+    fatal error fails fast."""
+    import chip_smoke as me
+    from ray_lightning_tpu_torch.resilience import ResilienceConfig
+
+    free_card("res_mnist")
+
+    def cfg(name, faults=None, max_restarts=2):
+        return ResilienceConfig(
+            checkpoint_dir=os.path.join(RES_DIR, name),
+            policy=_res_policy(max_restarts),
+            save_every_n_steps=RES_MNIST_SAVE_EVERY, async_save=False,
+            heartbeat_interval_s=RES_HEARTBEAT_S, stall_timeout_s=RES_STALL_S,
+            faults=faults)
+
+    common = (me.mnist_module, me.res_mnist_trainer, me.mnist_data)
+    base, _, base_wall = res_fit(*common, cfg("base"))
+    d = os.path.join(RES_DIR, "faults")
+    hurt, items, hurt_wall = res_fit(
+        *common, cfg("faults", RES_MNIST_FAULTS.format(d=d)))
+    starts = [it["step"] for it in items if it["kind"] == "start"]
+    fatal, _, fatal_wall = res_fit(*common, cfg("fatal",
+                                                "raise:rank=0,step=2"))
+    row = dict(phase="resilience_mnist", base_wall_s=base_wall,
+               faults_wall_s=hurt_wall, fatal_wall_s=fatal_wall,
+               attempt_starts=starts)
+    if not hasattr(hurt, "failures") or not hasattr(base, "result"):
+        problems.append(f"(c) supervised runs failed: {base} / {hurt}")
+        print(json.dumps(row), flush=True)
+        return
+    kinds = [(f["kind"], f["cause"]) for f in hurt.failures]
+    same = all(torch.equal(v, hurt.result.state_dict[k])
+               for k, v in base.result.state_dict.items())
+    # drained at step 4 (the notice lands after step 3's boundary check),
+    # the hang's relaunch from step 6, the corrupt step 9 skipped: 6 again
+    if kinds != [("preemption", "worker-preempt"), ("retryable", "stall"),
+                 ("retryable", "worker-signal:SIGKILL")] \
+            or starts != [0, 4, 6, 6] or not same:
+        problems.append(f"(c) failures {kinds}, starts {starts}, weights "
+                        f"equal the uninterrupted run's: {same}")
+    fatal_ok = (type(fatal).__name__ == "SupervisedFailure"
+                and fatal.classified.kind == "fatal" and fatal.attempts == 1)
+    if not fatal_ok:
+        problems.append(f"(c) the raise did not fail fast: {fatal}")
+    pids = os.listdir(os.path.join(RES_DIR, "pids"))
+    alive = [int(p) for p in pids if not _dead(int(p))]
+    if alive:
+        problems.append(f"(c) workers {alive} outlived their attempts")
+    row.update(failures=kinds, weights_equal_uninterrupted=same,
+               base_val_accuracy=base.result.metrics.get("ptl/val_accuracy"),
+               fatal_fails_fast=fatal_ok, workers=len(pids),
+               workers_alive=alive)
+    print(json.dumps(row), flush=True)
+
+
+def _dead(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def resilience_phase(seed: int, ref_rows):
+    """Phase 8; returns the kernels' launches over its fits."""
+    problems = []
+    # phase 6's and 7's checkpoints are gone (they remove their dirs);
+    # anything a cut run left is removed here before (a)'s 23 GB saves
+    for d in (DIST_DIR, SWEEP_DIR, RES_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(RES_DIR)
+    free_gib = shutil.disk_usage(RES_DIR).free / 2**30
+    if free_gib < RES_DISK_NEED_GIB:
+        raise AssertionError(f"resilience: {free_gib:.1f} GiB free on disk, "
+                             f"(a) needs {RES_DISK_NEED_GIB}")
+    total = resilience_kill(seed, ref_rows, problems)
+    for k, v in resilience_guard(seed, ref_rows, problems).items():
+        total[k] = total.get(k, 0) + v
+    resilience_mnist(problems)
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    if problems:
+        raise AssertionError("resilience: " + "; ".join(problems))
+    return total
+
+
 def old_split_plan(c: int, hkv: int, n_tiles: int, sms: int):
     """The parent build's decode plan: (n_split, tiles per split) over
     ``n_tiles`` 16-position tiles, about sixteen one-warp blocks an SM."""
@@ -2288,8 +2783,9 @@ def nvidia_smi() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=32,
-                    help="model depth (32 = the full Llama-3-8B)")
+    ap.add_argument("--layers", type=int, default=SERVE_LAYERS,
+                    help="the serve phase's model depth (32 = the full "
+                         "Llama-3-8B)")
     ap.add_argument("--train-spread", type=int, default=0, metavar="N",
                     help="only build, then run the train lanes' comparison "
                          "at seeds 0..N-1 and print each seed's readings")
@@ -2323,6 +2819,15 @@ def main() -> int:
         ab_phase(args.ab_old)
         return 0
 
+    # each phase's wall seconds, printed before the kernels' summary
+    walls, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        walls[name] = now - t_phase
+        t_phase = now
+
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2330,28 +2835,42 @@ def main() -> int:
     check_owed(gen)
     check_flash_owed(gen)
     check_rms_norm_grad(gen)
+    lap("kernels")
 
     # 4. serving at full width, through the kernel lanes
     serve_launches = serve_phase(SEED, args.layers)
+    lap("serve")
 
     # 5. training at full width, 4 layers deep
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, train_rows = train_phase(SEED)
+    lap("train")
 
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint and its resume, and the
     # MNIST train/load/predict matrix
     dist_launches = dist_phase(SEED, train_rows)
+    lap("dist")
 
     # 7. the sweep: Llama-3-8B trials under ASHA, each in its own process
     # on the card, and the reference's Tune example over fit_distributed
     sweep_launches = sweep_phase(SEED, train_rows)
+    lap("sweep")
+
+    # 8. resilience: a SIGKILL'd FSDP fit resumed under the supervisor,
+    # the trainguard's skip, preemption / stall / corruption recovered,
+    # the SDC digest on the card
+    res_launches = resilience_phase(SEED, train_rows)
+    lap("resilience")
+    print(json.dumps(dict(phase="timing", wall_s=walls,
+                          since_import_s=time.time() - IMPORTED_AT)),
+          flush=True)
 
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
                 + dist_launches[k] + sweep_launches[k]
-                for k in train_launches}
+                + res_launches.get(k, 0) for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/paged_attention.cu",

@@ -182,17 +182,50 @@ class ModelCheckpoint(Callback):
     def _prune(self, trainer=None) -> None:
         """Keep the ``save_top_k`` best; the best and last paths are
         never removed. Every rank keeps the same book; rank 0 alone
-        removes the directories."""
+        removes the directories.
+
+        Retention floor (trainguard): a corruption rollback needs a
+        checkpoint that is explicitly blessed (not saved inside an
+        anomaly window; an absent or unreadable blessing reads as "not
+        known good") and, with the SDC probe armed, at or below the last
+        probe-VERIFIED step (a bit flip is silent, so newer checkpoints
+        are blessed yet possibly poisoned). When no kept checkpoint
+        qualifies, the best-ranked stale one that does is spared: a long
+        anomaly streak must never delete the last good restore point."""
         if self.save_top_k <= 0:
             return
         self._saved.sort(key=lambda t: t[0])
         keep = self._saved[: self.save_top_k]
+        stale = self._saved[self.save_top_k:]
+        horizon = getattr(trainer, "_guard_probe_ok_step", None) \
+            if trainer is not None else None
+
+        def rollback_ok(path: str, max_step) -> bool:
+            blessed, step = _ckpt_meta(path)
+            if blessed is not True:
+                return False
+            return max_step is None or (step is not None
+                                        and step <= max_step)
+
+        protected: list[tuple[float, str]] = []
+        if stale and keep:
+            for need in ([None, horizon] if horizon is not None
+                         else [None]):
+                if not any(rollback_ok(p, need)
+                           for _, p in keep + protected):
+                    hit = next(
+                        (e for e in stale
+                         if e not in protected and rollback_ok(e[1], need)),
+                        None)
+                    if hit is not None:
+                        protected.append(hit)
+        protected_paths = {p for _, p in protected}
         if trainer is None or trainer.strategy.is_global_zero:
-            for _, stale_path in self._saved[self.save_top_k:]:
-                if stale_path not in (self.best_model_path,
-                                      self.last_model_path):
+            for _, stale_path in stale:
+                if stale_path not in protected_paths and stale_path not in (
+                        self.best_model_path, self.last_model_path):
                     _remove_checkpoint(stale_path)
-        self._saved = keep
+        self._saved = keep + protected
 
     def on_train_batch_end(self, trainer, module, metrics, batch_idx) -> None:
         if (self.every_n_train_steps

@@ -15,14 +15,19 @@ from torch import nn
 
 @dataclasses.dataclass
 class TrainState:
-    """``step`` counts optimizer updates; ``scheduler`` is the learning
-    rate schedule stepped once per update (None when the module gives
-    none)."""
+    """``step`` counts train steps on the host; ``scheduler`` is the
+    learning rate schedule stepped once per step (None when the module
+    gives none). Under the trainguard, ``guard`` holds its device
+    scalars (`resilience.guard.GuardState`) and ``updates`` the device
+    count of the updates it kept: a skipped step still advances
+    ``step``, which keys the step's generator."""
 
     step: int
     model: nn.Module
     optimizer: Optional[torch.optim.Optimizer] = None
     scheduler: Optional[Any] = None
+    guard: Optional[Any] = None
+    updates: Optional[Any] = None
 
     @property
     def params(self) -> Dict[str, nn.Parameter]:

@@ -23,9 +23,13 @@ parameters. Checkpoints (`save_checkpoint`, ``fit(ckpt_path=)``,
 epoch replays the rest of that epoch, one saved at its end starts the
 next.
 
-Knobs whose machinery is not ported yet raise `NotImplementedError` when
-set, naming the ROADMAP item: ``guard``, ``telemetry``, ``profile``,
-``profiler_dir`` and ``compile_cache_dir``.
+``guard=GuardConfig(...)`` (or True) arms the trainguard
+(`resilience.guard`): each step's loss and grad_norm are checked on the
+device, an anomalous update is skipped by the optimizer's ``found_inf``
+flag (a fused optimizer; `DeviceLambdaLR` for a schedule), and the
+counters ride the step's metrics. Knobs whose machinery is not ported
+yet raise `NotImplementedError` when set, naming the ROADMAP item:
+``telemetry``, ``profile``, ``profiler_dir`` and ``compile_cache_dir``.
 """
 from __future__ import annotations
 
@@ -57,7 +61,6 @@ log = logging.getLogger(__name__)
 
 #: knob -> the ROADMAP item that brings its machinery
 _NOT_PORTED = {
-    "guard": "Queue 1 item 10 (resilience/guard.py)",
     "telemetry": "Queue 1 item 11 (telemetry/)",
     "profile": "Queue 1 item 11 (telemetry/profiler.py)",
     "profiler_dir": "Queue 1 item 11 (telemetry/profiler.py)",
@@ -100,8 +103,7 @@ class Trainer:
         telemetry: Any = None,
         profile: Any = None,
     ):
-        for knob, value in (("guard", guard), ("telemetry", telemetry),
-                            ("profile", profile),
+        for knob, value in (("telemetry", telemetry), ("profile", profile),
                             ("profiler_dir", profiler_dir),
                             ("compile_cache_dir", compile_cache_dir)):
             if value:
@@ -131,6 +133,11 @@ class Trainer:
         # accepted so JAX callers run unchanged.
         self.prefetch_to_device = max(0, prefetch_to_device)
         self.warm_start = warm_start
+        #: trainguard config (resilience/guard.py); normalized at fit
+        self.guard = guard
+        #: rollback marker of a trainguard rollback (set by the
+        #: supervisor): the resume skips the poisoned window
+        self.resume_skip_past: Optional[Dict[str, Any]] = None
 
         self.callbacks: List[Callback] = list(callbacks or [])
         if enable_checkpointing and not any(
@@ -178,6 +185,15 @@ class Trainer:
         self._seed = seed_everything(self.seed)
         self.module = module
         module.trainer = self
+        if self.guard:
+            from ray_lightning_tpu_torch.resilience.guard import (
+                GuardCallback,
+                GuardConfig,
+            )
+
+            self.guard = GuardConfig.coerce(self.guard)
+            if not any(isinstance(c, GuardCallback) for c in self.callbacks):
+                self.callbacks.append(GuardCallback(self.guard))
         self.strategy.setup(module)
         module.setup()
 
@@ -340,12 +356,27 @@ class Trainer:
         if self.gradient_clip_val:
             clip_by_global_norm_(self.strategy.local_tensors(grads),
                                  grad_norm, self.gradient_clip_val)
+        guard_metrics = {}
+        if self.guard and self.guard.enabled:
+            from ray_lightning_tpu_torch.resilience.guard import apply_guard
+
+            # decided on the loss of every data-parallel rank together,
+            # so every rank skips the same updates
+            loss_all = self.strategy.reduce_mean({"loss": loss.detach()})
+            bad, state.updates, state.guard, guard_metrics = apply_guard(
+                self.guard, state.guard, state.updates, loss_all["loss"],
+                grad_norm)
+            # the fused optimizer's skip flag: an anomalous update leaves
+            # the params, the state and the step counts as they were,
+            # and DeviceLambdaLR reads it to hold its position
+            state.optimizer.found_inf = bad.to(torch.float32)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
+        return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics,
+                **guard_metrics}
 
     def _loss(self, params, batch, rng):
         out = self.module.training_step(params, batch, rng)
@@ -455,9 +486,23 @@ class Trainer:
             "epoch_batch": self._epoch_batches_done,
             "module_class": type(self.module).__name__,
             "hparams": self.module.hparams,
-            # no trainguard yet: every checkpoint is blessed
-            "blessed": True,
         }
+        # trainguard blessing: the anomaly-free-window verdict, so a
+        # corruption rollback can target the last GOOD restore point
+        # (latest_checkpoint(good_only=True)); guard off => blessed. The
+        # counters' fetch is save-cadenced host work.
+        blessed = True
+        if self.guard and state.guard is not None:
+            from ray_lightning_tpu_torch.resilience.guard import bless_verdict
+
+            g = state.guard
+            updates = int(state.updates)
+            blessed = bless_verdict(self.guard, g, updates)
+            meta["guard"] = {"skipped_steps": int(g.skipped),
+                             "streak": int(g.streak),
+                             "last_anomaly": int(g.last_anomaly),
+                             "updates": updates}
+        meta["blessed"] = blessed
         if state.optimizer is not None:
             params, opt_state = get_state_dict(self.module.model,
                                                state.optimizer)
@@ -502,6 +547,9 @@ class Trainer:
         if state.scheduler is not None:
             state.scheduler.load_state_dict(restored["scheduler"])
         state.step = int(restored["step"])
+        if "guard" in meta:
+            # the trainguard's count of the updates it kept
+            state.updates = int(meta["guard"]["updates"])
         saved_epoch = int(meta.get("epoch", -1))
         if meta.get("mid_epoch", False):
             # taken inside a partially trained epoch: resume the SAME
@@ -569,7 +617,52 @@ class Trainer:
                            optimizer=opt, scheduler=sched)
         if ckpt_path:
             self._restore(ckpt_path, state)
+        # outside the restore branch: a rollback that found no blessed
+        # checkpoint resumes from scratch and must still skip the
+        # poisoned window instead of replaying it
+        self._apply_rollback_skip()
+        if self.guard:
+            from ray_lightning_tpu_torch.resilience.guard import (
+                check_guardable,
+                init_guard_state,
+            )
+
+            if self.guard.enabled:
+                check_guardable(opt, sched)
+            # fresh guard scalars even after a restore: the EMA re-warms
+            # in warmup_steps rather than resume a pre-anomaly EMA
+            device = self.strategy.device
+            state.guard = init_guard_state(device)
+            state.updates = torch.tensor(
+                state.step if state.updates is None else state.updates,
+                dtype=torch.int32, device=device)
         return state
+
+    def _apply_rollback_skip(self) -> None:
+        """After a trainguard rollback (``resume_skip_past``, set by the
+        supervisor from the rollback marker): the restore point is the
+        last BLESSED checkpoint, behind the detection step, so the data
+        order advances past the poisoned window instead of replaying it.
+        Also for a resume from scratch (no blessed checkpoint): the
+        epoch's clean prefix goes with the window, and suspect data is
+        never trained again."""
+        rsp = self.resume_skip_past
+        if not rsp or int(rsp.get("detected_step", -1)) <= self.global_step:
+            return  # a stale marker of an older incident
+        if int(rsp.get("epoch", -1)) != self.current_epoch:
+            log.warning(
+                "trainguard rollback: the poisoned window spans an epoch "
+                "boundary (detected in epoch %s, resuming epoch %d); "
+                "replaying instead of skipping", rsp.get("epoch"),
+                self.current_epoch)
+            return
+        target = int(rsp.get("epoch_batch", 0))
+        if target > self._resume_skip_batches:
+            log.warning(
+                "trainguard rollback: epoch %d resumes at batch %d "
+                "(instead of %d), past the poisoned window",
+                self.current_epoch, target, self._resume_skip_batches)
+            self._resume_skip_batches = target
 
     def _wrap(self, module: TpuModule) -> None:
         """The strategy's wrapper around the model, after its weights
@@ -670,8 +763,24 @@ def _host_array(x):
 
 
 def _to_host(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Metrics on the host as floats (arrays for the rest). The scalars
+    of each device cross in ONE copy, so a fetch costs one sync however
+    many metrics the step carries (the trainguard adds five); f64
+    holds every f32, bf16 and int32 value exactly."""
+    scalars: Dict[Any, List[str]] = {}
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor) and v.dim() == 0:
+            scalars.setdefault(v.device, []).append(k)
+    fetched: Dict[str, float] = {}
+    for keys in scalars.values():
+        values = torch.stack([tree[k].detach().to(torch.float64)
+                              for k in keys]).cpu().tolist()
+        fetched.update(zip(keys, values))
     out = {}
     for k, v in tree.items():
+        if k in fetched:
+            out[k] = fetched[k]
+            continue
         a = np.asarray(_host_array(v))
         out[k] = float(a) if a.ndim == 0 else a
     return out

@@ -418,17 +418,26 @@ def token_loss_sum(logits: torch.Tensor, targets: torch.Tensor,
     return (losses * m).sum(), m.sum()
 
 
-def warmup_cosine_decay(step: int, init_value: float, peak_value: float,
+def warmup_cosine_decay(step, init_value: float, peak_value: float,
                         warmup_steps: int, decay_steps: int,
-                        end_value: float = 0.0) -> float:
+                        end_value: float = 0.0):
     """optax's ``warmup_cosine_decay_schedule`` at ``step``: linear from
     ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
     to ``end_value`` at ``decay_steps`` (counted from step 0, warmup
-    included), flat after."""
-    if step < warmup_steps:
-        return init_value + (peak_value - init_value) * step / warmup_steps
+    included), flat after. ``step`` an int gives a float; a device
+    tensor gives an f64 device tensor, computed there (no host read)."""
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
     span = decay_steps - warmup_steps
+    if isinstance(step, torch.Tensor):
+        s = step.double()
+        warm = init_value + (peak_value - init_value) * s / max(
+            warmup_steps, 1)
+        t = torch.clamp(s - warmup_steps, max=span)
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / span))
+        return torch.where(s < warmup_steps, warm,
+                           peak_value * ((1 - alpha) * cosine + alpha))
+    if step < warmup_steps:
+        return init_value + (peak_value - init_value) * step / warmup_steps
     t = min(step - warmup_steps, span)
     cosine = 0.5 * (1 + math.cos(math.pi * t / span))
     return peak_value * ((1 - alpha) * cosine + alpha)
@@ -439,7 +448,10 @@ class LlamaModule(TpuModule):
     (or {"inputs", "targets"} pairs), twin of the JAX `LlamaModule`. The
     model keeps f32 master weights with gradients on and computes in
     ``cfg.dtype``; the optimizer is AdamW (betas 0.9 / 0.95) on every
-    parameter under optax's warmup-cosine schedule."""
+    parameter under optax's warmup-cosine schedule. The AdamW is torch's
+    fused one with a tensor lr under `DeviceLambdaLR`: the trainguard's
+    skip (``found_inf``) then leaves the moments, the step counts and the
+    schedule's position as they were, on the device."""
 
     def __init__(self, cfg: Optional[LlamaConfig] = None,
                  lr: float = 3e-4, weight_decay: float = 0.1,
@@ -473,20 +485,30 @@ class LlamaModule(TpuModule):
         init_params_(self.model, generator)
         return dict(self.model.named_parameters())
 
-    def schedule(self, step: int) -> float:
-        """The learning rate of update ``step`` (0-based)."""
+    def schedule(self, step):
+        """The learning rate of update ``step`` (0-based; an int, or a
+        device tensor as `DeviceLambdaLR` passes it)."""
         return warmup_cosine_decay(step, 0.0, self.lr, self.warmup_steps,
                                    max(self.total_steps, 2),
                                    end_value=self.lr * 0.1)
 
     def configure_optimizers(self):
-        opt = torch.optim.AdamW(self.model.parameters(), lr=self.lr,
-                                betas=(0.9, 0.95), eps=1e-8,
-                                weight_decay=self.weight_decay)
+        from ray_lightning_tpu_torch.core.schedule import DeviceLambdaLR
+
         lr = self.lr
-        sched = torch.optim.lr_scheduler.LambdaLR(
-            opt, lambda step: self.schedule(step) / lr if lr else 0.0)
-        return opt, sched
+        opt = torch.optim.AdamW(
+            self.model.parameters(),
+            lr=torch.tensor(lr, dtype=torch.float32, device=self.device),
+            betas=(0.9, 0.95), eps=1e-8, weight_decay=self.weight_decay,
+            fused=True)
+
+        def factor(step: torch.Tensor) -> torch.Tensor:
+            if not lr:
+                return torch.zeros((), dtype=torch.float64,
+                                   device=step.device)
+            return self.schedule(step) / lr
+
+        return opt, DeviceLambdaLR(opt, factor)
 
     def _split(self, batch):
         if "tokens" in batch:

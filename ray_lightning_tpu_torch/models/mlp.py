@@ -69,8 +69,10 @@ class MLPClassifier(TpuModule):
         return MLP(self.in_features, self.features, self.num_classes)
 
     def configure_optimizers(self):
+        # fused: the trainguard's skip (found_inf) holds an update back
+        # on the device
         return torch.optim.Adam(self.model.parameters(), lr=self.lr,
-                                eps=1e-8)
+                                eps=1e-8, fused=True)
 
     def _metrics(self, params, batch):
         logits = self.apply(params, batch["x"])

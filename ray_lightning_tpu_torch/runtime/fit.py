@@ -145,6 +145,7 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
                     timeout: Optional[float] = None,
                     log_dir: Optional[str] = None,
                     transport: Optional[Transport] = None,
+                    watchdog: Optional[Callable[[], None]] = None,
                     resilience: Optional[Any] = None) -> FitResult:
     """Run one Trainer job (`fit|validate|test|predict`) in
     ``num_processes`` processes; return rank 0's results.
@@ -154,13 +155,33 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
     fit, or supplies the weights of an eval-family job. ``device``:
     None is the card (one per process), ``"cpu"`` the CPU over gloo.
     With ``module`` and returned weights, the driver's module holds the
-    trained weights afterwards (reference ray_ddp.py:190)."""
+    trained weights afterwards (reference ray_ddp.py:190).
+
+    ``resilience=ResilienceConfig(...)`` runs the job under the
+    supervisor (`resilience.supervisor`): a killed, preempted or hung
+    worker restarts the group, which resumes from the latest valid
+    checkpoint instead of losing the run. Returns the final FitResult;
+    call `supervise` directly for the restart ledger. ``watchdog`` runs
+    about once a second in the driver's pump (the stall monitor's
+    hook)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
     if resilience is not None:
-        raise NotImplementedError(
-            "run_distributed(resilience=...) is not ported yet (ROADMAP "
-            "Queue 1 item 10: resilience/supervisor.py)")
+        # lazy: the supervisor imports this module
+        from ray_lightning_tpu_torch.resilience.supervisor import supervise
+
+        supervised = supervise(
+            kind, module_factory, trainer_factory, data_factory,
+            num_processes, resilience=resilience, watchdog=watchdog,
+            module=module, ckpt_path=ckpt_path, device=device, env=env,
+            init_hook=init_hook, on_queue_item=on_queue_item,
+            return_weights=return_weights, final_ckpt_dir=final_ckpt_dir,
+            timeout=timeout, log_dir=log_dir, transport=transport)
+        if supervised.restarts or supervised.preemptions:
+            log.info("supervised %s finished after %d restart(s) / %d "
+                     "preemption resume(s)", kind, supervised.restarts,
+                     supervised.preemptions)
+        return supervised.result
     if module is not None and module.device is None:
         from ray_lightning_tpu_torch.utils.devices import resolve_device
 
@@ -173,7 +194,7 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
               return_weights, final_ckpt_dir, ckpt_path),
         device=device, env=env, init_hook=init_hook,
         on_queue_item=on_queue_item, timeout=timeout, log_dir=log_dir,
-        transport=transport)
+        transport=transport, watchdog=watchdog)
     result = results[0]
     if not isinstance(result, FitResult):
         raise TypeError(f"rank 0 returned {type(result)}; expected "

@@ -46,6 +46,11 @@ from ray_lightning_tpu_torch.runtime.transport import (
 
 log = logging.getLogger(__name__)
 
+#: how long a worker whose channel hit EOF gets to be reaped before it is
+#: reported as still running (a SIGKILL'd 8B worker on an H100 took more
+#: than 2 s)
+EOF_REAP_S = 30.0
+
 
 def dumps_by_reference(obj: Any, what: str) -> bytes:
     """``pickle.dumps(obj)``, or a `TypeError` that names the rule."""
@@ -402,7 +407,8 @@ class WorkerGroup:
             on_queue_item: Optional[Callable[[int, Any], None]] = None,
             timeout: Optional[float] = None,
             shared_args: Sequence[Any] = (),
-            kwargs: Optional[Dict[str, Any]] = None) -> List[Any]:
+            kwargs: Optional[Dict[str, Any]] = None,
+            watchdog: Optional[Callable[[], None]] = None) -> List[Any]:
         """Fan ``fn`` out to every rank and pump until all return. Each
         rank executes ``fn(*shared_args, *per_rank_args[rank], **kwargs)``.
 
@@ -414,7 +420,8 @@ class WorkerGroup:
 
         The pump handles side-channel items as they arrive (callables run
         here, in the driver), raises `WorkerError` on the first worker
-        error or death, and `TimeoutError` after ``timeout`` seconds."""
+        error or death, and `TimeoutError` after ``timeout`` seconds;
+        ``watchdog`` is as in `wait`."""
         if not self.executors:
             raise RuntimeError("call start() first")
         blob = dumps_by_reference((fn, tuple(shared_args),
@@ -434,12 +441,17 @@ class WorkerGroup:
                 raise self._eof_error(ex) from None
         resend = {"digest": digest, "blob": blob, "extras": extra_blobs}
         return self.wait(tids, on_queue_item=on_queue_item, timeout=timeout,
-                         resend=resend)
+                         resend=resend, watchdog=watchdog)
 
     def wait(self, tids: Sequence[int],
              on_queue_item: Optional[Callable[[int, Any], None]] = None,
              timeout: Optional[float] = None,
-             resend: Optional[Dict[str, Any]] = None) -> List[Any]:
+             resend: Optional[Dict[str, Any]] = None,
+             watchdog: Optional[Callable[[], None]] = None) -> List[Any]:
+        """``watchdog`` runs once per pump slice (about 1 Hz) in the
+        driver: the resilience layer's stall monitor raises `StallError`
+        from it to fail a hung but living worker group
+        (`resilience.health.HealthMonitor.check`)."""
         results: Dict[int, Any] = {}
         done: Dict[int, bool] = {r: False for r in range(self.num_workers)}
         deadline = (time.monotonic() + timeout) if timeout is not None \
@@ -450,6 +462,8 @@ class WorkerGroup:
                 raise TimeoutError(
                     f"workers still pending after {timeout}s: "
                     f"{[r for r, d in done.items() if not d]}")
+            if watchdog is not None:
+                watchdog()
             ready = conn_wait(list(conns), timeout=1.0)
             if not ready:
                 self._check_liveness(done)
@@ -467,9 +481,11 @@ class WorkerGroup:
 
     def _eof_error(self, ex: TpuExecutor) -> WorkerError:
         """EOF on the channel means the process died (or is dying):
-        harvest its returncode so the death is classified."""
+        harvest its returncode so the death is classified. A killed
+        process that held a large CUDA context is reaped only after the
+        driver has torn that context down, which can take seconds."""
         try:
-            rc = ex.proc.wait(timeout=2.0)
+            rc = ex.proc.wait(timeout=EOF_REAP_S)
         except subprocess.TimeoutExpired:
             rc = ex.proc.poll()
         if rc is None:

@@ -68,7 +68,8 @@ def launch(fn: Callable, num_processes: int, *, args: tuple = (),
            on_queue_item: Optional[Callable[[int, Any], None]] = None,
            per_rank_args: Optional[Sequence[tuple]] = None,
            log_dir: Optional[str] = None, timeout: Optional[float] = None,
-           transport: Optional[Transport] = None) -> List[Any]:
+           transport: Optional[Transport] = None,
+           watchdog: Optional[Callable[[], None]] = None) -> List[Any]:
     """Run ``fn`` in ``num_processes`` processes joined in one process
     group; returns the per-rank results in rank order (rank 0's is the
     conventional carrier of results).
@@ -76,7 +77,8 @@ def launch(fn: Callable, num_processes: int, *, args: tuple = (),
     ``device``: None is the card (one per process; more processes than
     cards raise "num_workers > devices" before any worker starts),
     ``"cpu"`` the CPU over gloo. ``fn`` runs after
-    ``init_process_group``. ``timeout`` bounds the whole run."""
+    ``init_process_group``. ``timeout`` bounds the whole run;
+    ``watchdog`` runs in the driver's pump (`WorkerGroup.wait`)."""
     from ray_lightning_tpu_torch.utils.devices import rank_device
 
     rank_device(device, 0, num_processes)
@@ -94,7 +96,8 @@ def launch(fn: Callable, num_processes: int, *, args: tuple = (),
             for r in range(num_processes)]
         out = group.run(_spmd_main, shared_args=shared,
                         per_rank_args=rank_extras,
-                        on_queue_item=on_queue_item, timeout=timeout)
+                        on_queue_item=on_queue_item, timeout=timeout,
+                        watchdog=watchdog)
         ok = True
         return out
     finally:

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Union
 
 from ray_lightning_tpu_torch.core.callbacks import (
     Callback,
+    _ckpt_blessed,
     _remove_checkpoint,
 )
 from ray_lightning_tpu_torch.runtime import session as runtime_session
@@ -132,10 +133,8 @@ class TuneReportCheckpointCallback(TuneReportCallback):
     the trainer's root dir. Every rank writes its shards (DCP).
 
     ``keep_last_n`` keeps only the newest N checkpoints this callback
-    wrote. The JAX callback also spares the newest trainguard-blessed one
-    when every kept checkpoint is unblessed; that floor comes with the
-    port's trainguard (ROADMAP Queue 1 item 10), and until then every
-    checkpoint is blessed.
+    wrote, and spares the newest trainguard-blessed one when every kept
+    checkpoint is unblessed (the trial's rollback restore point).
     """
 
     def __init__(
@@ -179,16 +178,25 @@ class TuneReportCheckpointCallback(TuneReportCallback):
             self._prune(trainer)
         return out
 
-    def _prune(self, trainer) -> None:
+    def _prune(self, trainer=None) -> None:
         """Delete this callback's oldest checkpoints beyond keep_last_n.
         Every rank keeps the same book; only rank 0 removes files, and
-        only paths this callback wrote."""
+        only paths this callback wrote.
+
+        Retention floor (trainguard): when every checkpoint inside the
+        window is explicitly UNblessed (written during an anomaly
+        streak), the newest blessed one outside it is spared."""
         excess = len(self._written) - self.keep_last_n
         if excess <= 0:
             return
-        victims, self._written = (self._written[:excess],
-                                  self._written[excess:])
-        if trainer.strategy.is_global_zero:
+        victims, kept = self._written[:excess], self._written[excess:]
+        protected = None
+        if not any(_ckpt_blessed(p) is True for p in kept):
+            protected = next((p for p in reversed(victims)
+                              if _ckpt_blessed(p) is True), None)
+        if trainer is None or trainer.strategy.is_global_zero:
             for victim in victims:
-                _remove_checkpoint(victim)
-                log.info("pruned sweep checkpoint %s", victim)
+                if victim != protected:
+                    _remove_checkpoint(victim)
+                    log.info("pruned sweep checkpoint %s", victim)
+        self._written = ([protected] if protected else []) + kept

@@ -132,6 +132,26 @@ def test_dead_worker_fails_fast(tmp_path):
         g.shutdown(timeout=1.0)
 
 
+def test_eof_waits_for_a_slow_death(tmp_path):
+    """A worker whose channel closed but whose process dies seconds
+    later (a SIGKILL'd process still tearing down a CUDA context) is
+    classified by its signal, not reported as still running."""
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import os, time; time.sleep(3); "
+                             "os.kill(os.getpid(), 9)"])
+
+    class _Executor:
+        rank = 0
+
+        def log_tail(self):
+            return ""
+
+    ex = _Executor()
+    ex.proc = proc
+    err = WorkerGroup(1, log_dir=str(tmp_path))._eof_error(ex)
+    assert (err.cause, err.signal_name) == ("signal", "SIGKILL")
+
+
 def test_ship_once_serializes_job_once(group, monkeypatch):
     calls = []
     real = group_mod.dumps_by_reference
@@ -231,9 +251,18 @@ def test_unported_runtime_parts_raise(tmp_path):
         LoopbackTransport()
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         WorkerGroup(hosts=["a", "b"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        run_distributed("fit", torch_jobs.llama_module, torch_jobs.trainer,
-                        torch_jobs.llama_data, 1, resilience=object())
+    # resilience is ported; its knobs that wait for later items raise
+    from ray_lightning_tpu_torch.resilience import ResilienceConfig
+
+    for knob, item in (("elastic", "Queue 1 item 12"),
+                       ("watch", "Queue 1 item 11"),
+                       ("telemetry", "Queue 1 item 11"),
+                       ("compile_cache_dir", "Queue 1 item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            run_distributed("fit", torch_jobs.llama_module,
+                            torch_jobs.trainer, torch_jobs.llama_data, 1,
+                            resilience=ResilienceConfig(
+                                str(tmp_path), **{knob: "x"}))
     with pytest.raises(ValueError, match="kind"):
         run_distributed("train", torch_jobs.llama_module,
                         torch_jobs.trainer, torch_jobs.llama_data, 1)

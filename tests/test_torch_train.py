@@ -408,7 +408,7 @@ def test_datamodule_and_loader_order_match_jax(shards):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("guard", True), ("telemetry", True), ("profile", True),
+    ("telemetry", True), ("profile", True),
     ("profiler_dir", "prof"), ("compile_cache_dir", "cache"),
 ])
 def test_unported_trainer_knobs_raise(knob, value):

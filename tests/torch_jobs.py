@@ -355,3 +355,51 @@ def nested_mnist_trainable(config, log_dir):
         trial_dir = sweep.get_trial_dir()
         with open(os.path.join(trial_dir, WORKERS_ALIVE), "w") as f:
             json.dump(live_worker_pids(trial_dir), f)
+
+
+# ---- supervised runs (resilience) ----------------------------------------------
+#
+# A small MLP classifier under DataParallel on the CPU: at two ranks, two
+# epochs of four steps (8 rows a rank a step), so every step a fault plan
+# names exists.
+
+SUP_ROWS, SUP_CLASSES, SUP_FEATURES = 64, 4, 8
+
+
+def sup_module():
+    from ray_lightning_tpu_torch.models.mlp import MLPClassifier
+
+    return MLPClassifier(features=(16,), num_classes=SUP_CLASSES, lr=5e-2,
+                         in_features=SUP_FEATURES)
+
+
+def sup_trainer(max_epochs=2, log_every_n_steps=1):
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import DataParallel
+
+    return Trainer(strategy=DataParallel(device="cpu"), max_epochs=max_epochs,
+                   enable_progress_bar=False, enable_checkpointing=False,
+                   seed=0, log_every_n_steps=log_every_n_steps,
+                   callbacks=[StartStep()])
+
+
+def sup_data(rows=SUP_ROWS):
+    from ray_lightning_tpu_torch.core.data import DataLoader
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(SUP_CLASSES, SUP_FEATURES)) * 3
+    y = rng.integers(0, SUP_CLASSES, size=rows)
+    x = (centers[y] + rng.normal(size=(rows, SUP_FEATURES)) * 0.1
+         ).astype(np.float32)
+    return DataLoader({"x": x, "y": y}, batch_size=8, shuffle=True, seed=3)
+
+
+class StartStep(Callback):
+    """Rank 0 sends ("start", global_step, pid) over the side channel at
+    each fit start: where each supervised attempt resumed."""
+
+    def on_fit_start(self, trainer, module):
+        from ray_lightning_tpu_torch.runtime import session
+
+        if session.is_session_enabled() and session.get_actor_rank() == 0:
+            session.put_queue(("start", trainer.global_step, os.getpid()))
