@@ -119,6 +119,37 @@ Phases, each of which raises (and so exits nonzero) on failure:
                after one attempt; no worker left running; (d) the
                parameter digest of the trained weights on the card, timed,
                against numpy's digest of the same bytes on the host.
+  9. telemetry — (a) right after phase 5, its fit three times more in
+               this process: telemetry off and on, both under
+               ``set_sync_debug_mode("warn")`` (the same synchronising
+               calls), then with telemetry and a `ProfileConfig` window
+               of steps 5-6. Every fit's rows equal phase 5's bitwise and
+               its launches phase 5's; a span file with 8 dispatch and 8
+               step spans and a goodput ledger whose buckets sum to its
+               wall; one capture, not disarmed, whose session and
+               exported Chrome trace hold the flash forward, dK/dV, dQ
+               and RMSNorm kernels as often as two steps launch them.
+               (b) inside phase 4, its model and requests again with a
+               live `MetricsRegistry` and `FlightRecorder`: greedy
+               streams equal to phase 4's, the same launches a tick,
+               counters equal to ground truth, TTFT and TPOT p50 within a
+               bucket of the host medians, the flight ring's last tick,
+               the directory's aggregate; the host ms a tick with and
+               without. (c) phase 8's supervised runs with telemetry on
+               (the default; (a)'s ledger every step): the goodput of
+               each, its buckets summing to the supervised wall, in (a)
+               the replayed steps 5-6 in ``rollback_replay_s`` and both
+               workers' setup in ``launch_s``; ``python -m
+               ray_lightning_tpu_torch timeline`` over (c)'s faulted run
+               with events from every ledger and a valid Chrome trace.
+               (d) after the card's name, the bf16 matmul probe beside
+               the spec-sheet peak.
+  4b. serve profile — last, phase 4's model serves four of its requests
+               again under `torch.profiler`: the device's busy share and
+               the kernels with the most device time. It runs last
+               because after a profiled serving run at this depth every
+               later profiler session of the process loses its first
+               kernel records (``--profile-sessions`` shows it).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -128,6 +159,13 @@ then only measure: ``--train-spread N`` runs phase 5's lane comparison at
 seeds 0..N-1 (the spread the train limits are set from), and ``--ab-old
 CSRC`` times the decode and RMSNorm (and, as a control on the turns,
 the dQ and prefill) in turns with a build of older sources.
+``--profile-sessions N`` counts, in N fresh processes, the device events
+each of four `torch.profiler` sessions records, then builds the kernels
+and captures two-step windows of phase 5's fit, each after one other
+profiled session (`DISTURBANCES`: none, 2000 decode calls, phase 4's
+serving window at 2 and at 16 layers) and with or without the primer
+kernels a capture runs in its warm-up, with each window's kernel
+launches and lost kernel events.
 ``chip_faults.py`` plants known faults in the kernels and runs these same
 checks on them; ``chip_variants.py`` times variants of the decode and
 RMSNorm sources.
@@ -135,6 +173,7 @@ RMSNorm sources.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import gc
@@ -904,13 +943,14 @@ class TickProbe:
         return out
 
 
-def serve(model, ecfg, use_kernels, forced=None):
+def serve(model, ecfg, use_kernels, forced=None, metrics=None, flight=None):
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
-    engine = DecodeEngine(model, ecfg, use_kernels=use_kernels)
+    engine = DecodeEngine(model, ecfg, use_kernels=use_kernels,
+                          metrics=metrics)
     engine.warmup()
-    sched = Scheduler(engine)
+    sched = Scheduler(engine, metrics=metrics, flight=flight)
     probe = TickProbe(engine, sched, forced=forced)
     torch.cuda.synchronize()
     return engine, sched, probe
@@ -957,6 +997,17 @@ def profile_window(sched, reqs):
         device_busy_share=busy / wall,
         top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                   calls=e.count) for e in top])), flush=True)
+
+
+def serve_profile(seed: int, n_layers: int) -> None:
+    """Phase 4's serving window under `torch.profiler`, run last: once a
+    profiled session has covered this serving run, every later profiler
+    session of the process loses its first kernel records (PERF.md §7;
+    ``--profile-sessions`` shows it), and phase 9(a) checks a capture."""
+    model = build_model(seed, n_layers)
+    _, sched, _ = serve(model, engine_config(), use_kernels=None)
+    profile_window(sched, make_requests(model.cfg.vocab_size, seed)[:4])
+    torch.cuda.empty_cache()
 
 
 def build_model(seed: int, n_layers: int):
@@ -1053,6 +1104,9 @@ def serve_phase(seed: int, n_layers: int):
     done = drain(sched, reqs)
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    # what (b) is held to, before the profiled window adds its ticks
+    ref = dict(ticks=probe.ticks, chunks=probe.chunks,
+               tick_s={k: list(v) for k, v in probe.tick_s.items()})
     want = {k.__name__: 0 for k in kernels}
     want.update(paged_attention_kernel=n_layers * probe.ticks,
                 paged_prefill_kernel=n_layers * probe.chunks,
@@ -1081,8 +1135,13 @@ def serve_phase(seed: int, n_layers: int):
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
         attention_path=engine.attention_path,
         prefill_path=engine.prefill_path, launches=launches)), flush=True)
-    profile_window(sched, reqs[:4])
     del engine, sched
+
+    # -- 9b: the same requests with live metrics and a flight recorder ----
+    t9 = time.perf_counter()
+    for k, v in serve_metrics_phase(model, ecfg, reqs, ref, done).items():
+        launches[k] += v
+    t9 = time.perf_counter() - t9
 
     # -- the greedy half again through the reference lanes ----------------
     greedy = [r for r in reqs if r.temperature == 0.0]
@@ -1091,7 +1150,7 @@ def serve_phase(seed: int, n_layers: int):
     if problems:
         raise AssertionError("kernel vs reference lanes: "
                              + "; ".join(problems))
-    return launches
+    return launches, t9
 
 
 # ---- phase 5: training at full width ----------------------------------------
@@ -1106,7 +1165,9 @@ TRAIN_LR = 3e-4
 
 class StepProbe:
     """Per-step host metrics and the host clock at each step's end (the
-    metrics fetch at ``log_every_n_steps=1`` synchronises every step)."""
+    metrics fetch at ``log_every_n_steps=1`` synchronises every step);
+    with ``caught`` set to a warnings list, its length at each step's
+    end (the synchronising calls so far, under the sync debug mode)."""
 
     def __init__(self):
         from ray_lightning_tpu_torch.core.callbacks import Callback
@@ -1119,8 +1180,11 @@ class StepProbe:
                 probe.rows.append((float(metrics["loss"]),
                                    float(metrics["grad_norm"])))
                 probe.t.append(time.perf_counter())
+                if probe.caught is not None:
+                    probe.caught_at.append(len(probe.caught))
 
         self.rows, self.t, self.callback = [], [], _CB()
+        self.caught, self.caught_at = None, []
 
 
 def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
@@ -1290,7 +1354,7 @@ def train_phase(seed: int):
         raise AssertionError("train kernel vs reference lanes: "
                              + "; ".join(problems))
     profile_train(cfg, tokens, seed)
-    return launches, probe.rows
+    return launches, probe.rows, step_s
 
 # ---- phase 6: training across processes -------------------------------------
 #
@@ -2232,15 +2296,20 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     step 6 and resumed from the step-4 checkpoint."""
     import chip_smoke as me
     from ray_lightning_tpu_torch.resilience import ResilienceConfig
+    from ray_lightning_tpu_torch.telemetry import TelemetryConfig
 
     P = functools.partial
     free_card("res_kill")
     ckdir = os.path.join(RES_DIR, "llama")
+    # telemetry on (the default), its ledger refreshed every step: the
+    # SIGKILL'd attempt leaves one at step 6, so the goodput can charge
+    # its replayed steps 5-6
     cfg = ResilienceConfig(
         checkpoint_dir=ckdir, policy=_res_policy(1),
         save_every_n_steps=RES_SAVE_EVERY, async_save=False,
         heartbeat_interval_s=RES_HEARTBEAT_S,
-        faults=f"kill:rank=0,step={RES_KILL_AT}")
+        faults=f"kill:rank=0,step={RES_KILL_AT}",
+        telemetry=TelemetryConfig(flush_every_n_steps=1))
     # the JAX package's digest knob for 8B checkpoints (as phase 6)
     sup, items, wall = res_fit(P(me.res_module, seed),
                                P(me.res_trainer, seed), P(me.dist_data, seed),
@@ -2296,6 +2365,25 @@ def resilience_kill(seed: int, ref_rows, problems: list):
                         f"{free} GiB")
     saves = [s["save_s"] for s in by.get("save", [])]
     restore = [r["restore_s"] for r in by.get("restore", [])]
+    setup = [s["t"] - s["proc_start"] for s in starts]
+    g = check_goodput("(a)", sup, os.path.join(ckdir, "telemetry"), problems)
+    if g:
+        b = g["buckets"]
+        launch = [a.get("launch_s") for a in _ledgers(ckdir)]
+        if not (b["rollback_replay_s"] > 0
+                and [a["replay_steps"] for a in g["attempts"]] == [
+                    0, RES_KILL_AT - RES_SAVE_EVERY]):
+            problems.append(f"(a) replay {b['rollback_replay_s']} s, "
+                            f"attempts {g['attempts']}")
+        # the ledgers' launch seconds end where the fit starts, before
+        # the restore that ends the worker's setup
+        if len(launch) != 2 or not all(
+                1.0 < x <= y + 1.0 for x, y in zip(launch, setup)):
+            problems.append(f"(a) launch_s {launch} against the workers' "
+                            f"setup {setup}")
+        row.update(goodput=g["buckets"], goodput_wall_s=g["wall_s"],
+                   goodput_fraction=g["goodput_fraction"],
+                   goodput_attempts=g["attempts"], ledger_launch_s=launch)
     row.update(
         attempts=sup.total_attempts, failure=failure,
         starts=[s["step"] for s in starts],
@@ -2306,7 +2394,7 @@ def resilience_kill(seed: int, ref_rows, problems: list):
         # failure classified (driver clock) -> the relaunched worker's
         # process start; then its imports, rendezvous, build and restore
         relaunch_s=starts[1]["proc_start"] - failure["at"],
-        worker_setup_s=[s["t"] - s["proc_start"] for s in starts],
+        worker_setup_s=setup,
         launches=launches)
     print(json.dumps(row), flush=True)
     total = {k: launches[0][k] + launches[1][k] for k in launches[0]}
@@ -2314,12 +2402,22 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     return total
 
 
+def _ledgers(ckdir: str):
+    """A supervised run's rank-0 goodput ledgers, attempt order."""
+    from ray_lightning_tpu_torch.telemetry.goodput import read_ledgers
+
+    return read_ledgers(os.path.join(ckdir, "telemetry"))
+
+
 def guard_fit(cfg, tokens, seed: int, guard, mask: bool = False,
-              faults=(), max_steps: int = TRAIN_STEPS, sync_debug=False):
+              callbacks=(), max_steps: int = TRAIN_STEPS, sync_debug=False,
+              **trainer_kw):
     """Phase 5's fit in this process with the trainguard: optionally a
-    float mask of ones in every batch, a fault plan, and
-    ``torch.cuda.set_sync_debug_mode("warn")`` with its warnings counted.
-    Returns (probe, wall, peak, metrics, syncs, module, launches)."""
+    float mask of ones in every batch, more callbacks (a fault plan), and
+    ``torch.cuda.set_sync_debug_mode("warn")`` with its warnings counted;
+    ``trainer_kw`` goes to the `Trainer` (phase 9's telemetry and
+    profile). Returns (probe, wall, peak, metrics, syncs, module,
+    launches); ``module.trainer`` is the fit's trainer."""
     import warnings
 
     import numpy as np
@@ -2337,7 +2435,7 @@ def guard_fit(cfg, tokens, seed: int, guard, mask: bool = False,
                       log_every_n_steps=1, enable_checkpointing=False,
                       enable_progress_bar=False, seed=seed, guard=guard,
                       default_root_dir=RES_DIR,
-                      callbacks=[probe.callback, *faults])
+                      callbacks=[probe.callback, *callbacks], **trainer_kw)
     data = {"tokens": tokens}
     if mask:
         data["mask"] = np.ones((len(tokens), TS), np.float32)
@@ -2345,6 +2443,7 @@ def guard_fit(cfg, tokens, seed: int, guard, mask: bool = False,
     syncs = None
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        probe.caught = caught
         if sync_debug:
             torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -2356,7 +2455,16 @@ def guard_fit(cfg, tokens, seed: int, guard, mask: bool = False,
         finally:
             torch.cuda.set_sync_debug_mode("default")
     if sync_debug:
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        marks = [i for i, w in enumerate(caught)
+                 if "synchroniz" in str(w.message)]
+        syncs = len(marks)
+        # each step's synchronising calls, and each call's site
+        ends = [0, *probe.caught_at]
+        probe.sync_steps = [sum(a <= i < b for i in marks)
+                            for a, b in zip(ends, ends[1:])]
+        probe.sync_sites = collections.Counter(
+            f"{os.path.basename(caught[i].filename)}:{caught[i].lineno}"
+            for i in marks)
     launches = {k.__name__: k.launches for k in all_kernels()}
     return (probe, wall, torch.cuda.max_memory_allocated(),
             dict(trainer.callback_metrics), syncs, module, launches)
@@ -2404,6 +2512,7 @@ def resilience_guard(seed: int, ref_rows, problems: list):
         runs[name] = dict(step_ms_p50=_step_ms(probe), fit_wall_s=wall,
                           peak_gib=peak / 2**30, syncs=syncs,
                           syncs_per_step=syncs / TRAIN_STEPS,
+                          sync_sites=dict(probe.sync_sites),
                           rows_equal_phase5=probe.rows == ref_rows)
     if runs["guarded"]["syncs"] > runs["unguarded"]["syncs"]:
         problems.append(f"(b1) the guarded fit synchronised "
@@ -2433,7 +2542,7 @@ def resilience_guard(seed: int, ref_rows, problems: list):
                            tokens[2 * TB:]])
     probe_n, wall_n, peak_n, metrics, _, module, launches = guard_fit(
         cfg, nine, seed, guard, mask=True, max_steps=TRAIN_STEPS + 1,
-        faults=[FaultInjector([Fault("nan_loss", None, 3, {})])])
+        callbacks=[FaultInjector([Fault("nan_loss", None, 3, {})])])
     add(launches, TRAIN_STEPS + 1, "masked nan")
     kept = probe_n.rows[:2] + probe_n.rows[3:]
     same_params = all(torch.equal(p.detach().cpu(), clean_params[k])
@@ -2530,10 +2639,22 @@ def resilience_mnist(problems: list):
     alive = [int(p) for p in pids if not _dead(int(p))]
     if alive:
         problems.append(f"(c) workers {alive} outlived their attempts")
+    goodput = {}
+    for name, sup in (("base", base), ("faults", hurt)):
+        g = check_goodput(f"(c) {name}", sup, os.path.join(
+            RES_DIR, name, "telemetry"), problems)
+        goodput[name] = dict(wall_s=g.get("wall_s"),
+                             fraction=g.get("goodput_fraction"),
+                             buckets=g.get("buckets"))
+    if goodput["faults"]["buckets"] and not (
+            goodput["faults"]["buckets"]["backoff_s"] > 0):
+        problems.append("(c) the faulted run's goodput has no backoff")
+    timeline = timeline_cli(os.path.join(RES_DIR, "faults", "telemetry"),
+                            problems)
     row.update(failures=kinds, weights_equal_uninterrupted=same,
                base_val_accuracy=base.result.metrics.get("ptl/val_accuracy"),
                fatal_fails_fast=fatal_ok, workers=len(pids),
-               workers_alive=alive)
+               workers_alive=alive, goodput=goodput, timeline=timeline)
     print(json.dumps(row), flush=True)
 
 
@@ -2565,6 +2686,573 @@ def resilience_phase(seed: int, ref_rows):
     if problems:
         raise AssertionError("resilience: " + "; ".join(problems))
     return total
+
+
+# ---- phase 9: telemetry on the card -------------------------------------------
+#
+# (a) phase 5's fit with the span recorder and a profile window, right
+# after phase 5; (b) phase 4's model and requests with live metrics, inside
+# phase 4; (c) phase 8's supervised runs assemble their goodput; (d) the
+# matmul probe, after the card's name.
+
+#: where phase 9 writes spans, ledgers, metrics and traces (git-ignored;
+#: removed after)
+TEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "rlt_logs", "chip_smoke_telemetry")
+#: (a)'s profile window: the two steps after step 4's end
+TEL_PROFILE_START, TEL_PROFILE_STEPS = 4, 2
+#: each train kernel's symbol in a profiler trace (its __global__ name)
+TRAIN_SYMBOLS = {"flash_fwd_kernel": r"\bflash_fwd\b",
+                 "flash_bwd_dkv_kernel": r"\bflash_bwd_dkv\b",
+                 "flash_bwd_dq_kernel": r"\bflash_bwd_dq\b",
+                 "rms_norm_kernel": r"\brms_rows\b"}
+#: the supervised goodput's books: the measured buckets may exceed the
+#: driver's wall by this share at most (clocks of separate processes)
+GOODPUT_TOL = 0.05
+
+
+def _timed(obj, names):
+    """``obj`` with each method in ``names`` adding its host seconds to
+    ``obj.host_s`` (the telemetry's own cost, on the host clock)."""
+    obj.host_s = 0.0
+    for name in names:
+        def timed(*a, _f=getattr(obj, name), **k):
+            t0 = time.perf_counter()
+            try:
+                return _f(*a, **k)
+            finally:
+                obj.host_s += time.perf_counter() - t0
+        setattr(obj, name, timed)
+    return obj
+
+
+class TimeRecorder(Callback):
+    """Times the span recorder's own calls (records and flushes) once the
+    trainer has built it."""
+
+    def on_fit_start(self, trainer, module):
+        self.rec = _timed(trainer.telemetry_recorder, ("record", "flush"))
+
+
+def _nearest_rank_bucket(hist, q: float) -> int:
+    """The bucket of the observation `Histogram.quantile` reads at q."""
+    import math
+
+    target = max(1, math.ceil(q * hist.n))
+    cum = 0
+    for idx in sorted(hist.counts):
+        cum += hist.counts[idx]
+        if cum >= target:
+            return idx
+    raise AssertionError("empty histogram")
+
+
+def serve_metrics_phase(model, ecfg, reqs, ref, ref_done):
+    """(b): phase 4's model and requests with a live `MetricsRegistry`
+    and `FlightRecorder` under TEL_DIR, held to phase 4's run (``ref``:
+    its ticks, prefill chunks and tick times; ``ref_done``: its
+    completions). Returns the kernels' launches."""
+    from ray_lightning_tpu_torch.telemetry.metrics import (
+        FlightRecorder,
+        MetricsRegistry,
+        aggregate_metrics_dir,
+        flight_path,
+        read_flight,
+    )
+
+    tdir = os.path.join(TEL_DIR, "serve")
+    shutil.rmtree(tdir, ignore_errors=True)
+    reg = _timed(MetricsRegistry(tdir),
+                 ("count", "gauge", "observe", "tick_end"))
+    fr = _timed(FlightRecorder(flight_path(tdir, 0)), ("record",))
+    engine, sched, probe = serve(model, ecfg, use_kernels=None, metrics=reg,
+                                 flight=fr)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    done = drain(sched, reqs)
+    launches = {k.__name__: k.launches for k in kernels}
+    reg.close()
+    fr.close()
+    n_layers = model.cfg.n_layers
+    problems = []
+    want = {k.__name__: 0 for k in kernels}
+    want.update(paged_attention_kernel=n_layers * probe.ticks,
+                paged_prefill_kernel=n_layers * probe.chunks,
+                rms_norm_kernel=(2 * n_layers + 1)
+                * (probe.ticks + probe.chunks))
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if (probe.ticks, probe.chunks) != (ref["ticks"], ref["chunks"]):
+        problems.append(f"ticks, chunks {probe.ticks}, {probe.chunks} != "
+                        f"phase 4's {ref['ticks']}, {ref['chunks']}")
+    greedy = [r.rid for r in reqs if r.temperature == 0.0]
+    if any(done[rid].tokens != ref_done[rid].tokens for rid in greedy):
+        problems.append("greedy streams differ from phase 4's kernel lane")
+    sampled_equal = all(done[r.rid].tokens == ref_done[r.rid].tokens
+                        for r in reqs if r.temperature != 0.0)
+    c = reg.counters()
+    n_tok = sum(len(x.tokens) for x in done.values())
+    truth = dict(admissions=len(reqs), completions=len(reqs),
+                 decode_tokens=n_tok,
+                 prefill_tokens=probe.chunks * ecfg.prefill_chunk)
+    if {k: c.get(k) for k in truth} != truth:
+        problems.append(f"counters {c} against ground truth {truth}")
+    quantiles = {}
+    for name in ("ttft_s", "tpot_s"):
+        # the histogram reads a quantile by nearest rank: the host's p50
+        # is the same rank of the completions' own times (phase 4 prints
+        # the interpolated median of its run, which the first wave of
+        # admissions and the second can set far apart)
+        h = reg.histogram(name)
+        host = sorted(getattr(x, name) for x in done.values())
+        host_p50 = host[max(1, -(-len(host) // 2)) - 1]
+        gap = abs(_nearest_rank_bucket(h, 0.5) - h.bucket_index(host_p50))
+        quantiles[name] = dict(p50=h.quantile(0.5), host_p50=host_p50,
+                               host_median=statistics.median(host),
+                               buckets_apart=gap, n=h.n)
+        if h.n != len(reqs) or gap > 1:
+            problems.append(f"{name}: p50 {h.quantile(0.5)} is {gap} "
+                            f"buckets from the host's {host_p50} (n {h.n})")
+    ring = read_flight(flight_path(tdir, 0)) or {}
+    ticks = [e["tick"] for e in ring.get("events", []) if e["kind"] == "tick"]
+    if not ticks or ticks[-1] != reg.ticks:
+        problems.append(f"flight ring's last tick {ticks[-1:]} != "
+                        f"{reg.ticks} ticks")
+    agg = aggregate_metrics_dir(tdir) or {}
+    if agg.get("counters") != c:
+        problems.append(f"aggregate {agg.get('counters')} != {c}")
+    tick_ms = {k: statistics.median(v) * 1e3
+               for k, v in probe.tick_s.items() if v}
+    ref_ms = {k: statistics.median(v) * 1e3
+              for k, v in ref["tick_s"].items() if v}
+    print(json.dumps(dict(
+        phase="telemetry_serve", requests=len(done), ticks=probe.ticks,
+        prefill_chunks=probe.chunks, counters=c, quantiles=quantiles,
+        greedy_equal_phase4=not any(
+            done[rid].tokens != ref_done[rid].tokens for rid in greedy),
+        sampled_equal_phase4=sampled_equal, flight_events=len(ring.get(
+            "events", [])), flight_last_tick=ticks[-1:],
+        tick_ms_p50_on=tick_ms, tick_ms_p50_off=ref_ms,
+        # the registry's and the recorder's own calls (off: no-ops)
+        metrics_us_a_tick=(reg.host_s + fr.host_s) / probe.ticks * 1e6,
+        registry_us_a_tick=reg.host_s / probe.ticks * 1e6,
+        flight_us_a_tick=fr.host_s / probe.ticks * 1e6,
+        tick_ms_on_minus_off={k: tick_ms[k] - ref_ms[k]
+                              for k in tick_ms if k in ref_ms},
+        launches=launches)), flush=True)
+    del engine, sched
+    if problems:
+        raise AssertionError("telemetry serve: " + "; ".join(problems))
+    return launches
+
+
+def _trace_kernels(path: str):
+    """{wrapper: kernel events} of the train kernels in an exported
+    Chrome trace (by symbol), and the trace's kernel-launch calls on the
+    host that have no kernel event (by correlation id)."""
+    import re
+
+    from ray_lightning_tpu_torch.telemetry.profiler import _LAUNCH
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    seen = {e.get("args", {}).get("correlation") for e in kernels}
+    orphans = [e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and _LAUNCH.match(e.get("name", ""))
+               and e.get("args", {}).get("correlation") not in seen]
+    if orphans:
+        # which launches lost their kernels: the host op each was made
+        # in, and its place among the window's launches
+        ops = [e for e in events if e.get("cat") == "cpu_op"]
+        launches = sorted((e for e in events
+                           if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                           and _LAUNCH.match(e.get("name", ""))),
+                          key=lambda e: e["ts"])
+        order = {id(e): i for i, e in enumerate(launches)}
+        lost = []
+        for o in sorted(orphans, key=lambda e: e["ts"])[:12]:
+            inside = [c for c in ops
+                      if c["ts"] <= o["ts"] <= c["ts"] + c.get("dur", 0)]
+            lost.append(dict(
+                launch=o["name"], index=order.get(id(o)),
+                op=min(inside, key=lambda c: c.get("dur", 0))["name"][:60]
+                if inside else None))
+        log(f"launches without a kernel in {path}: {json.dumps(lost)}")
+    return {fn: sum(bool(re.search(pat, n)) for n in names)
+            for fn, pat in TRAIN_SYMBOLS.items()}, len(orphans)
+
+
+def telemetry_train(seed: int, ref_rows, ref_step_s: float):
+    """(a): phase 5's fit off, with telemetry, and with telemetry and a
+    profile window. Returns the kernels' launches over the three fits."""
+    import re
+
+    from ray_lightning_tpu_torch.telemetry import (
+        ProfileConfig,
+        TelemetryConfig,
+        read_spans,
+    )
+    from ray_lightning_tpu_torch.telemetry.goodput import read_ledgers
+
+    cfg, tokens = train_inputs(seed)
+    shutil.rmtree(os.path.join(TEL_DIR, "train"), ignore_errors=True)
+    problems, runs = [], {}
+    total = {k.__name__: 0 for k in all_kernels()}
+    prof_dir = os.path.join(TEL_DIR, "train", "profile")
+    timer = TimeRecorder()
+    fits = (
+        ("off", True, {}),
+        ("on", True, dict(telemetry=TelemetryConfig(
+            dir=os.path.join(TEL_DIR, "train", "on")), callbacks=[timer])),
+        ("profiled", False, dict(
+            telemetry=TelemetryConfig(
+                dir=os.path.join(TEL_DIR, "train", "profiled")),
+            profile=ProfileConfig(dir=prof_dir, start_step=TEL_PROFILE_START,
+                                  num_steps=TEL_PROFILE_STEPS))),
+    )
+    for name, sync_debug, kw in fits:
+        probe, wall, peak, _, syncs, module, launches = guard_fit(
+            cfg, tokens, seed, None, sync_debug=sync_debug, **kw)
+        trainer = module.trainer
+        if probe.rows != ref_rows:
+            problems.append(f"{name}: rows differ from phase 5's")
+        if launches != expected_launches(TRAIN_STEPS):
+            problems.append(f"{name}: launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        runs[name] = dict(step_ms_p50=_step_ms(probe), fit_wall_s=wall,
+                          syncs=syncs, rows_equal_phase5=probe.rows == ref_rows)
+        if sync_debug:
+            runs[name].update(sync_steps=probe.sync_steps,
+                              sync_sites=dict(probe.sync_sites))
+        rec = trainer.telemetry_recorder
+        if rec.enabled:
+            [path] = [os.path.join(rec.directory, f)
+                      for f in os.listdir(rec.directory)
+                      if f.endswith(".spans.jsonl")]
+            count = {}
+            for sp in read_spans(path)["spans"]:
+                count[sp["phase"]] = count.get(sp["phase"], 0) + 1
+            [led] = read_ledgers(rec.directory)
+            books = sum(led["buckets"].values())
+            runs[name].update(spans=count, ledger_wall_s=led["wall_s"],
+                              ledger_buckets=led["buckets"],
+                              goodput_fraction=trainer.callback_metrics[
+                                  "goodput_fraction"])
+            if count.get("dispatch") != TRAIN_STEPS or \
+                    count.get("step") != TRAIN_STEPS:
+                problems.append(f"{name}: span counts {count}")
+            # productive is the wall less the stalls: the sum is the wall
+            # up to float rounding
+            if not (led["completed"] and led["end_step"] == TRAIN_STEPS
+                    and abs(books - led["wall_s"]) <= 1e-9 * led["wall_s"]):
+                problems.append(f"{name}: ledger {led}")
+        ctl = trainer._profiler
+        if ctl is not None:
+            want = expected_launches(TEL_PROFILE_STEPS)
+            rec_ = ctl.records[0] if ctl.records else {}
+            events = rec_.get("device_events", {})
+            in_session = {fn: sum(n for key, n in events.items()
+                                  if re.search(pat, key))
+                          for fn, pat in TRAIN_SYMBOLS.items()}
+            in_trace, orphans = (_trace_kernels(rec_["trace"])
+                                 if rec_.get("trace") else ({}, None))
+            runs[name].update(
+                captures=ctl.captures, empty_captures=ctl.empty_captures,
+                incomplete_captures=ctl.incomplete_captures,
+                kernel_launches=rec_.get("kernel_launches"),
+                lost_kernel_events=rec_.get("lost_kernel_events"),
+                trace_launches_without_kernel=orphans,
+                disabled=ctl.disabled_reason, window=[rec_.get("start_step"),
+                                                      rec_.get("end_step")],
+                kernels_in_session=in_session, kernels_in_trace=in_trace,
+                trace_mib=os.path.getsize(rec_["trace"]) / 2**20
+                if rec_.get("trace") else None,
+                device_event_kinds=len(events))
+            if ctl.disabled_reason or ctl.captures != 1 or \
+                    ctl.empty_captures or ctl.incomplete_captures or \
+                    not rec_.get("kernel_launches") or orphans:
+                problems.append(f"{name}: captures {ctl.captures}, empty "
+                                f"{ctl.empty_captures}, incomplete "
+                                f"{ctl.incomplete_captures}, launches "
+                                f"{rec_.get('kernel_launches')}, launches "
+                                f"without a kernel in the trace {orphans}, "
+                                f"disabled {ctl.disabled_reason}")
+            for fn in TRAIN_SYMBOLS:
+                if not in_session.get(fn) == in_trace.get(fn) == want[fn]:
+                    problems.append(
+                        f"{name}: {fn} launched {in_session.get(fn)} times "
+                        f"in the session, {in_trace.get(fn)} in the trace, "
+                        f"not {want[fn]} ({TEL_PROFILE_STEPS} steps)")
+        del module, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the first sync-debug fit of a process takes one more synchronising
+    # call in its first step (a lazy initialisation in torch); the steps
+    # after it, and the sites, must be the same with telemetry on
+    on, off = runs["on"], runs["off"]
+    if on["sync_steps"][1:] != off["sync_steps"][1:] or \
+            on["syncs"] > off["syncs"] or \
+            set(on["sync_sites"]) - set(off["sync_sites"]):
+        problems.append(f"synchronising calls a step on {on['sync_steps']} "
+                        f"{on['sync_sites']}, off {off['sync_steps']} "
+                        f"{off['sync_sites']}")
+    print(json.dumps(dict(
+        phase="telemetry_train", **{f"{n}_{k}": v for n, r in runs.items()
+                                    for k, v in r.items()},
+        syncs_per_step={n: r["syncs"] / TRAIN_STEPS for n, r in runs.items()
+                        if r["syncs"] is not None},
+        step_ms_on_minus_off=runs["on"]["step_ms_p50"]
+        - runs["off"]["step_ms_p50"],
+        # the recorder's own calls over the fit's steps
+        telemetry_ms_a_step=timer.rec.host_s / TRAIN_STEPS * 1e3,
+        phase5_step_ms_p50=ref_step_s * 1e3)), flush=True)
+    shutil.rmtree(os.path.join(TEL_DIR, "train"), ignore_errors=True)
+    if problems:
+        raise AssertionError("telemetry train: " + "; ".join(problems))
+    return total
+
+
+def check_goodput(what: str, sup, tdir: str, problems: list) -> dict:
+    """(c): a supervised run's assembled goodput: present, its buckets
+    summing to the supervised wall, the measured ones not past it by more
+    than GOODPUT_TOL, and persisted in ``tdir`` as goodput.json."""
+    from ray_lightning_tpu_torch.telemetry import buckets_consistent
+    from ray_lightning_tpu_torch.telemetry.goodput import read_goodput
+
+    g = getattr(sup, "goodput", None)
+    if not g:
+        problems.append(f"{what}: no goodput")
+        return {}
+    b = g["buckets"]
+    if not (buckets_consistent(g, GOODPUT_TOL)
+            and b["other_s"] >= -GOODPUT_TOL * g["wall_s"]):
+        problems.append(f"{what}: goodput books {b} against wall "
+                        f"{g['wall_s']}")
+    if read_goodput(tdir) != json.loads(json.dumps(g)):
+        problems.append(f"{what}: goodput.json differs from the result's")
+    return g
+
+
+def timeline_cli(tdir: str, problems: list) -> dict:
+    """(c): ``python -m ray_lightning_tpu_torch timeline <dir> --json``
+    over a supervised run's telemetry: events from every ledger there,
+    and a Chrome trace that passes the validator."""
+    from ray_lightning_tpu_torch.telemetry.goodput import read_ledgers
+    from ray_lightning_tpu_torch.telemetry.timeline import (
+        validate_chrome_trace,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_lightning_tpu_torch", "timeline", tdir,
+         "--json"], capture_output=True, text=True, cwd=root, timeout=120)
+    chrome = os.path.join(tdir, "timeline.trace.json")
+    out2 = subprocess.run(
+        [sys.executable, "-m", "ray_lightning_tpu_torch", "timeline", tdir,
+         "--chrome", chrome], capture_output=True, text=True, cwd=root,
+        timeout=120)
+    wall = time.perf_counter() - t0
+    if out.returncode or out2.returncode:
+        problems.append(f"timeline CLI failed: {out.stderr[-400:]}"
+                        f"{out2.stderr[-400:]}")
+        return {}
+    doc = json.loads(out.stdout)
+    files = os.listdir(tdir)
+    span_files = [f for f in files if f.endswith(".spans.jsonl")]
+    ledgers = read_ledgers(tdir, rank=None)
+    want = {"spans": bool(span_files), "goodput": bool(ledgers)}
+    got = doc["sources"]
+    for source, present in want.items():
+        if present and not got.get(source):
+            problems.append(f"timeline: no {source} events from {tdir}")
+    if got.get("goodput") != len(ledgers):
+        problems.append(f"timeline: {got.get('goodput')} attempts, "
+                        f"{len(ledgers)} ledgers")
+    with open(chrome) as f:
+        bad = validate_chrome_trace(json.load(f))
+    if bad:
+        problems.append(f"timeline chrome trace: {bad[:3]}")
+    return dict(sources=got, span_files=len(span_files),
+                ledgers=len(ledgers), chrome_valid=not bad, cli_s=wall)
+
+
+def probe_line() -> None:
+    """(d): the bf16 matmul probe beside the card's spec-sheet peak."""
+    from ray_lightning_tpu_torch.utils.probe import (
+        device_peak_tflops,
+        matmul_tflops,
+    )
+
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    rate = matmul_tflops()
+    print(json.dumps(dict(phase="probe", device=name, matmul_tflops=rate,
+                          peak_tflops=device_peak_tflops(name),
+                          probe_s=time.perf_counter() - t0)), flush=True)
+
+
+def profile_sessions_child(first: str, sessions: int) -> None:
+    """One fresh process's profiler sessions, each around one matmul on
+    the card: the device events each session recorded. ``first`` is the
+    first session's activities ("cuda" or "cpu+cuda"); the rest alternate
+    between the two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(256, 256, device="cuda")
+    x @ x
+    torch.cuda.synchronize()
+    kinds = {"cuda": [ProfilerActivity.CUDA],
+             "cpu+cuda": [ProfilerActivity.CPU, ProfilerActivity.CUDA]}
+    other = "cpu+cuda" if first == "cuda" else "cuda"
+    order = [(first, other)[i % 2] for i in range(sessions)]
+    out = []
+    for kind in order:
+        with profile(activities=kinds[kind]) as prof:
+            x @ x
+            torch.cuda.synchronize()
+        out.append(dict(activities=kind, device_events=sum(
+            e.count for e in device_kernels(prof))))
+    print(json.dumps(dict(phase="profile_sessions_child", pid=os.getpid(),
+                          sessions=out)), flush=True)
+
+
+#: `--profile-sessions`' train windows: what is profiled before each
+#: (nothing, 2000 decode-kernel calls at the serving shape, or phase 4's
+#: serving window at 2 or 16 layers) and the primer kernels its capture
+#: runs in its warm-up (0: the capture records from its first launch)
+DISTURBANCES = tuple((kind, primers)
+                     for kind in ("clean", "decode", "serve2", "serve16",
+                                  "clean")
+                     for primers in (0, 16))
+
+
+def disturb(kind: str, models: dict) -> None:
+    """One profiled session of ``kind`` (see DISTURBANCES)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel)
+
+    if kind == "decode":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        args, kw = KernelInputs(gen).decode(DECODE_LENGTHS, (0,) * C)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            for _ in range(2000):
+                paged_attention_kernel(*args, **kw)
+            torch.cuda.synchronize()
+    elif kind.startswith("serve"):
+        n = int(kind[len("serve"):])
+        if n not in models:
+            models[n] = build_model(SEED, n)
+        model = models[n]
+        _, sched, _ = serve(model, engine_config(), use_kernels=None)
+        profile_window(sched, make_requests(model.cfg.vocab_size,
+                                            SEED)[:4])
+
+
+class WindowProbe(Callback):
+    """`--profile-sessions`' second part: before each two-step `Capture`
+    of a fit (one every third step), one profiled session of the next
+    DISTURBANCES kind, and the capture with that many primer kernels;
+    each window's kernel launches and lost kernel events."""
+
+    def __init__(self):
+        self.cap, self.rows, self.models = None, [], {}
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        from ray_lightning_tpu_torch.telemetry import profiler
+
+        step = trainer.global_step
+        if self.cap is not None and step == self.stop_at:
+            rec = self.cap.stop()
+            counts, orphans = _trace_kernels(rec["trace"])
+            os.remove(rec["trace"])
+            self.rows.append(dict(
+                after=self.kind, primers=self.primers,
+                start_step=self.start,
+                kernel_launches=rec["kernel_launches"],
+                lost_kernel_events=rec["lost_kernel_events"],
+                trace_launches_without_kernel=orphans, train_kernels=counts))
+            self.cap = None
+        if self.cap is None and step % 3 == 1 and \
+                len(self.rows) < len(DISTURBANCES):
+            self.kind, self.primers = DISTURBANCES[len(self.rows)]
+            if self.kind != "clean":
+                disturb(self.kind, self.models)
+            torch.cuda.synchronize()
+            self.cap = profiler.Capture(os.path.join(TEL_DIR, "windows"),
+                                        f"w{step}", True)
+            saved = profiler.PRIMER_LAUNCHES
+            profiler.PRIMER_LAUNCHES = self.primers
+            try:
+                self.cap.start()
+            finally:
+                profiler.PRIMER_LAUNCHES = saved
+            self.start, self.stop_at = step, step + 2
+
+
+def profile_windows() -> None:
+    """Phase 5's fit with a `WindowProbe`, one window a DISTURBANCES
+    kind."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    cfg, tokens = train_inputs(SEED)
+    steps = 3 * len(DISTURBANCES) + 1
+    reps = -(-steps // TRAIN_STEPS)
+    probe = WindowProbe()
+    trainer = Trainer(strategy=SingleDevice(), max_steps=steps,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=SEED,
+                      callbacks=[probe])
+    trainer.fit(LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                            total_steps=steps),
+                DataLoader({"tokens": np.concatenate([tokens] * reps)},
+                           batch_size=TB))
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    for row in probe.rows:
+        print(json.dumps(dict(phase="profile_window", **row)), flush=True)
+
+
+def profile_sessions(processes: int, sessions: int = 4) -> None:
+    """How often a profiler session records no device event: in fresh
+    processes, the first session against the later ones, with CUDA
+    activity alone and with CPU activity beside it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for i in range(processes):
+        first = "cuda" if i % 2 == 0 else "cpu+cuda"
+        out = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke."
+             f"profile_sessions_child({first!r}, {sessions})"],
+            capture_output=True, text=True, cwd=root, timeout=300)
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("{")][-1:]
+        if out.returncode or not line:
+            raise AssertionError(f"profile child: {out.stderr[-800:]}")
+        rows.append(json.loads(line[0])["sessions"])
+        print(line[0], flush=True)
+    empty = {}
+    for sess in rows:
+        for j, s_ in enumerate(sess):
+            key = f"{'first' if j == 0 else 'later'}_{s_['activities']}"
+            tot = empty.setdefault(key, [0, 0])
+            tot[0] += s_["device_events"] == 0
+            tot[1] += 1
+    print(json.dumps(dict(phase="profile_sessions", processes=processes,
+                          sessions_each=sessions,
+                          empty_of_total=empty)), flush=True)
 
 
 def old_split_plan(c: int, hkv: int, n_tiles: int, sms: int):
@@ -2793,6 +3481,11 @@ def main() -> int:
                     help="only build, then time the decode and RMSNorm "
                          "(and the dQ and prefill) in turns with an old "
                          "build of the sources in CSRC")
+    ap.add_argument("--profile-sessions", type=int, default=0, metavar="N",
+                    help="only count, in N fresh processes, the device "
+                         "events of each of their profiler sessions, then "
+                         "the lost kernel events of two-step windows of "
+                         "phase 5's fit after other profiled sessions")
     args = ap.parse_args()
 
     # 1. device
@@ -2804,6 +3497,15 @@ def main() -> int:
     print(nvidia_smi(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if args.profile_sessions:
+        profile_sessions(args.profile_sessions)
+        build.build_all(SOURCES)
+        profile_windows()
+        return 0
+    # 9d. the matmul probe beside the card's spec-sheet peak
+    t_probe = time.perf_counter()
+    probe_line()
+    t_probe = time.perf_counter() - t_probe
 
     # 2. build
     t0 = time.perf_counter()
@@ -2837,15 +3539,21 @@ def main() -> int:
     check_rms_norm_grad(gen)
     lap("kernels")
 
-    # 4. serving at full width, through the kernel lanes
-    serve_launches = serve_phase(SEED, args.layers)
+    # 4. serving at full width, through the kernel lanes (and 9b: the
+    # same requests with live metrics)
+    serve_launches, t_9b = serve_phase(SEED, args.layers)
     lap("serve")
+    walls["serve"] -= t_9b
 
     # 5. training at full width, 4 layers deep
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_rows = train_phase(SEED)
+    train_launches, train_rows, train_step_s = train_phase(SEED)
     lap("train")
+
+    # 9a. the same fit with the span recorder and a profile window
+    tel_launches = telemetry_train(SEED, train_rows, train_step_s)
+    lap("telemetry_train")
 
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint and its resume, and the
@@ -2863,13 +3571,23 @@ def main() -> int:
     # the SDC digest on the card
     res_launches = resilience_phase(SEED, train_rows)
     lap("resilience")
-    print(json.dumps(dict(phase="timing", wall_s=walls,
-                          since_import_s=time.time() - IMPORTED_AT)),
-          flush=True)
+
+    # 4b. phase 4's serving window under the profiler (see serve_profile)
+    serve_profile(SEED, args.layers)
+    lap("serve_profile")
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    walls["telemetry_serve"] = t_9b
+    walls["probe"] = t_probe
+    print(json.dumps(dict(
+        phase="timing", wall_s=walls,
+        # 9c's share is inside "resilience" (its rows carry the timeline
+        # CLI's seconds)
+        phase9_s=t_9b + t_probe + walls["telemetry_train"],
+        since_import_s=time.time() - IMPORTED_AT)), flush=True)
 
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
-                + dist_launches[k] + sweep_launches[k]
+                + tel_launches[k] + dist_launches[k] + sweep_launches[k]
                 + res_launches.get(k, 0) for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",

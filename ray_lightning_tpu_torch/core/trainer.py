@@ -27,15 +27,26 @@ next.
 (`resilience.guard`): each step's loss and grad_norm are checked on the
 device, an anomalous update is skipped by the optimizer's ``found_inf``
 flag (a fused optimizer; `DeviceLambdaLR` for a schedule), and the
-counters ride the step's metrics. Knobs whose machinery is not ported
-yet raise `NotImplementedError` when set, naming the ROADMAP item:
-``telemetry``, ``profile``, ``profiler_dir`` and ``compile_cache_dir``.
+counters ride the step's metrics.
+
+``telemetry=True`` (a directory string, or a `TelemetryConfig`) arms the
+host-side span recorder (`telemetry.spans`): the step's dispatch, the
+cadenced metric fetch, validation, the blocking part of a checkpoint
+save and each step's host wall, flushed to per-rank JSONL with a goodput
+ledger on ``flush_every_n_steps`` and at fit end. It reads no device
+value, so a fit with it on launches the same kernels and takes the same
+host syncs as one with it off. ``profile=ProfileConfig(...)`` captures a
+`torch.profiler` trace of a step window, on a marker file or on SIGUSR1;
+``profiler_dir=`` captures the whole fit loop. ``compile_cache_dir``
+raises `NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import os
+import time
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
@@ -50,7 +61,24 @@ from ray_lightning_tpu_torch.core.callbacks import (
 from ray_lightning_tpu_torch.core.data import DataModule
 from ray_lightning_tpu_torch.core.module import TpuModule
 from ray_lightning_tpu_torch.core.state import TrainState
+from ray_lightning_tpu_torch.parallel.mesh import process_index
 from ray_lightning_tpu_torch.parallel.strategy import SingleDevice, Strategy
+from ray_lightning_tpu_torch.telemetry import TelemetryConfig
+from ray_lightning_tpu_torch.telemetry import goodput as _goodput
+from ray_lightning_tpu_torch.telemetry.profiler import (
+    Capture,
+    ProfileConfig,
+    ProfilerController,
+)
+from ray_lightning_tpu_torch.telemetry.spans import (
+    NULL_RECORDER,
+    PH_CKPT,
+    PH_DISPATCH,
+    PH_EVAL,
+    PH_METRICS,
+    PH_STEP,
+    TelemetryRecorder,
+)
 from ray_lightning_tpu_torch.utils.dist import (  # noqa: F401 (re-exported)
     clip_by_global_norm_,
     global_norm,
@@ -61,9 +89,6 @@ log = logging.getLogger(__name__)
 
 #: knob -> the ROADMAP item that brings its machinery
 _NOT_PORTED = {
-    "telemetry": "Queue 1 item 11 (telemetry/)",
-    "profile": "Queue 1 item 11 (telemetry/profiler.py)",
-    "profiler_dir": "Queue 1 item 11 (telemetry/profiler.py)",
     "compile_cache_dir": "Queue 1 item 7 (pipeline/compile_cache.py)",
 }
 
@@ -103,11 +128,8 @@ class Trainer:
         telemetry: Any = None,
         profile: Any = None,
     ):
-        for knob, value in (("telemetry", telemetry), ("profile", profile),
-                            ("profiler_dir", profiler_dir),
-                            ("compile_cache_dir", compile_cache_dir)):
-            if value:
-                raise _not_ported(knob)
+        if compile_cache_dir:
+            raise _not_ported("compile_cache_dir")
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got "
                              f"{precision!r}")
@@ -138,6 +160,21 @@ class Trainer:
         #: rollback marker of a trainguard rollback (set by the
         #: supervisor): the resume skips the poisoned window
         self.resume_skip_past: Optional[Dict[str, Any]] = None
+        #: telemetry (telemetry/): True, a directory or a TelemetryConfig
+        #: arms the span recorder; normalized at fit
+        self.telemetry = telemetry
+        #: on-demand torch.profiler capture (telemetry/profiler.py)
+        self.profile = profile
+        #: a torch.profiler trace of the whole fit loop, written here
+        self.profiler_dir = profiler_dir
+        self.telemetry_recorder = NULL_RECORDER
+        self._profiler: Optional[ProfilerController] = None
+        #: the record of the whole-fit capture (profiler_dir=)
+        self.fit_capture: Optional[Dict[str, Any]] = None
+        self._telemetry_flush_every = 50
+        self._fit_start_perf: Optional[float] = None
+        self._fit_start_step = 0
+        self._launch_s = 0.0
 
         self.callbacks: List[Callback] = list(callbacks or [])
         if enable_checkpointing and not any(
@@ -196,6 +233,7 @@ class Trainer:
                 self.callbacks.append(GuardCallback(self.guard))
         self.strategy.setup(module)
         module.setup()
+        self._setup_telemetry()
 
         if datamodule is not None:
             datamodule.setup()
@@ -206,6 +244,8 @@ class Trainer:
         self.has_validation = val_dataloaders is not None
         example_batch, train_dataloaders = self._peek(train_dataloaders)
         self.state = self._init_state(module, example_batch, ckpt_path)
+        self._fit_start_perf = time.perf_counter()
+        self._fit_start_step = self.global_step
 
         module.on_fit_start(self)
         self._invoke("on_fit_start")
@@ -215,7 +255,9 @@ class Trainer:
                 self._run_eval_epoch(val_dataloaders, module.validation_step,
                                      limit=self.num_sanity_val_steps,
                                      sanity=True)
-            self._fit_loop(train_dataloaders, val_dataloaders)
+            with (_ProfilerCtx(self) if self.profiler_dir
+                  else contextlib.nullcontext()):
+                self._fit_loop(train_dataloaders, val_dataloaders)
         except BaseException as exc:  # surface to callbacks, then re-raise
             fit_error = exc
             self._invoke("on_exception", exc)
@@ -234,6 +276,9 @@ class Trainer:
             # the caller's module holds the trained weights (JAX :291)
             if self.state is not None:
                 module.params = self.state.params
+            if self._profiler is not None:
+                self._profiler.close()
+            self._finalize_telemetry(completed=fit_error is None)
         module.on_fit_end(self)
         self._invoke("on_fit_end")
         self.is_fitted = True
@@ -271,6 +316,10 @@ class Trainer:
             if next(it, None) is None:
                 break
         completed = False
+        rec = self.telemetry_recorder
+        # each step's host wall runs from the last batch end (the epoch's
+        # start for its first step) to its own
+        t_prev = time.perf_counter()
         for batch_idx, batch in enumerate(it, start=skip):
             if (self.limit_train_batches is not None
                     and self._epoch_batches_done >= self.limit_train_batches):
@@ -280,14 +329,34 @@ class Trainer:
             self.last_batch_size = _leading_dim(batch)
             device_batch = self._place_train_batch(batch)
             device_batch = self._invoke_batch_start(device_batch, batch_idx)
-            metrics = self._train_step(device_batch)
+            rec.set_step(self.global_step)
+            # the enqueue of the step's kernels: PyTorch returns before
+            # the device runs them
+            with rec.span(PH_DISPATCH, step=self.global_step):
+                metrics = self._train_step(device_batch)
             self.global_step += 1
             self._epoch_batches_done += 1
+            if rec.enabled:
+                t_now = time.perf_counter()
+                rec.record(PH_STEP, t_prev, t_now - t_prev,
+                           step=self.global_step)
+                t_prev = t_now
             pending = metrics
             # lazy metric fetch: a host sync only on the logging cadence
             if self.global_step % max(1, self.log_every_n_steps) == 0:
-                pending = self._host_metrics(metrics)
+                with rec.span(PH_METRICS, step=self.global_step):
+                    pending = self._host_metrics(metrics)
                 self.callback_metrics.update(pending)
+            if self._profiler is not None:
+                # after the fetch: on its cadence the device has drained,
+                # so a window opens between steps, not inside one
+                self._profiler.on_step(self.global_step)
+            # the span file and the goodput ledger on their own cadence,
+            # so a killed worker leaves an almost-current account
+            if (rec.enabled
+                    and self.global_step % self._telemetry_flush_every == 0):
+                rec.flush()
+                self._write_telemetry_ledger(completed=False)
             self._invoke("on_train_batch_end", pending, batch_idx)
             if (self.val_check_interval and self.has_validation
                     and val_loader is not None
@@ -393,6 +462,11 @@ class Trainer:
 
     def _run_eval_epoch(self, loader, step_fn, limit: Optional[int] = None,
                         sanity: bool = False) -> Dict[str, float]:
+        with self.telemetry_recorder.span(PH_EVAL):
+            return self._eval_epoch(loader, step_fn, limit, sanity)
+
+    def _eval_epoch(self, loader, step_fn, limit: Optional[int],
+                    sanity: bool) -> Dict[str, float]:
         """Batch-size-weighted sums accumulate on the device and are
         fetched with one host sync at the end."""
         if hasattr(loader, "set_epoch"):
@@ -515,7 +589,10 @@ class Trainer:
         meta.update(sharding_provenance(self.strategy.mesh, state.params))
         self.module.on_save_checkpoint(checkpoint)
         self._invoke("on_save_checkpoint", checkpoint)
-        out = save_checkpoint(path, checkpoint, meta, block=block)
+        # what the training thread paid: the whole write when blocking,
+        # the snapshot and any wait on an earlier write when not
+        with self.telemetry_recorder.span(PH_CKPT, meta={"path": path}):
+            out = save_checkpoint(path, checkpoint, meta, block=block)
         self.callback_metrics.update(io_stats())
         return out
 
@@ -633,8 +710,10 @@ class Trainer:
             # in warmup_steps rather than resume a pre-anomaly EMA
             device = self.strategy.device
             state.guard = init_guard_state(device)
-            state.updates = torch.tensor(
-                state.step if state.updates is None else state.updates,
+            # filled on the device: a tensor copied from a host scalar
+            # costs a synchronising copy
+            state.updates = torch.full(
+                (), state.step if state.updates is None else state.updates,
                 dtype=torch.int32, device=device)
         return state
 
@@ -735,6 +814,64 @@ class Trainer:
         for cb in self.callbacks:
             getattr(cb, hook)(self, self.module, *args)
 
+    # ------------------------------------------------------------ telemetry
+
+    def _setup_telemetry(self) -> None:
+        """The span recorder and the profiler controller of this fit.
+        Host bookkeeping only: nothing here reaches the step."""
+        self.telemetry = TelemetryConfig.coerce(self.telemetry)
+        rank = process_index()
+        if self.telemetry is not None:
+            self.telemetry_recorder = TelemetryRecorder(
+                directory=self.telemetry.resolved_dir(
+                    self.default_root_dir),
+                rank=rank, ring_size=self.telemetry.ring_size)
+            self._telemetry_flush_every = max(
+                1, self.telemetry.flush_every_n_steps)
+            self._launch_s = _launch_seconds()
+        self.profile = ProfileConfig.coerce(self.profile)
+        if self.profile is not None:
+            self._profiler = ProfilerController(
+                self.profile, rank=rank,
+                on_card=self.strategy.device.type == "cuda")
+
+    def _write_telemetry_ledger(self, completed: bool) -> None:
+        """Refresh this rank's goodput ledger (telemetry/goodput.py):
+        cadenced and final, an atomic replace, so a SIGKILL'd attempt
+        still leaves an almost-current account for the driver."""
+        rec = self.telemetry_recorder
+        if not rec.enabled or rec.directory is None \
+                or self._fit_start_perf is None:
+            return
+        ledger = _goodput.worker_ledger(
+            rec, time.perf_counter() - self._fit_start_perf,
+            rank=rec.rank, start_step=self._fit_start_step,
+            end_step=self.global_step, launch_s=self._launch_s,
+            completed=completed)
+        _goodput.write_ledger(rec.directory, ledger, uid=rec.uid)
+
+    def _finalize_telemetry(self, completed: bool) -> None:
+        rec = self.telemetry_recorder
+        if not rec.enabled:
+            return
+        totals = rec.phase_totals()
+        wall = (time.perf_counter() - self._fit_start_perf
+                if self._fit_start_perf is not None else 0.0)
+        stalls = sum(totals.get(p, 0.0) for p in
+                     ("compile", "data_wait", "ckpt_stall", "eval",
+                      "metrics_fetch"))
+        self.callback_metrics.update({
+            "telemetry_compile_s": totals.get("compile", 0.0),
+            "telemetry_data_wait_s": totals.get("data_wait", 0.0),
+            "telemetry_ckpt_stall_s": totals.get("ckpt_stall", 0.0),
+            "telemetry_eval_s": totals.get("eval", 0.0),
+            "telemetry_spans_dropped": float(rec.dropped),
+            "goodput_fraction": (max(0.0, wall - stalls) / wall
+                                 if wall > 0 else 0.0),
+        })
+        self._write_telemetry_ledger(completed=completed)
+        rec.close()
+
     def _invoke_batch_start(self, batch, batch_idx: int):
         """on_train_batch_start; a callback returning non-None replaces
         the batch."""
@@ -744,6 +881,45 @@ class Trainer:
             if out is not None:
                 batch = out
         return batch
+
+
+def _launch_seconds() -> float:
+    """Worker process start to fit start (imports, CUDA and the process
+    group, the kernels' build): the goodput launch bucket. Zero outside
+    a runtime worker: a local fit has no spawn cost worth charging."""
+    from ray_lightning_tpu_torch.runtime import session
+
+    s = session.get_session()
+    started = s.started_at if s is not None else None
+    return max(0.0, time.time() - started) if started else 0.0
+
+
+class _ProfilerCtx:
+    """A torch.profiler capture of the whole fit loop into
+    ``trainer.profiler_dir``; its record lands in ``trainer.fit_capture``.
+    A capture on a card that recorded no device event is logged as a
+    failed capture."""
+
+    def __init__(self, trainer: "Trainer"):
+        self.trainer = trainer
+        self.capture = Capture(
+            trainer.profiler_dir, f"rank{process_index()}.{os.getpid()}.fit",
+            trainer.strategy.device.type == "cuda")
+
+    def __enter__(self):
+        self.capture.start()
+        return self
+
+    def __exit__(self, *exc):
+        record = self.capture.stop()
+        self.trainer.fit_capture = record
+        if record["empty"] or record["lost_kernel_events"]:
+            log.error("profiler: the whole-fit capture on the card lost "
+                      "device events (%s of its kernels; none recorded: "
+                      "%s); %s is a FAILED capture",
+                      record["lost_kernel_events"], record["empty"],
+                      record["trace"])
+        return False
 
 
 def _tree_map(fn, tree):

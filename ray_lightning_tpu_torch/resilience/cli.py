@@ -34,7 +34,6 @@ resilience/faults.py.
 """
 from __future__ import annotations
 
-import argparse
 import functools
 import json
 import os
@@ -323,10 +322,3 @@ def run_supervise(args) -> int:
             print(f"error: {out.get('error')}", file=sys.stderr)
     return 0 if out["ok"] else 1
 
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m ray_lightning_tpu_torch")
-    sub = ap.add_subparsers(dest="command", required=True)
-    add_supervise_parser(sub)
-    args = ap.parse_args(argv)
-    return run_supervise(args)

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional
 
 from ray_lightning_tpu_torch.core.callbacks import Callback
 from ray_lightning_tpu_torch.resilience.policy import StallError
+from ray_lightning_tpu_torch.telemetry.spans import NULL_RECORDER
 
 log = logging.getLogger(__name__)
 
@@ -38,9 +39,9 @@ HEARTBEAT_KIND = "rlt.heartbeat"
 
 def make_heartbeat(rank: int, step: int, phase: str = "step",
                    span: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """``phase`` is what the worker's main thread is doing now; ``span``
-    the last finished span's summary (the JAX package's telemetry
-    fills it; the port sends none until ROADMAP Queue 1 item 11)."""
+    """``phase`` is what the worker's main thread is doing now (the
+    telemetry recorder's current span phase); ``span`` the last finished
+    span's summary."""
     hb = {"kind": HEARTBEAT_KIND, "rank": rank, "step": int(step),
           "phase": phase, "sent_at": time.time()}
     if span:
@@ -84,8 +85,15 @@ class HeartbeatCallback(Callback):
                 if not muted.is_set():
                     try:
                         step = int(trainer.global_step)
+                        # the recorder's live phase says what the worker
+                        # is doing; without telemetry, the step counter
+                        rec = getattr(trainer, "telemetry_recorder",
+                                      NULL_RECORDER)
+                        phase = rec.current_phase() if rec.enabled else ""
                         session.put_queue(make_heartbeat(
-                            rank, step, "step" if step > 0 else "setup"))
+                            rank, step,
+                            phase or ("step" if step > 0 else "setup"),
+                            span=rec.last_span()))
                     except Exception:  # noqa: BLE001 — the channel closing
                         # at teardown; never crash the worker over it
                         return

@@ -18,6 +18,13 @@ unsupervised run would be. The supervisor adds, around it:
                 heartbeat sender, the SIGTERM drain (`PreemptionGuard`),
                 the trainguard when configured, and the fault injector
                 when a plan is given.
+  telemetry     every worker records spans and goodput ledgers into the
+                run's ``<checkpoint_dir>/telemetry`` (on by default); the
+                driver records its attempt and backoff spans there and
+                assembles the goodput of the whole supervised wall into
+                `SupervisedResult.goodput` and ``telemetry/goodput.json``.
+                ``watch=`` evaluates SLO rules over those files after
+                every failure and at the end (`telemetry.watch`).
 
 FATAL failures (a real Python exception in user code) fail fast with the
 classified cause; the rank-tagged `WorkerError` with its log tail stays
@@ -26,6 +33,7 @@ pickle, as everywhere in the port's runtime (a lambda raises TypeError).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -46,14 +54,13 @@ from ray_lightning_tpu_torch.resilience.policy import (
     RetryPolicy,
     classify_failure,
 )
+from ray_lightning_tpu_torch.telemetry.spans import PH_ATTEMPT, PH_BACKOFF
 
 log = logging.getLogger(__name__)
 
 #: knob -> the ROADMAP item that brings its machinery to the port
 _NOT_PORTED = {
     "elastic": "Queue 1 item 12 (elastic/)",
-    "watch": "Queue 1 item 11 (telemetry/watch.py)",
-    "telemetry": "Queue 1 item 11 (telemetry/spans.py, telemetry/goodput.py)",
     "compile_cache_dir": "Queue 1 item 7 (pipeline/compile_cache.py)",
 }
 
@@ -67,11 +74,8 @@ class ResilienceConfig:
     and the trainguard's rollback marker (keep it apart from a user
     ModelCheckpoint's dirpath: the supervisor prunes it).
 
-    ``elastic``, ``watch``, a truthy ``telemetry`` and an explicit
-    ``compile_cache_dir`` raise `NotImplementedError` naming the ROADMAP
-    item that brings them. ``telemetry`` defaults to False here (True in
-    the JAX package, which records spans and assembles goodput): until
-    then `SupervisedResult.goodput` is None.
+    ``elastic`` and an explicit ``compile_cache_dir`` raise
+    `NotImplementedError` naming the ROADMAP item that brings them.
     """
 
     checkpoint_dir: str
@@ -99,16 +103,34 @@ class ResilienceConfig:
     #: the poisoned window, record quarantined ranks in
     #: <checkpoint_dir>/.quarantine.json
     guard: Any = None
-    telemetry: Any = False
+    #: telemetry (telemetry/): True (or a directory / TelemetryConfig)
+    #: arms the span recorder in every worker with the run's shared
+    #: ``<checkpoint_dir>/telemetry`` dir, the driver records its own
+    #: attempt/backoff spans there, and supervise() assembles the goodput
+    #: into SupervisedResult.goodput + ``telemetry/goodput.json``. False
+    #: turns it off end to end.
+    telemetry: Any = True
     elastic: Any = None
+    #: SLO watch (telemetry/watch.py): True, a WatchConfig or a tuple of
+    #: WatchRule evaluates the rules over the run's persisted evidence
+    #: after every classified failure and at the end; breaches land in
+    #: <checkpoint_dir>/incidents.jsonl and SupervisedResult.incidents
     watch: Any = None
 
     def __post_init__(self):
-        for knob in ("elastic", "watch", "telemetry", "compile_cache_dir"):
+        for knob in ("elastic", "compile_cache_dir"):
             if getattr(self, knob):
                 raise NotImplementedError(
                     f"ResilienceConfig({knob}=...) is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[knob]})")
+
+    def resolved_telemetry_dir(self) -> Optional[str]:
+        if not self.telemetry:
+            return None
+        from ray_lightning_tpu_torch.telemetry import TelemetryConfig
+
+        cfg = TelemetryConfig.coerce(self.telemetry)
+        return cfg.dir or os.path.join(self.checkpoint_dir, "telemetry")
 
 
 @dataclasses.dataclass
@@ -121,9 +143,14 @@ class SupervisedResult:
     failures: List[Dict[str, Any]]  # classified history, launch order
     rollbacks: int = 0              # trainguard corruption rollbacks
     quarantined: List[int] = dataclasses.field(default_factory=list)
-    #: goodput of the supervised wall time: None until the port has
-    #: telemetry (ROADMAP Queue 1 item 11)
+    #: goodput classification of the TOTAL supervised wall time
+    #: (telemetry/goodput.py buckets; None when telemetry is off), also
+    #: written to <checkpoint_dir>/telemetry/goodput.json
     goodput: Optional[Dict[str, Any]] = None
+    #: watch-rule breaches fired during supervision (the on-disk record
+    #: is <checkpoint_dir>/incidents.jsonl)
+    incidents: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def total_attempts(self) -> int:
@@ -215,6 +242,15 @@ def _wrapped_trainer_factory(trainer_factory: Callable[[], Any],
             # after a corruption rollback: skip the poisoned window (a
             # stale marker of an older incident does nothing there)
             trainer.resume_skip_past = marker
+    tdir = cfg.resolved_telemetry_dir()
+    if tdir and trainer.telemetry is None:
+        # every supervised worker records into the run's shared dir, with
+        # the config's ring and flush cadence; an explicit
+        # Trainer(telemetry=) wins
+        from ray_lightning_tpu_torch.telemetry import TelemetryConfig
+
+        trainer.telemetry = dataclasses.replace(
+            TelemetryConfig.coerce(cfg.telemetry), dir=tdir)
     faults = parse_faults(cfg.faults) if cfg.faults else faults_from_env()
     if faults:
         state_dir = (cfg.fault_state_dir
@@ -284,6 +320,65 @@ def supervise(
 
     wrapped_tf = functools.partial(_wrapped_trainer_factory, trainer_factory,
                                    cfg)
+
+    # driver-side telemetry: attempt/backoff spans into the run's shared
+    # dir (rank -1 = the driver), and the wall and backoff the goodput
+    # assembly closes its books against
+    telemetry_dir = cfg.resolved_telemetry_dir() if kind == "fit" else None
+    driver_rec = None
+    if telemetry_dir:
+        from ray_lightning_tpu_torch.telemetry.spans import TelemetryRecorder
+
+        driver_rec = TelemetryRecorder(directory=telemetry_dir, rank=-1)
+    wall_t0 = time.perf_counter()
+    backoff_s = 0.0
+
+    # SLO watch: driver-side rule evaluation over the persisted evidence,
+    # after every classified failure and at the end (pure file reads)
+    watch_engine = None
+    if kind == "fit" and cfg.watch:
+        from ray_lightning_tpu_torch.telemetry.watch import (
+            WatchConfig,
+            WatchEngine,
+        )
+
+        watch_engine = WatchEngine(cfg.checkpoint_dir,
+                                   WatchConfig.coerce(cfg.watch),
+                                   telemetry_dir=telemetry_dir)
+
+    def _watch_poll() -> List[Dict[str, Any]]:
+        if watch_engine is None:
+            return []
+        try:
+            watch_engine.poll()
+        except Exception:  # noqa: BLE001 — observability must never
+            # cost the run its result
+            log.exception("watch evaluation failed")
+        return list(watch_engine.incidents)
+
+    def _assemble(restarts, preemptions, rollbacks):
+        if telemetry_dir is None:
+            return None
+        from ray_lightning_tpu_torch.telemetry import goodput as _gp
+
+        try:
+            driver_rec.close()
+            report = _gp.assemble_goodput(
+                telemetry_dir, time.perf_counter() - wall_t0,
+                backoff_s=backoff_s, restarts=restarts,
+                preemptions=preemptions, rollbacks=rollbacks)
+            _gp.write_goodput(telemetry_dir, report)
+            return report
+        except Exception:  # noqa: BLE001 — accounting must never cost
+            # the run its result
+            log.exception("goodput assembly failed")
+            return None
+
+    def _span(phase: str, **meta):
+        if driver_rec is None:
+            return contextlib.nullcontext()
+        return driver_rec.span(phase, meta=meta or None)
+
     restarts = preemptions = rollbacks = 0
     quarantined: List[int] = []
     failures: List[Dict[str, Any]] = []
@@ -292,16 +387,19 @@ def supervise(
             monitor.reset()
         attempts = 1 + restarts + preemptions + rollbacks
         try:
-            result = run_distributed(
-                kind, module_factory, wrapped_tf, data_factory,
-                num_processes, ckpt_path=ckpt_path,
-                on_queue_item=_on_queue_item,
-                watchdog=(_watchdog if (monitor is not None
-                                        or user_watchdog is not None)
-                          else None),
-                **kw)
+            with _span(PH_ATTEMPT, attempt=attempts, world=num_processes):
+                result = run_distributed(
+                    kind, module_factory, wrapped_tf, data_factory,
+                    num_processes, ckpt_path=ckpt_path,
+                    on_queue_item=_on_queue_item,
+                    watchdog=(_watchdog if (monitor is not None
+                                            or user_watchdog is not None)
+                              else None),
+                    **kw)
+            goodput = _assemble(restarts, preemptions, rollbacks)
             return SupervisedResult(result, restarts, preemptions, failures,
-                                    rollbacks, quarantined)
+                                    rollbacks, quarantined, goodput=goodput,
+                                    incidents=_watch_poll())
         except (KeyboardInterrupt, SystemExit):
             raise
         except BaseException as exc:  # noqa: BLE001 — classified below
@@ -310,9 +408,17 @@ def supervise(
                              "at": time.time()})
             log.warning("supervised attempt %d failed: [%s/%s] %s",
                         attempts, fc.kind, fc.cause, fc.detail)
+            # mid-run watch cadence: a restart-rate breach fires now
+            _watch_poll()
             if fc.kind == FailureKind.FATAL:
+                # land the driver's spans and the goodput for the
+                # post-mortem before failing for good
+                _assemble(restarts, preemptions, rollbacks)
+                _watch_poll()
                 raise SupervisedFailure(fc, attempts) from exc
             if not policy.allows(restarts, preemptions, fc, rollbacks):
+                _assemble(restarts, preemptions, rollbacks)
+                _watch_poll()
                 raise RestartBudgetExceeded(
                     fc, attempts,
                     policy.max_rollbacks
@@ -336,7 +442,9 @@ def supervise(
                 "rollbacks %d) in %.1fs, resuming from %s",
                 restarts + preemptions + rollbacks, restarts, preemptions,
                 rollbacks, delay, ckpt_path or "scratch")
-            time.sleep(delay)
+            with _span(PH_BACKOFF):
+                time.sleep(delay)
+            backoff_s += delay
 
 
 def _rollback_target(cfg: ResilienceConfig, rollbacks: int,

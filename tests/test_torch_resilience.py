@@ -406,14 +406,13 @@ def test_resilience_exports_match_jax():
 
 
 @pytest.mark.parametrize("knob,item", [
-    ("elastic", "Queue 1 item 12"), ("watch", "Queue 1 item 11"),
-    ("telemetry", "Queue 1 item 11"), ("compile_cache_dir", "Queue 1 item 7"),
+    ("elastic", "Queue 1 item 12"), ("compile_cache_dir", "Queue 1 item 7"),
 ])
 def test_unported_resilience_knobs_raise(tmp_path, knob, item):
     with pytest.raises(NotImplementedError, match=item):
         pres.ResilienceConfig(str(tmp_path), **{knob: True})
     cfg = pres.ResilienceConfig(str(tmp_path))
-    assert not cfg.telemetry and cfg.elastic is None
+    assert cfg.telemetry is True and cfg.elastic is None
 
 
 def test_wrapped_trainer_factory_attaches_supervision(tmp_path, monkeypatch):
@@ -453,6 +452,52 @@ def test_wrapped_trainer_factory_attaches_supervision(tmp_path, monkeypatch):
     inj = kinds["FaultInjector"]
     assert inj.state_dir == os.path.join(d, ".fault_state")
     assert [f.kind for f in inj.faults] == ["kill"]
+    # telemetry on by default, into the run's shared dir
+    assert t.telemetry.dir == os.path.join(d, "telemetry")
+
+
+def test_telemetry_and_watch_knobs(tmp_path):
+    """``telemetry`` defaults to True as in the JAX package and resolves
+    to the same dir; False turns it off; a trainer's own telemetry
+    wins; ``watch`` takes what the JAX knob takes."""
+    import functools
+
+    from ray_lightning_tpu.resilience.supervisor import (
+        ResilienceConfig as JaxConfig,
+    )
+    from ray_lightning_tpu_torch.resilience.supervisor import (
+        _wrapped_trainer_factory,
+    )
+    from ray_lightning_tpu_torch.telemetry import TelemetryConfig
+    from ray_lightning_tpu_torch.telemetry.watch import (
+        BUILTIN_RULES,
+        WatchConfig,
+    )
+
+    d = str(tmp_path)
+    for value in (True, False, str(tmp_path / "elsewhere")):
+        assert pres.ResilienceConfig(d, telemetry=value).\
+            resolved_telemetry_dir() == JaxConfig(
+                d, telemetry=value).resolved_telemetry_dir()
+    assert JaxConfig(d).telemetry is pres.ResilienceConfig(d).telemetry
+    factory = functools.partial(
+        Trainer, strategy=SingleDevice(device="cpu"),
+        enable_checkpointing=False, enable_progress_bar=False)
+    off = _wrapped_trainer_factory(
+        factory, pres.ResilienceConfig(d, telemetry=False))
+    assert off.telemetry is None
+    own = _wrapped_trainer_factory(functools.partial(factory, telemetry="mine"),
+                                   pres.ResilienceConfig(d))
+    assert own.telemetry == "mine"
+    # a config's flush cadence reaches the workers (the JAX wrapper
+    # keeps only its dir)
+    cadenced = _wrapped_trainer_factory(factory, pres.ResilienceConfig(
+        d, telemetry=TelemetryConfig(flush_every_n_steps=1)))
+    assert (cadenced.telemetry.dir, cadenced.telemetry.flush_every_n_steps) \
+        == (os.path.join(d, "telemetry"), 1)
+    cfg = pres.ResilienceConfig(d, watch=True)
+    assert WatchConfig.coerce(cfg.watch).rules == BUILTIN_RULES
+    assert pres.SupervisedResult(None, 0, 0, []).incidents == []
 
 
 def test_maybe_install_faults_reads_the_environment(monkeypatch, tmp_path):

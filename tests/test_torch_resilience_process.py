@@ -10,6 +10,8 @@ it by name).
 """
 from __future__ import annotations
 
+import functools
+import json
 import os
 import time
 
@@ -26,24 +28,30 @@ from ray_lightning_tpu_torch.resilience.policy import FailureKind, StallError
 from ray_lightning_tpu_torch.resilience.supervisor import SupervisedFailure
 from ray_lightning_tpu_torch.runtime.fit import FitResult, fit_distributed
 from ray_lightning_tpu_torch.runtime.group import WorkerError, WorkerGroup
+from ray_lightning_tpu_torch.telemetry import (
+    TelemetryConfig,
+    buckets_consistent,
+)
 from tests import torch_jobs
 
 
-def _cfg(root, name, faults=None, stall=0.0):
+def _cfg(root, name, faults=None, stall=0.0, save_every=1):
     return ResilienceConfig(
         checkpoint_dir=str(root / name),
         policy=RetryPolicy(max_restarts=2, backoff_base_s=0.2, jitter=0.0),
-        save_every_n_steps=1, heartbeat_interval_s=1.0,
+        save_every_n_steps=save_every, heartbeat_interval_s=1.0,
         stall_timeout_s=stall, faults=faults)
 
 
-def _run(root, name, faults=None, stall=0.0):
+def _run(root, name, faults=None, stall=0.0, save_every=1,
+         trainer=torch_jobs.sup_trainer):
     """One supervised fit; returns it and where each attempt started
     (rank 0's global step and pid at fit start)."""
     starts = []
     sup = fit_supervised(
-        torch_jobs.sup_module, torch_jobs.sup_trainer, torch_jobs.sup_data,
-        2, resilience=_cfg(root, name, faults, stall), device="cpu",
+        torch_jobs.sup_module, trainer, torch_jobs.sup_data,
+        2, resilience=_cfg(root, name, faults, stall, save_every),
+        device="cpu",
         timeout=120, log_dir=str(root / f"logs_{name}"),
         on_queue_item=lambda rank, item: starts.append(item[1:]))
     return sup, starts
@@ -53,6 +61,22 @@ def _same_weights(a, b):
     assert set(a.result.state_dict) == set(b.result.state_dict)
     for k, v in a.result.state_dict.items():
         assert torch.equal(v, b.result.state_dict[k]), k
+
+
+def _goodput(sup, ledgers=None):
+    """The assembled goodput (telemetry is on by default): its buckets
+    sum to the supervised wall within 5%, with one attempt for each
+    rank-0 ledger (``ledgers`` of them when given: a SIGKILL'd rank 0
+    leaves none for its attempt unless its flush cadence came first)."""
+    report = sup.goodput
+    assert report is not None and buckets_consistent(report, 0.05)
+    assert abs(report["buckets_sum_s"] - report["wall_s"]) < 1e-3
+    assert report["ledgers"] == len(report["attempts"]) >= 1
+    if ledgers is not None:
+        assert report["ledgers"] == ledgers
+    assert report["events"]["restarts"] == sup.restarts
+    assert report["buckets"]["launch_s"] > 0
+    return report
 
 
 def _dead(pid):
@@ -67,6 +91,9 @@ def _dead(pid):
 def base(tmp_path_factory):
     sup, starts = _run(tmp_path_factory.mktemp("base"), "base")
     assert sup.total_attempts == 1 and [s[0] for s in starts] == [0]
+    report = _goodput(sup, 1)
+    assert report["buckets"]["backoff_s"] == 0
+    assert report["buckets"]["rollback_replay_s"] == 0
     return sup
 
 
@@ -83,6 +110,7 @@ def test_supervise_worker_kill_autoresumes(tmp_path, base, victim):
     assert [s[0] for s in starts] == [0, 2]
     assert all(_dead(pid) for _, pid in starts)
     _same_weights(base, sup)
+    assert _goodput(sup)["buckets"]["backoff_s"] == pytest.approx(0.2)
 
 
 def test_fit_distributed_resilience_returns_the_fit_result(tmp_path, base):
@@ -155,6 +183,45 @@ def test_supervise_fatal_fails_fast_with_classified_cause(tmp_path):
     assert isinstance(cause, WorkerError) and cause.rank == 0
     assert "injected fatal failure" in cause.traceback_str
     assert "worker log tail" in str(cause)
+    # the post-mortem goodput lands on the fatal path too
+    assert os.path.exists(tmp_path / "fatal" / "telemetry" / "goodput.json")
+
+
+def test_supervised_goodput_charges_the_replay(tmp_path, base, capsys):
+    """Saves every 3 steps, ledgers every step, rank 0 SIGKILL'd at step
+    5: the resume starts at step 3 behind the killed attempt's end, so
+    steps 4-5 are trained twice and their time goes to
+    rollback_replay_s (the JAX package's `TestSupervisedGoodput`). The
+    run dir's ledgers merge into one timeline whose Chrome trace
+    validates."""
+    from ray_lightning_tpu_torch.__main__ import main
+    from ray_lightning_tpu_torch.telemetry.timeline import (
+        load_timeline_events,
+        to_chrome_trace,
+        validate_chrome_trace,
+    )
+
+    run = str(tmp_path / "replay")
+    trainer = functools.partial(torch_jobs.sup_trainer,
+                                telemetry=TelemetryConfig(
+                                    dir=os.path.join(run, "telemetry"),
+                                    flush_every_n_steps=1))
+    sup, starts = _run(tmp_path, "replay", "kill:rank=0,step=5",
+                       save_every=3, trainer=trainer)
+    assert sup.restarts == 1 and [s[0] for s in starts] == [0, 3]
+    _same_weights(base, sup)
+    report = _goodput(sup, 2)
+    assert report["buckets"]["backoff_s"] > 0
+    assert report["buckets"]["rollback_replay_s"] > 0
+    assert [a["replay_steps"] for a in report["attempts"]] == [0, 2]
+    timeline = load_timeline_events(run)
+    assert {"spans", "goodput"} <= set(timeline["sources"])
+    assert not validate_chrome_trace(to_chrome_trace(timeline["events"]))
+    assert main(["timeline", run, "--json"]) == 0
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["sources"] == timeline["sources"]
+    kinds = {e["kind"] for e in out["events"] if e["source"] == "spans"}
+    assert {"attempt", "backoff", "dispatch", "step"} <= kinds
 
 
 def test_watchdog_runs_in_the_pump(tmp_path):

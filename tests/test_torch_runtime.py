@@ -255,8 +255,6 @@ def test_unported_runtime_parts_raise(tmp_path):
     from ray_lightning_tpu_torch.resilience import ResilienceConfig
 
     for knob, item in (("elastic", "Queue 1 item 12"),
-                       ("watch", "Queue 1 item 11"),
-                       ("telemetry", "Queue 1 item 11"),
                        ("compile_cache_dir", "Queue 1 item 7")):
         with pytest.raises(NotImplementedError, match=item):
             run_distributed("fit", torch_jobs.llama_module,

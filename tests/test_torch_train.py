@@ -407,10 +407,7 @@ def test_datamodule_and_loader_order_match_jax(shards):
                             else torch.float32)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("telemetry", True), ("profile", True),
-    ("profiler_dir", "prof"), ("compile_cache_dir", "cache"),
-])
+@pytest.mark.parametrize("knob,value", [("compile_cache_dir", "cache")])
 def test_unported_trainer_knobs_raise(knob, value):
     kw = dict(enable_checkpointing=False)
     kw[knob] = value

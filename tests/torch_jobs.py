@@ -373,14 +373,14 @@ def sup_module():
                          in_features=SUP_FEATURES)
 
 
-def sup_trainer(max_epochs=2, log_every_n_steps=1):
+def sup_trainer(max_epochs=2, log_every_n_steps=1, telemetry=None):
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.parallel.strategy import DataParallel
 
     return Trainer(strategy=DataParallel(device="cpu"), max_epochs=max_epochs,
                    enable_progress_bar=False, enable_checkpointing=False,
                    seed=0, log_every_n_steps=log_every_n_steps,
-                   callbacks=[StartStep()])
+                   callbacks=[StartStep()], telemetry=telemetry)
 
 
 def sup_data(rows=SUP_ROWS):
