@@ -45,9 +45,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
   5. train   — Llama-3-8B at full width, 4 layers, seq 2048, batch 2
                (random f32 master weights from a seed): 8 AdamW steps
                through `Trainer.fit` with `SingleDevice`, fused CE, block
-               remat. The launch counters are zeroed before and read
-               after, and must match the counts the run implies; the loss
-               must fall. The same 8 steps are then run from the same
+               remat, and the trainer's defaults: batches prefetched two
+               ahead on a side stream and a warm start (one forward and
+               backward before the loop). The launch counters are zeroed
+               before and read after, and must match the counts the run
+               implies, the warm-up's forward and backward counted; the
+               loss must fall. The same 8 steps are then run from the same
                weights through the reference lanes
                (`dispatch.force_reference`), which must launch no kernel,
                and loss and grad_norm are compared at every step.
@@ -144,6 +147,22 @@ Phases, each of which raises (and so exits nonzero) on failure:
                with events from every ledger and a valid Chrome trace.
                (d) after the card's name, the bf16 matmul probe beside
                the spec-sheet peak.
+ 10. hot loop and remote — (a) in phase 5's process, its fit as the
+               default (prefetched, warm-started) lane and as the
+               synchronous one (``prefetch_to_device=0, warm_start=
+               False``): rows bitwise equal to phase 5's, each lane's
+               step time, first step's wall, ``compile_time_s``,
+               prefetch occupancy and wait, and peak (the prefetched
+               lane's may exceed the other's only by its buffers); (b)
+               phase 5's fit through ``fit_distributed(FSDP(overlap=
+               "on"), hosts=["localhost"], transport=LoopbackTransport())``
+               in one worker: rows bitwise phase 5's, launches phase 5's,
+               the worker on ``cuda:0`` of the visible set with no
+               driver-only variable in its environment, the call's wall;
+               (c) ``python -m ray_lightning_tpu_torch perf --smoke`` on
+               the card, its JSON line. Phase 8 also prints each
+               supervised attempt's ``compile_s`` beside its first step's
+               wall, and every attempt of (a) must book one.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`: the device's busy share and
                the kernels with the most device time. It runs last
@@ -1175,6 +1194,10 @@ class StepProbe:
         probe = self
 
         class _CB(Callback):
+            def on_train_epoch_start(self, trainer, module):
+                if probe.t_loop is None:
+                    probe.t_loop = time.perf_counter()
+
             def on_train_batch_end(self, trainer, module, metrics,
                                    batch_idx):
                 probe.rows.append((float(metrics["loss"]),
@@ -1185,12 +1208,23 @@ class StepProbe:
 
         self.rows, self.t, self.callback = [], [], _CB()
         self.caught, self.caught_at = None, []
+        #: the loop's start (after the warm start), and the fit's
+        #: callback_metrics (train_once)
+        self.t_loop, self.metrics = None, {}
+
+    def first_step_s(self) -> float:
+        """The first step's wall from the loop's start (the warm start
+        before it is not in it)."""
+        return self.t[1] - self.t_loop
 
 
-def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
+def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None,
+               **trainer_kw):
     """One `Trainer.fit` of `LlamaModule` over ``tokens`` (``strategy``
-    default `SingleDevice()`); returns the StepProbe, the fit's wall
-    time, the peak device memory and the parameter count."""
+    default `SingleDevice()``, more `Trainer` keywords in
+    ``trainer_kw``); returns the StepProbe (its ``metrics`` the fit's
+    callback_metrics), the fit's wall time, the peak device memory and
+    the parameter count."""
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.llama import LlamaModule
@@ -1203,7 +1237,7 @@ def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
                       max_steps=TRAIN_STEPS,
                       log_every_n_steps=1, enable_checkpointing=False,
                       enable_progress_bar=False, seed=seed,
-                      callbacks=[probe.callback, *callbacks])
+                      callbacks=[probe.callback, *callbacks], **trainer_kw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     probe.t.append(t0)
@@ -1212,6 +1246,7 @@ def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None):
     wall = time.perf_counter() - t0
     if trainer.global_step != TRAIN_STEPS:
         raise AssertionError(f"fit ran {trainer.global_step} steps")
+    probe.metrics = dict(trainer.callback_metrics)
     n_params = module.num_params()
     del trainer, module
     return probe, wall, torch.cuda.max_memory_allocated(), n_params
@@ -1310,9 +1345,7 @@ def train_phase(seed: int):
     probe, wall, peak, n_params = train_once(cfg, tokens, seed)
     launches = {k.__name__: k.launches for k in kernels}
     L, n = TRAIN_LAYERS, TRAIN_STEPS
-    want = {k.__name__: 0 for k in kernels}
-    want.update(flash_fwd_kernel=2 * L * n, flash_bwd_dkv_kernel=L * n,
-                flash_bwd_dq_kernel=L * n, rms_norm_kernel=(4 * L + 1) * n)
+    want = expected_launches(n)
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     losses = [r[0] for r in probe.rows]
@@ -1401,6 +1434,11 @@ class DistProbe(Callback):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         self.rows, self.t = [], [time.perf_counter()]
+        self.t_loop = None
+
+    def on_train_epoch_start(self, trainer, module):
+        if self.t_loop is None:
+            self.t_loop = time.perf_counter()
 
     def on_train_batch_end(self, trainer, module, metrics, batch_idx):
         self.rows.append((trainer.global_step, float(metrics["loss"]),
@@ -1411,13 +1449,21 @@ class DistProbe(Callback):
         import torch.distributed as dist
 
         torch.cuda.synchronize()
+        m = trainer.callback_metrics
         _to_driver(dict(
             kind="fit", rows=self.rows, t=self.t,
             launches={k.__name__: k.launches for k in all_kernels()},
             peak=torch.cuda.max_memory_allocated(),
             strategy=type(trainer.strategy).__name__,
             world=trainer.strategy.world_size,
-            backend=dist.get_backend(), device=str(trainer.strategy.device)))
+            backend=dist.get_backend(), device=str(trainer.strategy.device),
+            overlap=trainer.strategy.overlap,
+            first_step_s=self.t[1] - self.t_loop if len(self.t) > 1
+            else None,
+            compile_time_s=m.get("compile_time_s"),
+            compile_build_s=m.get("compile_build_s"),
+            env={k: os.environ.get(k) for k in (
+                SMOKE_DRIVER_ONLY, "CUDA_VISIBLE_DEVICES", "LOCAL_RANK")}))
 
 
 class TimedLlama(LlamaModule):
@@ -1454,7 +1500,7 @@ def dist_module(seed: int):
 
 
 def dist_trainer(strategy: str, max_steps: int, seed: int,
-                 ckpt_dir=None):
+                 ckpt_dir=None, overlap: str = "off"):
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.parallel.strategy import FSDP, DataParallel
 
@@ -1463,7 +1509,8 @@ def dist_trainer(strategy: str, max_steps: int, seed: int,
         callbacks.append(TimedCheckpoint(dirpath=ckpt_dir,
                                          every_n_train_steps=RESUME_AT,
                                          save_top_k=-1))
-    return Trainer(strategy={"fsdp": FSDP, "ddp": DataParallel}[strategy](),
+    return Trainer(strategy={"fsdp": FSDP, "ddp": DataParallel}[strategy](
+                       overlap=overlap),
                    max_steps=max_steps, log_every_n_steps=1,
                    enable_checkpointing=False, enable_progress_bar=False,
                    seed=seed, callbacks=callbacks)
@@ -1508,14 +1555,16 @@ def run_dist(kind: str, module_factory, trainer_factory, data_factory,
     return res, by_kind, time.perf_counter() - t0
 
 
-def expected_launches(steps: int):
-    """The kernels' launches of ``steps`` train steps (phase 5's counts)."""
-    L = TRAIN_LAYERS
+def expected_launches(steps: int, warm_ups: int = 1):
+    """The kernels' launches of a fit of ``steps`` train steps (phase 5's
+    counts): the warm start's forward and backward (one a fit, the
+    trainer's default) launch what a step does."""
+    L, n = TRAIN_LAYERS, steps + warm_ups
     want = {k.__name__: 0 for k in all_kernels()}
-    want.update(flash_fwd_kernel=2 * L * steps,
-                flash_bwd_dkv_kernel=L * steps,
-                flash_bwd_dq_kernel=L * steps,
-                rms_norm_kernel=(4 * L + 1) * steps)
+    want.update(flash_fwd_kernel=2 * L * n,
+                flash_bwd_dkv_kernel=L * n,
+                flash_bwd_dq_kernel=L * n,
+                rms_norm_kernel=(4 * L + 1) * n)
     return want
 
 
@@ -2217,9 +2266,14 @@ class ResProbe(Callback):
         for k in all_kernels():
             k.launches = 0
         self._save_t0 = None
+        self._t_loop = None
         _to_driver(dict(kind="start", step=trainer.global_step,
                         pid=os.getpid(), t=time.time(),
                         proc_start=session.get_session().started_at))
+
+    def on_train_epoch_start(self, trainer, module):
+        if self._t_loop is None:
+            self._t_loop = time.perf_counter()
 
     def on_train_batch_start(self, trainer, module, batch, batch_idx):
         if self._save_t0 is not None:
@@ -2233,10 +2287,20 @@ class ResProbe(Callback):
         self._save_t0 = time.perf_counter()
 
     def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        first = {}
+        if self._t_loop is not None:
+            # the attempt's first step: its wall from the loop's start,
+            # and the warm start before it
+            m = trainer.callback_metrics
+            first = dict(first_step_s=time.perf_counter() - self._t_loop,
+                         compile_time_s=m.get("compile_time_s"),
+                         compile_build_s=m.get("compile_build_s"))
+            self._t_loop = None
         _to_driver(dict(
             kind="step", step=trainer.global_step,
             loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
-            launches={k.__name__: k.launches for k in all_kernels()}))
+            launches={k.__name__: k.launches for k in all_kernels()},
+            **first))
 
 
 def res_trainer(seed: int):
@@ -2381,9 +2445,15 @@ def resilience_kill(seed: int, ref_rows, problems: list):
                 1.0 < x <= y + 1.0 for x, y in zip(launch, setup)):
             problems.append(f"(a) launch_s {launch} against the workers' "
                             f"setup {setup}")
+        # each fresh attempt's one-time cost is the warm start's: booked
+        # as compile_s, beside the first step it no longer slows
+        compile_s = [a["buckets"]["compile_s"] for a in _ledgers(ckdir)]
+        if len(compile_s) != 2 or not all(c > 0 for c in compile_s):
+            problems.append(f"(a) compile_s {compile_s} per attempt")
         row.update(goodput=g["buckets"], goodput_wall_s=g["wall_s"],
                    goodput_fraction=g["goodput_fraction"],
-                   goodput_attempts=g["attempts"], ledger_launch_s=launch)
+                   goodput_attempts=g["attempts"], ledger_launch_s=launch,
+                   ledger_compile_s=compile_s)
     row.update(
         attempts=sup.total_attempts, failure=failure,
         starts=[s["step"] for s in starts],
@@ -2395,6 +2465,9 @@ def resilience_kill(seed: int, ref_rows, problems: list):
         # process start; then its imports, rendezvous, build and restore
         relaunch_s=starts[1]["proc_start"] - failure["at"],
         worker_setup_s=setup,
+        first_step_s=[a[0].get("first_step_s") for a in attempts],
+        compile_time_s=[a[0].get("compile_time_s") for a in attempts],
+        compile_build_s=[a[0].get("compile_build_s") for a in attempts],
         launches=launches)
     print(json.dumps(row), flush=True)
     total = {k: launches[0][k] + launches[1][k] for k in launches[0]}
@@ -2645,7 +2718,10 @@ def resilience_mnist(problems: list):
             RES_DIR, name, "telemetry"), problems)
         goodput[name] = dict(wall_s=g.get("wall_s"),
                              fraction=g.get("goodput_fraction"),
-                             buckets=g.get("buckets"))
+                             buckets=g.get("buckets"),
+                             compile_s=[a["buckets"]["compile_s"] for a in
+                                        _ledgers(os.path.join(RES_DIR,
+                                                              name))])
     if goodput["faults"]["buckets"] and not (
             goodput["faults"]["buckets"]["backoff_s"] > 0):
         problems.append("(c) the faulted run's goodput has no backoff")
@@ -2953,7 +3029,7 @@ def telemetry_train(seed: int, ref_rows, ref_step_s: float):
                 problems.append(f"{name}: ledger {led}")
         ctl = trainer._profiler
         if ctl is not None:
-            want = expected_launches(TEL_PROFILE_STEPS)
+            want = expected_launches(TEL_PROFILE_STEPS, warm_ups=0)
             rec_ = ctl.records[0] if ctl.records else {}
             events = rec_.get("device_events", {})
             in_session = {fn: sum(n for key, n in events.items()
@@ -3443,6 +3519,136 @@ def train_spread(seeds):
                                    for r in readings))), flush=True)
 
 
+# ---- phase 10: the hot loop and the remote path -----------------------------
+
+#: set in this process only: a remote transport's worker must not see it
+SMOKE_DRIVER_ONLY = "RLT_SMOKE_DRIVER_ONLY"
+#: how far the prefetched lane's peak may pass the synchronous lane's:
+#: its buffers (up to depth + 1 batches of [TB, TS + 1] int64, 33 KB
+#: each) with the allocator's rounding, far below this
+HOT_PEAK_SLACK_BYTES = 8 * 2**20
+#: limit of the perf CLI's run
+PERF_TIMEOUT_S = 300
+
+
+def hot_loop_sync(seed: int, ref_rows):
+    """(a) phase 5's fit as the default lane (prefetched two ahead,
+    warm-started) and as the synchronous lane, in this process: rows
+    equal to phase 5's, launches its counts (the warm-up's in the
+    default lane only), each lane's readings. Returns the launches."""
+    cfg, tokens = train_inputs(seed)
+    problems, lanes = [], {}
+    total = {k.__name__: 0 for k in all_kernels()}
+    for name, kw, warm_ups in (
+            ("prefetched", {}, 1),
+            ("synchronous", dict(prefetch_to_device=0, warm_start=False),
+             0)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in all_kernels():
+            k.launches = 0
+        probe, wall, peak, _ = train_once(cfg, tokens, seed, **kw)
+        launches = {k.__name__: k.launches for k in all_kernels()}
+        for k, v in launches.items():
+            total[k] += v
+        if probe.rows != ref_rows:
+            problems.append(f"{name}: rows differ from phase 5's")
+        if launches != expected_launches(TRAIN_STEPS, warm_ups):
+            problems.append(f"{name}: launches {launches}")
+        m = probe.metrics
+        lanes[name] = dict(
+            step_s_p50=statistics.median(
+                b - a for a, b in zip(probe.t[2:], probe.t[3:])),
+            first_step_s=probe.first_step_s(), fit_wall_s=wall,
+            compile_time_s=m.get("compile_time_s", 0.0),
+            compile_build_s=m.get("compile_build_s", 0.0),
+            prefetch_occupancy=m.get("prefetch_occupancy"),
+            prefetch_wait_s=m.get("prefetch_wait_s"),
+            peak_bytes=peak, peak_gib=peak / 2**30,
+            rows_equal_phase5=probe.rows == ref_rows, launches=launches)
+        del probe
+    extra = lanes["prefetched"]["peak_bytes"] - \
+        lanes["synchronous"]["peak_bytes"]
+    if extra > HOT_PEAK_SLACK_BYTES:
+        problems.append(f"the prefetched lane's peak passes the "
+                        f"synchronous one's by {extra} bytes")
+    if not lanes["prefetched"]["compile_time_s"] > 0:
+        problems.append("the default lane booked no warm start")
+    print(json.dumps(dict(phase="hot_loop_sync", lanes=lanes,
+                          peak_extra_bytes=extra)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("hot loop (a): " + "; ".join(problems))
+    return total
+
+
+def hot_loop_remote(seed: int, ref_rows):
+    """(b) phase 5's fit through ``fit_distributed`` under
+    ``FSDP(overlap="on")`` in one worker started by `LoopbackTransport`
+    on ``hosts=["localhost"]``: rows and launches phase 5's, the worker
+    on cuda:0 of the visible set, none of the driver's own environment.
+    Returns the launches."""
+    import chip_smoke as me
+    from ray_lightning_tpu_torch.runtime import LoopbackTransport
+
+    P = functools.partial
+    problems = []
+    free_card("hot_loop_remote")
+    transport = LoopbackTransport()
+    os.environ[SMOKE_DRIVER_ONLY] = "driver"
+    try:
+        _, got, wall = run_dist(
+            "fit", P(me.dist_module, seed),
+            P(me.dist_trainer, "fsdp", TRAIN_STEPS, seed, overlap="on"),
+            P(me.dist_data, seed), hosts=["localhost"], transport=transport)
+    finally:
+        os.environ.pop(SMOKE_DRIVER_ONLY, None)
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    probe = got["fit"][0]
+    env = probe["env"]
+    fit_row("hot_loop_remote", probe, wall, ref_rows,
+            expected_launches(TRAIN_STEPS), problems,
+            spawned=transport.spawned, overlap=probe["overlap"], env=env,
+            first_step_s=probe["first_step_s"],
+            compile_time_s=probe["compile_time_s"],
+            compile_build_s=probe["compile_build_s"])
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if not (probe["backend"] == "nccl" and probe["device"] == "cuda:0"
+            and probe["overlap"] == "on" and env[SMOKE_DRIVER_ONLY] is None
+            and env["CUDA_VISIBLE_DEVICES"] == visible
+            and env["LOCAL_RANK"] == "0"
+            and transport.spawned == [("localhost", 0)]):
+        problems.append(f"worker on {probe['device']} ({probe['backend']}, "
+                        f"overlap {probe['overlap']}), environment {env} "
+                        f"(the driver's CUDA_VISIBLE_DEVICES {visible!r}), "
+                        f"spawned {transport.spawned}")
+    if problems:
+        raise AssertionError("hot loop (b): " + "; ".join(problems))
+    return probe["launches"]
+
+
+def hot_loop_perf() -> None:
+    """(c) ``python -m ray_lightning_tpu_torch perf --smoke`` on the card:
+    its exit code and its JSON line."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_lightning_tpu_torch", "perf", "--smoke"],
+        capture_output=True, text=True, timeout=PERF_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        result = None
+    print(json.dumps(dict(phase="hot_loop_perf", rc=out.returncode,
+                          wall_s=time.perf_counter() - t0, perf=result)),
+          flush=True)
+    if out.returncode != 0 or result is None:
+        raise AssertionError(f"hot loop (c): perf --smoke exited "
+                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+
+
 #: every CUDA source the kernels are built from
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm"]
@@ -3555,11 +3761,22 @@ def main() -> int:
     tel_launches = telemetry_train(SEED, train_rows, train_step_s)
     lap("telemetry_train")
 
+    # 10a. the default (prefetched, warm-started) lane beside the
+    # synchronous one
+    hot_launches = hot_loop_sync(SEED, train_rows)
+    lap("hot_loop_sync")
+
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint and its resume, and the
     # MNIST train/load/predict matrix
     dist_launches = dist_phase(SEED, train_rows)
     lap("dist")
+
+    # 10b. the same fit through a loopback "remote" worker under FSDP's
+    # overlap schedule
+    for k, v in hot_loop_remote(SEED, train_rows).items():
+        hot_launches[k] += v
+    lap("hot_loop_remote")
 
     # 7. the sweep: Llama-3-8B trials under ASHA, each in its own process
     # on the card, and the reference's Tune example over fit_distributed
@@ -3572,6 +3789,10 @@ def main() -> int:
     res_launches = resilience_phase(SEED, train_rows)
     lap("resilience")
 
+    # 10c. the perf CLI on the card
+    hot_loop_perf()
+    lap("hot_loop_perf")
+
     # 4b. phase 4's serving window under the profiler (see serve_profile)
     serve_profile(SEED, args.layers)
     lap("serve_profile")
@@ -3583,12 +3804,15 @@ def main() -> int:
         # 9c's share is inside "resilience" (its rows carry the timeline
         # CLI's seconds)
         phase9_s=t_9b + t_probe + walls["telemetry_train"],
+        phase10_s=sum(walls[k] for k in ("hot_loop_sync", "hot_loop_remote",
+                                         "hot_loop_perf")),
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
 
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
                 + tel_launches[k] + dist_launches[k] + sweep_launches[k]
-                + res_launches.get(k, 0) for k in train_launches}
+                + res_launches.get(k, 0) + hot_launches[k]
+                for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/paged_attention.cu",

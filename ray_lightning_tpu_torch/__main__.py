@@ -7,11 +7,13 @@
     python -m ray_lightning_tpu_torch monitor  <run_dir> [--serve] [--follow]
     python -m ray_lightning_tpu_torch timeline <run_dir> [--json | --chrome OUT]
     python -m ray_lightning_tpu_torch watch    <run_dir> [--json]
+    python -m ray_lightning_tpu_torch perf [--smoke] [--device cpu]
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
 
 ``supervise`` is resilience/cli.py; ``report``, ``monitor``,
 ``timeline`` and ``watch`` read a telemetry-enabled run's directory
-(telemetry/); ``--probe`` times a chain of bf16 matmuls on the card
+(telemetry/); ``perf`` measures the hot loop's prefetch overlap, warm
+start and FSDP schedule (pipeline/cli.py); ``--probe`` times a chain of bf16 matmuls on the card
 (utils/probe.py) beside its spec-sheet peak.
 """
 import argparse
@@ -43,6 +45,7 @@ def run_probe(args) -> int:
 
 
 def main(argv=None) -> int:
+    from ray_lightning_tpu_torch.pipeline.cli import add_perf_parser, run_perf
     from ray_lightning_tpu_torch.resilience.cli import (
         add_supervise_parser,
         run_supervise,
@@ -75,10 +78,11 @@ def main(argv=None) -> int:
     add_monitor_parser(sub)
     add_timeline_parser(sub)
     add_watch_parser(sub)
+    add_perf_parser(sub)
     args = ap.parse_args(argv)
     commands = {"supervise": run_supervise, "report": run_report,
                 "monitor": run_monitor, "timeline": run_timeline,
-                "watch": run_watch}
+                "watch": run_watch, "perf": run_perf}
     if args.command in commands:
         return commands[args.command](args)
     if args.probe:

@@ -93,6 +93,33 @@ class DataLoader:
         self._epoch += 1
 
 
+class ThrottledLoader:
+    """A loader with a fixed host delay a batch: the deliberately slow
+    loader behind the prefetch evidence (pipeline/overlap.py, ``python
+    -m ray_lightning_tpu_torch perf``), standing in for the decode and
+    tokenisation time of a real input pipeline. Forwards ``set_epoch``
+    and ``__len__``."""
+
+    def __init__(self, inner: Any, delay_s: float):
+        self.inner = inner
+        self.delay_s = float(delay_s)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.inner, "set_epoch"):
+            self.inner.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def __iter__(self) -> Iterator[Any]:
+        import time
+
+        for batch in self.inner:
+            if self.delay_s > 0:
+                time.sleep(self.delay_s)
+            yield batch
+
+
 class DataModule:
     """Optional Lightning-style data container."""
 

@@ -37,8 +37,17 @@ ledger on ``flush_every_n_steps`` and at fit end. It reads no device
 value, so a fit with it on launches the same kernels and takes the same
 host syncs as one with it off. ``profile=ProfileConfig(...)`` captures a
 `torch.profiler` trace of a step window, on a marker file or on SIGUSR1;
-``profiler_dir=`` captures the whole fit loop. ``compile_cache_dir``
-raises `NotImplementedError` naming its ROADMAP item.
+``profiler_dir=`` captures the whole fit loop.
+
+The hot loop (`pipeline/`): ``prefetch_to_device=N`` (2 by default)
+places the next N batches on a producer thread, their copies on a side
+CUDA stream, while the step runs (`DevicePrefetcher`; 0 places each
+batch inline); ``warm_start=True`` (the default) runs one forward and
+backward of the first batch under a ``compile`` span before the loop, so
+a fresh process's one-time costs are paid and reported there
+(``compile_time_s``) and not in the first step; ``compile_cache_dir``
+is where the kernel libraries are built and loaded
+(`enable_persistent_cache`). Neither knob changes a bit of the result.
 """
 from __future__ import annotations
 
@@ -63,6 +72,14 @@ from ray_lightning_tpu_torch.core.module import TpuModule
 from ray_lightning_tpu_torch.core.state import TrainState
 from ray_lightning_tpu_torch.parallel.mesh import process_index
 from ray_lightning_tpu_torch.parallel.strategy import SingleDevice, Strategy
+from ray_lightning_tpu_torch.pipeline.compile_cache import (
+    WarmStep,
+    enable_persistent_cache,
+)
+from ray_lightning_tpu_torch.pipeline.prefetch import (
+    DevicePrefetcher,
+    prefetch_to_device,
+)
 from ray_lightning_tpu_torch.telemetry import TelemetryConfig
 from ray_lightning_tpu_torch.telemetry import goodput as _goodput
 from ray_lightning_tpu_torch.telemetry.profiler import (
@@ -86,17 +103,6 @@ from ray_lightning_tpu_torch.utils.dist import (  # noqa: F401 (re-exported)
 from ray_lightning_tpu_torch.utils.seeding import seed_everything
 
 log = logging.getLogger(__name__)
-
-#: knob -> the ROADMAP item that brings its machinery
-_NOT_PORTED = {
-    "compile_cache_dir": "Queue 1 item 7 (pipeline/compile_cache.py)",
-}
-
-
-def _not_ported(knob: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Trainer({knob}=...) is not ported yet (ROADMAP "
-        f"{_NOT_PORTED[knob]})")
 
 
 class Trainer:
@@ -128,8 +134,6 @@ class Trainer:
         telemetry: Any = None,
         profile: Any = None,
     ):
-        if compile_cache_dir:
-            raise _not_ported("compile_cache_dir")
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got "
                              f"{precision!r}")
@@ -149,12 +153,14 @@ class Trainer:
         self.default_root_dir = default_root_dir or os.path.join(
             os.getcwd(), "rlt_logs")
         self.num_sanity_val_steps = num_sanity_val_steps
-        # Eager PyTorch has no ahead-of-time step to warm, so warm_start
-        # changes nothing here; the device-prefetch stage that
-        # prefetch_to_device sizes comes with Queue 1 item 7. Both are
-        # accepted so JAX callers run unchanged.
+        #: batches placed ahead of the step on a producer thread (0: the
+        #: synchronous path); the hot loop's overlap (pipeline/prefetch.py)
         self.prefetch_to_device = max(0, prefetch_to_device)
+        #: one forward and backward before the loop, under a compile span
+        #: (pipeline/compile_cache.py `WarmStep`)
         self.warm_start = warm_start
+        #: the kernel libraries' build directory (None: the package's)
+        self.compile_cache_dir = compile_cache_dir
         #: trainguard config (resilience/guard.py); normalized at fit
         self.guard = guard
         #: rollback marker of a trainguard rollback (set by the
@@ -243,6 +249,10 @@ class Trainer:
             raise ValueError("fit() needs train_dataloaders or a datamodule")
         self.has_validation = val_dataloaders is not None
         example_batch, train_dataloaders = self._peek(train_dataloaders)
+        if self.compile_cache_dir:
+            # before any kernel loads: a restarted worker finds its
+            # libraries there and builds nothing
+            enable_persistent_cache(self.compile_cache_dir)
         self.state = self._init_state(module, example_batch, ckpt_path)
         self._fit_start_perf = time.perf_counter()
         self._fit_start_step = self.global_step
@@ -251,6 +261,10 @@ class Trainer:
         self._invoke("on_fit_start")
         fit_error: Optional[BaseException] = None
         try:
+            # after on_fit_start: the heartbeat runs, so the warm-up
+            # reports itself as a live "compile" phase
+            if self.warm_start:
+                self._warm_start_train_step(example_batch)
             if self.num_sanity_val_steps and self.has_validation:
                 self._run_eval_epoch(val_dataloaders, module.validation_step,
                                      limit=self.num_sanity_val_steps,
@@ -317,55 +331,71 @@ class Trainer:
                 break
         completed = False
         rec = self.telemetry_recorder
+        # the placement runs up to `prefetch_to_device` batches ahead on a
+        # producer thread; the skip above already advanced the iterator,
+        # so a mid-epoch resume places no batch it drops, and the order is
+        # the iterator's
+        stream = self._prefetch(it, self._place_train_batch)
         # each step's host wall runs from the last batch end (the epoch's
         # start for its first step) to its own
         t_prev = time.perf_counter()
-        for batch_idx, batch in enumerate(it, start=skip):
-            if (self.limit_train_batches is not None
-                    and self._epoch_batches_done >= self.limit_train_batches):
-                # the limit defines the epoch's length: completion
+        try:
+            for batch_idx, (bs, device_batch) in enumerate(stream,
+                                                           start=skip):
+                if (self.limit_train_batches is not None
+                        and self._epoch_batches_done
+                        >= self.limit_train_batches):
+                    # the limit defines the epoch's length: completion
+                    completed = True
+                    break
+                self.last_batch_size = bs
+                device_batch = self._invoke_batch_start(device_batch,
+                                                        batch_idx)
+                rec.set_step(self.global_step)
+                # the enqueue of the step's kernels: PyTorch returns
+                # before the device runs them
+                with rec.span(PH_DISPATCH, step=self.global_step):
+                    metrics = self._train_step(device_batch)
+                self.global_step += 1
+                self._epoch_batches_done += 1
+                if rec.enabled:
+                    t_now = time.perf_counter()
+                    rec.record(PH_STEP, t_prev, t_now - t_prev,
+                               step=self.global_step)
+                    t_prev = t_now
+                pending = metrics
+                # lazy metric fetch: a host sync only on the log cadence
+                if self.global_step % max(1, self.log_every_n_steps) == 0:
+                    with rec.span(PH_METRICS, step=self.global_step):
+                        pending = self._host_metrics(metrics)
+                    self.callback_metrics.update(pending)
+                if self._profiler is not None:
+                    # after the fetch: on its cadence the device has
+                    # drained, so a window opens between steps
+                    self._profiler.on_step(self.global_step)
+                # the span file and the goodput ledger on their own
+                # cadence, so a killed worker leaves an almost-current
+                # account
+                if (rec.enabled and self.global_step
+                        % self._telemetry_flush_every == 0):
+                    rec.flush()
+                    self._write_telemetry_ledger(completed=False)
+                self._invoke("on_train_batch_end", pending, batch_idx)
+                if (self.val_check_interval and self.has_validation
+                        and val_loader is not None
+                        and self.global_step % self.val_check_interval
+                        == 0):
+                    self._validate_now(val_loader)
+                if self.should_stop or self._hit_max_steps():
+                    break
+            else:
                 completed = True
-                break
-            self.last_batch_size = _leading_dim(batch)
-            device_batch = self._place_train_batch(batch)
-            device_batch = self._invoke_batch_start(device_batch, batch_idx)
-            rec.set_step(self.global_step)
-            # the enqueue of the step's kernels: PyTorch returns before
-            # the device runs them
-            with rec.span(PH_DISPATCH, step=self.global_step):
-                metrics = self._train_step(device_batch)
-            self.global_step += 1
-            self._epoch_batches_done += 1
-            if rec.enabled:
-                t_now = time.perf_counter()
-                rec.record(PH_STEP, t_prev, t_now - t_prev,
-                           step=self.global_step)
-                t_prev = t_now
-            pending = metrics
-            # lazy metric fetch: a host sync only on the logging cadence
-            if self.global_step % max(1, self.log_every_n_steps) == 0:
-                with rec.span(PH_METRICS, step=self.global_step):
-                    pending = self._host_metrics(metrics)
-                self.callback_metrics.update(pending)
-            if self._profiler is not None:
-                # after the fetch: on its cadence the device has drained,
-                # so a window opens between steps, not inside one
-                self._profiler.on_step(self.global_step)
-            # the span file and the goodput ledger on their own cadence,
-            # so a killed worker leaves an almost-current account
-            if (rec.enabled
-                    and self.global_step % self._telemetry_flush_every == 0):
-                rec.flush()
-                self._write_telemetry_ledger(completed=False)
-            self._invoke("on_train_batch_end", pending, batch_idx)
-            if (self.val_check_interval and self.has_validation
-                    and val_loader is not None
-                    and self.global_step % self.val_check_interval == 0):
-                self._validate_now(val_loader)
-            if self.should_stop or self._hit_max_steps():
-                break
-        else:
-            completed = True
+        finally:
+            # any exit mid-epoch (max_steps, early stop, a preemption
+            # drain raising out of a callback) joins the producer
+            if isinstance(stream, DevicePrefetcher):
+                stream.close()
+                self.callback_metrics.update(stream.stats.to_metrics())
         if completed:
             # every batch of this epoch ran: later saves (epoch-end
             # validation, on_train_epoch_end) resume at the NEXT epoch
@@ -458,6 +488,56 @@ class Trainer:
         gen.manual_seed(hash((self._seed, step, micro)) & (2**63 - 1))
         return gen
 
+    def _warm_start_train_step(self, example_batch) -> None:
+        """The warm start (twin of JAX `_warm_start_train_step`): a fresh
+        process's one-time costs of a step, paid here under a compile
+        span and reported as ``compile_time_s`` instead of inside the
+        first step. A failing warm-up raises."""
+        _, device_batch = self._place_train_batch(example_batch)
+        warm = WarmStep(self._train_step, warm_up=self._warm_up,
+                        label="train_step", recorder=self.telemetry_recorder)
+        self.callback_metrics.update(warm.warm(device_batch).to_metrics())
+
+    def _warm_up(self, batch) -> None:
+        """One forward and backward of (the first microbatch of) ``batch``
+        through the step's own dispatch, the gradients' global norm, and
+        for a fused optimizer one step with its ``found_inf`` skip flag
+        set (the trainguard's skip: parameters, moments and step counts
+        stay as they were), which builds the optimizer's state and pays
+        its first step's one-time costs (under FSDP, the DTensor
+        dispatch's first sight of each shape: seconds). The gradients
+        are then dropped. The schedule, the guard, the step counters and
+        the random streams (the global ones are forked) are untouched, so
+        the fit that follows is bitwise the fit without it."""
+        micro = batch
+        if self.accumulate_grad_batches > 1:
+            micro = _tree_map(lambda x: x[0], batch)
+        dev = self.strategy.device
+        params = self.module.params
+        with torch.random.fork_rng(
+                devices=[dev] if dev.type == "cuda" else []):
+            loss, _ = self._loss(params, micro, self._rng(self.state.step))
+            loss.backward()
+        trainable = [p for p in params.values() if p.requires_grad]
+        for p in trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.strategy.global_norm([p.grad for p in trainable])
+        opt = self.state.optimizer
+        if opt is not None and _skips_on_found_inf(opt):
+            had = "found_inf" in vars(opt)
+            saved = vars(opt).get("found_inf")
+            opt.found_inf = torch.ones((), dtype=torch.float32, device=dev)
+            try:
+                opt.step()
+            finally:
+                if had:
+                    opt.found_inf = saved
+                else:
+                    del opt.found_inf
+        for p in params.values():
+            p.grad = None
+
     # ------------------------------------------------------------- eval
 
     def _run_eval_epoch(self, loader, step_fn, limit: Optional[int] = None,
@@ -474,20 +554,25 @@ class Trainer:
         totals: Dict[str, torch.Tensor] = {}
         weights = 0.0
         params = self.module.params
-        with torch.no_grad():
-            for batch_idx, batch in enumerate(loader):
-                if limit is not None and batch_idx >= limit:
-                    break
-                bs = _leading_dim(batch) or 1
-                metrics = step_fn(params, self._place(batch))
-                metrics = {} if metrics is None else metrics
-                if not isinstance(metrics, dict):
-                    metrics = {"val_loss": metrics}
-                metrics = {**metrics, **self.module.pop_logged()}
-                for k, v in metrics.items():
-                    scaled = torch.as_tensor(v).float() * bs
-                    totals[k] = totals[k] + scaled if k in totals else scaled
-                weights += bs
+        stream = self._prefetch(loader, self._place_eval_batch)
+        try:
+            with torch.no_grad():
+                for batch_idx, (bs, device_batch) in enumerate(stream):
+                    if limit is not None and batch_idx >= limit:
+                        break
+                    metrics = step_fn(params, device_batch)
+                    metrics = {} if metrics is None else metrics
+                    if not isinstance(metrics, dict):
+                        metrics = {"val_loss": metrics}
+                    metrics = {**metrics, **self.module.pop_logged()}
+                    for k, v in metrics.items():
+                        scaled = torch.as_tensor(v).float() * bs
+                        totals[k] = (totals[k] + scaled if k in totals
+                                     else scaled)
+                    weights += bs
+        finally:
+            if isinstance(stream, DevicePrefetcher):
+                stream.close()
         if sanity or weights == 0:
             return {}
         # batch-size-weighted sums over every data-parallel rank
@@ -775,7 +860,22 @@ class Trainer:
                 else x, batch)
         return batch
 
+    def _prefetch(self, loader, place_fn):
+        """``loader``'s batches placed by ``place_fn``, up to
+        `prefetch_to_device` ahead on a producer thread."""
+        return prefetch_to_device(loader, place_fn,
+                                  depth=self.prefetch_to_device,
+                                  recorder=self.telemetry_recorder,
+                                  device=self.strategy.device)
+
+    def _place_eval_batch(self, batch):
+        """Host batch -> (leading dim, placed batch)."""
+        return _leading_dim(batch) or 1, self._place(batch)
+
     def _place_train_batch(self, batch):
+        """Host batch -> (leading dim, placed batch, split into the
+        accumulation's microbatches): the prefetcher's producer stage."""
+        bs = _leading_dim(batch)
         accum = self.accumulate_grad_batches
         if accum > 1:
             def split(x):
@@ -787,7 +887,7 @@ class Trainer:
                 return x.reshape((accum, x.shape[0] // accum) + x.shape[1:])
 
             batch = _tree_map(split, batch)
-        return self._place(batch)
+        return bs, self._place(batch)
 
     def _peek(self, loader):
         """Batch 0 without losing it; one-shot iterators are re-stitched
@@ -883,6 +983,13 @@ class Trainer:
         return batch
 
 
+def _skips_on_found_inf(optimizer) -> bool:
+    """A fused torch optimizer, whose step with ``found_inf`` set leaves
+    the parameters, its state and its step counts as they were."""
+    return (getattr(optimizer, "_step_supports_amp_scaling", False)
+            and all(g.get("fused") for g in optimizer.param_groups))
+
+
 def _launch_seconds() -> float:
     """Worker process start to fit start (imports, CUDA and the process
     group, the kernels' build): the goodput launch bucket. Zero outside
@@ -948,10 +1055,11 @@ def _to_host(tree: Dict[str, Any]) -> Dict[str, Any]:
         if isinstance(v, torch.Tensor) and v.dim() == 0:
             scalars.setdefault(v.device, []).append(k)
     fetched: Dict[str, float] = {}
-    for keys in scalars.values():
-        values = torch.stack([tree[k].detach().to(torch.float64)
-                              for k in keys]).cpu().tolist()
-        fetched.update(zip(keys, values))
+    for device, keys in scalars.items():
+        stacked = torch.stack([tree[k].detach().to(torch.float64)
+                               for k in keys])
+        _wait_for(device)
+        fetched.update(zip(keys, stacked.cpu().tolist()))
     out = {}
     for k, v in tree.items():
         if k in fetched:
@@ -960,6 +1068,19 @@ def _to_host(tree: Dict[str, Any]) -> Dict[str, Any]:
         a = np.asarray(_host_array(v))
         out[k] = float(a) if a.ndim == 0 else a
     return out
+
+
+def _wait_for(device: torch.device) -> None:
+    """Wait for the card's work so far with the interpreter lock
+    released (an event's synchronize lets go of it). The copy to the
+    host that follows then finds the card idle: a copy that waits itself
+    holds the lock through the step's device time, and the prefetcher's
+    producer thread could not place the next batch meanwhile (on an H100
+    its occupancy read 0 with, 0.975 without)."""
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
 
 
 def _leading_dim(batch) -> Optional[int]:

@@ -42,6 +42,15 @@ from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
 )
 
 
+def make_causal_mask(q_len: int, kv_len: int, q_offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """Boolean [q_len, kv_len] mask, True = attend; ``q_offset`` shifts
+    the query positions (the JAX function)."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return q_pos >= kv_pos
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """[B, S, H_kv, D] -> [B, S, H_kv * n_rep, D] for GQA."""
     if n_rep == 1:

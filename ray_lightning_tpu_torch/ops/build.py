@@ -10,6 +10,9 @@ falls back.
 
 `build_all` starts one ``nvcc`` per source at once and waits for all, so
 a fresh checkout pays the longest single build, not the sum.
+`set_build_dir` moves the build directory (the persistent kernel cache
+of `pipeline.compile_cache.enable_persistent_cache`); `build_seconds`
+is the time this process spent building and loading libraries.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable, Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -31,6 +35,19 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each fresh build
 build_logs: Dict[str, str] = {}
+#: seconds this process spent in `load` building and loading libraries
+_build_s = 0.0
+
+
+def set_build_dir(path: str) -> None:
+    """Build and load libraries under ``path`` from now on (libraries
+    already loaded stay loaded)."""
+    global BUILD
+    BUILD = os.path.abspath(path)
+
+
+def build_seconds() -> float:
+    return _build_s
 
 
 def _nvcc() -> str:
@@ -93,12 +110,15 @@ def build_all(names: Iterable[str]) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    global _build_s
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build_all([name])
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
+            _build_s += time.perf_counter() - t0
         return lib
 
 

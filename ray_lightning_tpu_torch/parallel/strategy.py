@@ -13,6 +13,14 @@ collectives run:
     sharded on the dimension `fsdp_auto_spec` picks (the JAX rule);
   * `RayXlaPlugin` — `DataParallel` with the reference's constructor.
 
+``overlap=`` is the FSDP all-gather schedule: ``"off"`` keeps FSDP2's
+defaults, ``"on"`` prefetches the next unit's weights explicitly in
+forward and the previous unit's in backward, ``"serial"`` (the
+ablation) prefetches nothing, each unit gathered at its use. The values
+computed are the same under all three. DDP's gradient buckets already
+overlap with the backward, so `DataParallel` accepts the three and
+behaves the same under each.
+
 Every process drives one device, so ``num_workers`` workers are
 ``num_workers`` processes (`runtime.fit.fit_distributed`). Outside it,
 with no process group and ``num_workers`` at most 1, `DataParallel` and
@@ -40,7 +48,7 @@ from ray_lightning_tpu_torch.utils.devices import (
     rank_device,
     resolve_device,
 )
-from ray_lightning_tpu_torch.utils.dist import find_free_port, global_norm
+from ray_lightning_tpu_torch.utils.dist import global_norm
 
 log = logging.getLogger(__name__)
 
@@ -58,10 +66,6 @@ class Strategy:
         if overlap not in ("off", "on", "serial"):
             raise ValueError(
                 f"overlap must be 'off', 'on' or 'serial', got {overlap!r}")
-        if overlap != "off":
-            raise NotImplementedError(
-                f"overlap={overlap!r} is not ported yet (ROADMAP Queue 1 "
-                "item 7: FSDP2 forward/backward prefetch)")
         self.num_workers = num_workers
         self.init_hook = init_hook
         self.env = dict(env or {})
@@ -122,6 +126,11 @@ class Strategy:
     def _to_device(self, x):
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(x))
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            # from pinned memory the copy is truly asynchronous (the
+            # prefetcher's side stream); the caching host allocator keeps
+            # the staging buffer until the copy has run
+            t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
     def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -201,7 +210,7 @@ class _GroupStrategy(Strategy):
 
     def _start_group(self) -> None:
         """A one-rank group of this process (NCCL on the card, gloo on
-        the CPU), destroyed at `teardown`."""
+        the CPU) over an in-process store, destroyed at `teardown`."""
         import datetime
 
         import torch.distributed as dist
@@ -212,9 +221,8 @@ class _GroupStrategy(Strategy):
             kw["device_id"] = self.device
         dist.init_process_group(
             "nccl" if self.device.type == "cuda" else "gloo",
-            init_method=f"tcp://127.0.0.1:{find_free_port()}",
-            rank=0, world_size=1, timeout=datetime.timedelta(minutes=10),
-            **kw)
+            store=dist.HashStore(), rank=0, world_size=1,
+            timeout=datetime.timedelta(minutes=10), **kw)
         self._owns_group = True
 
     def teardown(self) -> None:
@@ -335,10 +343,52 @@ class FSDP(_GroupStrategy):
         if isinstance(model, FSDPModule):
             return model
         kw = dict(mesh=self.mesh, shard_placement_fn=self._placement)
+        units = []
         for sub in model.modules():
             if sub is not model and getattr(sub, "fsdp_unit", False):
-                fully_shard(sub, **kw)
-        return fully_shard(model, **kw)
+                units.append(fully_shard(sub, **kw))
+        root = fully_shard(model, **kw)
+        self._set_overlap(root, units)
+        return root
+
+    def _set_overlap(self, root, units) -> None:
+        """The all-gather schedule of ``overlap``, over the units in the
+        model's order (the forward's)."""
+        if self.overlap == "on":
+            chain = [root, *units]
+            for i, unit in enumerate(chain[:-1]):
+                unit.set_modules_to_forward_prefetch([chain[i + 1]])
+            root.set_modules_to_backward_prefetch(units[-1:])
+            for i in range(1, len(units)):
+                units[i].set_modules_to_backward_prefetch([units[i - 1]])
+        elif self.overlap == "serial":
+            for unit in (root, *units):
+                unit.set_modules_to_forward_prefetch([])
+                # a unit's own state disables the default backward
+                # prefetch: it is already gathered when its backward runs
+                unit.set_modules_to_backward_prefetch([unit])
+        self._units = units
+
+    def overlap_schedule(self) -> Dict[str, list]:
+        """Each unit's explicit prefetch targets, as unit indices (-1 is
+        the root), for the forward and the backward: the structural check
+        of ``overlap``."""
+        from torch.distributed.fsdp import FSDPModule
+
+        units = getattr(self, "_units", [])
+        states = {id(u._get_fsdp_state()): i for i, u in enumerate(units)}
+
+        def targets(module, attr):
+            return [states.get(id(s), -1)
+                    for s in getattr(module._get_fsdp_state(), attr)]
+
+        out: Dict[str, list] = {"forward": [], "backward": []}
+        for u in units:
+            assert isinstance(u, FSDPModule)
+            out["forward"].append(targets(u, "_states_to_forward_prefetch"))
+            out["backward"].append(targets(u,
+                                           "_states_to_backward_prefetch"))
+        return out
 
 
 class ShardedMesh(Strategy):

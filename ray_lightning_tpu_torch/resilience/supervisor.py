@@ -61,7 +61,6 @@ log = logging.getLogger(__name__)
 #: knob -> the ROADMAP item that brings its machinery to the port
 _NOT_PORTED = {
     "elastic": "Queue 1 item 12 (elastic/)",
-    "compile_cache_dir": "Queue 1 item 7 (pipeline/compile_cache.py)",
 }
 
 
@@ -74,8 +73,8 @@ class ResilienceConfig:
     and the trainguard's rollback marker (keep it apart from a user
     ModelCheckpoint's dirpath: the supervisor prunes it).
 
-    ``elastic`` and an explicit ``compile_cache_dir`` raise
-    `NotImplementedError` naming the ROADMAP item that brings them.
+    ``elastic`` raises `NotImplementedError` naming the ROADMAP item
+    that brings it.
     """
 
     checkpoint_dir: str
@@ -95,6 +94,13 @@ class ResilienceConfig:
     #: block=False) when the job is one process; a multi-process job and
     #: the preemption drain's emergency save block
     async_save: bool = True
+    #: the kernel libraries' build directory shared across restarts
+    #: (pipeline/compile_cache.py): a directory gives each plan its own
+    #: subdirectory (`plan_cache_dir`), so attempt N loads what attempt 1
+    #: built. None or "off" keep the package's own build directory, which
+    #: is persistent already (the JAX package derives a directory beside
+    #: the checkpoints: its compile cache is off by default, the port's
+    #: kernel cache is not)
     compile_cache_dir: Optional[str] = None
     #: trainguard (resilience/guard.py): a GuardConfig (or True) arms the
     #: on-device anomaly skip, escalation and the SDC probe in every
@@ -118,11 +124,16 @@ class ResilienceConfig:
     watch: Any = None
 
     def __post_init__(self):
-        for knob in ("elastic", "compile_cache_dir"):
+        for knob in _NOT_PORTED:
             if getattr(self, knob):
                 raise NotImplementedError(
                     f"ResilienceConfig({knob}=...) is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[knob]})")
+
+    def resolved_compile_cache_dir(self) -> Optional[str]:
+        if self.compile_cache_dir in (None, "off"):
+            return None
+        return self.compile_cache_dir
 
     def resolved_telemetry_dir(self) -> Optional[str]:
         if not self.telemetry:
@@ -206,6 +217,18 @@ def _wrapped_trainer_factory(trainer_factory: Callable[[], Any],
 
     trainer = trainer_factory()
     reset_preemption()  # a fresh process; stale flags impossible but cheap
+    world = dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+    cache_dir = cfg.resolved_compile_cache_dir()
+    if cache_dir and not trainer.compile_cache_dir:
+        from ray_lightning_tpu_torch.pipeline.compile_cache import (
+            plan_cache_dir,
+        )
+
+        # one directory a plan: attempt N loads the libraries attempt 1
+        # built there (compile_build_s near 0)
+        trainer.compile_cache_dir = plan_cache_dir(
+            cache_dir, type(trainer.strategy).__name__, world)
     has_periodic = any(
         isinstance(c, ModelCheckpoint)
         and getattr(c, "dirpath", None) == cfg.checkpoint_dir
@@ -213,8 +236,6 @@ def _wrapped_trainer_factory(trainer_factory: Callable[[], Any],
     # async step-cadence saves only in a one-process job: the JAX
     # package's rule, kept so a multi-process save never overlaps the
     # step's collectives with its background write's
-    world = dist.get_world_size() if dist.is_available() and \
-        dist.is_initialized() else 1
     if not has_periodic:
         trainer.callbacks.append(ModelCheckpoint(
             dirpath=cfg.checkpoint_dir, monitor=None,

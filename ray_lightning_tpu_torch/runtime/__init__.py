@@ -22,6 +22,7 @@ from ray_lightning_tpu_torch.runtime.group import (
     TpuExecutor,
     WorkerError,
     WorkerGroup,
+    routable_ip,
 )
 from ray_lightning_tpu_torch.runtime.launch import launch
 from ray_lightning_tpu_torch.runtime.session import (
@@ -40,12 +41,19 @@ from ray_lightning_tpu_torch.runtime.transport import (
     Transport,
 )
 from ray_lightning_tpu_torch.utils.dist import find_free_port
+from ray_lightning_tpu_torch._lazy import lazy_exports
 
 __all__ = [
     "FitResult", "fit_distributed", "run_distributed",
     "validate_distributed", "test_distributed", "predict_distributed",
     "TpuExecutor", "WorkerError", "WorkerGroup", "find_free_port",
-    "launch", "LocalTransport", "LoopbackTransport", "SSHTransport",
-    "Transport", "get_actor_rank", "get_session", "get_world_size",
-    "init_session", "is_session_enabled", "put_queue", "reset_session",
+    "routable_ip", "launch", "LocalTransport", "LoopbackTransport",
+    "SSHTransport", "Transport", "get_actor_rank", "get_session",
+    "get_world_size", "init_session", "is_session_enabled", "put_queue",
+    "reset_session",
 ]
+
+__getattr__, __dir__ = lazy_exports(__name__, {}, {
+    "launch_cpu_spmd": "JAX CPU SPMD (jax.distributed over virtual CPU "
+                       "devices); the port's analog is launch(..., "
+                       "device='cpu'), processes joined over gloo"})

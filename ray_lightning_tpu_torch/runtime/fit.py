@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ray_lightning_tpu_torch.runtime.launch import launch
 from ray_lightning_tpu_torch.runtime.transport import Transport
@@ -144,6 +144,7 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
                     final_ckpt_dir: Optional[str] = None,
                     timeout: Optional[float] = None,
                     log_dir: Optional[str] = None,
+                    hosts: Optional[Sequence[str]] = None,
                     transport: Optional[Transport] = None,
                     watchdog: Optional[Callable[[], None]] = None,
                     resilience: Optional[Any] = None) -> FitResult:
@@ -154,6 +155,9 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
     tuple; for the eval kinds that kind's loader. ``ckpt_path`` resumes a
     fit, or supplies the weights of an eval-family job. ``device``:
     None is the card (one per process), ``"cpu"`` the CPU over gloo.
+    ``hosts`` and a remote ``transport`` (`SSHTransport`,
+    `LoopbackTransport`) place the workers on cluster hosts, one a host
+    in turn (runtime/transport.py); the default is local subprocesses.
     With ``module`` and returned weights, the driver's module holds the
     trained weights afterwards (reference ray_ddp.py:190).
 
@@ -176,7 +180,8 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
             module=module, ckpt_path=ckpt_path, device=device, env=env,
             init_hook=init_hook, on_queue_item=on_queue_item,
             return_weights=return_weights, final_ckpt_dir=final_ckpt_dir,
-            timeout=timeout, log_dir=log_dir, transport=transport)
+            timeout=timeout, log_dir=log_dir, hosts=hosts,
+            transport=transport)
         if supervised.restarts or supervised.preemptions:
             log.info("supervised %s finished after %d restart(s) / %d "
                      "preemption resume(s)", kind, supervised.restarts,
@@ -194,7 +199,7 @@ def run_distributed(kind: str, module_factory: Callable[[], Any],
               return_weights, final_ckpt_dir, ckpt_path),
         device=device, env=env, init_hook=init_hook,
         on_queue_item=on_queue_item, timeout=timeout, log_dir=log_dir,
-        transport=transport, watchdog=watchdog)
+        hosts=hosts, transport=transport, watchdog=watchdog)
     result = results[0]
     if not isinstance(result, FitResult):
         raise TypeError(f"rank 0 returned {type(result)}; expected "

@@ -13,7 +13,9 @@ Pieces:
   * WorkerGroup  — N executors + the pump: run() fans a job out to every
     rank, pumps side-channel items (executing callables driver-side, the
     trampoline of reference util.py:88-93), gathers per-rank results,
-    and fails fast on the first worker error or death.
+    and fails fast on the first worker error or death. With ``hosts=``
+    and a remote transport (runtime/transport.py) it places one worker a
+    host, rank ``r`` on ``hosts[r % len(hosts)]``.
 
 Jobs cross by the standard `pickle` (the JAX runtime ships closures by
 value with cloudpickle): a function travels by reference, so jobs,
@@ -30,6 +32,8 @@ import pickle
 import queue
 import secrets
 import signal
+import socket
+import struct
 import subprocess
 import threading
 import time
@@ -39,7 +43,6 @@ from multiprocessing.connection import wait as conn_wait
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ray_lightning_tpu_torch.runtime.transport import (
-    _CROSS_HOST,
     LocalTransport,
     Transport,
 )
@@ -50,6 +53,58 @@ log = logging.getLogger(__name__)
 #: reported as still running (a SIGKILL'd 8B worker on an H100 took more
 #: than 2 s)
 EOF_REAP_S = 30.0
+
+#: how long a rank's error waits for a peer's death to show before it is
+#: reported as the cause: a survivor's collective error is the echo of a
+#: peer that died, and can reach the driver first
+PEER_DEATH_GRACE_S = 1.0
+
+
+def _default_route_iface() -> Optional[str]:
+    """The interface of this machine's IPv4 default route, read from the
+    kernel's routing table (Linux), or None."""
+    try:
+        with open("/proc/net/route") as f:
+            next(f)
+            for line in f:
+                fields = line.split()
+                if len(fields) > 3 and fields[1] == "00000000" \
+                        and int(fields[3], 16) & 0x2:  # RTF_GATEWAY
+                    return fields[0]
+    except (OSError, ValueError, StopIteration):
+        pass
+    return None
+
+
+def _iface_ipv4(iface: str) -> Optional[str]:
+    """The IPv4 address of a local interface (``SIOCGIFADDR``)."""
+    import fcntl
+
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            packed = fcntl.ioctl(s.fileno(), 0x8915,  # SIOCGIFADDR
+                                 struct.pack("256s", iface[:15].encode()))
+        return socket.inet_ntoa(packed[20:24])
+    except OSError:
+        return None
+
+
+def routable_ip() -> str:
+    """This machine's address as other hosts see it (reference
+    ``get_node_ip``, ray_ddp.py:33-35). ``RLT_NODE_IP`` overrides: on a
+    multi-homed host the default route's interface may not be the fabric
+    the other hosts dial, so pin the data-network address per host
+    (through the transport's ``host_env``). Else the address of the
+    default route's interface, read from the routing table: no socket is
+    pointed at any other machine. Falls back to loopback on a box with
+    no default route, which a remote path must treat as an error (see
+    `WorkerGroup.start`), not as an address."""
+    override = os.environ.get("RLT_NODE_IP")
+    if override:
+        return override
+    iface = _default_route_iface()
+    ip = _iface_ipv4(iface) if iface else None
+    return ip or "127.0.0.1"
 
 
 def dumps_by_reference(obj: Any, what: str) -> bytes:
@@ -204,6 +259,7 @@ class TpuExecutor:
         self.conn = conn
         self.info = info
         self.log_path = log_path
+        self.host: Optional[str] = None  # placement (None: this machine)
         self._next_tid = 0
         # a mirror of the worker's FIFO blob cache (the channel is
         # reliable FIFO, so replaying the same insert/evict sequence
@@ -277,11 +333,14 @@ class WorkerGroup:
                  log_dir: Optional[str] = None,
                  start_timeout: float = 120.0,
                  hosts: Optional[Sequence[str]] = None,
-                 transport: Optional[Transport] = None):
-        if hosts:
-            raise NotImplementedError(
-                f"WorkerGroup(hosts=...) is not ported yet ({_CROSS_HOST})")
-        num_workers = 1 if num_workers is None else num_workers
+                 transport: Optional[Transport] = None,
+                 advertise_host: Optional[str] = None):
+        """``hosts`` and a remote ``transport`` place one worker a host
+        (reference ray_ddp.py:106-119); without them workers are local
+        subprocesses. ``advertise_host`` overrides the driver address the
+        workers dial (default: `routable_ip` when remote)."""
+        if num_workers is None:
+            num_workers = len(hosts) if hosts else 1
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
         self.num_workers = num_workers
@@ -290,18 +349,87 @@ class WorkerGroup:
         self.log_dir = log_dir or os.path.join(os.getcwd(), "rlt_logs",
                                                "workers")
         self.start_timeout = start_timeout
+        self.hosts = list(hosts) if hosts else None
         self.transport = transport or LocalTransport()
+        if self.hosts and not self.transport.is_remote:
+            # else every worker would run here while reporting the hosts
+            raise ValueError(
+                "hosts= requires a remote transport (e.g. SSHTransport); "
+                f"got {type(self.transport).__name__}")
+        self.advertise_host = advertise_host
         self.executors: List[TpuExecutor] = []
         self._listener: Optional[Listener] = None
         self._queue_items: List[Any] = []
 
+    @property
+    def is_remote(self) -> bool:
+        return self.transport.is_remote
+
+    def _worker_host(self, rank: int) -> Optional[str]:
+        if not self.hosts:
+            return None
+        return self.hosts[rank % len(self.hosts)]
+
+    def _worker_env(self) -> Dict[str, str]:
+        """What every worker's environment gets explicitly. The card set
+        this driver is pinned to (``CUDA_VISIBLE_DEVICES``) travels with
+        it: a remote transport passes the driver's environment on to no
+        worker, and a sweep trial's nested workers must stay on the
+        trial's cards."""
+        env = dict(self.env)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if visible is not None:
+            env.setdefault("CUDA_VISIBLE_DEVICES", visible)
+        return env
+
+    def _listen_address(self) -> str:
+        """The driver address the workers dial: loopback for local
+        workers; for remote ones ``advertise_host`` or `routable_ip`,
+        failing fast when that is loopback and the workers are on other
+        machines."""
+        if not self.is_remote:
+            return "127.0.0.1"
+        if self.advertise_host is not None:
+            # an explicit choice, loopback included (ssh -L forwarding)
+            return self.advertise_host
+        host = routable_ip()
+        if host == "127.0.0.1" and not getattr(self.transport,
+                                               "allows_loopback", False):
+            # remote workers told to dial 127.0.0.1 would hang into
+            # start_timeout: say so in seconds
+            raise RuntimeError(
+                "cannot determine a routable driver address for remote "
+                "workers (no default route on this machine). Pass "
+                "advertise_host= to WorkerGroup, or set RLT_NODE_IP to "
+                "this machine's cluster-facing IP.")
+        return host
+
     # ------------------------------------------------------------- launch
     def start(self) -> "WorkerGroup":
         os.makedirs(self.log_dir, exist_ok=True)
+        host_env = getattr(self.transport, "host_env", None)
+        if host_env:
+            # a typo'd key silently drops an RLT_NODE_IP override (a
+            # warning: a shared transport may carry other groups' hosts)
+            unmatched = set(host_env) - set(self.hosts or [])
+            if unmatched:
+                log.warning(
+                    "transport host_env keys match no launched host "
+                    "(keys must equal the hosts= entries): %s",
+                    sorted(unmatched))
+        host = self._listen_address()
         authkey = secrets.token_bytes(32)
-        host = "127.0.0.1"
-        self._listener = Listener((host, 0), authkey=authkey)
+        try:
+            # the one address the workers dial, never every interface
+            self._listener = Listener((host, 0), authkey=authkey)
+        except OSError:
+            # advertise_host may be a NAT address that is not local
+            log.warning("advertise address %s is not a local interface; "
+                        "binding 0.0.0.0 (the network path to the "
+                        "workers must be trusted)", host)
+            self._listener = Listener(("0.0.0.0", 0), authkey=authkey)
         port = self._listener.address[1]
+        env = self._worker_env()
         procs: Dict[int, subprocess.Popen] = {}
         logs: Dict[int, str] = {}
         try:
@@ -309,8 +437,9 @@ class WorkerGroup:
                 logs[rank] = os.path.join(self.log_dir,
                                           f"worker-{rank}.log")
                 procs[rank] = self.transport.spawn(
-                    host=None, connect=(host, port, rank, self.num_workers),
-                    env=self.env, authkey_hex=authkey.hex(),
+                    host=self._worker_host(rank),
+                    connect=(host, port, rank, self.num_workers),
+                    env=env, authkey_hex=authkey.hex(),
                     log_path=logs[rank])
         except Exception:
             self._abort_start(procs, logs)
@@ -374,6 +503,7 @@ class WorkerGroup:
                 by_rank[rank] = TpuExecutor(rank, self.num_workers,
                                             procs[rank], conn, info,
                                             logs[rank])
+                by_rank[rank].host = self._worker_host(rank)
         finally:
             acceptor.close()
         self.executors = [by_rank[r] for r in range(self.num_workers)]
@@ -557,6 +687,12 @@ class WorkerGroup:
             # stale errors of an earlier, already raised run stay
             # buffered on other ranks' channels; raise only for THIS task
             if msg[1] == tids[ex.rank]:
+                death = self._peer_death(ex, on_queue_item)
+                if death is not None:
+                    log.warning("rank %d failed after rank %d died; "
+                                "reporting the death:\n%s", ex.rank,
+                                death.rank, msg[2])
+                    raise death
                 raise WorkerError(ex.rank, msg[2], ex.log_tail())
             log.warning("dropping stale error from rank %d (task %s)",
                         ex.rank, msg[1])
@@ -565,6 +701,37 @@ class WorkerGroup:
             self._handle_queue_item(rank, item, on_queue_item)
         elif cmd == "bye":
             done[ex.rank] = True
+
+    def _peer_death(self, failed: TpuExecutor, on_queue_item
+                    ) -> Optional[WorkerError]:
+        """The death of another rank, if one shows within
+        `PEER_DEATH_GRACE_S`: the root cause of ``failed``'s error. A
+        killed rank's peers fail in their next collective, and one of
+        them can report before the driver reads the victim's EOF (the
+        victim's channel may still hold a heartbeat it sent first). The
+        other ranks' pending messages are read meanwhile: side-channel
+        items go through as usual, their errors are echoes too."""
+        conns = {o.conn: o for o in self.executors if o is not failed}
+        deadline = time.monotonic() + PEER_DEATH_GRACE_S
+        while conns:
+            for o in conns.values():
+                if not o.alive():
+                    return self._eof_error(o)
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return None
+            for conn in conn_wait(list(conns), timeout=min(remaining, 0.1)):
+                o = conns[conn]
+                try:
+                    msg = conn.recv()
+                except (EOFError, OSError):
+                    return self._eof_error(o)
+                if msg[0] == "queue":
+                    rank, item = pickle.loads(msg[1])
+                    self._handle_queue_item(rank, item, on_queue_item)
+                elif msg[0] in ("result", "bye"):
+                    conns.pop(conn)  # finished: not dying
+        return None
 
     def _handle_queue_item(self, rank, item, on_queue_item) -> None:
         """The trampoline (reference util.py:88-93): callables run here,

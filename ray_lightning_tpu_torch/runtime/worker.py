@@ -1,9 +1,11 @@
 """Worker process entrypoint — the remote half of the runtime (twin of
 `ray_lightning_tpu/runtime/worker.py`).
 
-Executed BY PATH (``python /.../worker.py host port rank world``), never
-via ``-m``, and stdlib-only, so a worker imports torch (or anything
-else) only when the job it is sent needs it.
+Executed BY PATH (``python /.../worker.py host port rank world``), or
+as the program a remote transport pipes into ``python -u -`` (its
+source after a preamble, runtime/transport.py), never via ``-m``, and
+stdlib-only, so a worker imports torch (or anything else) only when the
+job it is sent needs it.
 
 Reference analog: the ``RayExecutor`` actor body (reference
 ray_lightning/ray_ddp.py:17-39). Jobs and results cross a
@@ -35,6 +37,7 @@ Wire protocol (all messages are tuples, first element is the command):
 """
 import os
 import pickle
+import socket
 import sys
 import threading
 import time
@@ -75,6 +78,20 @@ class _WorkerChannel:
         self.send(("queue", blob))
 
 
+def _node_ip(conn, host: str) -> str:
+    """This worker's address as the other hosts see it: ``RLT_NODE_IP``
+    when set (the multi-NIC override), else the local address of its
+    channel to the driver, the interface that route leaves by."""
+    override = os.environ.get("RLT_NODE_IP")
+    if override:
+        return override
+    try:
+        with socket.socket(fileno=os.dup(conn.fileno())) as s:
+            return s.getsockname()[0]
+    except (OSError, ValueError):
+        return host
+
+
 def _bind_session(channel: _WorkerChannel) -> None:
     """Make ray_lightning_tpu_torch.runtime.session work in this worker;
     deferred until user code runs."""
@@ -90,7 +107,7 @@ def main(argv) -> int:
     conn = Client((host, port), authkey=authkey)
     channel = _WorkerChannel(conn, rank, world)
     channel.send(("hello", rank, {
-        "pid": os.getpid(), "ip": os.environ.get("RLT_NODE_IP", host)}))
+        "pid": os.getpid(), "ip": _node_ip(conn, host)}))
     session_bound = False
     blob_cache: dict = {}  # digest -> (fn, shared_args, kwargs)
     while True:
@@ -138,8 +155,10 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     # run by path, the script's own directory leads sys.path; drop it, so
-    # the names of its sibling modules do not shadow a job's imports
-    if sys.path and os.path.abspath(sys.path[0]) == os.path.dirname(
-            os.path.abspath(__file__)):
+    # the names of its sibling modules do not shadow a job's imports (a
+    # program read from stdin has no __file__ and no such entry)
+    _here = globals().get("__file__")
+    if _here and sys.path and os.path.abspath(sys.path[0]) == \
+            os.path.dirname(os.path.abspath(_here)):
         sys.path.pop(0)
     sys.exit(main(sys.argv))

@@ -42,6 +42,7 @@ from ray_lightning_tpu_torch.sweep.space import (
     uniform,
 )
 from ray_lightning_tpu_torch.sweep.tuner import SweepError, run
+from ray_lightning_tpu_torch._lazy import lazy_exports
 
 __all__ = [
     "run",
@@ -70,3 +71,9 @@ __all__ = [
     "grid_search",
     "expand",
 ]
+
+__getattr__, __dir__ = lazy_exports(__name__, {}, {
+    "TpuResources": "the port's block is GpuResources(gpus=, hosts=, "
+                    "cpus=): it counts CUDA cards and hands out their "
+                    "indices, where TpuResources(chips=, hosts=, cpus=) "
+                    "counts TPU chips; chips= has no meaning here"})

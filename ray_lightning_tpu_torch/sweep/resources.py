@@ -25,8 +25,9 @@ class GpuResources:
     """What ONE trial reserves.
 
     gpus   — cards the trial's processes drive (one process a card).
-    hosts  — hosts the trial spans; only 1 until the cross-host
-             transports are ported (ROADMAP Queue 1 item 14).
+    hosts  — hosts the trial borrows from ``sweep.run(hosts=...)``'s
+             pool (its process runs on the first; a nested
+             ``fit_distributed`` may span all of them).
     cpus   — host CPUs the trial's workers consume (the reference's
              num_cpus_per_worker + extra_cpu, ray_ddp.py:89-111);
              0 = unaccounted.

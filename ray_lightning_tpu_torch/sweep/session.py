@@ -144,9 +144,9 @@ def report(metrics: Optional[Dict[str, Any]] = None,
 
 
 def get_trial_hosts() -> list:
-    """Cluster hosts borrowed by this trial (``RLT_TRIAL_HOSTS``); empty
-    while the trial runs on the driver's machine, which is always so until
-    ``sweep.run(hosts=...)`` is ported (ROADMAP Queue 1 item 14)."""
+    """Cluster hosts borrowed by this trial (``RLT_TRIAL_HOSTS``, set by
+    ``sweep.run(hosts=...)``); empty when the trial runs on the driver's
+    machine. Pass them on as ``fit_distributed(hosts=...)``."""
     import os
 
     raw = os.environ.get("RLT_TRIAL_HOSTS", "")

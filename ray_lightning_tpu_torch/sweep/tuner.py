@@ -52,7 +52,6 @@ from ray_lightning_tpu_torch.runtime.group import (
     WorkerGroup,
     dumps_by_reference,
 )
-from ray_lightning_tpu_torch.runtime.transport import _CROSS_HOST
 from ray_lightning_tpu_torch.sweep import session as trial_session
 from ray_lightning_tpu_torch.sweep.analysis import ExperimentAnalysis, Trial
 from ray_lightning_tpu_torch.sweep.resources import GpuResources, ResourcePool
@@ -68,6 +67,27 @@ log = logging.getLogger(__name__)
 
 class SweepError(RuntimeError):
     pass
+
+
+class _HostPool:
+    """Free list of cluster hosts for trial placement (the reference let
+    Ray's scheduler put trial actors on any node): each process trial
+    borrows ``resources.hosts`` hosts for its lifetime."""
+
+    def __init__(self, hosts):
+        self._free = list(hosts)
+        self._lock = threading.Lock()
+
+    def try_acquire(self, n: int):
+        with self._lock:
+            if len(self._free) < n:
+                return None
+            taken, self._free = self._free[:n], self._free[n:]
+            return taken
+
+    def release(self, hosts) -> None:
+        with self._lock:
+            self._free.extend(hosts)
 
 
 def _probe_device_count(executor: str) -> int:
@@ -243,6 +263,8 @@ class TrialRunner:
         executor: str,
         trial_timeout: Optional[float],
         env: Optional[Dict[str, str]],
+        hosts: Optional[List[str]] = None,
+        transport=None,
         retry_policy=None,
     ):
         self.trainable = trainable
@@ -255,10 +277,23 @@ class TrialRunner:
         self.executor = executor
         self.trial_timeout = trial_timeout
         self.env = env
+        self.transport = transport
         #: trial-level retry (resilience/policy.py RetryPolicy): an
         #: infra-classified trial failure re-enqueues the trial, resuming
         #: from its last registered checkpoint
         self.retry_policy = retry_policy
+        self.host_pool: Optional[_HostPool] = None
+        if hosts:
+            if transport is None or not transport.is_remote:
+                # here, not in the trial threads: a per-thread error would
+                # strand `running` and deadlock the sweep
+                raise SweepError(
+                    "hosts= requires a remote transport (e.g. SSHTransport)")
+            if resources_per_trial.hosts > len(hosts):
+                raise SweepError(
+                    f"one trial needs {resources_per_trial.hosts} hosts but "
+                    f"only {len(hosts)} were given")
+            self.host_pool = _HostPool(hosts)
         cap = pool.max_concurrent(resources_per_trial)
         if cap < 1:
             raise SweepError(
@@ -466,12 +501,20 @@ class TrialRunner:
                         cards = self.pool.try_acquire(self.resources)
                         if cards is None:
                             break
+                        trial_hosts = None
+                        if self.host_pool is not None:
+                            trial_hosts = self.host_pool.try_acquire(
+                                self.resources.hosts)
+                            if trial_hosts is None:
+                                self.pool.release(cards)
+                                break
                         trial = pending.popleft()
                         running.add(trial.trial_id)
                         trial.status = Trial.RUNNING
                         threading.Thread(
                             target=self._trial_thread,
-                            args=(trial, server, running, cards, pending),
+                            args=(trial, server, running, cards, pending,
+                                  trial_hosts),
                             daemon=True,
                         ).start()
                     self._cond.wait(timeout=1.0)
@@ -480,7 +523,8 @@ class TrialRunner:
 
     def _trial_thread(self, trial: Trial, server: _ReportServer,
                       running: set, cards: List[int],
-                      pending: deque) -> None:
+                      pending: deque,
+                      trial_hosts: Optional[List[str]] = None) -> None:
         group = None
         retry_in: Optional[float] = None
         try:
@@ -492,9 +536,16 @@ class TrialRunner:
                    "CUDA_VISIBLE_DEVICES": _visible_devices(cards)}
             if trial.last_checkpoint:
                 env["RLT_TRIAL_RESUME"] = trial.last_checkpoint
+            if trial_hosts:
+                # the whole borrowed set, so the trial's nested
+                # fit_distributed can span it (sweep.get_trial_hosts())
+                env["RLT_TRIAL_HOSTS"] = ",".join(trial_hosts)
+            # the trial's own process runs on its first borrowed host
             group = WorkerGroup(
                 num_workers=1, env=env,
-                log_dir=os.path.join(trial.trial_dir, "logs"))
+                log_dir=os.path.join(trial.trial_dir, "logs"),
+                hosts=trial_hosts[:1] if trial_hosts else None,
+                transport=self.transport if trial_hosts else None)
             group.start()
             [out] = group.run(
                 _trial_main,
@@ -523,6 +574,8 @@ class TrialRunner:
                 # the trial process exits before its cards are free again
                 group.shutdown()
             self.pool.release(cards)
+            if trial_hosts and self.host_pool is not None:
+                self.host_pool.release(trial_hosts)
             if retry_in is None:
                 # terminal outcome only: a retried trial is not complete
                 self.scheduler.on_trial_complete(trial.trial_id)
@@ -598,15 +651,16 @@ def run(
     checkpoint; FATAL failures (user exceptions, CUDA errors) fail the
     trial at once.
 
-    ``hosts``, ``transport`` and ``GpuResources(hosts > 1)`` (trials
-    placed on other hosts) raise `NotImplementedError` until the
-    cross-host transports are ported.
+    ``hosts`` with a remote ``transport`` (`runtime.SSHTransport`,
+    `runtime.LoopbackTransport`) places process trials on cluster hosts:
+    each borrows ``resources_per_trial.hosts`` of them for its lifetime,
+    runs its own process on the first and finds the whole set in
+    `get_trial_hosts` (``RLT_TRIAL_HOSTS``) for a nested
+    ``fit_distributed(hosts=...)``. Its card indices travel in its
+    explicit environment (``CUDA_VISIBLE_DEVICES``), which a remote
+    transport's scrubbed environment would otherwise drop.
     """
     resources_per_trial = resources_per_trial or GpuResources()
-    if hosts or transport is not None or resources_per_trial.hosts > 1:
-        raise NotImplementedError(
-            "sweep.run(hosts=, transport=) and trials of several hosts are "
-            f"not ported yet ({_CROSS_HOST})")
     if mode not in ("min", "max"):
         raise ValueError("mode must be 'min' or 'max'")
     configs = expand(config or {}, num_samples=num_samples, seed=seed)
@@ -638,7 +692,7 @@ def run(
         resources_per_trial=resources_per_trial, pool=pool,
         max_concurrent=max_concurrent, storage_dir=storage_dir,
         executor=executor, trial_timeout=trial_timeout, env=env,
-        retry_policy=retry_policy,
+        hosts=hosts, transport=transport, retry_policy=retry_policy,
     )
     log.info("sweep %s: %d trials, <=%d concurrent, %d GPUs/trial of %d",
              name, len(runner.trials), runner.max_concurrent,

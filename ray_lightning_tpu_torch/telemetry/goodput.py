@@ -6,8 +6,8 @@ progress (TorchTitan treats this as a first-class production metric; so
 does every accelerator-fleet postmortem). Everything else gets a named bucket:
 
     productive_s        the fit loop was free to dispatch steps
-    compile_s           program build (the JAX package's compile
-                        cache; 0 in this package, which runs eagerly)
+    compile_s           the warm start before the loop (the step's
+                        one-time costs, kernel libraries included)
     data_wait_s         the consumer blocked on the prefetch queue
     ckpt_stall_s        the training thread blocked on checkpoint I/O
     eval_s              validation/test epochs

@@ -53,8 +53,7 @@ PH_H2D = "h2d"                  # cast + shard + device_put (producer thread)
 PH_DISPATCH = "dispatch"        # enqueueing the step (async CUDA launches)
 PH_METRICS = "metrics_fetch"    # cadenced lazy metric fetch (host sync)
 PH_CKPT = "ckpt_stall"          # training thread blocked on checkpoint I/O
-PH_COMPILE = "compile"          # program build; recorded by the JAX
-#                                 package only (eager PyTorch here)
+PH_COMPILE = "compile"          # the warm start before the loop
 PH_EVAL = "eval"                # a validation/test epoch
 PH_BACKOFF = "backoff"          # supervisor restart backoff sleep (driver)
 PH_ATTEMPT = "attempt"          # one supervised launch, wall (driver)

@@ -50,6 +50,7 @@ from ray_lightning_tpu_torch.resilience.preempt import (
     reset_preemption,
 )
 from ray_lightning_tpu_torch.runtime.group import WorkerError
+from tests import torch_jobs
 
 # ---------------------------------------------------------------- faults
 
@@ -409,8 +410,31 @@ def test_resilience_exports_match_jax():
     ("elastic", "Queue 1 item 12"), ("compile_cache_dir", "Queue 1 item 7"),
 ])
 def test_unported_resilience_knobs_raise(tmp_path, knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pres.ResilienceConfig(str(tmp_path), **{knob: True})
+    """``elastic`` still raises naming its item; ``compile_cache_dir``
+    (the hot loop's item) is ported: a directory becomes the workers'
+    kernel cache, one plan a subdirectory, and None or "off" keep the
+    package's own build directory."""
+    if knob == "elastic":
+        with pytest.raises(NotImplementedError, match=item):
+            pres.ResilienceConfig(str(tmp_path), **{knob: True})
+    else:
+        from ray_lightning_tpu_torch.pipeline.compile_cache import (
+            plan_cache_dir,
+        )
+        from ray_lightning_tpu_torch.resilience.supervisor import (
+            _wrapped_trainer_factory,
+        )
+
+        cache = str(tmp_path / "cache")
+        cfg = pres.ResilienceConfig(str(tmp_path), **{knob: cache})
+        assert cfg.resolved_compile_cache_dir() == cache
+        trainer = _wrapped_trainer_factory(torch_jobs.sup_trainer, cfg)
+        assert trainer.compile_cache_dir == plan_cache_dir(
+            cache, "DataParallel", 1)
+        for off in (None, "off"):
+            assert pres.ResilienceConfig(
+                str(tmp_path), **{knob: off}).resolved_compile_cache_dir() \
+                is None
     cfg = pres.ResilienceConfig(str(tmp_path))
     assert cfg.telemetry is True and cfg.elastic is None
 

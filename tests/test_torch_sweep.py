@@ -597,9 +597,23 @@ def test_report_server_survives_stalled_and_resetting_peers():
 
 
 def test_run_refuses_hosts_and_transport(tmp_path):
-    for kw in ({"hosts": ["host-a"]}, {"transport": object()},
-               {"resources_per_trial": sweep.GpuResources(hosts=2)}):
-        with pytest.raises(NotImplementedError, match="item 14"):
+    """``hosts=`` is ported (trials placed over a remote transport,
+    tests/test_torch_sweep_process.py); what it still refuses, before
+    any trial starts: hosts without a remote transport, and a trial
+    that needs more hosts than the pool has."""
+    from ray_lightning_tpu_torch.runtime import (
+        LocalTransport,
+        LoopbackTransport,
+    )
+
+    for kw, match in (
+            ({"hosts": ["host-a"]}, "remote transport"),
+            ({"hosts": ["host-a"], "transport": LocalTransport()},
+             "remote transport"),
+            ({"hosts": ["only-one"], "transport": LoopbackTransport(),
+              "resources_per_trial": sweep.GpuResources(hosts=2)},
+             "hosts")):
+        with pytest.raises(sweep.SweepError, match=match):
             sweep.run(torch_jobs.constant_trainable, config={"q": 1.0},
                       total_gpus=1, storage_dir=str(tmp_path), **kw)
 
@@ -645,3 +659,59 @@ def test_inline_trial_error_recorded_and_raised(tmp_path):
         sweep.run(boom, config={"x": sweep.grid_search([0, 1])},
                   metric="loss", executor="inline", total_gpus=1,
                   storage_dir=str(tmp_path / "b"))
+
+
+# ---- trials on cluster hosts (twins of tests/test_sweep.py) ----------------
+
+
+def test_trials_placed_on_cluster_hosts(tmp_path, monkeypatch):
+    """Each process trial borrows a host from the pool through the remote
+    transport's bootstrap and returns it (3 trials over 2 hosts reuse
+    one); its cards travel in its explicit environment, the driver's own
+    variables do not."""
+    from ray_lightning_tpu_torch.runtime import LoopbackTransport
+
+    monkeypatch.setenv("RLT_DRIVER_ONLY", "should-not-leak")
+    transport = LoopbackTransport()
+    analysis = sweep.run(
+        torch_jobs.hosts_aware_trainable,
+        config={"q": sweep.grid_search([0.2, 0.5, 0.8])},
+        metric="loss", mode="min", executor="process", total_gpus=8,
+        storage_dir=str(tmp_path), trial_timeout=120.0,
+        hosts=["host-a", "host-b"], transport=transport)
+    assert all(t.status == Trial.DONE for t in analysis.trials)
+    spawned = [h for h, _ in transport.spawned]
+    assert len(spawned) == 3 and set(spawned) == {"host-a", "host-b"}
+    for t in analysis.trials:
+        assert t.result["hosts"] in (["host-a"], ["host-b"])
+        assert t.result["visible"] in ("0", "1")
+        assert t.result["driver_only"] is None
+    assert analysis.best_config == {"q": 0.2}
+
+
+def test_trial_sees_its_borrowed_host_set(tmp_path):
+    """A trial reserving two hosts runs its own process on the first and
+    finds both in `get_trial_hosts` (for a nested cross-host
+    fit_distributed), its two cards in CUDA_VISIBLE_DEVICES."""
+    from ray_lightning_tpu_torch.runtime import LoopbackTransport
+
+    transport = LoopbackTransport()
+    analysis = sweep.run(
+        torch_jobs.hosts_aware_trainable, config={}, metric="loss",
+        executor="process", total_gpus=8,
+        resources_per_trial=sweep.GpuResources(gpus=2, hosts=2),
+        storage_dir=str(tmp_path), trial_timeout=120.0,
+        hosts=["host-a", "host-b"], transport=transport)
+    [t] = analysis.trials
+    assert t.status == Trial.DONE
+    assert t.result["hosts"] == ["host-a", "host-b"]
+    assert t.result["visible"] == "0,1"
+    assert [h for h, _ in transport.spawned] == ["host-a"]
+
+
+def test_tpu_resources_names_the_difference():
+    """`TpuResources(chips=)` does not map onto the port's card blocks:
+    the name raises and says so (it stays out of the port's surface)."""
+    with pytest.raises(NotImplementedError, match="GpuResources"):
+        sweep.TpuResources
+    assert not hasattr(sweep, "TpuResources")

@@ -586,20 +586,34 @@ def test_fit_with_telemetry_is_bitwise_the_fit_without(fits):
 
 
 def test_fit_writes_spans_and_a_closed_ledger(fits):
-    """One dispatch and one step span a step, a metrics fetch on the
-    logging cadence, the validations' eval spans; the ledger's buckets
-    sum to its wall; the port's files read equal through both
+    """On the main thread: the warm start's compile span before the
+    first step, one dispatch and one step span a step, a metrics fetch
+    on the logging cadence, the validations' eval spans (and data_wait
+    spans where the step found no batch ready, as many as the
+    prefetcher's misses); on the producer thread an h2d span for each
+    batch placed. The ledger's buckets sum to its wall, with the warm
+    start in compile_s; the port's files read equal through both
     packages' readers and the report."""
     root, (trainer, _, _), _ = fits
     tdir = str(root / "on" / "telemetry")
     path = _only(os.path.join(tdir, "rank0.*.spans.jsonl"))
     parsed = pspans.read_spans(path)
     assert parsed == jspans.read_spans(path)
-    count = {}
+    count, producer = {}, 0
     for s in parsed["spans"]:
-        count[s["phase"]] = count.get(s["phase"], 0) + 1
-    assert count == {"dispatch": STEPS, "step": STEPS,
+        if s.get("thread", "main") != "main":
+            assert (s["thread"], s["phase"]) == ("producer", "h2d")
+            producer += 1
+        elif s["phase"] != "data_wait":
+            count[s["phase"]] = count.get(s["phase"], 0) + 1
+    assert count == {"compile": 1, "dispatch": STEPS, "step": STEPS,
                      "metrics_fetch": STEPS // 2, "eval": 2}
+    first = min(s["t"] for s in parsed["spans"]
+                if s["phase"] == "dispatch")
+    [warm] = [s for s in parsed["spans"] if s["phase"] == "compile"]
+    assert warm["t"] + warm["dur"] <= first
+    # every step's batch and the validations' (2 batches each, twice)
+    assert producer >= STEPS + 4
     assert [s["step"] for s in parsed["spans"]
             if s["phase"] == "dispatch"] == list(range(STEPS))
     [led] = pgoodput.read_ledgers(tdir)
@@ -608,8 +622,11 @@ def test_fit_writes_spans_and_a_closed_ledger(fits):
         (0, STEPS)
     assert sum(led["buckets"].values()) == pytest.approx(led["wall_s"],
                                                          rel=1e-12)
-    assert led["buckets"]["eval_s"] > 0 and led["buckets"]["compile_s"] == 0
+    assert led["buckets"]["eval_s"] > 0 and led["buckets"]["compile_s"] > 0
     m = trainer.callback_metrics
+    assert m["telemetry_compile_s"] == pytest.approx(
+        led["buckets"]["compile_s"], rel=1e-6)
+    assert m["compile_time_s"] >= m["compile_warm_s"] >= 0
     assert 0 < m["goodput_fraction"] <= 1 and m["telemetry_eval_s"] > 0
     assert m["telemetry_spans_dropped"] == 0
     got = preport.build_report(str(root / "on"))
@@ -705,8 +722,10 @@ def test_fit_with_telemetry_matches_jax(tmp_path):
                         if s.get("thread", "main") == "main"}
         [led] = jgoodput.read_ledgers(tdir)
         assert led["end_step"] == STEPS and led["completed"]
-    # the JAX step compiles and prefetches; the eager port does neither
-    assert phases["torch"] == phases["jax"] - {"compile", "data_wait"}
+    # both warm-start the step under a compile span and prefetch; a
+    # data_wait span appears only where a step found no batch ready
+    assert "compile" in phases["torch"] and "compile" in phases["jax"]
+    assert phases["torch"] - {"data_wait"} == phases["jax"] - {"data_wait"}
 
 
 # ---- report, CLI, drift -----------------------------------------------------------

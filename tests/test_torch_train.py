@@ -21,6 +21,7 @@ against their plain versions on the card by ``chip_smoke.py``.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -408,11 +409,21 @@ def test_datamodule_and_loader_order_match_jax(shards):
 
 
 @pytest.mark.parametrize("knob,value", [("compile_cache_dir", "cache")])
-def test_unported_trainer_knobs_raise(knob, value):
-    kw = dict(enable_checkpointing=False)
-    kw[knob] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(**kw)
+def test_unported_trainer_knobs_raise(knob, value, tmp_path, monkeypatch):
+    """The knob that raised until the hot loop was ported now works:
+    ``compile_cache_dir`` makes the fit build and load the kernel
+    libraries under it (process-global, as the JAX cache dir)."""
+    from ray_lightning_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD", build.BUILD)
+    want = str(tmp_path / value)
+    trainer = Trainer(strategy=SingleDevice(device="cpu"), max_steps=1,
+                      enable_checkpointing=False, enable_progress_bar=False,
+                      **{knob: want})
+    trainer.fit(_Quadratic(), DataLoader(
+        {"y": np.zeros(4, np.float32)}, batch_size=2))
+    assert build.BUILD == want and os.path.isdir(want)
+    assert trainer.callback_metrics["compile_build_s"] == 0.0  # CPU
 
 
 def test_unported_entry_points_raise():

@@ -5,6 +5,7 @@ package: a worker stays as light as its job.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -127,7 +128,7 @@ def llama_module(params_np=None, lr=1e-2, warmup_steps=1, total_steps=4,
     return m
 
 
-def make_strategy(name):
+def make_strategy(name, **kw):
     from ray_lightning_tpu_torch.parallel.strategy import (
         FSDP,
         DataParallel,
@@ -135,11 +136,11 @@ def make_strategy(name):
     )
 
     return {"ddp": DataParallel, "fsdp": FSDP,
-            "single": SingleDevice}[name](device="cpu")
+            "single": SingleDevice}[name](device="cpu", **kw)
 
 
 def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
-            every_n_train_steps=None):
+            every_n_train_steps=None, **strategy_kw):
     """A Llama trainer that reports rank 0's steps over the side channel,
     with a step-cadence `ModelCheckpoint` into ``ckpt_dir`` if given."""
     from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
@@ -150,7 +151,8 @@ def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
         callbacks.append(ModelCheckpoint(
             dirpath=ckpt_dir, every_n_train_steps=every_n_train_steps,
             save_top_k=-1))
-    return Trainer(strategy=make_strategy(strategy), max_steps=max_steps,
+    return Trainer(strategy=make_strategy(strategy, **strategy_kw),
+                   max_steps=max_steps,
                    gradient_clip_val=clip, log_every_n_steps=1,
                    enable_checkpointing=False, enable_progress_bar=False,
                    callbacks=callbacks, seed=0)
@@ -403,3 +405,58 @@ class StartStep(Callback):
 
         if session.is_session_enabled() and session.get_actor_rank() == 0:
             session.put_queue(("start", trainer.global_step, os.getpid()))
+
+
+# ---- the cross-host runtime ---------------------------------------------------
+
+
+def die_behind_queue(driver_sleep_s, survivor_delay_s):
+    """Rank 0 sends a callable that keeps the driver's pump busy for
+    ``driver_sleep_s``, one more item, and is SIGKILL'd; rank 1, like a
+    survivor whose collective lost its peer, raises ``survivor_delay_s``
+    later. When the driver next looks, rank 0's channel still holds an
+    item ahead of its EOF while rank 1's error is ready."""
+    import signal
+
+    from ray_lightning_tpu_torch.runtime import session
+
+    if session.get_actor_rank() == 0:
+        session.put_queue(functools.partial(time.sleep, driver_sleep_s))
+        session.put_queue("last words")
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(survivor_delay_s)
+    raise ConnectionError("the collective's peer rank 0 went away")
+
+
+def device_and_env(keys):
+    """The job's card as `rank_device` picks it, and ``keys`` of its
+    environment (None where unset)."""
+    from ray_lightning_tpu_torch.utils.devices import local_rank
+
+    return local_rank(), {k: os.environ.get(k) for k in keys}
+
+
+def hosts_aware_trainable(config):
+    """Reports once; returns the trial's borrowed hosts and what its
+    environment says of its cards and of the driver's own variables."""
+    from ray_lightning_tpu_torch import sweep
+
+    sweep.report(loss=float(config.get("q", 0.0)))
+    return {"hosts": sweep.get_trial_hosts(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "driver_only": os.environ.get("RLT_DRIVER_ONLY")}
+
+
+def rendezvous_seen():
+    """(rank, MASTER_ADDR, MASTER_PORT, the port rank 0's store is bound
+    to, or None on the other ranks)."""
+    import importlib
+
+    from ray_lightning_tpu_torch.runtime import session
+
+    # the package exports the function `launch` under the module's name
+    store = importlib.import_module(
+        "ray_lightning_tpu_torch.runtime.launch")._STORE
+    return (session.get_actor_rank(), os.environ["MASTER_ADDR"],
+            int(os.environ["MASTER_PORT"]),
+            store.port if store is not None else None)
