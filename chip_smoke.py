@@ -163,6 +163,27 @@ Phases, each of which raises (and so exits nonzero) on failure:
                the card, its JSON line. Phase 8 also prints each
                supervised attempt's ``compile_s`` beside its first step's
                wall, and every attempt of (a) must book one.
+ 11. serving front end — (a) inside phase 4, its model and requests
+               through ``ServeDriver(n_replicas=2, backend="inline")``:
+               every stream bitwise phase 4's, the launches phase 4's
+               formula over both replicas' ticks and chunks, every
+               request's spans and a merged completion histogram of 8;
+               (a') the live session on the same model (start with one
+               replica, submit half, `add_replica`, submit the rest,
+               remove replica 0 gracefully while it holds work, stop):
+               streams bitwise (a)'s; (b) phase 4's greedy prompts
+               through `generate` (the flash forward: L launches a
+               prefill), the kernel lane against `force_reference()`
+               lanes teacher-forced along its tokens, logits within
+               ``LOGIT_TOL``, and how many tokens agree with phase 4's
+               streams (not gated: the attention paths round
+               differently in bf16); (c) after phase 4, 4 layers: two
+               process replicas on the card loading a params file,
+               replica 1 SIGKILL'd mid-stream: ``restarts == {0: 0, 1:
+               1}``, a ``flight.json`` with the classification, every
+               stream bitwise an inline driver's at the same weights in
+               this process; each replica start's import, load, warm-up
+               and kernel-library seconds.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`: the device's busy share and
                the kernels with the most device time. It runs last
@@ -196,6 +217,7 @@ import collections
 import dataclasses
 import functools
 import gc
+import glob
 import json
 import os
 import shutil
@@ -1029,12 +1051,19 @@ def serve_profile(seed: int, n_layers: int) -> None:
     torch.cuda.empty_cache()
 
 
+def serve_config(n_layers: int):
+    """Llama-3-8B at full width, ``n_layers`` deep, bf16."""
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(max_seq_len=4096, n_layers=n_layers)
+
+
 def build_model(seed: int, n_layers: int):
     """Llama-3-8B at full width, ``n_layers`` deep, random bf16 weights
     from a seeded CUDA generator."""
-    from ray_lightning_tpu_torch.models.llama import LlamaConfig, init_weights
+    from ray_lightning_tpu_torch.models.llama import init_weights
 
-    cfg = LlamaConfig.llama3_8b(max_seq_len=4096, n_layers=n_layers)
+    cfg = serve_config(n_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -1126,11 +1155,7 @@ def serve_phase(seed: int, n_layers: int):
     # what (b) is held to, before the profiled window adds its ticks
     ref = dict(ticks=probe.ticks, chunks=probe.chunks,
                tick_s={k: list(v) for k, v in probe.tick_s.items()})
-    want = {k.__name__: 0 for k in kernels}
-    want.update(paged_attention_kernel=n_layers * probe.ticks,
-                paged_prefill_kernel=n_layers * probe.chunks,
-                rms_norm_kernel=(2 * n_layers + 1)
-                * (probe.ticks + probe.chunks))
+    want = serve_formula(n_layers, probe.ticks, probe.chunks)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if sorted(done) != sorted(r.rid for r in reqs):
@@ -1169,7 +1194,343 @@ def serve_phase(seed: int, n_layers: int):
     if problems:
         raise AssertionError("kernel vs reference lanes: "
                              + "; ".join(problems))
-    return launches, t9
+
+    # -- 11 (a), (a') and (b): the driver and generate on this model ------
+    t11 = time.perf_counter()
+    for k, v in driver_inline_phase(model, ecfg, reqs, done).items():
+        launches[k] += v
+    for k, v in generate_phase(model, reqs, done).items():
+        launches[k] += v
+    return launches, t9, time.perf_counter() - t11
+
+
+# ---- phase 11: the serving front end on the card ---------------------------
+#
+# (a), (a') and (b) run inside phase 4, on its model and requests; (c)
+# after it, on a 4-layer model of its own. Kernel launches inside (c)'s
+# replica worker processes are theirs: (c)'s in-process inline reference
+# is what this process counts.
+
+#: (c)'s depth, cut for time: its params file holds every weight (16
+#: layers: ~9 GB; 4: ~3.9 GB) and each replica worker loads it
+DRIVER_PROC_LAYERS = 4
+#: tokens replica 1 emits before (c) SIGKILLs it (its four requests
+#: stream 32 tokens each)
+DRIVER_KILL_AFTER = 24
+#: where phase 11 keeps its run dirs and (c)'s params file (git-ignored;
+#: removed after)
+DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "rlt_logs", "chip_smoke_driver")
+DRIVER_TIMEOUT_S = 300
+
+
+def serve_formula(n_layers: int, ticks: int, chunks: int) -> dict:
+    """Phase 4's formula: the decode L a tick, the prefill L a chunk,
+    RMSNorm 2L+1 a model call; no flash."""
+    want = {k.__name__: 0 for k in all_kernels()}
+    want.update(paged_attention_kernel=n_layers * ticks,
+                paged_prefill_kernel=n_layers * chunks,
+                rms_norm_kernel=(2 * n_layers + 1) * (ticks + chunks))
+    return want
+
+
+def counted(fn, n_layers: int, problems: list, what: str):
+    """Run ``fn()`` with every launch counter zeroed just before and read
+    just after, counting the engines' ticks and prefill chunks; holds
+    the launches to phase 4's formula. Returns (fn's result, launches,
+    wall seconds)."""
+    from ray_lightning_tpu_torch.serve.cli import KernelCalls
+
+    kernels = all_kernels()
+    ticks = KernelCalls()
+    for k in kernels:
+        k.launches = 0
+    with ticks.active():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    want = serve_formula(n_layers, ticks.ticks, ticks.chunks)
+    if launches != want:
+        problems.append(f"{what}: launches {launches} != {want} "
+                        f"({ticks.ticks} ticks, {ticks.chunks} chunks)")
+    return out, launches, wall
+
+
+def same_streams(outputs: dict, want: dict, what: str, problems: list):
+    bad = sorted(rid for rid in want if list(outputs.get(rid, []))
+                 != list(want[rid]))
+    if bad:
+        problems.append(f"{what}: streams differ from the reference: {bad}")
+    return not bad
+
+
+def serve_row(phase: str, res, wall: float, launches: dict, **extra):
+    meta = res.meta.values()
+    n_tok = sum(len(v) for v in res.outputs.values())
+    return dict(phase=phase, requests=len(res.outputs), new_tokens=n_tok,
+                wall_s=wall, decode_tokens_per_s=n_tok / wall,
+                ttft_p50_s=statistics.median(m["ttft_s"] for m in meta),
+                tpot_p50_s=statistics.median(m["tpot_s"] for m in meta),
+                restarts=res.restarts, launches=launches, **extra)
+
+
+def check_run_dir(run_dir: str, rids, problems: list, what: str) -> dict:
+    """Every completed request has its queue-wait, prefill and decode
+    spans, and the merged completion histogram counts them all."""
+    from ray_lightning_tpu_torch.serve.driver import aggregate_serve_metrics
+    from ray_lightning_tpu_torch.telemetry.spans import (
+        PH_DECODE,
+        PH_PREFILL,
+        PH_QUEUE_WAIT,
+        read_spans,
+    )
+
+    spans = [s for p in glob.glob(os.path.join(run_dir, "telemetry",
+                                               "rank*.spans.jsonl"))
+             for s in read_spans(p)["spans"]]
+    seen = {ph: {(s.get("meta") or {}).get("rid") for s in spans
+                 if s["phase"] == ph}
+            for ph in (PH_QUEUE_WAIT, PH_PREFILL, PH_DECODE)}
+    missing = {ph: sorted(set(rids) - got) for ph, got in seen.items()
+               if set(rids) - got}
+    if missing:
+        problems.append(f"{what}: requests without spans: {missing}")
+    agg = aggregate_serve_metrics(run_dir) or {}
+    hist_n = agg.get("latency", {}).get("ttft_s", {}).get("n")
+    if hist_n != len(rids):
+        problems.append(f"{what}: the merged completion histogram counts "
+                        f"{hist_n}, not {len(rids)}")
+    return dict(spans=len(spans), completion_hist_n=hist_n)
+
+
+def driver_inline_phase(model, ecfg, reqs, phase4_done):
+    """(a): two inline replicas over phase 4's model serve its requests;
+    (a'): the live session on the same model. Returns their launches."""
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig,
+        ServeDriver,
+    )
+
+    L = model.cfg.n_layers
+    problems = []
+    want = {rid: c.tokens for rid, c in phase4_done.items()}
+    run_dir = os.path.join(DRIVER_DIR, "inline")
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    drv = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+        n_replicas=2, backend="inline", engine=ecfg, run_dir=run_dir))
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: drv.run(reqs), L, problems,
+                                  "(a)")
+    equal = same_streams(res.outputs, want, "(a) vs phase 4", problems)
+    files = check_run_dir(run_dir, list(want), problems, "(a)")
+    print(json.dumps(serve_row(
+        "driver_inline", res, wall, launches, layers=L, replicas=2,
+        streams_equal_phase4=equal, engine_steps=res.stats["engine_steps"],
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        **files)), flush=True)
+
+    def session():
+        s = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+            n_replicas=1, backend="inline", engine=ecfg,
+            run_dir=os.path.join(DRIVER_DIR, "session")))
+        s.start()
+        for r in reqs[:4]:
+            s.submit(r)
+        s.add_replica()
+        for r in reqs[4:]:
+            s.submit(r)
+        s.tick()
+        if not s.replicas[0].sched.slots:
+            problems.append("(a') replica 0 held no work at its removal")
+        s.remove_replica(0, graceful=True)
+        return s.stop()
+
+    res2, launches2, wall2 = counted(session, L, problems, "(a')")
+    equal2 = same_streams(res2.outputs, res.outputs, "(a') vs (a)",
+                          problems)
+    print(json.dumps(serve_row(
+        "driver_session", res2, wall2, launches2, layers=L,
+        streams_equal_a=equal2,
+        replicas_spawned=res2.stats["replicas_spawned"],
+        final_replicas=res2.stats["final_replicas"],
+        served_by=sorted({m["replica"] for m in res2.meta.values()}))),
+        flush=True)
+    if problems:
+        raise AssertionError("phase 11 (a): " + "; ".join(problems))
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+class LogitsProbe:
+    """Wraps a model's lm_head projection (`Llama.logits`, which every
+    logits `generate` takes a token from passes through) for one greedy
+    B-1 `generate` call: records each step's f32 logits, or, given the
+    kernel lane's ``(logits, tokens)``, compares each step's logits with
+    the kernel lane's and returns a one-hot at the kernel lane's token,
+    so the reference lane follows the kernel lane's stream."""
+
+    def __init__(self, model, forced=None):
+        self.model, self.forced = model, forced
+        self.logits, self.steps = [], []
+        self._fn = model.logits
+
+    def __enter__(self):
+        self.model.logits = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.logits
+
+    def __call__(self, h):
+        out = self._fn(h)
+        row = out.reshape(-1, out.shape[-1])[0]
+        t = len(self.logits)
+        self.logits.append(row.clone())
+        if self.forced is None:
+            return out
+        k_logits, k_tokens = self.forced
+        tok = k_tokens[t]
+        self.steps.append(((k_logits[t] - row).abs().max(),
+                           row.max() - row[tok]))
+        onehot = torch.zeros_like(out)
+        onehot[..., tok] = 1.0
+        return onehot
+
+
+def generate_phase(model, reqs, phase4_done):
+    """(b): phase 4's greedy prompts through `generate`, the kernel lane
+    (the flash forward in each prefill, RMSNorm in every model call)
+    against `force_reference()` lanes teacher-forced along its tokens."""
+    from ray_lightning_tpu_torch.models.llama import generate
+    from ray_lightning_tpu_torch.ops import dispatch
+    from ray_lightning_tpu_torch.ops.kernels import flash
+
+    L = model.cfg.n_layers
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    problems, lanes, rows = [], {}, []
+    t0 = time.perf_counter()
+    for r in greedy:
+        before = flash.flash_fwd_kernel.launches
+        with LogitsProbe(model) as probe:
+            toks = generate(model, r.prompt[None], r.max_new_tokens)[0]
+        n_flash = flash.flash_fwd_kernel.launches - before
+        if n_flash != L:
+            problems.append(f"{r.rid}: {n_flash} flash launches in its "
+                            f"prefill, not {L}")
+        lanes[r.rid] = (probe.logits, toks.tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    calls = sum(r.max_new_tokens for r in greedy)  # prefill + decode steps
+    want = {k.__name__: 0 for k in kernels}
+    want.update(flash_fwd_kernel=L * len(greedy),
+                rms_norm_kernel=(2 * L + 1) * calls)
+    if launches != want:
+        problems.append(f"generate launches {launches} != {want}")
+    for r in greedy:
+        with dispatch.force_reference(), LogitsProbe(
+                model, forced=lanes[r.rid]) as probe:
+            ref = generate(model, r.prompt[None], r.max_new_tokens)[0]
+        if ref.tolist() != lanes[r.rid][1]:
+            problems.append(f"{r.rid}: the reference lane was not forced")
+        rows += [(r.rid, t, float(d), float(m))
+                 for t, (d, m) in enumerate(probe.steps)]
+    worst = max(d for _, _, d, _ in rows)
+    if not worst <= LOGIT_TOL:
+        problems.append(f"generate lanes' logits differ by {worst:.4g} > "
+                        f"{LOGIT_TOL}")
+    problems += [f"{rid} step {t}: the reference prefers its own argmax by "
+                 f"{m:.4g} >= {LOGIT_TOL}" for rid, t, _, m in rows
+                 if not m < LOGIT_TOL]
+    agree = {r.rid: sum(a == b for a, b in zip(lanes[r.rid][1],
+                                               phase4_done[r.rid].tokens))
+             for r in greedy}
+    print(json.dumps(dict(
+        phase="generate", layers=L, prompts=len(greedy),
+        prompt_lengths=[len(r.prompt) for r in greedy], wall_s=wall,
+        steps=len(rows), logits_max_abs_diff=worst, tolerance=LOGIT_TOL,
+        prefill_logits_max_abs_diff=max(d for _, t, d, _ in rows if t == 0),
+        argmax_differs=[dict(rid=rid, step=t, ref_margin=m)
+                        for rid, t, _, m in rows if m > 0],
+        tokens_agreeing_with_engine=agree,
+        tokens_compared=sum(r.max_new_tokens for r in greedy),
+        launches=launches)), flush=True)
+    if problems:
+        raise AssertionError("phase 11 (b): " + "; ".join(problems))
+    return launches
+
+
+def driver_process_phase(seed: int):
+    """(c): two process replicas on the card at 4 layers, replica 1
+    SIGKILL'd mid-stream, against an inline driver at the same weights in
+    this process. Returns the inline reference's launches."""
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig,
+        ServeDriver,
+        save_params_npz,
+    )
+
+    problems = []
+    t_all = time.perf_counter()
+    model = build_model(seed, DRIVER_PROC_LAYERS)
+    ecfg = engine_config()
+    reqs = make_requests(model.cfg.vocab_size, seed)
+    os.makedirs(DRIVER_DIR, exist_ok=True)
+    params = os.path.join(DRIVER_DIR, "params.npz")
+    t0 = time.perf_counter()
+    save_params_npz(model, params)
+    save_s = time.perf_counter() - t0
+    inline = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+        n_replicas=2, backend="inline", engine=ecfg))
+    ref, launches, ref_wall = counted(lambda: inline.run(reqs),
+                                      DRIVER_PROC_LAYERS, problems,
+                                      "(c) inline")
+    del inline, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(DRIVER_DIR, "process")
+    drv = ServeDriver(serve_config(DRIVER_PROC_LAYERS), params,
+                      ReplicaGroupConfig(
+                          n_replicas=2, backend="process", engine=ecfg,
+                          run_dir=run_dir, compile_cache_dir=build.BUILD,
+                          start_timeout=DRIVER_TIMEOUT_S))
+    t0 = time.perf_counter()
+    res = drv.run(reqs, fault={"replica": 1,
+                               "kill_after_tokens": DRIVER_KILL_AFTER})
+    wall = time.perf_counter() - t0
+    if res.restarts != {0: 0, 1: 1}:
+        problems.append(f"(c) restarts {res.restarts} != {{0: 0, 1: 1}}")
+    equal = same_streams(res.outputs, ref.outputs, "(c) vs inline",
+                         problems)
+    try:
+        with open(os.path.join(run_dir, "flight.json")) as f:
+            dumps = json.load(f)["dumps"]
+    except (OSError, ValueError, KeyError) as exc:
+        dumps = []
+        problems.append(f"(c) no readable flight.json: {exc!r}")
+    death = dumps[0]["death"] if dumps else {}
+    if death.get("kind") != "retryable" or not death.get("respawning"):
+        problems.append(f"(c) flight.json classification {death}")
+    starts = res.stats["replica_starts"]
+    print(json.dumps(serve_row(
+        "driver_process", res, wall, {}, layers=DRIVER_PROC_LAYERS,
+        replicas=2, streams_equal_inline=equal,
+        params_file_gib=os.path.getsize(params) / 2**30, save_s=save_s,
+        inline_wall_s=ref_wall, inline_launches=launches,
+        replica_starts=starts, flight_death=death,
+        flight_events=len(dumps[0].get("events", [])) if dumps else 0,
+        respawn_warmup_s=[s["warmup_s"] for s in starts if s["attempt"]],
+        respawn_nvcc_s=[s["build_s"] for s in starts if s["attempt"]],
+        phase_wall_s=time.perf_counter() - t_all)), flush=True)
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 11 (c): " + "; ".join(problems))
+    return launches
 
 
 # ---- phase 5: training at full width ----------------------------------------
@@ -2852,11 +3213,7 @@ def serve_metrics_phase(model, ecfg, reqs, ref, ref_done):
     fr.close()
     n_layers = model.cfg.n_layers
     problems = []
-    want = {k.__name__: 0 for k in kernels}
-    want.update(paged_attention_kernel=n_layers * probe.ticks,
-                paged_prefill_kernel=n_layers * probe.chunks,
-                rms_norm_kernel=(2 * n_layers + 1)
-                * (probe.ticks + probe.chunks))
+    want = serve_formula(n_layers, probe.ticks, probe.chunks)
     if launches != want:
         problems.append(f"launches {launches} != {want}")
     if (probe.ticks, probe.chunks) != (ref["ticks"], ref["chunks"]):
@@ -3747,9 +4104,16 @@ def main() -> int:
 
     # 4. serving at full width, through the kernel lanes (and 9b: the
     # same requests with live metrics)
-    serve_launches, t_9b = serve_phase(SEED, args.layers)
+    serve_launches, t_9b, t_11ab = serve_phase(SEED, args.layers)
     lap("serve")
-    walls["serve"] -= t_9b
+    walls["serve"] -= t_9b + t_11ab
+
+    # 11 (c). process replicas on the card, one SIGKILL'd and replayed
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in driver_process_phase(SEED).items():
+        serve_launches[k] += v
+    lap("driver_process")
 
     # 5. training at full width, 4 layers deep
     gc.collect()
@@ -3798,6 +4162,7 @@ def main() -> int:
     lap("serve_profile")
     shutil.rmtree(TEL_DIR, ignore_errors=True)
     walls["telemetry_serve"] = t_9b
+    walls["driver_inline_generate"] = t_11ab
     walls["probe"] = t_probe
     print(json.dumps(dict(
         phase="timing", wall_s=walls,
@@ -3806,6 +4171,7 @@ def main() -> int:
         phase9_s=t_9b + t_probe + walls["telemetry_train"],
         phase10_s=sum(walls[k] for k in ("hot_loop_sync", "hot_loop_remote",
                                          "hot_loop_perf")),
+        phase11_s=t_11ab + walls["driver_process"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
 
     # each kernel's launches on the paths that run it

@@ -8,13 +8,17 @@
     python -m ray_lightning_tpu_torch timeline <run_dir> [--json | --chrome OUT]
     python -m ray_lightning_tpu_torch watch    <run_dir> [--json]
     python -m ray_lightning_tpu_torch perf [--smoke] [--device cpu]
+    python -m ray_lightning_tpu_torch serve example [--replicas N] \\
+        [--backend process] [--device cpu]
+    python -m ray_lightning_tpu_torch serve --smoke --device cpu
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
 
 ``supervise`` is resilience/cli.py; ``report``, ``monitor``,
 ``timeline`` and ``watch`` read a telemetry-enabled run's directory
 (telemetry/); ``perf`` measures the hot loop's prefetch overlap, warm
-start and FSDP schedule (pipeline/cli.py); ``--probe`` times a chain of bf16 matmuls on the card
-(utils/probe.py) beside its spec-sheet peak.
+start and FSDP schedule (pipeline/cli.py); ``serve`` runs the replica
+driver and its smoke gate (serve/cli.py); ``--probe`` times a chain of
+bf16 matmuls on the card (utils/probe.py) beside its spec-sheet peak.
 """
 import argparse
 import json
@@ -50,6 +54,7 @@ def main(argv=None) -> int:
         add_supervise_parser,
         run_supervise,
     )
+    from ray_lightning_tpu_torch.serve.cli import add_serve_parser, run_serve
     from ray_lightning_tpu_torch.telemetry.report import (
         add_monitor_parser,
         add_report_parser,
@@ -79,10 +84,12 @@ def main(argv=None) -> int:
     add_timeline_parser(sub)
     add_watch_parser(sub)
     add_perf_parser(sub)
+    add_serve_parser(sub)
     args = ap.parse_args(argv)
     commands = {"supervise": run_supervise, "report": run_report,
                 "monitor": run_monitor, "timeline": run_timeline,
-                "watch": run_watch, "perf": run_perf}
+                "watch": run_watch, "perf": run_perf,
+                "serve": run_serve}
     if args.command in commands:
         return commands[args.command](args)
     if args.probe:

@@ -6,6 +6,8 @@ _NAMES = {
     "Llama": "llama",
     "LlamaConfig": "llama",
     "LlamaModule": "llama",
+    "generate": "llama",
+    "init_cache": "llama",
     "MLP": "mlp",
     "MLPClassifier": "mlp",
     "MNISTClassifier": "mlp",
@@ -18,8 +20,6 @@ _MISSING = {
         "bert_params_from_hf", "MoEClassifierModule", "MoEMLP",
         "moe_param_specs", "ResNet", "ResNetModule", "resnet18",
         "resnet34", "resnet50")},
-    "generate": "ROADMAP Queue 1 item 8 (generate)",
-    "init_cache": "ROADMAP Queue 1 item 8 (generate)",
     "llama_params_from_hf": "ROADMAP Queue 1 item 3 (models/hf_interop.py)",
 }
 

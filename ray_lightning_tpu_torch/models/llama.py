@@ -406,6 +406,98 @@ def params_from_jax(params_np: Dict[str, Any], cfg: LlamaConfig,
     return sd
 
 
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device=None):
+    """Zeroed dense KV cache ``(k, v)``, each [n_layers, B, max_len, Hkv,
+    head_dim] in ``cfg.dtype`` on ``device`` (default the CUDA card)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+@torch.no_grad()
+def generate(model: Llama, prompt, max_new_tokens: int,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             seed: int = 0, cache_len: Optional[int] = None,
+             prompt_lengths=None, cache=None) -> torch.Tensor:
+    """Autoregressive decoding over a dense KV cache (twin of the JAX
+    `generate`): the prompt's prefill (from an empty cache without a
+    pad, `flash_attention`; the hand-written kernel on the card), then
+    one single-token step per new token through the masked cache path.
+
+    Greedy when ``temperature == 0``; otherwise temperature (and top-k)
+    sampling with the serving engine's per-request key scheme: the key
+    state starts at the scheduler's ``_key_data(seed)`` and splits once
+    per token, and every row draws from the same split, so a request
+    the engine serves emits exactly ``generate(prompt, ..., seed=
+    req.seed)``. ``cache_len`` sizes the cache (any length >= prompt +
+    max_new_tokens; default exactly that). ``prompt_lengths`` ([B] ints)
+    declares a LEFT-padded ragged batch: row b's real prompt is its last
+    ``prompt_lengths[b]`` columns and decodes as that prompt alone.
+    ``cache`` is the caller's `init_cache` buffer, updated in place (the
+    twin of the JAX donation; one is made when it is None). Returns
+    [B, max_new_tokens] int32 on the model's device."""
+    from ray_lightning_tpu_torch.serve.engine import _sample_one, _split_key
+    from ray_lightning_tpu_torch.serve.scheduler import _key_data
+
+    dev = model.device
+    if not isinstance(prompt, torch.Tensor):
+        prompt = torch.from_numpy(np.array(prompt, np.int64))
+    prompt = prompt.to(dev, torch.long)
+    B, S0 = prompt.shape
+    explicit_cache_len = cache_len is not None
+    if cache_len is None:
+        cache_len = S0 + max_new_tokens
+    if cache_len < S0 + max_new_tokens:
+        raise ValueError(
+            f"cache_len ({cache_len}) is smaller than prompt ({S0}) + "
+            f"max_new_tokens ({max_new_tokens})")
+    if cache_len > model.cfg.max_seq_len:
+        what = (f"cache_len ({cache_len})" if explicit_cache_len else
+                f"prompt ({S0}) + max_new_tokens ({max_new_tokens})")
+        raise ValueError(
+            f"{what} exceeds max_seq_len ({model.cfg.max_seq_len})")
+    pad = None
+    if prompt_lengths is not None:
+        lengths = np.asarray(prompt_lengths, np.int32)
+        if lengths.shape != (B,):
+            raise ValueError(
+                f"prompt_lengths must have shape ({B},), got "
+                f"{lengths.shape}")
+        if (lengths < 1).any() or (lengths > S0).any():
+            # a length beyond the prompt width would be a NEGATIVE pad:
+            # RoPE positions would shift up and every decode be wrong
+            raise ValueError(
+                f"prompt_lengths must be within [1, {S0}] (the padded "
+                f"prompt width), got {lengths.tolist()}")
+        pad = torch.from_numpy(S0 - lengths).to(dev)
+    want = (model.cfg.n_layers, B, cache_len, model.cfg.n_kv_heads,
+            model.cfg.head_dim)
+    if cache is None:
+        cache = init_cache(model.cfg, B, cache_len, device=dev)
+    elif tuple(cache[0].shape) != want or tuple(cache[1].shape) != want:
+        raise ValueError(f"cache leaves must be {want}, got "
+                         f"{tuple(cache[0].shape)}")
+    h = model.hidden(prompt, cache, 0, pad=pad)
+    last = model.logits(h[:, -1])
+    out = torch.zeros((B, max_new_tokens), dtype=torch.int32, device=dev)
+    key = _key_data(seed)
+    for t in range(max_new_tokens):
+        key, draw = _split_key(key)
+        if temperature == 0.0:
+            tok = torch.argmax(last, dim=-1)
+        else:
+            tok = torch.stack([
+                _sample_one(last[b], draw, float(temperature),
+                            int(top_k or 0)) for b in range(B)])
+        out[:, t] = tok.to(torch.int32)
+        if t + 1 == max_new_tokens:
+            break  # the last token's own K/V is never read
+        pos = torch.full((B,), S0 + t, dtype=torch.long, device=dev)
+        last = model(tok[:, None], cache, pos, pad=pad)[:, 0]
+    return out
+
+
 def token_loss_sum(logits: torch.Tensor, targets: torch.Tensor,
                    mask: Optional[torch.Tensor] = None):
     """(sum of the mask-weighted token CE, sum of the mask), f32 scalars:
@@ -547,3 +639,10 @@ class LlamaModule(TpuModule):
     def predict_step(self, params, batch):
         inputs, _, _ = self._split(batch)
         return self.apply(params, inputs).argmax(-1)
+
+    def generate(self, prompt, max_new_tokens: int, **kw) -> torch.Tensor:
+        """KV-cache autoregressive decoding (`generate`) with the trained
+        weights."""
+        if self.model is None:
+            raise RuntimeError("fit or load a checkpoint first")
+        return generate(self.model, prompt, max_new_tokens, **kw)

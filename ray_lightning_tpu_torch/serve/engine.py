@@ -315,10 +315,12 @@ class DecodeEngine:
                  draft_params=None, max_seq_len_check: bool = True):
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel replicas (mesh=) are not ported yet")
+                "tensor-parallel replicas (mesh=) are not ported yet "
+                "(ROADMAP Queue 1 items 4 and 8)")
         if draft_model is not None or draft_params is not None:
             raise NotImplementedError(
-                "speculative decoding (draft=) is not ported yet")
+                "speculative decoding (draft=) is not ported yet "
+                "(ROADMAP Queue 1 item 8)")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model lives on {model.device}, engine "

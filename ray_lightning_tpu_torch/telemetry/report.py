@@ -216,8 +216,8 @@ def _pct(sorted_vals, q: float) -> float:
 
 def build_serving_section(run_dir: str) -> Optional[Dict[str, Any]]:
     """Per-request serving latency attribution when this run dir holds
-    serving telemetry (the JAX serve driver's): TTFT/TPOT percentiles from the
-    per-request decode spans (or the driver's serving.json summary) +
+    serving telemetry (either package's serve driver): TTFT/TPOT
+    percentiles from the per-request decode spans (or the driver's serving.json summary) +
     replica restarts + aggregate throughput. When the run recorded
     LIVE metrics (telemetry/metrics.py), the section grows the SLO
     view: p99s computed from the exactly-merged histogram buckets, the

@@ -38,7 +38,6 @@ ITEM = {
         "bert_params_from_hf", "MoEClassifierModule", "MoEMLP",
         "moe_param_specs", "ResNet", "ResNetModule", "resnet18",
         "resnet34", "resnet50")},
-        "generate": "item 8", "init_cache": "item 8",
         "llama_params_from_hf": "item 3"},
     "ops": {n: "item 13" for n in (
         "ulysses_attention", "ulysses_attention_local", "ring_attention",
@@ -72,6 +71,27 @@ def test_every_jax_name_resolves_or_names_its_item(sub):
             assert name in pmod.__all__ or name == "__version__", name
     # nothing listed that the JAX package does not have
     assert set(missing) <= set(jmod.__all__)
+
+
+def test_serving_front_end_names_resolve():
+    """The serving front end ported with item 8: the driver, its params
+    file, its rollups and the request channel resolve from
+    ``ray_lightning_tpu_torch.serve``, and `generate` / `init_cache`
+    from ``models``, as the objects their modules define."""
+    from ray_lightning_tpu_torch import models, serve
+    from ray_lightning_tpu_torch.models import llama
+    from ray_lightning_tpu_torch.serve import channel, driver
+
+    for name in ("ServeDriver", "ReplicaGroupConfig", "ServeResult",
+                 "save_params_npz", "load_params_npz",
+                 "aggregate_serve_metrics", "load_signal"):
+        assert getattr(serve, name) is getattr(driver, name), name
+        assert name in serve.__all__
+    for name in ("ChannelWriter", "ChannelReader", "CursorWriter",
+                 "CursorReader", "request_to_wire", "request_from_wire"):
+        assert getattr(serve, name) is getattr(channel, name), name
+    assert models.generate is llama.generate
+    assert models.init_cache is llama.init_cache
 
 
 def test_top_level_names_are_the_subpackages_objects():
