@@ -184,6 +184,29 @@ Phases, each of which raises (and so exits nonzero) on failure:
                stream bitwise an inline driver's at the same weights in
                this process; each replica start's import, load, warm-up
                and kernel-library seconds.
+ 12. planner and tensor axis — (a) phase 5's fit against its plan
+               (`plan_train_memory`, the card's kind): parameter and
+               optimizer bytes equal the fitted trainer's storage to the
+               byte, the plan's total at least the fit's peak, the
+               table's memory at most the card's ``total_memory``; (b)
+               after phase 10 (a), `find_max_local_batch`'s batch at S
+               2048 trained 2 steps in this process: no OOM, its peak
+               within the plan, tokens/s; (c) two processes on the card,
+               each a rank of ``ShardedMesh(tensor=2)`` joined over gloo
+               with CUDA tensors, phase 5's fit (8 steps): per-step loss
+               and grad_norm within the train limits of phase 5's rows,
+               each rank's flash and RMSNorm launches by phase 5's
+               formula at H 16 / Hkv 4, its parameter and optimizer bytes
+               equal to the plan's; a correctness lane, not a speed
+               (every all-reduce crosses the host); (d) phases 6-8 and
+               10 (b) build their FSDP models on the meta device and
+               stay bitwise phase 5's; 6 (a)'s worker prints its init
+               path and the init's peak. ``FLASH_OWED`` holds the
+               tensor-parallel heads (tp 2, tp 8) and the check adds
+               (b)'s batch, held on two of its rows, and the RMSNorm
+               at every row of (b)'s batch (B_max x 2048 at D 4096,
+               f32 gain). ``phase12_s`` in
+               the ``timing`` line.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`: the device's busy share and
                the kernels with the most device time. It runs last
@@ -203,9 +226,10 @@ the dQ and prefill) in turns with a build of older sources.
 each of four `torch.profiler` sessions records, then builds the kernels
 and captures two-step windows of phase 5's fit, each after one other
 profiled session (`DISTURBANCES`: none, 2000 decode calls, phase 4's
-serving window at 2 and at 16 layers) and with or without the primer
-kernels a capture runs in its warm-up, with each window's kernel
-launches and lost kernel events.
+serving window at 2 and at 16 layers) and with 0, 16 or 64 primer
+kernels in the capture's warm-up, with each window's kernel launches,
+lost kernel events and kernel lead (the most a kernel's start precedes
+its own launch call in the trace).
 ``chip_faults.py`` plants known faults in the kernels and runs these same
 checks on them; ``chip_variants.py`` times variants of the decode and
 RMSNorm sources.
@@ -707,7 +731,14 @@ FLASH_OWED = {
        for n in (1000, 65, 1)
        for mode, sq in (("causal", n), ("full", n), ("q_offset", -(-n // 2)))},
     "n_rep 2": (TB, 512, 512, 16, 8, HD, True, 0),
+    # phase 12's tensor-parallel heads a rank: tensor 2 and tensor 8
+    "tp 2": (TB, TS, TS, TH // 2, THKV // 2, HD, True, 0),
+    "tp 8": (TB, TS, TS, TH // 8, THKV // 8, HD, True, 0),
 }
+#: the batch rows of the B_max flash row (phase 12 (b)'s batch, planned)
+#: held against the plain version: the kernels run at the full batch,
+#: whose plain [B, H, S, S] scores would not fit beside it
+BMAX_ROWS = (0, -1)
 #: at Sk = 1 every softmax has one key: P = 1 and dS = P (dP - delta) = 0,
 #: so dQ and dK are zero in exact arithmetic and both versions hold only
 #: the rounding of dP - delta (two f32 sums of the same products, ~1e-6);
@@ -744,6 +775,23 @@ class FlashCase:
         self.o, self.lse = F.flash_fwd_kernel(self.q, self.k, self.v,
                                               *self.args)
         self.delta = F.flash_delta(self.o, self.do)
+
+    def rows(self, idx):
+        """This case held on batch rows ``idx`` only: the kernels' outputs
+        at the full batch, sliced, against the plain versions on those
+        rows' inputs (rows are independent)."""
+        idx = torch.tensor(idx, device="cuda")
+        out = FlashCase.__new__(FlashCase)
+        out.F, out.args = self.F, self.args
+        out.shape = (len(idx),) + self.shape[1:]
+        dk, dv = self.dkv()
+        dq = self.dq()
+        for name in ("q", "k", "v", "do", "o", "lse", "delta"):
+            setattr(out, name, getattr(self, name)[idx])
+        sliced = (dk[idx], dv[idx]), dq[idx]
+        out.dkv = lambda: sliced[0]
+        out.dq = lambda: sliced[1]
+        return out
 
     def fwd(self):
         return self.F.flash_fwd_kernel(self.q, self.k, self.v, *self.args)
@@ -887,9 +935,20 @@ def check_flash(gen: torch.Generator):
 
 def check_flash_owed(gen: torch.Generator):
     """The three flash kernels against their plain versions at every
-    shape of FLASH_OWED, untimed; one JSON line per shape."""
-    for name, dims in FLASH_OWED.items():
-        shares = FlashCase(gen, *dims).shares()
+    shape of FLASH_OWED and at phase 12 (b)'s planned batch (its
+    BMAX_ROWS held), and the RMSNorm at that batch's every row, untimed;
+    one JSON line per shape."""
+    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
+        rms_norm_kernel, rms_norm_plain)
+
+    b_max = planned_max_batch()[0]
+    owed = {**FLASH_OWED,
+            f"B_max {b_max}": (b_max, TS, TS, TH, THKV, HD, True, 0)}
+    for name, dims in owed.items():
+        case = FlashCase(gen, *dims)
+        if name.startswith("B_max"):
+            case = case.rows([r % dims[0] for r in BMAX_ROWS])
+        shares = case.shares()
         zero = ("dq", "dk") if dims[2] == 1 else ()
         bad = {k: v for k, v in shares.items()
                if not (v[0] <= ZERO_GRAD_ATOL if k in zero else v[1] <= 1.0)}
@@ -899,6 +958,16 @@ def check_flash_owed(gen: torch.Generator):
                               max_abs_err={k: v[0] for k, v in shares.items()},
                               tolerance_share={k: v[1] for k, v in
                                                shares.items()})), flush=True)
+    del case
+    # phase 12 (b)'s RMSNorm: B_max x TS rows at D with the f32 gain
+    n = b_max * TS
+    x, w = rms_inputs(gen, n, D, torch.float32)
+    err, share = hold(rms_norm_kernel(x, w), rms_norm_plain(x, w),
+                      f"rms_norm B_max {b_max}")
+    print(json.dumps(dict(check="rms_norm", case=f"B_max {b_max}", N=n, D=D,
+                          w="float32", max_abs_err=err,
+                          tolerance_share=share)), flush=True)
+    del x, w
     torch.cuda.empty_cache()
 
 
@@ -1580,35 +1649,42 @@ class StepProbe:
 
 
 def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None,
+               inspect=None, batch: int = None, steps: int = None,
                **trainer_kw):
     """One `Trainer.fit` of `LlamaModule` over ``tokens`` (``strategy``
     default `SingleDevice()``, more `Trainer` keywords in
-    ``trainer_kw``); returns the StepProbe (its ``metrics`` the fit's
-    callback_metrics), the fit's wall time, the peak device memory and
-    the parameter count."""
+    ``trainer_kw``; ``batch`` and ``steps`` default to phase 5's);
+    returns the StepProbe (its ``metrics`` the fit's callback_metrics),
+    the fit's wall time, the peak device memory and the parameter count.
+    ``inspect(trainer, module)`` runs after the fit, before both are
+    freed."""
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.llama import LlamaModule
     from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
 
+    steps = steps or TRAIN_STEPS
     probe = StepProbe()
     module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
                          total_steps=TRAIN_STEPS)
     trainer = Trainer(strategy=strategy or SingleDevice(),
-                      max_steps=TRAIN_STEPS,
+                      max_steps=steps,
                       log_every_n_steps=1, enable_checkpointing=False,
                       enable_progress_bar=False, seed=seed,
                       callbacks=[probe.callback, *callbacks], **trainer_kw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     probe.t.append(t0)
-    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB))
+    trainer.fit(module, DataLoader({"tokens": tokens},
+                                   batch_size=batch or TB))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if trainer.global_step != TRAIN_STEPS:
+    if trainer.global_step != steps:
         raise AssertionError(f"fit ran {trainer.global_step} steps")
     probe.metrics = dict(trainer.callback_metrics)
     n_params = module.num_params()
+    if inspect is not None:
+        inspect(trainer, module)
     del trainer, module
     return probe, wall, torch.cuda.max_memory_allocated(), n_params
 
@@ -1703,7 +1779,11 @@ def train_phase(seed: int):
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    probe, wall, peak, n_params = train_once(cfg, tokens, seed)
+    live = {}
+    probe, wall, peak, n_params = train_once(
+        cfg, tokens, seed, inspect=lambda t, m: live.update(
+            live_bytes(t, m)))
+    live["peak"] = peak
     launches = {k.__name__: k.launches for k in kernels}
     L, n = TRAIN_LAYERS, TRAIN_STEPS
     want = expected_launches(n)
@@ -1748,7 +1828,7 @@ def train_phase(seed: int):
         raise AssertionError("train kernel vs reference lanes: "
                              + "; ".join(problems))
     profile_train(cfg, tokens, seed)
-    return launches, probe.rows, step_s
+    return launches, probe.rows, step_s, live
 
 # ---- phase 6: training across processes -------------------------------------
 #
@@ -1823,6 +1903,9 @@ class DistProbe(Callback):
             else None,
             compile_time_s=m.get("compile_time_s"),
             compile_build_s=m.get("compile_build_s"),
+            init_path=trainer.init_path,
+            init_path_reason=trainer.init_path_reason,
+            init_peak=trainer.init_peak_bytes,
             env={k: os.environ.get(k) for k in (
                 SMOKE_DRIVER_ONLY, "CUDA_VISIBLE_DEVICES", "LOCAL_RANK")}))
 
@@ -1987,6 +2070,15 @@ def dist_phase(seed: int, ref_rows):
             problems)
     if fsdp["backend"] != "nccl":
         problems.append(f"dist_fsdp ran on {fsdp['backend']}")
+    # 12 (d): FSDP builds on the meta device and fills its shards leaf
+    # by leaf; the rows above are phase 5's bitwise all the same
+    if fsdp["init_path"] != "meta":
+        problems.append(f"dist_fsdp initialised {fsdp['init_path']} "
+                        f"({fsdp['init_path_reason']})")
+    print(json.dumps(dict(phase="meta_init", fit="dist_fsdp",
+                          init_path=fsdp["init_path"],
+                          init_peak_gib=fsdp["init_peak"] / 2**30)),
+          flush=True)
     for k, v in fsdp["launches"].items():
         total[k] += v
 
@@ -3282,8 +3374,11 @@ def serve_metrics_phase(model, ecfg, reqs, ref, ref_done):
 
 def _trace_kernels(path: str):
     """{wrapper: kernel events} of the train kernels in an exported
-    Chrome trace (by symbol), and the trace's kernel-launch calls on the
-    host that have no kernel event (by correlation id)."""
+    Chrome trace (by symbol), the trace's kernel-launch calls on the
+    host that have no kernel event (by correlation id), and the most
+    that a kernel's start precedes its own launch call, in µs (positive
+    only when the device's timestamps run early against the host's: a
+    kernel that seems to start before its window opens is dropped)."""
     import re
 
     from ray_lightning_tpu_torch.telemetry.profiler import _LAUNCH
@@ -3293,10 +3388,13 @@ def _trace_kernels(path: str):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = [e.get("name", "") for e in kernels]
     seen = {e.get("args", {}).get("correlation") for e in kernels}
-    orphans = [e for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver")
-               and _LAUNCH.match(e.get("name", ""))
-               and e.get("args", {}).get("correlation") not in seen]
+    calls = {e.get("args", {}).get("correlation"): e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and _LAUNCH.match(e.get("name", ""))}
+    lead_us = max((float(calls[c]["ts"]) - float(k["ts"]) for k in kernels
+                   if (c := k.get("args", {}).get("correlation")) in calls),
+                  default=None)
+    orphans = [e for c, e in calls.items() if c not in seen]
     if orphans:
         # which launches lost their kernels: the host op each was made
         # in, and its place among the window's launches
@@ -3316,7 +3414,7 @@ def _trace_kernels(path: str):
                 if inside else None))
         log(f"launches without a kernel in {path}: {json.dumps(lost)}")
     return {fn: sum(bool(re.search(pat, n)) for n in names)
-            for fn, pat in TRAIN_SYMBOLS.items()}, len(orphans)
+            for fn, pat in TRAIN_SYMBOLS.items()}, len(orphans), lead_us
 
 
 def telemetry_train(seed: int, ref_rows, ref_step_s: float):
@@ -3392,15 +3490,16 @@ def telemetry_train(seed: int, ref_rows, ref_step_s: float):
             in_session = {fn: sum(n for key, n in events.items()
                                   if re.search(pat, key))
                           for fn, pat in TRAIN_SYMBOLS.items()}
-            in_trace, orphans = (_trace_kernels(rec_["trace"])
-                                 if rec_.get("trace") else ({}, None))
+            in_trace, orphans, lead_us = (
+                _trace_kernels(rec_["trace"]) if rec_.get("trace")
+                else ({}, None, None))
             runs[name].update(
                 captures=ctl.captures, empty_captures=ctl.empty_captures,
                 incomplete_captures=ctl.incomplete_captures,
                 kernel_launches=rec_.get("kernel_launches"),
                 lost_kernel_events=rec_.get("lost_kernel_events"),
                 trace_launches_without_kernel=orphans,
-                disabled=ctl.disabled_reason, window=[rec_.get("start_step"),
+                kernel_lead_us=lead_us, disabled=ctl.disabled_reason, window=[rec_.get("start_step"),
                                                       rec_.get("end_step")],
                 kernels_in_session=in_session, kernels_in_trace=in_trace,
                 trace_mib=os.path.getsize(rec_["trace"]) / 2**20
@@ -3562,7 +3661,7 @@ def profile_sessions_child(first: str, sessions: int) -> None:
 DISTURBANCES = tuple((kind, primers)
                      for kind in ("clean", "decode", "serve2", "serve16",
                                   "clean")
-                     for primers in (0, 16))
+                     for primers in (0, 16, 64))
 
 
 def disturb(kind: str, models: dict) -> None:
@@ -3606,14 +3705,15 @@ class WindowProbe(Callback):
         step = trainer.global_step
         if self.cap is not None and step == self.stop_at:
             rec = self.cap.stop()
-            counts, orphans = _trace_kernels(rec["trace"])
+            counts, orphans, lead_us = _trace_kernels(rec["trace"])
             os.remove(rec["trace"])
             self.rows.append(dict(
                 after=self.kind, primers=self.primers,
                 start_step=self.start,
                 kernel_launches=rec["kernel_launches"],
                 lost_kernel_events=rec["lost_kernel_events"],
-                trace_launches_without_kernel=orphans, train_kernels=counts))
+                trace_launches_without_kernel=orphans, kernel_lead_us=lead_us,
+                train_kernels=counts))
             self.cap = None
         if self.cap is None and step % 3 == 1 and \
                 len(self.rows) < len(DISTURBANCES):
@@ -4007,6 +4107,298 @@ def hot_loop_perf() -> None:
 
 
 #: every CUDA source the kernels are built from
+# ---- phase 12: the planner and the tensor axis on the card ------------------
+#
+# (a) reads phase 5's trainer before it is freed; (b) and (c) run after
+# phase 10 (a). (c)'s two ranks are processes of their own that import
+# this file by its name, so the worker is module level.
+
+#: phase 12 (b)'s optimizer steps at the planned batch
+BMAX_STEPS = 2
+#: phase 12 (c): tensor ranks (processes) on the one card, over gloo
+TP_RANKS = 2
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "rlt_logs", "chip_smoke_tp")
+TP_TIMEOUT_S = 420
+
+
+def live_bytes(trainer, module) -> dict:
+    """The bytes a fitted trainer holds: its parameters' storage (each
+    rank's shard) and its optimizer's state tensors."""
+    from ray_lightning_tpu_torch.parallel.tensor import local
+
+    opt = trainer.state.optimizer
+    return dict(
+        params=sum(local(p).untyped_storage().nbytes()
+                   for p in module.params.values()),
+        opt=sum(local(t).untyped_storage().nbytes()
+                for st in opt.state.values() for t in st.values()
+                if isinstance(t, torch.Tensor)))
+
+
+def _plan(strategy, n: int, batch: int, kind: str = None):
+    """`plan_train_memory` of phase 5's model under ``strategy`` with the
+    flagship activation bound at ``batch`` x TS (no card touched)."""
+    from ray_lightning_tpu_torch.parallel.plan import (
+        H100_KIND,
+        llama_activation_bytes,
+        plan_train_memory,
+    )
+
+    cfg, _ = train_inputs(SEED)
+    return plan_train_memory(
+        LlamaModule(cfg), strategy, n, None,
+        activation_bytes_per_device=llama_activation_bytes(cfg, batch, TS)
+        if batch else 0, device_kind=kind or H100_KIND)
+
+
+def planned_max_batch():
+    """`find_max_local_batch` for phase 5's model on one card at TS."""
+    from ray_lightning_tpu_torch.parallel.plan import (
+        find_max_local_batch,
+        llama_activation_bytes,
+    )
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    cfg, _ = train_inputs(SEED)
+    return find_max_local_batch(
+        LlamaModule(cfg), SingleDevice(), 1, None,
+        lambda b: llama_activation_bytes(cfg, b, TS))
+
+
+def plan_terms(plan) -> dict:
+    return dict(params=plan.params_bytes_per_device,
+                opt=plan.opt_bytes_per_device,
+                grads=plan.grads_bytes_per_device,
+                activations=plan.activation_bytes_per_device,
+                total=plan.per_device_total, budget=plan.budget)
+
+
+def plan_vs_fit(live: dict, problems: list) -> None:
+    """12 (a): phase 5's fit against its plan, term by term."""
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    t0 = time.perf_counter()
+    plan = _plan(SingleDevice(), 1, TB, torch.cuda.get_device_name(0))
+    plan_s = time.perf_counter() - t0
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    if plan.params_bytes_per_device != live["params"]:
+        problems.append(f"plan params {plan.params_bytes_per_device} != "
+                        f"live {live['params']}")
+    if plan.opt_bytes_per_device != live["opt"]:
+        problems.append(f"plan optimizer {plan.opt_bytes_per_device} != "
+                        f"live {live['opt']}")
+    if not plan.per_device_total >= live["peak"]:
+        problems.append(f"plan total {plan.per_device_total} < the fit's "
+                        f"peak {live['peak']}")
+    if not plan.hbm_bytes_per_device <= total_memory:
+        problems.append(f"the table's {plan.hbm_bytes_per_device} bytes "
+                        f"exceed the card's {total_memory}")
+    print(json.dumps(dict(
+        phase="plan_vs_fit", plan=plan_terms(plan), live=live,
+        plan_minus_peak_gib=(plan.per_device_total - live["peak"]) / 2**30,
+        hbm_bytes=plan.hbm_bytes_per_device, total_memory=total_memory,
+        plan_s=plan_s, summary=plan.summary())), flush=True)
+
+
+def bmax_phase(seed: int, problems: list) -> dict:
+    """12 (b): `find_max_local_batch`'s batch, trained BMAX_STEPS steps in
+    this process: no OOM and a peak within the plan. Returns the
+    kernels' launches."""
+    import numpy as np
+
+    b_max, plan = planned_max_batch()
+    cfg, _ = train_inputs(seed)
+    tokens = np.random.default_rng(seed).integers(
+        0, TRAIN_TOKENS, (BMAX_STEPS * b_max, TS + 1)).astype(np.int64)
+    free_card("bmax")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    probe, wall, peak, _ = train_once(cfg, tokens, seed, batch=b_max,
+                                      steps=BMAX_STEPS)
+    launches = {k.__name__: k.launches for k in kernels}
+    if launches != expected_launches(BMAX_STEPS):
+        problems.append(f"bmax launches {launches}")
+    if not peak <= plan.per_device_total:
+        problems.append(f"B_max {b_max}: peak {peak} > plan "
+                        f"{plan.per_device_total}")
+    losses = [r[0] for r in probe.rows]
+    if not all(map(np.isfinite, losses)):
+        problems.append(f"B_max losses {losses}")
+    step_s = probe.t[-1] - probe.t[-2]
+    print(json.dumps(dict(
+        phase="bmax", b_max=b_max, seq=TS, steps=BMAX_STEPS,
+        plan=plan_terms(plan), peak=peak,
+        plan_minus_peak_gib=(plan.per_device_total - peak) / 2**30,
+        losses=losses, step_s=step_s, tokens_per_s=b_max * TS / step_s,
+        fit_wall_s=wall, launches=launches)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_worker(rank: int, world: int, port: int, seed: int,
+              out: str) -> None:
+    """One rank of 12 (c): phase 5's fit under ``ShardedMesh(tensor=
+    world)`` in a gloo group on the visible card; writes its per-step
+    rows, launches, parameter and optimizer bytes and peak to ``out``."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    cfg, tokens = train_inputs(seed)
+    probe = StepProbe()
+
+    class Zero(Callback):
+        def on_fit_start(self, trainer, module):
+            for k in all_kernels():
+                k.launches = 0
+
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(strategy=ShardedMesh(tensor=world),
+                      max_steps=TRAIN_STEPS, log_every_n_steps=1,
+                      enable_checkpointing=False, enable_progress_bar=False,
+                      seed=seed, callbacks=[Zero(), probe.callback])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    # both ranks of the tensor group read every row
+    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB))
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump(dict(
+            rank=rank, rows=probe.rows, t=probe.t, t_loop=probe.t_loop,
+            fit_wall_s=time.perf_counter() - t0,
+            launches={k.__name__: k.launches for k in all_kernels()},
+            peak=torch.cuda.max_memory_allocated(),
+            backend=dist.get_backend(), init_path=trainer.init_path,
+            init_peak=trainer.init_peak_bytes,
+            device=str(trainer.strategy.device),
+            mesh=trainer.strategy.mesh_shape,
+            **live_bytes(trainer, module)), f)
+    dist.destroy_process_group()
+
+
+def tp_phase(seed: int, ref_rows, problems: list) -> dict:
+    """12 (c): TP_RANKS processes on the one card, each a rank of
+    ``ShardedMesh(tensor=TP_RANKS)`` over gloo, against phase 5's rows.
+    A correctness lane, not a speed: every all-reduce crosses the host.
+    Returns the kernels' launches, both ranks together."""
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+    from ray_lightning_tpu_torch.utils.dist import find_free_port
+
+    free_card("tensor_parallel")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    port = find_free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    outs = [os.path.join(TP_DIR, f"rank{r}.json") for r in range(TP_RANKS)]
+    logs = [open(os.path.join(TP_DIR, f"rank{r}.log"), "w")
+            for r in range(TP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.tp_worker({r}, {TP_RANKS}, "
+         f"{port}, {seed}, {outs[r]!r})"],
+        cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(TP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, TP_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        problems.append(f"tensor-parallel ranks still running after "
+                        f"{TP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    total = {k.__name__: 0 for k in all_kernels()}
+    if any(p.returncode for p in procs) or not all(map(os.path.exists,
+                                                       outs)):
+        tails = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (rc {procs[r].returncode}): "
+                             + f.read()[-3000:])
+        problems.append("tensor-parallel ranks failed: " + " | ".join(tails))
+        return total
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    plan = _plan(ShardedMesh(tensor=TP_RANKS), TP_RANKS, TB)
+    want = expected_launches(TRAIN_STEPS)
+    d_loss, d_gn, rel = compare_train(ranks[0]["rows"], ref_rows)
+    problems.extend(f"tensor lane against phase 5: {p}" for p in rel)
+    for r in ranks:
+        if r["rows"] != ranks[0]["rows"]:
+            problems.append(f"rank {r['rank']}'s rows differ from rank 0's")
+        if r["launches"] != want:
+            problems.append(f"rank {r['rank']} launches {r['launches']} "
+                            f"!= {want} (H {TH // TP_RANKS} / Hkv "
+                            f"{THKV // TP_RANKS} a launch)")
+        if r["params"] != plan.params_bytes_per_device:
+            problems.append(f"rank {r['rank']} holds {r['params']} "
+                            "parameter bytes, the plan "
+                            f"{plan.params_bytes_per_device}")
+        if r["opt"] != plan.opt_bytes_per_device:
+            problems.append(f"rank {r['rank']} holds {r['opt']} optimizer "
+                            f"bytes, the plan {plan.opt_bytes_per_device}")
+        if r["backend"] != "gloo" or r["init_path"] != "meta":
+            problems.append(f"rank {r['rank']}: {r['backend']}, "
+                            f"{r['init_path']} init")
+        for k, v in r["launches"].items():
+            total[k] += v
+    t = ranks[0]["t"]
+    step_s = statistics.median(b - a for a, b in zip(t[2:], t[3:]))
+    print(json.dumps(dict(
+        phase="tensor_parallel", ranks=TP_RANKS, backend="gloo",
+        lane="correctness (every all-reduce crosses the host)",
+        mesh=ranks[0]["mesh"], heads_a_rank=TH // TP_RANKS,
+        kv_heads_a_rank=THKV // TP_RANKS,
+        losses=[r[0] for r in ranks[0]["rows"]],
+        grad_norms=[r[1] for r in ranks[0]["rows"]],
+        loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+        plan=plan_terms(plan),
+        params_bytes=[r["params"] for r in ranks],
+        opt_bytes=[r["opt"] for r in ranks],
+        peak_gib=[r["peak"] / 2**30 for r in ranks],
+        init_peak_gib=[r["init_peak"] / 2**30 for r in ranks],
+        step_s_p50=step_s, tokens_per_s=TB * TS / step_s,
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], call_wall_s=wall,
+        launches=[r["launches"] for r in ranks])), flush=True)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    return total
+
+
+def planner_phase(seed: int, ref_rows, live: dict) -> dict:
+    """Phase 12 (a)-(c); returns the kernels' launches of (b) and (c)."""
+    problems = []
+    plan_vs_fit(live, problems)
+    total = bmax_phase(seed, problems)
+    for k, v in tp_phase(seed, ref_rows, problems).items():
+        total[k] += v
+    if problems:
+        raise AssertionError("the planner and the tensor axis: "
+                             + "; ".join(problems))
+    return total
+
+
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm"]
 
@@ -4118,7 +4510,7 @@ def main() -> int:
     # 5. training at full width, 4 layers deep
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_rows, train_step_s = train_phase(SEED)
+    train_launches, train_rows, train_step_s, train_live = train_phase(SEED)
     lap("train")
 
     # 9a. the same fit with the span recorder and a profile window
@@ -4129,6 +4521,11 @@ def main() -> int:
     # synchronous one
     hot_launches = hot_loop_sync(SEED, train_rows)
     lap("hot_loop_sync")
+
+    # 12. the planner against the card's memory (phase 5's fit; the
+    # planned batch) and the tensor axis in two processes on the card
+    plan_launches = planner_phase(SEED, train_rows, train_live)
+    lap("planner")
 
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint and its resume, and the
@@ -4172,12 +4569,15 @@ def main() -> int:
         phase10_s=sum(walls[k] for k in ("hot_loop_sync", "hot_loop_remote",
                                          "hot_loop_perf")),
         phase11_s=t_11ab + walls["driver_process"],
+        # (d)'s share is inside phases 6-8 and 10 (b)
+        phase12_s=walls["planner"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
 
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
                 + tel_launches[k] + dist_launches[k] + sweep_launches[k]
                 + res_launches.get(k, 0) + hot_launches[k]
+                + plan_launches[k]
                 for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",

@@ -11,13 +11,17 @@
     python -m ray_lightning_tpu_torch serve example [--replicas N] \\
         [--backend process] [--device cpu]
     python -m ray_lightning_tpu_torch serve --smoke --device cpu
+    python -m ray_lightning_tpu_torch plan [--preset llama3-8b] \
+        [--data D --fsdp F --tensor T] [--batch B --seq S] \
+        [--find-max-batch] [--json]
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
 
 ``supervise`` is resilience/cli.py; ``report``, ``monitor``,
 ``timeline`` and ``watch`` read a telemetry-enabled run's directory
 (telemetry/); ``perf`` measures the hot loop's prefetch overlap, warm
 start and FSDP schedule (pipeline/cli.py); ``serve`` runs the replica
-driver and its smoke gate (serve/cli.py); ``--probe`` times a chain of
+driver and its smoke gate (serve/cli.py); ``plan`` is the pre-flight
+memory plan on the meta device (parallel/cli.py); ``--probe`` times a chain of
 bf16 matmuls on the card (utils/probe.py) beside its spec-sheet peak.
 """
 import argparse
@@ -49,6 +53,7 @@ def run_probe(args) -> int:
 
 
 def main(argv=None) -> int:
+    from ray_lightning_tpu_torch.parallel.cli import add_plan_parser, run_plan
     from ray_lightning_tpu_torch.pipeline.cli import add_perf_parser, run_perf
     from ray_lightning_tpu_torch.resilience.cli import (
         add_supervise_parser,
@@ -85,11 +90,12 @@ def main(argv=None) -> int:
     add_watch_parser(sub)
     add_perf_parser(sub)
     add_serve_parser(sub)
+    add_plan_parser(sub)
     args = ap.parse_args(argv)
     commands = {"supervise": run_supervise, "report": run_report,
                 "monitor": run_monitor, "timeline": run_timeline,
                 "watch": run_watch, "perf": run_perf,
-                "serve": run_serve}
+                "serve": run_serve, "plan": run_plan}
     if args.command in commands:
         return commands[args.command](args)
     if args.probe:

@@ -275,9 +275,16 @@ def sharding_provenance(mesh, params: Optional[Dict[str, Any]] = None
                 specs[name] = []
                 continue
             dims: List[Any] = [None] * p.dim()
-            for axis, pl in zip(names, placements):
+            # the parameter's own mesh (under the tensor axis, FSDP2's
+            # data-parallel dims with the tensor dim)
+            own = getattr(getattr(p, "device_mesh", None),
+                          "mesh_dim_names", None) or names
+            for axis, pl in zip(own, placements):
                 if pl.is_shard():
-                    dims[pl.dim] = axis
+                    # two axes on one dimension (fsdp over tensor) list
+                    # both, outer first
+                    dims[pl.dim] = axis if dims[pl.dim] is None else [
+                        dims[pl.dim], axis]
             specs[name] = dims
         out["param_specs"] = specs
     return out

@@ -52,6 +52,7 @@ is where the kernel libraries are built and loaded
 from __future__ import annotations
 
 import contextlib
+import inspect
 import itertools
 import logging
 import os
@@ -207,6 +208,14 @@ class Trainer:
         self.last_batch_size: Optional[int] = None
         self._seed = 0
         self.is_fitted = False
+        #: how the fit built and initialised the weights: "meta" (built on
+        #: the meta device, wrapped, each rank's shards filled leaf by
+        #: leaf) or "eager" (built whole on the device), and why eager
+        self.init_path: Optional[str] = None
+        self.init_path_reason: Optional[str] = None
+        #: the card's peak allocation read right after the weights' init
+        #: (None off the card)
+        self.init_peak_bytes: Optional[int] = None
 
     # ------------------------------------------------------------------ fit
 
@@ -238,7 +247,7 @@ class Trainer:
             if not any(isinstance(c, GuardCallback) for c in self.callbacks):
                 self.callbacks.append(GuardCallback(self.guard))
         self.strategy.setup(module)
-        module.setup()
+        self._build_model(module)
         self._setup_telemetry()
 
         if datamodule is not None:
@@ -625,8 +634,6 @@ class Trainer:
         """The model, optimizer and schedule state (DCP, each rank its
         own shards; every rank must call this) and the trainer's place in
         the run (meta.json)."""
-        from torch.distributed.checkpoint.state_dict import get_state_dict
-
         from ray_lightning_tpu_torch.checkpoint.io import (
             io_stats,
             save_checkpoint,
@@ -663,8 +670,8 @@ class Trainer:
                              "updates": updates}
         meta["blessed"] = blessed
         if state.optimizer is not None:
-            params, opt_state = get_state_dict(self.module.model,
-                                               state.optimizer)
+            params, opt_state = self.strategy.state_dicts(self.module.model,
+                                                          state.optimizer)
         else:
             params, opt_state = state.model.state_dict(), {}
         checkpoint = {"params": params, "opt_state": opt_state,
@@ -683,11 +690,6 @@ class Trainer:
 
     def _restore(self, ckpt_path: str, state: TrainState) -> None:
         """Load a checkpoint into the freshly built state, in place."""
-        from torch.distributed.checkpoint.state_dict import (
-            get_state_dict,
-            set_state_dict,
-        )
-
         from ray_lightning_tpu_torch.checkpoint.io import (
             read_meta,
             restore_checkpoint,
@@ -698,14 +700,14 @@ class Trainer:
             raise FileNotFoundError(
                 f"no checkpoint at {ckpt_path!r} (no meta.json)")
         model = self.module.model
-        params, opt_state = get_state_dict(model, state.optimizer)
-        target = {"params": params, "opt_state": opt_state, "step": 0}
+        params, opt_state = self.strategy.state_dicts(model, state.optimizer)
+        target = {"params": params, "step": 0, "opt_state": opt_state}
         if state.scheduler is not None:
             target["scheduler"] = state.scheduler.state_dict()
         restored = restore_checkpoint(ckpt_path, target)
-        set_state_dict(model, state.optimizer,
-                       model_state_dict=restored["params"],
-                       optim_state_dict=restored["opt_state"])
+        self.strategy.load_state_dicts(model, state.optimizer,
+                                       restored["params"],
+                                       restored["opt_state"])
         if state.scheduler is not None:
             state.scheduler.load_state_dict(restored["scheduler"])
         state.step = int(restored["step"])
@@ -764,15 +766,64 @@ class Trainer:
             module.model))
         return loader
 
+    def _meta_refusal(self, module: TpuModule) -> Optional[str]:
+        """Why the fit cannot build ``module`` on the meta device (None:
+        it can)."""
+        if not self.strategy.meta_init:
+            return f"{type(self.strategy).__name__} holds whole weights"
+        if module.params is not None:
+            return "the module's weights are given"
+        if module.model is not None:
+            return "the module's model was built before the fit"
+        if type(module).configure_model is TpuModule.configure_model:
+            return f"{type(module).__name__} has no configure_model"
+        if "place" not in inspect.signature(module.init_params).parameters:
+            return (f"{type(module).__name__}.init_params takes no place= "
+                    "(it fills whole weights in place)")
+        return None
+
+    def _build_model(self, module: TpuModule) -> None:
+        """Build the module's model: on the meta device when the strategy
+        shards it and the module can fill shards (`_init_state` wraps it
+        and fills each rank's part), else eagerly on the device. The path
+        and the reason for an eager build are recorded."""
+        why = self._meta_refusal(module)
+        if why is None:
+            real = module.device
+            module.device = torch.device("meta")
+            try:
+                module.setup()
+            finally:
+                module.device = real
+            self.init_path, self.init_path_reason = "meta", None
+        else:
+            module.setup()
+            self.init_path, self.init_path_reason = "eager", why
+
     def _init_state(self, module: TpuModule, example_batch,
                     ckpt_path: Optional[str] = None) -> TrainState:
         if module.params is not None:
             # pre-loaded weights (e.g. params_from_jax)
             self._load_params(module)
+            self._wrap(module)
+        elif self.init_path == "meta":
+            # wrapped on the meta device, then each rank's shards filled
+            # from the full values drawn leaf by leaf: no rank holds the
+            # whole model
+            self._wrap(module)
+            module.model.to_empty(device=self.strategy.device)
+            module.init_params(self._init_generator(),
+                               self._place(example_batch),
+                               place=self.strategy.place_full_value)
+            module.params = dict(
+                self.strategy.unwrap(module.model).named_parameters())
         else:
             module.init_params(self._init_generator(),
                                self._place(example_batch))
-        self._wrap(module)
+            self._wrap(module)
+        if self.strategy.device.type == "cuda":
+            self.init_peak_bytes = torch.cuda.max_memory_allocated(
+                self.strategy.device)
         out = module.configure_optimizers()
         opt, sched = out if isinstance(out, tuple) else (out, None)
         state = TrainState(step=0, model=self.strategy.unwrap(module.model),

@@ -36,6 +36,16 @@ Four attention paths, as in `LlamaBlock.__call__`:
 The pool is updated IN PLACE (`index_put_`), where the JAX model returns
 a new pool that its jit donates; the same holds for the dense cache.
 
+Under the mesh's ``tensor`` axis (`parallel.strategy.ShardedMesh`,
+`enable_tensor_parallel`) the training path runs each rank's shards with
+the Megatron layout of `llama_param_specs`: ``wqkv`` and ``w_gate_up``
+column-parallel (each rank its own q heads, KV groups and gate/up
+columns; `parallel.tensor`), ``wo`` and ``w_down`` row-parallel with
+their f32 partials summed before the one rounding, the embedding and
+the lm_head split by vocabulary (a masked lookup; the vocab-parallel
+chunked CE), the norm gains replicated. Attention runs on the local
+heads, ``H/tp`` q heads over ``Hkv/tp`` KV heads.
+
 Weights live in one state dict whose keys mirror the flax tree:
 ``tok_embed``, ``layers.{i}.{attn_norm,wqkv,wo,mlp_norm,w_gate_up,
 w_down}``, ``final_norm``, ``lm_head``; linears in the `nn.Linear`
@@ -63,14 +73,20 @@ from ray_lightning_tpu_torch.ops.attention import (
     paged_attention,
     paged_prefill,
 )
-from ray_lightning_tpu_torch.ops.fused_ce import fused_cross_entropy_sum
-from ray_lightning_tpu_torch.ops.norms import rms_norm
-from ray_lightning_tpu_torch.ops.precision import (
-    linear_f32_acc,
-    linear_f32_out,
-    pin_f32_accumulation,
+from ray_lightning_tpu_torch.ops.fused_ce import (
+    fused_cross_entropy_sum,
+    vocab_parallel_cross_entropy_sum,
 )
+from ray_lightning_tpu_torch.ops.norms import rms_norm
+from ray_lightning_tpu_torch.ops.precision import pin_f32_accumulation
 from ray_lightning_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_lightning_tpu_torch.parallel.tensor import (
+    column_linear,
+    local,
+    row_linear,
+    vocab_parallel_embedding,
+    vocab_parallel_logits,
+)
 from ray_lightning_tpu_torch.utils.devices import resolve_device
 
 
@@ -143,6 +159,9 @@ def _param(shape, dtype, device) -> nn.Parameter:
 class LlamaBlock(nn.Module):
     #: `parallel.strategy.FSDP` shards each block as its own unit
     fsdp_unit = True
+    #: the rank's tensor group (`parallel.tensor.TensorParallel`), or
+    #: None off the tensor axis
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, device: torch.device,
                  param_dtype=None):
@@ -170,8 +189,15 @@ class LlamaBlock(nn.Module):
         cfg = self.cfg
         hd, n_q, n_kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         B, S = x.shape[0], x.shape[1]
-        h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        qkv = linear_f32_acc(h, self.wqkv.to(cfg.dtype))
+        tp = self.tp
+        if tp is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "serving under the tensor axis is not ported yet "
+                    "(ROADMAP Queue 1 item 8: tensor-parallel replicas)")
+            n_q, n_kv = n_q // tp.size, n_kv // tp.size
+        h = rms_norm(x, local(self.attn_norm), cfg.norm_eps)
+        qkv = column_linear(h, local(self.wqkv).to(cfg.dtype), tp)
         q, k, v = torch.split(qkv, [n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.reshape(B, S, n_q, hd)
         k = k.reshape(B, S, n_kv, hd)
@@ -249,13 +275,14 @@ class LlamaBlock(nn.Module):
     def _finish(self, x, attn):
         """The output projection, the residual and the SwiGLU MLP."""
         cfg = self.cfg
-        B, S = x.shape[0], x.shape[1]
-        x = x + linear_f32_acc(attn.reshape(B, S, -1), self.wo.to(cfg.dtype))
-        h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        gate, up = linear_f32_acc(h, self.w_gate_up.to(cfg.dtype)).chunk(
-            2, dim=-1)
-        return x + linear_f32_acc(F.silu(gate) * up,
-                                  self.w_down.to(cfg.dtype))
+        B, S, tp = x.shape[0], x.shape[1], self.tp
+        x = x + row_linear(attn.reshape(B, S, -1),
+                           local(self.wo).to(cfg.dtype), tp)
+        h = rms_norm(x, local(self.mlp_norm), cfg.norm_eps)
+        gate, up = column_linear(
+            h, local(self.w_gate_up).to(cfg.dtype), tp).chunk(2, dim=-1)
+        return x + row_linear(F.silu(gate) * up,
+                              local(self.w_down).to(cfg.dtype), tp)
 
 
 class Llama(nn.Module):
@@ -263,7 +290,8 @@ class Llama(nn.Module):
     serving over one.
 
     Built with empty weights on ``device`` (default the CUDA card; raises
-    without one unless ``device="cpu"``): fill them with `init_weights`,
+    without one unless ``device="cpu"``; ``"meta"`` builds shapes only,
+    for the planner and the sharded init): fill them with `init_weights`,
     `init_params_` or `load_state_dict(params_from_jax(...))`. Matmul
     weights and the embedding are stored in ``param_dtype`` (default
     ``cfg.dtype``; the trainer passes float32), norm gains in f32. The
@@ -284,14 +312,32 @@ class Llama(nn.Module):
             [LlamaBlock(cfg, dev, wd) for _ in range(cfg.n_layers)])
         self.final_norm = _param((cfg.dim,), torch.float32, dev)
         self.lm_head = _param((cfg.vocab_size, cfg.dim), wd, dev)
-        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
-                                    cfg.rope_theta, device=dev)
-        self.register_buffer("cos", cos, persistent=False)
-        self.register_buffer("sin", sin, persistent=False)
+        self.tp = None
+        self.register_buffer("cos", None, persistent=False)
+        self.register_buffer("sin", None, persistent=False)
+        self.reset_rope_(dev)
+
+    def reset_rope_(self, device=None) -> None:
+        """(Re)compute the RoPE tables on ``device`` (default the
+        weights'): after `to_empty`, a meta-built model's are garbage."""
+        dev = self.device if device is None else device
+        self.cos, self.sin = rope_frequencies(
+            self.cfg.head_dim, self.cfg.max_seq_len, self.cfg.rope_theta,
+            device=dev)
+
+    def enable_tensor_parallel(self, tp) -> None:
+        """Run the training path on this rank's shards of the tensor group
+        ``tp`` (`parallel.tensor.TensorParallel`); the strategy has made
+        the weights those shards (`parallel.strategy.ShardedMesh`)."""
+        check_tensor_parallel(self.cfg, tp.size)
+        self.tp = tp
+        for layer in self.layers:
+            layer.tp = tp
 
     @property
     def device(self) -> torch.device:
-        return self.tok_embed.device
+        t = self.tok_embed
+        return t.to_local().device if hasattr(t, "to_local") else t.device
 
     def hidden(self, tokens: torch.Tensor, cache=None, pos=None, pad=None,
                paged=None) -> torch.Tensor:
@@ -301,7 +347,8 @@ class Llama(nn.Module):
         leaves stacked over layers ([L, ...]); each layer's slice is
         updated in place."""
         cfg = self.cfg
-        x = self.tok_embed[tokens.long()].to(cfg.dtype)
+        x = vocab_parallel_embedding(tokens, local(self.tok_embed),
+                                     self.tp).to(cfg.dtype)
         if cache is None:
             remat = cfg.remat and torch.is_grad_enabled()
             for layer in self.layers:
@@ -314,11 +361,14 @@ class Llama(nn.Module):
             for i, layer in enumerate(self.layers):
                 x = layer(x, self.cos, self.sin, (ck[i], cv[i]), pos,
                           pad=pad, paged=paged)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+        return rms_norm(x, local(self.final_norm), cfg.norm_eps)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """lm_head projection keeping the f32 accumulator."""
-        return linear_f32_out(h.contiguous(), self.lm_head.to(self.cfg.dtype))
+        """lm_head projection keeping the f32 accumulator (under the
+        tensor axis, every rank's vocabulary slice gathered)."""
+        return vocab_parallel_logits(h.contiguous(),
+                                     local(self.lm_head).to(self.cfg.dtype),
+                                     self.tp)
 
     def forward(self, tokens: torch.Tensor, cache=None, pos=None, pad=None,
                 paged=None, *, targets: Optional[torch.Tensor] = None,
@@ -333,7 +383,16 @@ class Llama(nn.Module):
         if targets is None:
             return self.logits(h)
         cfg = self.cfg
-        if cfg.use_fused_ce:
+        if self.tp is not None:
+            # the vocab-split loss: chunked and recomputed as the fused CE,
+            # or one tile of every token (the materialized logits' loss)
+            fused = cfg.use_fused_ce
+            loss_sum, count = vocab_parallel_cross_entropy_sum(
+                h, local(self.lm_head), targets, self.tp, mask,
+                chunk_tokens=(cfg.ce_chunk_tokens if fused
+                              else targets.numel()),
+                compute_dtype=cfg.dtype, checkpointed=fused)
+        elif cfg.use_fused_ce:
             loss_sum, count = fused_cross_entropy_sum(
                 h, self.lm_head, targets, mask,
                 chunk_tokens=cfg.ce_chunk_tokens, compute_dtype=cfg.dtype,
@@ -345,18 +404,34 @@ class Llama(nn.Module):
         return loss_sum / denominator
 
 
-def init_params_(model: Llama, generator: torch.Generator) -> Llama:
+def init_params_(model: Llama, generator: torch.Generator,
+                 place=None) -> Llama:
     """Fill ``model``'s weights in place from ``generator`` (which lives
     on the model's device), scaled like flax's initialisers: linears
     normal(0, 1/sqrt(fan_in)) (lecun_normal, without its truncation), the
-    embedding normal(0, 1/sqrt(dim)), norm gains one."""
+    embedding normal(0, 1/sqrt(dim)), norm gains one.
+
+    With ``place`` (the sharded init of a model whose weights are shards,
+    `parallel.strategy`): each weight's FULL value is drawn in the same
+    order on the generator's device and handed to ``place(name, param,
+    full)``, which keeps the rank's shard; the full tensor is freed before
+    the next. The values are the eager init's, bit for bit."""
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if place is not None:
+                full = torch.empty(tuple(p.shape), dtype=p.dtype,
+                                   device=generator.device)
+            else:
+                full = p
             if p.dim() == 1:
-                p.fill_(1.0)
-                continue
-            fan_in = model.cfg.dim if name == "tok_embed" else p.shape[1]
-            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                full.fill_(1.0)
+            else:
+                fan_in = model.cfg.dim if name == "tok_embed" else p.shape[1]
+                full.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                             generator=generator)
+            if place is not None:
+                place(name, p, full)
+                del full
     return model
 
 
@@ -369,6 +444,61 @@ def init_weights(cfg: LlamaConfig, generator: torch.Generator,
 
 _LAYER_KERNELS = ("wqkv", "wo", "w_gate_up", "w_down")
 _LAYER_NORMS = ("attn_norm", "mlp_norm")
+
+#: per-layer tensor-parallel placement (twin of the JAX `_PER_LAYER_SPECS`)
+#: in the port's ``[out, in]`` layout, so each JAX column split is a split
+#: of dim 0 here: column-parallel wqkv and w_gate_up, row-parallel wo and
+#: w_down, replicated norm gains
+_PER_LAYER_SPECS: Dict[str, tuple] = {
+    "wqkv": ("tensor", None),
+    "wo": (None, "tensor"),
+    "w_gate_up": ("tensor", None),
+    "w_down": (None, "tensor"),
+    "attn_norm": (),
+    "mlp_norm": (),
+}
+
+
+def llama_param_specs(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """Megatron-style tensor-parallel placement of every weight (twin of
+    the JAX `llama_param_specs`), keyed by the port's parameter names:
+    per-dimension mesh axes, ``()`` replicated. The embedding and the
+    lm_head split the vocabulary. The strategies overlay ``fsdp`` on a
+    free dimension."""
+    specs: Dict[str, tuple] = {"tok_embed": ("tensor", None),
+                               "final_norm": (),
+                               "lm_head": ("tensor", None)}
+    for i in range(cfg.n_layers):
+        for k, v in _PER_LAYER_SPECS.items():
+            specs[f"layers.{i}.{k}"] = v
+    return specs
+
+
+def llama_fused_rows(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """The fused weights' row groups, by parameter name: ``wqkv`` is
+    q|k|v, ``w_gate_up`` gate|up. A tensor split keeps each group's
+    share together on every rank (`parallel.tensor.fused_row_permutation`)."""
+    hd = cfg.head_dim
+    out: Dict[str, tuple] = {}
+    for i in range(cfg.n_layers):
+        out[f"layers.{i}.wqkv"] = (cfg.n_heads * hd, cfg.n_kv_heads * hd,
+                                   cfg.n_kv_heads * hd)
+        out[f"layers.{i}.w_gate_up"] = (cfg.hidden_dim, cfg.hidden_dim)
+    return out
+
+
+def check_tensor_parallel(cfg: LlamaConfig, tensor: int) -> None:
+    """``tensor`` must divide every dimension a rank's shard splits: the
+    KV heads (each rank whole KV groups), the q heads, the MLP width and
+    the vocabulary. Raises naming the first that it does not."""
+    for what, n in (("n_kv_heads", cfg.n_kv_heads), ("n_heads", cfg.n_heads),
+                    ("hidden_dim", cfg.hidden_dim),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tensor:
+            raise ValueError(
+                f"tensor={tensor} does not divide {what}={n}: a tensor "
+                "rank holds whole KV groups, q heads, MLP columns and "
+                "vocabulary rows")
 
 
 def params_from_jax(params_np: Dict[str, Any], cfg: LlamaConfig,
@@ -573,9 +703,26 @@ class LlamaModule(TpuModule):
         return Llama(self.cfg, device=self.device,
                      param_dtype=torch.float32).requires_grad_(True)
 
-    def init_params(self, generator: torch.Generator, batch=None):
-        init_params_(self.model, generator)
+    def init_params(self, generator: torch.Generator, batch=None,
+                    place=None):
+        """`init_params_`; with ``place`` (the trainer's sharded init of a
+        meta-built, wrapped model) each full weight goes through it, and
+        the RoPE tables are recomputed on the generator's device."""
+        if place is not None:
+            self.model.reset_rope_(generator.device)
+        init_params_(self.model, generator, place)
         return dict(self.model.named_parameters())
+
+    def param_specs(self, params=None) -> Dict[str, tuple]:
+        """The tensor-parallel placement (`llama_param_specs`)."""
+        return llama_param_specs(self.cfg)
+
+    def fused_rows(self) -> Dict[str, tuple]:
+        """The fused weights' row groups (`llama_fused_rows`)."""
+        return llama_fused_rows(self.cfg)
+
+    def check_tensor_parallel(self, tensor: int) -> None:
+        check_tensor_parallel(self.cfg, tensor)
 
     def schedule(self, step):
         """The learning rate of update ``step`` (0-based; an int, or a

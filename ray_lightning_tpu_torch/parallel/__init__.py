@@ -6,13 +6,14 @@ _NAMES = {
     "MeshSpec": "mesh",
     "make_mesh": "mesh",
     "AXIS_ORDER": "mesh",
+    **{n: "plan" for n in (
+        "MemoryPlan", "find_max_local_batch", "hbm_bytes_for_kind",
+        "llama_activation_bytes", "plan_train_memory")},
     **{n: "strategy" for n in (
         "Strategy", "DataParallel", "FSDP", "ShardedMesh", "SingleDevice",
         "RayXlaPlugin")},
 }
-_MISSING = {n: "ROADMAP Queue 1 item 4 (parallel/plan.py)" for n in (
-    "MemoryPlan", "find_max_local_batch", "hbm_bytes_for_kind",
-    "llama_activation_bytes", "plan_train_memory")}
+_MISSING: dict = {}
 
 __all__ = list(_NAMES)
 

@@ -16,8 +16,9 @@ Canonical axis names (outer→inner), as in the JAX package:
     seq     — sequence/context parallelism
     tensor  — tensor (Megatron-style) parallelism inside a layer
 
-Only ``data`` and ``fsdp`` are built in this port so far; a mesh that
-asks for more raises, naming the ROADMAP item that brings it.
+The port builds ``data``, ``fsdp`` and ``tensor``; a mesh that asks for
+``pipe``, ``expert`` or ``seq`` raises, naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -34,7 +35,6 @@ _NOT_PORTED = {
     "pipe": "Queue 1 item 13 (ops/pipeline.py on NCCL P2P)",
     "expert": "Queue 1 item 13 (all_to_all_single for MoE)",
     "seq": "Queue 1 item 13 (ops/ring_attention.py, ops/ulysses.py)",
-    "tensor": "Queue 1 item 4 (ShardedMesh, the Megatron layout)",
 }
 
 
@@ -71,11 +71,13 @@ class MeshSpec:
                 "available")
         return MeshSpec(**sizes)
 
-    def build(self, device_type: str, primary: str = "data"):
+    def build(self, device_type: str, primary: str = "data",
+              keep: tuple = ()):
         """A `DeviceMesh` over the process group's ranks (one device a
-        rank), with a dimension for each axis larger than one, or a
-        single ``primary`` dimension when every axis is one. The default
-        process group must be initialised."""
+        rank), with a dimension for each axis larger than one (and each
+        axis in ``keep``, at any size), or a single ``primary`` dimension
+        when there is none. The default process group must be
+        initialised."""
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
@@ -83,10 +85,11 @@ class MeshSpec:
             if getattr(self, ax) != 1:
                 raise NotImplementedError(
                     f"a mesh with {ax}={getattr(self, ax)} is not ported "
-                    f"yet (ROADMAP {why}); the port builds the data and "
-                    "fsdp axes")
+                    f"yet (ROADMAP {why}); the port builds the data, "
+                    "fsdp and tensor axes")
         sizes = self.resolve(dist.get_world_size()).sizes()
-        names = tuple(ax for ax in AXIS_ORDER if sizes[ax] > 1) or (primary,)
+        names = tuple(ax for ax in AXIS_ORDER
+                      if sizes[ax] > 1 or ax in keep) or (primary,)
         return init_device_mesh(device_type, tuple(sizes[n] for n in names),
                                 mesh_dim_names=names)
 
@@ -134,7 +137,8 @@ def mesh_sizes(mesh) -> dict[str, int]:
 
 
 def dp_axis_names(mesh) -> tuple[str, ...]:
-    """Axes that carry the batch: every non-trivial axis except tensor/seq."""
+    """Axes that carry the batch: every non-trivial axis except tensor/seq
+    (of the built ones, data and fsdp)."""
     shape = mesh_sizes(mesh)
     return tuple(
         ax for ax in ("data", "fsdp", "expert") if shape.get(ax, 1) > 1

@@ -11,7 +11,15 @@ collectives run:
   * `FSDP` — FSDP2 `fully_shard`, one unit per block the model marks
     (``fsdp_unit = True``; `LlamaBlock`) plus the root, each parameter
     sharded on the dimension `fsdp_auto_spec` picks (the JAX rule);
+  * `ShardedMesh` — data × fsdp × tensor: the module's `param_specs`
+    (the Megatron layout) over ``mesh["tensor"]`` as DTensors, then
+    `fully_shard` over the data × fsdp sub-mesh (HSDP when data > 1);
   * `RayXlaPlugin` — `DataParallel` with the reference's constructor.
+
+`FSDP` and `ShardedMesh` build the model on the meta device, wrap it,
+and fill each rank's shards from the full value drawn leaf by leaf
+(`place_full_value`; `core.trainer.Trainer`), so no rank ever holds the
+whole model.
 
 ``overlap=`` is the FSDP all-gather schedule: ``"off"`` keeps FSDP2's
 defaults, ``"on"`` prefetches the next unit's weights explicitly in
@@ -43,6 +51,11 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.parallel import mesh as mesh_lib
+from ray_lightning_tpu_torch.parallel.tensor import (
+    TensorParallel,
+    fused_row_permutation,
+    local_piece,
+)
 from ray_lightning_tpu_torch.utils.devices import (
     DeviceLike,
     rank_device,
@@ -58,6 +71,9 @@ class Strategy:
 
     #: mesh axis of a one-dimensional mesh
     primary_axis = "data"
+    #: does the trainer build the model on the meta device and fill the
+    #: wrapped shards leaf by leaf (`place_full_value`)?
+    meta_init = False
 
     def __init__(self, num_workers: Optional[int] = None,
                  init_hook: Optional[Callable[[], None]] = None,
@@ -109,12 +125,68 @@ class Strategy:
     def teardown(self) -> None:
         self.mesh = None
 
+    def build_spec(self, n_devices: int) -> mesh_lib.MeshSpec:
+        return mesh_lib.MeshSpec()
+
+    def shape_only(self, n_devices: int, module=None) -> None:
+        """Lay the strategy on a shape-only mesh of ``n_devices`` (the
+        planner's twin of the JAX `AbstractMesh`): axis sizes, no process
+        group, no device."""
+        self.spec = self.build_spec(n_devices).resolve(n_devices)
+        self.mesh = None
+
     # ---- sharding policy -------------------------------------------------
 
     def param_spec(self, path: str, shape) -> tuple:
         """Per-dimension mesh axes of one parameter (the JAX
         PartitionSpec as a tuple). Default: replicate."""
         return ()
+
+    def planned_shard(self, path: str, shape) -> tuple:
+        """(storage shape, shape) of this rank's part of one parameter,
+        as `wrap_model` lays it out, from shapes alone (the planner):
+        the storage may be padded. Default: the whole parameter."""
+        return tuple(shape), tuple(shape)
+
+    def data_shard(self, rank: int, world: int) -> tuple:
+        """(shard index, shard count) of the data a process of ``rank``
+        among ``world`` reads: one shard a data-parallel rank."""
+        return rank, world
+
+    # ---- meta-device init and the state dict's layout ----------------------
+
+    def place_full_value(self, name: str, param, full) -> None:
+        """Keep this rank's part of ``full``, the whole value of the
+        wrapped parameter ``name``, in ``param``."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(param, DTensor):
+            param.to_local().copy_(local_piece(
+                self.layout_value(name, full), param.device_mesh,
+                param.placements))
+        else:
+            param.copy_(full)
+
+    def layout_value(self, name: str, full):
+        """A whole parameter in the wrapped model's row order (the
+        canonical one except under the tensor axis)."""
+        return full
+
+    def state_dicts(self, model, optimizer) -> tuple:
+        """The wrapped model's and its optimizer's FQN-keyed state dicts
+        (DCP's `get_state_dict`) in the canonical layout: what a
+        checkpoint holds and what a restore reads into."""
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+
+        return get_state_dict(model, optimizer)
+
+    def load_state_dicts(self, model, optimizer, params, osd) -> None:
+        """Load `state_dicts`' canonical dicts into the wrapped model and
+        its optimizer."""
+        from torch.distributed.checkpoint.state_dict import set_state_dict
+
+        set_state_dict(model, optimizer, model_state_dict=params,
+                       optim_state_dict=osd)
 
     # ---- placement and reductions ----------------------------------------
 
@@ -181,9 +253,6 @@ class _GroupStrategy(Strategy):
     """A strategy over a `torch.distributed` process group: one process
     per device, ``num_workers`` processes."""
 
-    def build_spec(self, n_devices: int) -> mesh_lib.MeshSpec:
-        raise NotImplementedError
-
     def _setup_device(self) -> None:
         import torch.distributed as dist
 
@@ -206,7 +275,12 @@ class _GroupStrategy(Strategy):
             self.device = rank_device(self._device_arg, num_processes=1)
             self._start_group()
         self.spec = self.build_spec(dist.get_world_size())
-        self.mesh = self.spec.build(self.device.type, self.primary_axis)
+        self.mesh = self.spec.build(self.device.type, self.primary_axis,
+                                    keep=self._kept_axes())
+
+    def _kept_axes(self) -> tuple:
+        """Mesh axes built even at size one."""
+        return ()
 
     def _start_group(self) -> None:
         """A one-rank group of this process (NCCL on the card, gloo on
@@ -319,6 +393,7 @@ class FSDP(_GroupStrategy):
     """
 
     primary_axis = "fsdp"
+    meta_init = True
 
     def __init__(self, *args, min_shard_size: int = 2**10, **kwargs):
         super().__init__(*args, **kwargs)
@@ -327,9 +402,24 @@ class FSDP(_GroupStrategy):
     def build_spec(self, n_devices: int) -> mesh_lib.MeshSpec:
         return mesh_lib.MeshSpec(fsdp=n_devices)
 
+    def _sizes(self) -> Dict[str, int]:
+        """{axis: size} of every axis (the built mesh's, or the planner's
+        shape-only spec; all one before either)."""
+        if self.mesh is not None:
+            return {**mesh_lib.MeshSpec().sizes(), **self.mesh_shape}
+        spec = getattr(self, "spec", None)
+        return (spec or mesh_lib.MeshSpec()).sizes()
+
     def param_spec(self, path: str, shape) -> tuple:
-        return fsdp_auto_spec(tuple(shape), self.mesh_shape.get("fsdp", 1),
+        return fsdp_auto_spec(tuple(shape), self._sizes()["fsdp"],
                               self.min_shard_size)
+
+    def _fsdp_dim(self, path: str, shape) -> int:
+        """The dimension FSDP2 shards: where the JAX rule puts ``fsdp``;
+        dimension 0 where it replicates (FSDP2 has no replicated
+        placement)."""
+        spec = self.param_spec(path, shape)
+        return spec.index("fsdp") if "fsdp" in spec else 0
 
     def _placement(self, param):
         from torch.distributed.tensor import Shard
@@ -337,16 +427,25 @@ class FSDP(_GroupStrategy):
         spec = self.param_spec("", param.shape)
         return Shard(spec.index("fsdp")) if "fsdp" in spec else None
 
+    def planned_shard(self, path: str, shape) -> tuple:
+        return _fsdp_shard(tuple(shape), self._fsdp_dim(path, shape),
+                           self._sizes()["fsdp"])
+
     def wrap_model(self, model):
-        from torch.distributed.fsdp import FSDPModule, fully_shard
+        from torch.distributed.fsdp import FSDPModule
 
         if isinstance(model, FSDPModule):
             return model
-        kw = dict(mesh=self.mesh, shard_placement_fn=self._placement)
-        units = []
-        for sub in model.modules():
-            if sub is not model and getattr(sub, "fsdp_unit", False):
-                units.append(fully_shard(sub, **kw))
+        return self._shard_units(model, self.mesh, self._placement)
+
+    def _shard_units(self, model, mesh, placement):
+        """`fully_shard` over ``mesh``: each marked block its own unit,
+        then the root, with ``overlap``'s prefetch between them."""
+        from torch.distributed.fsdp import fully_shard
+
+        kw = dict(mesh=mesh, shard_placement_fn=placement)
+        units = [fully_shard(sub, **kw) for sub in model.modules()
+                 if sub is not model and getattr(sub, "fsdp_unit", False)]
         root = fully_shard(model, **kw)
         self._set_overlap(root, units)
         return root
@@ -391,14 +490,360 @@ class FSDP(_GroupStrategy):
         return out
 
 
-class ShardedMesh(Strategy):
-    """The explicit N-D mesh strategy (dp × fsdp × tensor × seq ...)."""
+class ShardedMesh(FSDP):
+    """The explicit N-D mesh strategy, data × fsdp × tensor (twin of the
+    JAX `ShardedMesh`): ``ShardedMesh(data=2, fsdp=2, tensor=2)``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedMesh is not ported yet (ROADMAP Queue 1 item 4: the "
-            "tensor axis as DTensor with the Megatron layout of "
-            "llama_param_specs); use DataParallel or FSDP")
+    Each parameter's spec is the module's `param_specs` entry (the
+    Megatron layout of `models.llama.llama_param_specs`), checked
+    eagerly (RLT101-104, with the leaf's name), with ``fsdp`` laid on its
+    largest free divisible dimension (the JAX composition). The model is
+    wrapped in that order:
+
+      1. tensor parallelism over ``mesh["tensor"]``: each parameter
+         becomes a DTensor sharded on its ``tensor`` dimension or
+         replicated; a fused weight's rows are first put in head-aligned
+         order (the module's `fused_rows`; `parallel.tensor`), and the
+         model runs its tensor-parallel forward
+         (``enable_tensor_parallel``);
+      2. `fully_shard` over the data × fsdp sub-mesh: FSDP2 over
+         ``fsdp``, HSDP (replicated over ``data``) when data > 1, one
+         unit a marked block, with ``overlap=``'s prefetch over fsdp.
+
+    ``state_dict()``, checkpoints and `state_dicts` keep the
+    canonical row order, so a checkpoint crosses layouts. The loss and
+    metrics are averaged over the data-parallel ranks (data × fsdp); the
+    ranks of one tensor group read the same rows (`data_shard`). The
+    ``pipe``, ``expert`` and ``seq`` axes raise (ROADMAP Queue 1 item 13).
+    """
+
+    primary_axis = "data"
+
+    def __init__(self, data: int = 1, fsdp: int = 1, expert: int = 1,
+                 seq: int = 1, tensor: int = 1, pipe: int = 1,
+                 min_shard_size: int = 2**10, **kwargs):
+        super().__init__(min_shard_size=min_shard_size, **kwargs)
+        self._spec = mesh_lib.MeshSpec(data, fsdp, expert, seq, tensor,
+                                       pipe)
+        for ax, why in mesh_lib._NOT_PORTED.items():
+            if getattr(self._spec, ax) != 1:
+                raise NotImplementedError(
+                    f"ShardedMesh({ax}={getattr(self._spec, ax)}) is not "
+                    f"ported yet (ROADMAP {why}); the port builds the "
+                    "data, fsdp and tensor axes")
+        self._module = None
+        self.tp: Optional[TensorParallel] = None
+
+    def build_spec(self, n_devices: int) -> mesh_lib.MeshSpec:
+        return self._spec.resolve(n_devices)
+
+    def _kept_axes(self) -> tuple:
+        # data > 1 without fsdp is HSDP over a one-wide fsdp dimension:
+        # FSDP2's replicated (all-reduced) data parallelism
+        return ("fsdp",) if self.spec.data > 1 else ()
+
+    def bind_module(self, module) -> None:
+        super().bind_module(module)
+        self._module = module
+        # a typo'd axis needs no shapes: it raises here, at setup, by the
+        # leaf's name (the shape rules run when the model is wrapped)
+        for path, spec in self._module_specs().items():
+            self._require_known_axes(path, spec)
+        tensor = self._sizes()["tensor"]
+        if tensor > 1 and module is not None:
+            check = getattr(module, "check_tensor_parallel", None)
+            if check is None:
+                raise ValueError(
+                    f"ShardedMesh(tensor={tensor}): "
+                    f"{type(module).__name__} has no tensor-parallel "
+                    "forward (check_tensor_parallel, param_specs)")
+            check(tensor)
+
+    def shape_only(self, n_devices: int, module=None) -> None:
+        super().shape_only(n_devices, module)
+        self._module = module
+
+    # ---- the composed spec ------------------------------------------------
+
+    def _module_specs(self) -> Dict[str, tuple]:
+        fn = getattr(self._module, "param_specs", None)
+        return dict(fn() or {}) if fn is not None else {}
+
+    def leaf_spec(self, path: str, shape, module_specs=None) -> tuple:
+        """The composed spec of one parameter: the module's entry (its
+        axes checked against the mesh), size-one axes dropped, ``fsdp``
+        overlaid on the largest free divisible dimension; raises on a
+        malformed result."""
+        if module_specs is None:
+            module_specs = self._module_specs()
+        spec = module_specs.get(path)
+        if spec is None:
+            spec = ()
+        else:
+            self._require_known_axes(path, spec)
+        spec = self._adapt_spec(spec)
+        sizes = self._sizes()
+        if sizes["fsdp"] > 1 and "fsdp" not in _spec_names(spec):
+            spec = _augment_with_axis(spec, tuple(shape), "fsdp",
+                                      sizes["fsdp"], self.min_shard_size)
+        self._require_well_formed(path, spec, shape)
+        return tuple(spec)
+
+    def _require_known_axes(self, path: str, spec) -> None:
+        """A module spec naming an axis no mesh has (a size-one axis is
+        legal and dropped) raises: a typo would replicate the leaf."""
+        known = set(mesh_lib.AXIS_ORDER)
+        unknown = sorted(_spec_names(spec) - known)
+        if unknown:
+            raise ValueError(
+                f"param_specs for {path!r} names unknown mesh "
+                f"axis(es) {unknown} (mesh axes: {sorted(known)}) — a "
+                "typo here would silently replicate the leaf "
+                "[shardcheck RLT101]")
+
+    def _require_well_formed(self, path: str, spec, shape) -> None:
+        """RLT102-104 on the composed spec, at setup, by the leaf's name."""
+        from ray_lightning_tpu_torch.parallel.spec_check import spec_findings
+
+        errors = [f for f in spec_findings(spec, tuple(shape), self._sizes(),
+                                           path=path)
+                  if f.severity == "error"]
+        if errors:
+            raise ValueError("sharding plan is malformed:\n"
+                             + "\n".join(f.format() for f in errors))
+
+    def _adapt_spec(self, spec) -> tuple:
+        """Drop the axes of size one."""
+        sizes = self._sizes()
+        out = []
+        for dim in spec:
+            names = () if dim is None else (
+                tuple(dim) if isinstance(dim, (tuple, list)) else (dim,))
+            kept = tuple(n for n in names if sizes.get(n, 1) > 1)
+            out.append(kept if len(kept) > 1 else (kept[0] if kept
+                                                   else None))
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+    def _dims(self, path: str, shape, module_specs=None) -> tuple:
+        """(tensor dim or None, fsdp dim) of one parameter."""
+        spec = self.leaf_spec(path, shape, module_specs)
+        tdim = fdim = None
+        for i, dim in enumerate(spec):
+            names = dim if isinstance(dim, tuple) else (dim,)
+            if len([n for n in names if n is not None]) > 1:
+                raise NotImplementedError(
+                    f"{path}: spec {spec} shards one dimension over "
+                    "several axes; the port splits a dimension over one")
+            if "tensor" in names:
+                tdim = i
+            elif "fsdp" in names:
+                fdim = i
+            elif names != (None,):
+                raise NotImplementedError(
+                    f"{path}: the port shards parameters over fsdp and "
+                    f"tensor only, not {names}")
+        return tdim, (0 if fdim is None else fdim)
+
+    def planned_shard(self, path: str, shape, module_specs=None) -> tuple:
+        sizes = self._sizes()
+        tdim, fdim = self._dims(path, shape, module_specs)
+        shape = list(shape)
+        if tdim is not None:
+            shape[tdim] //= sizes["tensor"]
+        # HSDP's data replicas hold the same shard
+        return _fsdp_shard(tuple(shape), fdim, sizes["fsdp"])
+
+    def data_shard(self, rank: int, world: int) -> tuple:
+        tensor = self.build_spec(world).tensor
+        return rank // tensor, world // tensor
+
+    # ---- wrapping -----------------------------------------------------------
+
+    def _fused(self) -> Dict[str, tuple]:
+        fn = getattr(self._module, "fused_rows", None)
+        return dict(fn()) if fn is not None else {}
+
+    def _perm(self, name: str):
+        parts = self._fused().get(name)
+        if parts is None or self._sizes()["tensor"] <= 1:
+            return None
+        return fused_row_permutation(parts, self._sizes()["tensor"])
+
+    def layout_value(self, name: str, full):
+        perm = self._perm(name)
+        return full if perm is None else full[perm.to(full.device)]
+
+    def canonical_value(self, name: str, value):
+        """A wrapped parameter's value (or optimizer state) in the
+        canonical row order, as a DTensor on its mesh with plain shards
+        (a collective: the whole value is gathered)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        perm = self._perm(name)
+        if perm is None or not isinstance(value, DTensor):
+            return value
+        full = value.full_tensor()
+        canon = full[torch.argsort(perm).to(full.device)]
+        placements = tuple(Shard(p.dim) if type(p).__name__ ==
+                           "_StridedShard" else p for p in value.placements)
+        piece = local_piece(canon, value.device_mesh, placements).clone()
+        return DTensor.from_local(piece, value.device_mesh, placements,
+                                  run_check=False, shape=canon.shape,
+                                  stride=canon.stride())
+
+    def _as_param_layout(self, name: str, value, param):
+        """``value`` (canonical: a DTensor or a whole tensor) as a DTensor
+        laid out like the wrapped ``param``."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(value, DTensor):
+            if (self._perm(name) is None
+                    and value.device_mesh == param.device_mesh
+                    and value.placements == param.placements):
+                return value
+            value = value.full_tensor()
+        ploc = param.to_local()
+        full = self.layout_value(name, value.to(ploc.device))
+        piece = local_piece(full, param.device_mesh, param.placements)
+        return DTensor.from_local(piece.to(ploc.dtype).clone(),
+                                  param.device_mesh, param.placements,
+                                  run_check=False, shape=param.shape,
+                                  stride=param.stride())
+
+    def wrap_model(self, model):
+        from torch.distributed.fsdp import FSDPModule
+        from torch.distributed.tensor import Shard
+
+        if isinstance(model, FSDPModule) or getattr(model, "_rlt_wrapped",
+                                                    False):
+            return model
+        sizes = self._sizes()
+        specs = self._module_specs()
+        named = dict(model.named_parameters())
+        dims = {n: self._dims(n, p.shape, specs) for n, p in named.items()}
+        if sizes["tensor"] > 1:
+            self._shard_tensor(model, named, dims)
+        model._rlt_wrapped = True
+        dp = [ax for ax in ("data", "fsdp") if ax in self.mesh_shape]
+        if not dp:
+            return model
+        by_id = {id(p): n for n, p in model.named_parameters()}
+
+        def placement(param):
+            return Shard(dims[by_id[id(param)]][1])
+
+        return self._shard_units(
+            model, self.mesh[tuple(dp)] if len(dp) > 1 else self.mesh[dp[0]],
+            placement)
+
+    def _shard_tensor(self, model, named, dims) -> None:
+        """Each parameter as a DTensor over ``mesh["tensor"]``: its shard
+        of the (head-aligned) value, or the whole value replicated."""
+        from torch import nn
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        tp_mesh = self.mesh["tensor"]
+        self.tp = TensorParallel(tp_mesh.get_group(), tp_mesh.size(),
+                                 tp_mesh.get_local_rank())
+        for name, p in named.items():
+            tdim = dims[name][0]
+            value = self.layout_value(name, p.detach())
+            if tdim is None:
+                piece, placements = value, [Replicate()]
+            else:
+                piece = value.chunk(self.tp.size, dim=tdim)[self.tp.rank]
+                placements = [Shard(tdim)]
+            owner, _, attr = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            dt = DTensor.from_local(piece.clone(), tp_mesh, placements,
+                                    run_check=False)
+            setattr(mod, attr, nn.Parameter(dt,
+                                            requires_grad=p.requires_grad))
+        model.enable_tensor_parallel(self.tp)
+        # functions, not bound methods: the hook API marks its hooks
+        model.register_state_dict_post_hook(
+            lambda *a: self._state_dict_hook(*a))
+        model.register_load_state_dict_pre_hook(
+            lambda *a: self._load_hook(*a))
+
+    def _state_dict_hook(self, module, state_dict, prefix, local_metadata):
+        for key in list(state_dict):
+            name = key[len(prefix):]
+            if self._perm(name) is not None:
+                state_dict[key] = self.canonical_value(name,
+                                                       state_dict[key])
+
+    def _load_hook(self, module, state_dict, prefix, *args):
+        from torch.distributed.tensor import DTensor
+
+        params = dict(module.named_parameters())
+        for key in list(state_dict):
+            name = key[len(prefix):]
+            p = params.get(name)
+            if isinstance(p, DTensor):
+                state_dict[key] = self._as_param_layout(name,
+                                                        state_dict[key], p)
+
+    def state_dicts(self, model, optimizer) -> tuple:
+        params, osd = super().state_dicts(model, optimizer)
+        return params, _map_optim_state(osd, self.canonical_value)
+
+    def load_state_dicts(self, model, optimizer, params, osd) -> None:
+        from torch.distributed.tensor import DTensor
+
+        named = dict(self.unwrap(model).named_parameters())
+
+        def one(name, v):
+            p = named.get(name)
+            if isinstance(p, DTensor) and self._perm(name) is not None:
+                return self._as_param_layout(name, v, p)
+            return v
+
+        super().load_state_dicts(model, optimizer, params,
+                                 _map_optim_state(osd, one))
+
+    # ---- reductions -----------------------------------------------------------
+
+    @property
+    def dp_group(self):
+        dp = tuple(ax for ax in ("data", "fsdp") if ax in self.mesh_shape)
+        if not dp:
+            return None
+        if len(dp) == 1:
+            return self.mesh[dp[0]].get_group()
+        return self.mesh[dp]._flatten().get_group()
+
+    def global_norm(self, tensors) -> torch.Tensor:
+        """Each element once: the squares of the shards split over the
+        tensor axis summed over fsdp × tensor, those of replicated gains
+        over fsdp only (HSDP's data replicas hold the same values)."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        split, whole = [], []
+        for t in tensors:
+            sharded = False
+            if isinstance(t, DTensor):
+                names = t.device_mesh.mesh_dim_names or ()
+                sharded = any(n == "tensor" and pl.is_shard()
+                              for n, pl in zip(names, t.placements))
+            (split if sharded else whole).append(
+                t.to_local() if isinstance(t, DTensor) else t)
+        sq = torch.stack([global_norm(part).to(self.device).square()
+                          for part in (split, whole)])
+        if "fsdp" in self.mesh_shape and self.mesh_shape["fsdp"] > 1:
+            dist.all_reduce(sq, group=self.mesh["fsdp"].get_group())
+        if self.tp is not None:
+            part = sq[:1].clone()
+            dist.all_reduce(part, group=self.tp.group)
+            sq = torch.cat([part, sq[1:]])
+        return sq.sum().sqrt()
+
+    def teardown(self) -> None:
+        super().teardown()
+        self.tp = None
 
 
 class RayXlaPlugin(DataParallel):
@@ -432,6 +877,38 @@ class RayXlaPlugin(DataParallel):
 
 
 # ---- spec helpers --------------------------------------------------------
+
+
+def _fsdp_shard(shape: tuple, dim: int, n: int) -> tuple:
+    """(padded storage shape, shape) of rank 0's FSDP2 shard of ``shape``
+    split ``n`` ways on ``dim`` (``torch.chunk``: ceil-sized pieces, the
+    storage padded to one)."""
+    if n <= 1 or not shape:
+        return shape, shape
+    rows = -(-shape[dim] // n)
+    out = shape[:dim] + (rows,) + shape[dim + 1:]
+    return out, out
+
+
+def _spec_names(spec) -> set:
+    names = set()
+    for dim in spec:
+        if dim is None:
+            continue
+        for n in dim if isinstance(dim, (tuple, list)) else (dim,):
+            names.add(n)
+    return names
+
+
+def _map_optim_state(osd: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``osd`` (FQN-keyed, `get_state_dict`'s) with each tensor state of
+    a parameter passed through ``fn(name, value)``; scalars kept."""
+    state = {}
+    for name, entry in osd.get("state", {}).items():
+        state[name] = {k: (fn(name, v) if isinstance(v, torch.Tensor)
+                           and v.dim() > 0 else v)
+                       for k, v in entry.items()}
+    return {**osd, "state": state}
 
 
 def _augment_with_axis(spec: tuple, shape, axis_name: str, axis_size: int,

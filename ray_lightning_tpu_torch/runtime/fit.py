@@ -100,9 +100,11 @@ def _job_remote(kind: str, module_factory: Callable[[], Any],
         data = (data, None)
     train_data, val_data = data
     # the reference's forcing guarantee (ray_ddp.py:293-303): shard
-    # arguments are injected, unshardable inputs are an error
-    train_data = ensure_sharded(train_data, world, rank, stage="train")
-    val_data = ensure_sharded(val_data, world, rank, stage="val")
+    # arguments are injected, unshardable inputs are an error. A shard a
+    # data-parallel rank: the ranks of a tensor group read the same rows
+    index, count = trainer.strategy.data_shard(rank, world)
+    train_data = ensure_sharded(train_data, count, index, stage="train")
+    val_data = ensure_sharded(val_data, count, index, stage="val")
     trainer.fit(module, train_data, val_data, ckpt_path=ckpt_path)
 
     out_ckpt = None

@@ -248,8 +248,7 @@ class ReplicaGroupConfig:
         if self.tp > 1:
             raise NotImplementedError(
                 "tensor-parallel replicas (tp > 1) are not ported yet "
-                "(ROADMAP Queue 1 item 4: the tensor axis, then item 8: "
-                "tensor-parallel replicas)")
+                "(ROADMAP Queue 1 item 8: tensor-parallel replicas)")
 
 
 @dataclasses.dataclass

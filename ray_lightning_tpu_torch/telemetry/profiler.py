@@ -49,7 +49,9 @@ log = logging.getLogger(__name__)
 DEFAULT_MARKER = "CAPTURE"
 
 #: kernels a capture on a card launches in its warm-up, before it records
-PRIMER_LAUNCHES = 16
+#: (a session has lost the records of up to 21 first launches: 16 primers
+#: and 5 of its window)
+PRIMER_LAUNCHES = 64
 
 #: the host calls that launch one kernel each (runtime and driver API)
 _LAUNCH = re.compile(r"^cu(da)?Launch(Cooperative)?Kernel")

@@ -21,13 +21,15 @@ LOCAL_RANK_ENV = "LOCAL_RANK"
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a `torch.device`; None means ``"cuda"``. Raises
-    when CUDA is asked for and no card is present."""
+    when CUDA is asked for and no card is present. ``"meta"`` (shapes
+    without storage: the planner, the sharded init) is accepted and
+    touches no device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -181,7 +181,8 @@ def test_refusals(setup):
                                            "kill_after_tokens": 1})
     with pytest.raises(ValueError, match="npz"):
         ServeDriver(model.cfg, model, _cfg(backend="process"))
-    with pytest.raises(NotImplementedError, match="item 4.*item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="item 8: tensor-parallel replicas"):
         _cfg(backend="process", tp=2)
     with pytest.raises(NotImplementedError, match="speculative"):
         _cfg(draft_model_cfg=model.cfg)

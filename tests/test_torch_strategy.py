@@ -91,6 +91,21 @@ def test_topology_without_a_group():
                                        ("expert", "item 13"),
                                        ("pipe", "item 13")])
 def test_unported_mesh_axes_raise(axis, item):
+    """The seq, expert and pipe axes raise naming item 13. Item 4 brought
+    the tensor axis: a mesh with it builds (here in a one-rank gloo
+    group, kept at size one), and one the group cannot form raises."""
+    if axis == "tensor":
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            built = mesh.MeshSpec(tensor=-1).build("cpu", keep=("tensor",))
+            assert built.mesh_dim_names == ("tensor",)
+            assert mesh.batch_size_divisor(built) == 1
+            with pytest.raises(ValueError, match="covers 2 devices"):
+                mesh.MeshSpec(tensor=2).build("cpu")
+        finally:
+            dist.destroy_process_group()
+        return
     with pytest.raises(NotImplementedError, match=item):
         mesh.MeshSpec(**{axis: 2}).build("cpu")
     with pytest.raises(NotImplementedError, match=item):
@@ -166,14 +181,18 @@ def test_resolve_loaders():
 
 def test_unported_strategy_knobs_raise():
     """``overlap=`` is ported (FSDP2 prefetch; held bitwise by
-    tests/test_torch_overlap.py); an unknown schedule and the tensor
-    axis of `ShardedMesh` still raise."""
+    tests/test_torch_overlap.py); an unknown schedule raises. `ShardedMesh`
+    is ported with its tensor axis (item 4); its seq axis still raises,
+    naming item 13."""
     assert FSDP(overlap="on", device="cpu").overlap == "on"
     assert DataParallel(overlap="serial", device="cpu").overlap == "serial"
     with pytest.raises(ValueError, match="overlap"):
         DataParallel(overlap="sometimes")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ShardedMesh(data=2, tensor=2)
+    assert ShardedMesh(data=2, tensor=2).build_spec(4).sizes()["tensor"] == 2
+    for axis in ("seq", "pipe", "expert"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            ShardedMesh(**{axis: 2}, device="cpu")
+    assert not dist.is_initialized()
 
 
 def test_num_workers_beyond_devices_raise(monkeypatch):

@@ -27,9 +27,8 @@ ITEM = {
          "reshard_restore": "item 12"},
     "core": {n: "item 2" for n in (
         "chunk_tokens", "pack_sequences", "tokenize_and_pack")},
-    "parallel": {n: "item 4" for n in (
-        "MemoryPlan", "find_max_local_batch", "hbm_bytes_for_kind",
-        "llama_activation_bytes", "plan_train_memory")},
+    # item 4 brought the planner (parallel/plan.py): every name resolves
+    "parallel": {},
     "runtime": {"launch_cpu_spmd": "gloo"},
     "serve": {"serve_kv_plan_bytes": "item 8"},
     "models": {**{n: "item 13" for n in (

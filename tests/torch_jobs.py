@@ -132,21 +132,23 @@ def make_strategy(name, **kw):
     from ray_lightning_tpu_torch.parallel.strategy import (
         FSDP,
         DataParallel,
+        ShardedMesh,
         SingleDevice,
     )
 
-    return {"ddp": DataParallel, "fsdp": FSDP,
+    return {"ddp": DataParallel, "fsdp": FSDP, "sharded": ShardedMesh,
             "single": SingleDevice}[name](device="cpu", **kw)
 
 
 def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
-            every_n_train_steps=None, **strategy_kw):
+            every_n_train_steps=None, extra=(), **strategy_kw):
     """A Llama trainer that reports rank 0's steps over the side channel,
-    with a step-cadence `ModelCheckpoint` into ``ckpt_dir`` if given."""
+    with a step-cadence `ModelCheckpoint` into ``ckpt_dir`` if given and
+    the callbacks named in ``extra`` (classes of this module)."""
     from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
     from ray_lightning_tpu_torch.core.trainer import Trainer
 
-    callbacks = [StepRows()]
+    callbacks = [StepRows(), *(globals()[name]() for name in extra)]
     if ckpt_dir is not None:
         callbacks.append(ModelCheckpoint(
             dirpath=ckpt_dir, every_n_train_steps=every_n_train_steps,
@@ -156,6 +158,183 @@ def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
                    gradient_clip_val=clip, log_every_n_steps=1,
                    enable_checkpointing=False, enable_progress_bar=False,
                    callbacks=callbacks, seed=0)
+
+
+def _np_full(t):
+    """A (DTensor) tensor's whole value as numpy."""
+    t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return t.float().numpy().copy()
+
+
+def full_state(trainer, module):
+    """Every rank together: the model's and the optimizer's whole state in
+    the canonical layout ({name: array}, {name: {key: array}}); the
+    step counts are left out."""
+    params, opt = trainer.strategy.state_dicts(module.model,
+                                               trainer.state.optimizer)
+    return ({k: _np_full(v) for k, v in params.items()},
+            {name: {k: _np_full(v) for k, v in entry.items()
+                    if k != "step"}
+             for name, entry in opt["state"].items()})
+
+
+class LiveBytes(Callback):
+    """At the fit's end every rank sends ("live", rank, its parameters'
+    storage bytes, its optimizer state's): what the planner plans."""
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch.parallel.tensor import local
+        from ray_lightning_tpu_torch.runtime import session
+
+        opt = trainer.state.optimizer
+        session.put_queue((
+            "live", session.get_actor_rank(),
+            sum(local(p).untyped_storage().nbytes()
+                for p in module.params.values()),
+            sum(local(t).untyped_storage().nbytes()
+                for st in opt.state.values() for t in st.values())))
+
+
+class InitState(Callback):
+    """At the fit's start (after the init or the restore): rank 0 sends
+    ("init", params, optimizer state, RoPE tables recomputed?, init path,
+    reason), gathered by every rank in the canonical layout."""
+
+    def on_fit_start(self, trainer, module):
+        import torch
+
+        from ray_lightning_tpu_torch.ops.rope import rope_frequencies
+        from ray_lightning_tpu_torch.runtime import session
+
+        params, opt = full_state(trainer, module)
+        model = trainer.strategy.unwrap(module.model)
+        cfg = model.cfg
+        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                    cfg.rope_theta)
+        rope = bool(torch.equal(model.cos, cos) and torch.equal(model.sin,
+                                                                sin))
+        if session.get_actor_rank() == 0:
+            session.put_queue(("init", params, opt, rope, trainer.init_path,
+                               trainer.init_path_reason))
+
+
+class Placements(Callback):
+    """At the fit's start rank 0 sends ("placements", {name: the class
+    names of its parameter's DTensor placements})."""
+
+    def on_fit_start(self, trainer, module):
+        from ray_lightning_tpu_torch.runtime import session
+
+        if session.get_actor_rank() == 0:
+            session.put_queue(("placements", {
+                n: [type(pl).__name__ for pl in getattr(p, "placements", ())]
+                for n, p in module.params.items()}))
+
+
+def _tp_rank_setup(params_np, toks, mask, cfg_kw, strategy_kw):
+    """The tiny Llama with ``params_np`` wrapped under ``ShardedMesh(
+    **strategy_kw)``, and this rank's data-parallel rows of the global
+    batch: (module, strategy, tokens, mask or None)."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    module = llama_module(params_np, **cfg_kw)
+    strategy = make_strategy("sharded", **strategy_kw)
+    strategy.setup(module)
+    module.setup()
+    with torch.no_grad():
+        module.model.load_state_dict(module.params)
+    module.model = strategy.wrap_model(module.model)
+    model = strategy.unwrap(module.model)
+    module.params = dict(model.named_parameters())
+    module.trainer = types.SimpleNamespace(strategy=strategy)
+    index, count = strategy.data_shard(rank, world)
+    rows = np.array_split(np.arange(len(toks)), count)[index]
+    t = torch.from_numpy(np.asarray(toks)[rows])
+    m = None if mask is None else torch.from_numpy(np.asarray(mask)[rows])
+    return module, strategy, t, m
+
+
+def _canonical_grads(module, strategy):
+    return {n: _np_full(strategy.canonical_value(n, p.grad))
+            for n, p in module.params.items()}
+
+
+def tp_grads(params_np, toks, mask, cfg_kw, strategy_kw):
+    """One loss and backward of the tiny Llama under ``ShardedMesh(
+    **strategy_kw)`` on this rank's data-parallel rows of the global
+    batch (``toks``, ``mask``): rank 0 returns (loss, {name: the whole
+    gradient in the canonical layout}, the logits of its rows, gathered
+    over the tensor group)."""
+    import torch
+
+    module, strategy, t, m = _tp_rank_setup(params_np, toks, mask, cfg_kw,
+                                            strategy_kw)
+    loss = module._loss(module.params, t[:, :-1], t[:, 1:], m)
+    loss.backward()
+    grads = _canonical_grads(module, strategy)
+    loss = strategy.reduce_mean({"loss": loss.detach()})["loss"]
+    with torch.no_grad():
+        logits = module.apply(module.params, t[:, :-1])
+    return float(loss), grads, logits.numpy()
+
+
+def logits_loss(logits, seed):
+    """A loss of the whole logits [B, S, V] that reads every vocabulary
+    column: the seeded weighted sum of their log-softmax."""
+    import torch
+
+    w = np.random.default_rng(seed).standard_normal(tuple(logits.shape))
+    return (logits.log_softmax(-1) * torch.from_numpy(w).to(logits.dtype)
+            ).sum() / logits.shape[0]
+
+
+def tp_logit_grads(params_np, toks, cfg_kw, strategy_kw, seed):
+    """The gradient of `logits_loss` of ``model(tokens)`` (the gathered
+    logits, no targets) under ``ShardedMesh(**strategy_kw)``: rank 0
+    returns (loss, {name: the whole gradient in the canonical layout})."""
+    module, strategy, t, _ = _tp_rank_setup(params_np, toks, None, cfg_kw,
+                                            strategy_kw)
+    loss = logits_loss(module.apply(module.params, t[:, :-1]), seed)
+    loss.backward()
+    return float(loss), _canonical_grads(module, strategy)
+
+
+def vocab_parallel_ce(seed, n_tokens, vocab, dim, chunk):
+    """The vocab-split chunked CE of seeded inputs over this rank's
+    vocabulary rows, and its gradients: rank 0 returns (loss sum, the
+    hidden states' gradient, the whole lm_head gradient)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.ops.fused_ce import (
+        vocab_parallel_cross_entropy_sum,
+    )
+    from ray_lightning_tpu_torch.parallel.tensor import TensorParallel
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    tp = TensorParallel(dist.group.WORLD, world, rank)
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.standard_normal((2, n_tokens // 2, dim)),
+                     dtype=torch.float32, requires_grad=True)
+    w_full = torch.tensor(rng.standard_normal((vocab, dim)) / dim ** 0.5,
+                          dtype=torch.float32)
+    t = torch.tensor(rng.integers(0, vocab, (2, n_tokens // 2)))
+    m = torch.tensor((rng.random((2, n_tokens // 2)) > 0.2)
+                     .astype(np.float32))
+    w = w_full.chunk(world)[rank].clone().requires_grad_(True)
+    loss, count = vocab_parallel_cross_entropy_sum(
+        h, w, t, tp, m, chunk_tokens=chunk, compute_dtype=torch.float32)
+    loss.backward()
+    parts = [torch.empty_like(w.grad) for _ in range(world)]
+    dist.all_gather(parts, w.grad)
+    return (float(loss), float(count), h.grad.numpy(),
+            torch.cat(parts).numpy())
 
 
 def llama_data(toks, mask=None, batch_size=2):
