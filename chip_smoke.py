@@ -207,6 +207,44 @@ Phases, each of which raises (and so exits nonzero) on failure:
                at every row of (b)'s batch (B_max x 2048 at D 4096,
                f32 gain). ``phase12_s`` in
                the ``timing`` line.
+ 13. the rest of serving — (a) inside phase 4, its greedy requests
+               through an inline ``ServeDriver`` session whose replica
+               drafts with an independent 4-layer Llama-3-8B (bf16,
+               another seed) at ``DraftConfig(k=4)``: each stream phase
+               4's token for token but where the plain lane's top-2
+               margin at the first parting is under ``LOGIT_TOL`` (printed
+               with its step), the launches by the speculative formula
+               (no paged kernel; RMSNorm 2L+1 a target call, 2L'+1 a
+               draft call), the draft's live weight and pool bytes equal
+               to `speculative_plan`'s, ``accepted_tokens_per_step``,
+               tokens/s, TPOT and the peak; then phase 4's model
+               drafting for itself (a reading); (b) a 2-layer full-width
+               f32 model drafting for itself on 2 greedy requests:
+               ``accepted_tokens_per_step == 4`` (a rejection only where
+               the f32 plain lane's margin is under 1e-4 of its largest
+               logit, printed) and the streams those of the base engine's
+               f32 reference lanes; the RMSNorm kernel on f32 rows first
+               held at the lane's row counts; (c) inside phase 11 (c),
+               its params file and requests through a live session on a
+               ``tp=2`` process replica (two ranks sharing the card over
+               gloo, H 16 / Hkv 4 a rank): streams 11 (c)'s one-card ones
+               under (a)'s margin rule (a sampled request's margin taken
+               on its Gumbel-perturbed scores, the bound over its
+               temperature), each rank's launches by phase 4's formula
+               and its weight, pool and logits bytes equal to
+               `serve_memory_summary(tp=2)`'s; a correctness lane, not a
+               speed; (d) phase 4's serve plan against its engine: the
+               weights, the pool and ``last_logits`` to the byte, the
+               gathered view the kernels retire above the kernel lanes'
+               peak increment, the verdict lines; (e) ``serve llama3-8b
+               --autotune`` at phase 4's geometry (block sizes 8-256 at
+               span 4096), every candidate's kernels held against their
+               plain versions here as well as by the sweep, each
+               candidate's times, and the winner's engine serving one of
+               phase 4's greedy requests as phase 4 did (the margin
+               rule). ``DECODE_OWED``/``PREFILL_OWED`` hold the tp 2
+               heads and block sizes 8, 64, 128 and 256. ``phase13_s``
+               in the ``timing`` line.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`: the device's busy share and
                the kernels with the most device time. It runs last
@@ -330,6 +368,13 @@ DECODE_OWED = {
     "P 32": (H, HKV, HD, 32, 128, DECODE_LENGTHS, (0, 0, 0, 0)),
     "length 1": (H, HKV, HD, P, M, (1, 4096, 2, 1), (0, 4095, 1, 0)),
     "length 0": (H, HKV, HD, P, M, (0, 1537, 0, 33), (0, 0, 0, 0)),
+    # phase 13 (c): a tensor-parallel replica's rank, H 16 / Hkv 4
+    "tp 2": (H // 2, HKV // 2, HD, P, M, DECODE_LENGTHS, (0, 0, 0, 0)),
+    # phase 13 (e): the autotune's block sizes no row above holds
+    "P 8": (H, HKV, HD, 8, 512, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "P 64": (H, HKV, HD, 64, 64, DECODE_LENGTHS, (0, 100, 0, 0)),
+    "P 128": (H, HKV, HD, 128, 32, DECODE_LENGTHS, (0, 0, 0, 0)),
+    "P 256": (H, HKV, HD, 256, 16, DECODE_LENGTHS, (0, 0, 300, 0)),
 }
 #: prefill shapes beyond the serving one, checked untimed: name -> (CH,
 #: H, Hkv, hd, P, M, pos, one pad per row)
@@ -341,6 +386,11 @@ PREFILL_OWED = {
     "P 24": (CH, H, HKV, HD, 24, 171, 1000, (0, 50)),
     "P 32": (CH, H, HKV, HD, 32, 128, 3968, (0,)),
     "CH 100": (100, H, HKV, HD, P, M, 1000, (0, 7)),
+    "tp 2": (CH, H // 2, HKV // 2, HD, P, M, 1000, (0, 300)),
+    "P 8": (CH, H, HKV, HD, 8, 512, 3968, (0,)),
+    "P 64": (CH, H, HKV, HD, 64, 64, 1000, (0, 50)),
+    "P 128": (CH, H, HKV, HD, 128, 32, 3968, (0,)),
+    "P 256": (CH, H, HKV, HD, 256, 16, 1000, (0, 700)),
 }
 #: a massive activation, as Llama residual streams carry in a few channels:
 #: each RMSNorm check row holds it in three columns, so a kernel that drops
@@ -1215,12 +1265,16 @@ def serve_phase(seed: int, n_layers: int):
         raise AssertionError(f"kernel lanes not selected: "
                              f"{engine.attention_path}/{engine.prefill_path}")
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     done = drain(sched, reqs)
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    # 13 (d)'s terms: the engine's bytes, the run's peak above them
+    live = engine.live_bytes()
+    increment = torch.cuda.max_memory_allocated() - resident
     # what (b) is held to, before the profiled window adds its ticks
     ref = dict(ticks=probe.ticks, chunks=probe.chunks,
                tick_s={k: list(v) for k, v in probe.tick_s.items()})
@@ -1270,7 +1324,17 @@ def serve_phase(seed: int, n_layers: int):
         launches[k] += v
     for k, v in generate_phase(model, reqs, done).items():
         launches[k] += v
-    return launches, t9, time.perf_counter() - t11
+    t11 = time.perf_counter() - t11
+
+    # -- 13 (a), (b), (d), (e): the rest of serving on this model ---------
+    t13 = time.perf_counter()
+    for phase in (lambda: spec_phase(seed, model, ecfg, reqs, done),
+                  lambda: self_draft_phase(seed, reqs),
+                  lambda: autotune_phase(model, ecfg, reqs, done)):
+        for k, v in phase().items():
+            launches[k] += v
+    serve_plan_phase(model, ecfg, live, increment)
+    return launches, t9, t11, time.perf_counter() - t13
 
 
 # ---- phase 11: the serving front end on the card ---------------------------
@@ -1303,11 +1367,11 @@ def serve_formula(n_layers: int, ticks: int, chunks: int) -> dict:
     return want
 
 
-def counted(fn, n_layers: int, problems: list, what: str):
+def counted(fn, n_layers: int, problems: list, what: str, formula=None):
     """Run ``fn()`` with every launch counter zeroed just before and read
     just after, counting the engines' ticks and prefill chunks; holds
-    the launches to phase 4's formula. Returns (fn's result, launches,
-    wall seconds)."""
+    the launches to phase 4's formula (or ``formula(ticks, chunks)``).
+    Returns (fn's result, launches, wall seconds)."""
     from ray_lightning_tpu_torch.serve.cli import KernelCalls
 
     kernels = all_kernels()
@@ -1320,7 +1384,8 @@ def counted(fn, n_layers: int, problems: list, what: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    want = serve_formula(n_layers, ticks.ticks, ticks.chunks)
+    want = (formula or functools.partial(serve_formula, n_layers))(
+        ticks.ticks, ticks.chunks)
     if launches != want:
         problems.append(f"{what}: launches {launches} != {want} "
                         f"({ticks.ticks} ticks, {ticks.chunks} chunks)")
@@ -1559,7 +1624,7 @@ def driver_process_phase(seed: int):
     ref, launches, ref_wall = counted(lambda: inline.run(reqs),
                                       DRIVER_PROC_LAYERS, problems,
                                       "(c) inline")
-    del inline, model
+    del inline
     gc.collect()
     torch.cuda.empty_cache()
     run_dir = os.path.join(DRIVER_DIR, "process")
@@ -1596,10 +1661,482 @@ def driver_process_phase(seed: int):
         respawn_warmup_s=[s["warmup_s"] for s in starts if s["attempt"]],
         respawn_nvcc_s=[s["build_s"] for s in starts if s["attempt"]],
         phase_wall_s=time.perf_counter() - t_all)), flush=True)
-    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
     if problems:
+        shutil.rmtree(DRIVER_DIR, ignore_errors=True)
         raise AssertionError("phase 11 (c): " + "; ".join(problems))
+    # 13 (c): the same params file and requests through a tensor-parallel
+    # replica, against the one-card streams
+    t13 = time.perf_counter()
+    try:
+        tp_launches = tp_serve_phase(model, params, ecfg, reqs, ref.outputs)
+    finally:
+        shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    for k, v in tp_launches.items():
+        launches[k] += v
+    return launches, time.perf_counter() - t13
+
+
+# ---- phase 13: the rest of serving -----------------------------------------
+#
+# (a), (b), (d) and (e) run inside phase 4, on its model and requests; (c)
+# inside phase 11 (c), on its params file, requests and one-card streams.
+# (c)'s rank processes count their own launches and report them with
+# their results.
+
+#: (a)'s draft: Llama-3-8B at full width, a quarter of phase 4's depth
+SPEC_DRAFT_LAYERS = 4
+#: tokens verified a tick (`DraftConfig(k)`)
+SPEC_K = 4
+#: (b): the f32 self-draft's depth (full width)
+SELF_DRAFT_LAYERS = 2
+#: (b): a rejected self-proposal is allowed only where the f32 plain
+#: lane's top-2 margin is below this share of its largest |logit|
+SELF_DRAFT_MARGIN = 1e-4
+#: (c): ranks of the tensor-parallel replica (processes on the one card)
+TP_SERVE = 2
+#: (e)'s artifact (git-ignored; removed after)
+TUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rlt_logs", "chip_smoke_tune")
+
+
+def spec_formula(n_layers: int, draft_layers: int, k: int, ticks: int,
+                 chunks: int) -> dict:
+    """A speculative engine's launches: no paged kernel (its lanes are
+    the dense ones); RMSNorm 2L+1 a target call (one verify a tick, one a
+    prefill chunk) and 2L'+1 a draft call (k trips a tick, one a
+    chunk)."""
+    want = {k_.__name__: 0 for k_ in all_kernels()}
+    want["rms_norm_kernel"] = ((2 * n_layers + 1) * (ticks + chunks)
+                               + (2 * draft_layers + 1) * (k * ticks
+                                                           + chunks))
+    return want
+
+
+def plain_scores(model, req, prefix):
+    """The plain lane's scores for the token after ``req.prompt + prefix``
+    (`dispatch.force_reference`: plain attention and RMSNorm, no kernel
+    launched), and the bound a margin is held to: the f32 logits for a
+    greedy request; for a sampled one the scores its draw takes the
+    argmax of (temperature, top-k, the Gumbel noise of its step's seed),
+    with `LOGIT_TOL` scaled by 1 / temperature."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.ops import dispatch
+    from ray_lightning_tpu_torch.serve.engine import _split_key
+    from ray_lightning_tpu_torch.serve.scheduler import _key_data
+
+    toks = torch.tensor(np.concatenate([req.prompt, np.asarray(
+        prefix, np.int32)])[None], device=model.device)
+    with torch.no_grad(), dispatch.force_reference():
+        logits = model.logits(model.hidden(toks)[:, -1])[0].float()
+    if req.temperature == 0.0:
+        return logits, LOGIT_TOL
+    key = _key_data(req.seed)
+    for _ in range(len(prefix)):
+        key, _seed = _split_key(key)
+    _key, seed = _split_key(key)
+    scaled = logits / req.temperature
+    if req.top_k:
+        kth = torch.topk(scaled, req.top_k).values[-1]
+        scaled = torch.where(scaled >= kth, scaled,
+                             torch.full_like(scaled, float("-inf")))
+    g = torch.Generator(device=model.device)
+    g.manual_seed(seed)
+    u = torch.rand(scaled.shape, generator=g, device=model.device)
+    return scaled - torch.log(-torch.log(u)), LOGIT_TOL / req.temperature
+
+
+def hold_streams(model, reqs, got: dict, want: dict, what: str,
+                 problems: list, bound=None) -> list:
+    """Each stream of ``got`` token for token ``want``'s, but where the
+    plain lane's top-2 margin at the first position they part is below
+    the bound (`plain_scores`'; ``bound(scores)`` when given): a near
+    tie, after which the streams are not compared. Returns where each
+    parting happened, with its margin."""
+    parted = []
+    for r in reqs:
+        a, b = list(got.get(r.rid, [])), list(want[r.rid])
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if t is None:
+            continue
+        scores, tol = plain_scores(model, r, b[:t])
+        if bound is not None:
+            tol = bound(scores)
+        top = torch.topk(scores, 2).values
+        margin = float(top[0] - top[1])
+        parted.append(dict(rid=r.rid, step=t, margin=margin, bound=tol,
+                           got=a[t] if t < len(a) else None,
+                           want=b[t] if t < len(b) else None))
+        if not margin < tol:
+            problems.append(f"{what}: {r.rid} parts from its reference at "
+                            f"step {t} where the plain lane's margin is "
+                            f"{margin:.4g} >= {tol:.4g}")
+    return parted
+
+
+def spec_session(model, ecfg, reqs, draft_model, problems, what):
+    """Serve ``reqs`` through an inline `ServeDriver` session whose one
+    replica drafts with ``draft_model`` at ``SPEC_K``, counted by
+    `spec_formula`. Returns (result, its scheduler, its engine's live
+    bytes, launches, wall)."""
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig,
+        ServeDriver,
+    )
+    from ray_lightning_tpu_torch.serve.engine import DraftConfig
+
+    secfg = dataclasses.replace(ecfg, draft=DraftConfig(k=SPEC_K))
+    drv = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+        n_replicas=1, backend="inline", engine=secfg,
+        draft_model_cfg=draft_model.cfg), draft_params=draft_model)
+
+    def run():
+        drv.start()
+        for r in reqs:
+            drv.submit(r)
+        while drv.busy():
+            drv.tick()
+        rep = drv.replicas[0]
+        return drv.stop(), rep.sched, rep.engine.live_bytes()
+
+    formula = functools.partial(spec_formula, model.cfg.n_layers,
+                                draft_model.cfg.n_layers, SPEC_K)
+    (res, sched, live), launches, wall = counted(
+        run, model.cfg.n_layers, problems, what, formula)
+    return res, sched, live, launches, wall
+
+
+def spec_phase(seed: int, model, ecfg, reqs, phase4_done):
+    """13 (a): phase 4's greedy requests through an inline driver whose
+    draft is an independent quarter-depth Llama-3-8B, bf16; then phase
+    4's model drafting for itself (a reading). Returns the launches."""
+    from ray_lightning_tpu_torch.serve.audit import speculative_plan
+
+    problems = []
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    want = {r.rid: phase4_done[r.rid].tokens for r in greedy}
+    draft = build_model(seed + 13, SPEC_DRAFT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    res, sched, live, launches, wall = spec_session(
+        model, ecfg, greedy, draft, problems, "(a)")
+    peak = torch.cuda.max_memory_allocated()
+    parted = hold_streams(model, greedy, res.outputs, want, "(a)",
+                          problems)
+    plan = speculative_plan(model.cfg, draft.cfg, dataclasses.replace(
+        ecfg, draft=sched.cfg.draft))
+    for key in ("draft_params_bytes", "draft_pool_bytes"):
+        if live[key] != plan[key]:
+            problems.append(f"(a) the draft holds {live[key]} {key}, "
+                            f"speculative_plan {plan[key]}")
+    print(json.dumps(serve_row(
+        "speculative", res, wall, launches, layers=model.cfg.n_layers,
+        draft_layers=SPEC_DRAFT_LAYERS, k=SPEC_K,
+        accepted_tokens_per_step=sched.accepted_tokens_per_step,
+        parted=parted, live_bytes=live,
+        plan={k: plan[k] for k in ("draft_params_bytes", "draft_pool_bytes",
+                                   "expected_tokens_per_tick",
+                                   "memory_bound_speedup_x")},
+        max_memory_allocated_gib=peak / 2**30)), flush=True)
+    del draft, res, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a reading only: the bf16 target drafting for itself at full depth
+    res2, sched2, _, launches2, wall2 = spec_session(
+        model, ecfg, greedy, model, problems, "(a) self-draft")
+    print(json.dumps(serve_row(
+        "speculative_self_draft_bf16", res2, wall2, launches2,
+        layers=model.cfg.n_layers, k=SPEC_K,
+        accepted_tokens_per_step=sched2.accepted_tokens_per_step)),
+        flush=True)
+    if problems:
+        raise AssertionError("phase 13 (a): " + "; ".join(problems))
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+class EmitProbe:
+    """Wraps a speculative `DecodeEngine.tick` to record, for every
+    decoding slot a tick's verify rejected a proposal of, the request and
+    the stream position of the rejected proposal."""
+
+    def __init__(self, engine, sched):
+        self.engine, self.sched = engine, sched
+        self.rejected = []
+        self._tick = engine.tick
+        engine.tick = self
+
+    def __call__(self, tables, pos, decoding, *args, **kw):
+        toks, n_emit, rngs = self._tick(tables, pos, decoding, *args, **kw)
+        for s in map(int, decoding.nonzero()[0]):
+            slot = self.sched.slots[s]
+            if n_emit[s] < toks.shape[1]:
+                self.rejected.append((slot.req, slot.req.rid,
+                                      len(slot.emitted) + int(n_emit[s])))
+        return toks, n_emit, rngs
+
+
+def self_draft_phase(seed: int, reqs):
+    """13 (b): a 2-layer full-width Llama-3-8B in f32 drafting for itself
+    on 2 greedy requests: every proposal accepted (a rejection only where
+    the f32 plain lane's margin is below ``SELF_DRAFT_MARGIN`` of its
+    scale), the streams those of the f32 plain reference lane. The
+    RMSNorm kernel takes f32 rows here: held first at the lane's rows.
+    Returns the launches."""
+    from ray_lightning_tpu_torch.models.llama import init_weights
+    from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
+        rms_norm_kernel, rms_norm_plain)
+    from ray_lightning_tpu_torch.serve.engine import (
+        DecodeEngine, DraftConfig)
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    problems = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2)
+    for n in (C, C * SPEC_K, CH):
+        x, w = rms_inputs(gen, n, D, torch.float32)
+        x = x.float()
+        err, share = hold(rms_norm_kernel(x, w), rms_norm_plain(x, w),
+                          f"rms_norm f32 N {n}")
+        print(json.dumps(dict(check="rms_norm", case=f"f32 x N {n}", N=n,
+                              D=D, x="float32", w="float32",
+                              max_abs_err=err, tolerance_share=share)),
+              flush=True)
+    cfg = dataclasses.replace(serve_config(SELF_DRAFT_LAYERS),
+                              dtype=torch.float32)
+    model = init_weights(cfg, gen)
+    greedy = [r for r in reqs if r.temperature == 0.0][:2]
+    ecfg = engine_config()
+    # the f32 plain reference lane: the base engine's reference lanes, k
+    # tokens past each request's end (the verify checks proposals there)
+    ref = drain(Scheduler(DecodeEngine(model, ecfg, use_kernels=False)),
+                [dataclasses.replace(r, max_new_tokens=r.max_new_tokens
+                                     + SPEC_K) for r in greedy])
+
+    def run():
+        eng = DecodeEngine(model, dataclasses.replace(
+            ecfg, draft=DraftConfig(k=SPEC_K)), draft_model=model)
+        eng.warmup()
+        sched = Scheduler(eng)
+        probe = EmitProbe(eng, sched)
+        return drain(sched, greedy), eng, sched, probe
+
+    formula = functools.partial(spec_formula, cfg.n_layers, cfg.n_layers,
+                                SPEC_K)
+    (done, eng, sched, probe), launches, wall = counted(
+        run, cfg.n_layers, problems, "(b)", formula)
+
+    def bound(scores):
+        return SELF_DRAFT_MARGIN * float(scores.abs().max())
+
+    rejected = []
+    for req, rid, t in probe.rejected:
+        scores = plain_scores(model, req, ref[rid].tokens[:t])[0]
+        top = torch.topk(scores, 2).values
+        margin = float(top[0] - top[1])
+        rejected.append(dict(rid=rid, step=t, margin=margin,
+                             bound=bound(scores)))
+        if not margin < bound(scores):
+            problems.append(f"(b) {rid}: a proposal rejected at step {t} "
+                            f"where the margin is {margin:.4g}")
+    rate = sched.accepted_tokens_per_step
+    if rate != SPEC_K and not rejected:
+        problems.append(f"(b) accepted_tokens_per_step {rate} != {SPEC_K}")
+    parted = hold_streams(model, greedy, {r: c.tokens for r, c in
+                                          done.items()},
+                          {r.rid: ref[r.rid].tokens[:r.max_new_tokens]
+                           for r in greedy}, "(b)", problems, bound=bound)
+    print(json.dumps(dict(
+        phase="speculative_self_draft_f32", layers=cfg.n_layers, k=SPEC_K,
+        requests=len(greedy), accepted_tokens_per_step=rate,
+        rejected=rejected, parted=parted, wall_s=wall, ticks=eng.steps,
+        launches=launches)), flush=True)
+    del model, eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("phase 13 (b): " + "; ".join(problems))
     return launches
+
+
+def serve_plan_phase(model, ecfg, live: dict, increment: int) -> None:
+    """13 (d): the serve plan of phase 4's configuration (what ``plan
+    --serve`` prints, at its 16 layers) against phase 4's engine: the
+    weights, the pool and ``last_logits`` to the byte; the gathered view
+    the kernel lanes retire (the reference lanes' term) above the kernel
+    lanes' measured peak increment. Then the CLI's verdict at the full
+    32 layers."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+    from ray_lightning_tpu_torch.serve.audit import (
+        format_serve_summary, serve_memory_summary)
+
+    problems = []
+    plan = serve_memory_summary(model.cfg, ecfg)
+    ref_plan = serve_memory_summary(model.cfg, ecfg, fused=False,
+                                    fused_prefill=False)
+    for key in ("params_bytes", "pool_bytes", "last_logits_bytes"):
+        if plan[key] != live[key]:
+            problems.append(f"{key}: plan {plan[key]} != live {live[key]}")
+    if not ref_plan["gathered_view_bytes"] > increment:
+        problems.append(f"the retired view {ref_plan['gathered_view_bytes']}"
+                        f" is not above the peak increment {increment}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["plan", "--serve", "--preset", "llama3-8b", "--seq",
+                  str(ecfg.max_slot_len), "--serve-slots",
+                  str(ecfg.capacity), "--json"])
+    full = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not full["fits"]:
+        problems.append(f"plan --serve at 32 layers: rc {rc}")
+    print(json.dumps(dict(
+        phase="serve_plan", layers=model.cfg.n_layers,
+        plan={k: plan[k] for k in ("params_bytes", "pool_bytes",
+                                   "last_logits_bytes",
+                                   "gathered_view_bytes",
+                                   "per_device_bytes", "budget_bytes",
+                                   "attention_path",
+                                   "prefill_attention_path")},
+        live=live, retired_view_bytes=ref_plan["gathered_view_bytes"],
+        peak_increment_bytes=increment,
+        verdict=format_serve_summary(plan).splitlines()[-1].strip(),
+        verdict_32_layers=format_serve_summary(
+            full["serve"]).splitlines()[-1].strip(),
+        card_total_memory=torch.cuda.get_device_properties(0).total_memory)),
+        flush=True)
+    if problems:
+        raise AssertionError("phase 13 (d): " + "; ".join(problems))
+
+
+def autotune_phase(model, ecfg, reqs, phase4_done):
+    """13 (e): ``serve llama3-8b --autotune`` at phase 4's geometry; every
+    candidate's kernels held against their plain versions here too; the
+    artifact's engine serves one of phase 4's greedy requests equal to
+    its phase-4 stream (the margin rule). Returns that run's launches."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+    from ray_lightning_tpu_torch.serve import sweep
+
+    problems = []
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    os.makedirs(TUNE_DIR)
+    path = os.path.join(TUNE_DIR, "autotune.json")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["serve", "llama3-8b", "--autotune", path, "--slots",
+                  str(ecfg.capacity), "--block-size", str(ecfg.block_size),
+                  "--seq-budget", str(ecfg.max_slot_len),
+                  "--prefill-chunk", str(ecfg.prefill_chunk)])
+    sweep_s = time.perf_counter() - t0
+    art = sweep.load_artifact(path)
+    if rc != 0 or art["winner_source"] != "measured":
+        problems.append(f"the sweep: rc {rc}, {art['winner_source']}")
+    rows = []
+    for cand, r in zip(sweep.candidate_grid(ecfg), art["results"]):
+        x = sweep.case_inputs(model.cfg, ecfg, cand, "cuda", torch.bfloat16,
+                              seed=SEED)
+        got, want = sweep.kernel_calls(x), sweep.kernel_calls(x, False)
+        shares = {}
+        for name in got:
+            shares[name] = hold(got[name](), want[name](),
+                                f"autotune P {cand.block_size} {name}")[1]
+        ok = all(r[c]["ok"] for c in ("decode", "prefill", "shared_spec"))
+        if not ok:
+            problems.append(f"P {cand.block_size}: the sweep's own check "
+                            f"failed {r}")
+        rows.append(dict(block_size=cand.block_size,
+                         blocks_per_slot=cand.blocks_per_slot,
+                         tolerance_share=shares, sweep_ok=ok,
+                         **r.get("timing", {})))
+    del x, got, want
+    tuned = sweep.apply_autotune(ecfg, art)
+    greedy = [r for r in reqs if r.temperature == 0.0][:1]
+
+    def one():
+        _, sched, _ = serve(model, tuned, use_kernels=None)
+        return drain(sched, greedy)
+
+    done, launches, wall = counted(one, model.cfg.n_layers, problems,
+                                   "(e) tuned")
+    parted = hold_streams(model, greedy, {r: c.tokens for r, c in
+                                          done.items()},
+                          {r.rid: phase4_done[r.rid].tokens
+                           for r in greedy}, "(e)", problems)
+    print(json.dumps(dict(
+        phase="autotune", candidates=rows, winner=art["winner"],
+        winner_source=art["winner_source"], device=art["device"],
+        sweep_wall_s=sweep_s, tuned_serve_wall_s=wall, parted=parted,
+        launches=launches)), flush=True)
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("phase 13 (e): " + "; ".join(problems))
+    return launches
+
+
+def tp_serve_phase(model, params: str, ecfg, reqs, want: dict):
+    """13 (c): a live session on one tensor-parallel replica of
+    ``TP_SERVE`` rank processes sharing the card over gloo, 11 (c)'s
+    params file and requests: the streams 11 (c)'s one-card ones (the
+    margin rule), each rank's launches by phase 4's formula at H 16 / Hkv
+    4, its bytes `serve_memory_summary(tp=2)`'s. A correctness lane:
+    every all-reduce crosses the host. Returns both ranks' launches."""
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.serve.audit import serve_memory_summary
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig, ServeDriver)
+
+    problems = []
+    free_card("serve_tp")
+    L = model.cfg.n_layers
+    drv = ServeDriver(model.cfg, params, ReplicaGroupConfig(
+        n_replicas=1, backend="process", tp=TP_SERVE, engine=ecfg,
+        run_dir=os.path.join(DRIVER_DIR, "tp"),
+        compile_cache_dir=build.BUILD, start_timeout=DRIVER_TIMEOUT_S))
+    t0 = time.perf_counter()
+    drv.start()
+    start_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for r in reqs:
+        drv.submit(r)
+    while drv.busy():
+        drv.tick()
+        time.sleep(0.002)
+    res = drv.stop()
+    wall = time.perf_counter() - t1
+    parted = hold_streams(model, reqs, res.outputs, want, "(c)", problems)
+    ranks = res.stats["replica_ranks"][0]
+    plan = serve_memory_summary(model.cfg, ecfg, tp=TP_SERVE)
+    chunks = sum(-(-len(r.prompt) // ecfg.prefill_chunk) for r in reqs)
+    total = {k.__name__: 0 for k in all_kernels()}
+    for r in ranks:
+        if r["launches"] != serve_formula(L, r["steps"], chunks):
+            problems.append(f"rank {r['rank']} launches {r['launches']} != "
+                            f"{serve_formula(L, r['steps'], chunks)}")
+        for key in ("params_bytes", "pool_bytes", "last_logits_bytes"):
+            if r["live_bytes"][key] != plan[key]:
+                problems.append(f"rank {r['rank']} holds {r['live_bytes'][key]}"
+                                f" {key}, the plan {plan[key]}")
+        for k, v in r["launches"].items():
+            total[k] += v
+    print(json.dumps(serve_row(
+        "serve_tp", res, wall, [r["launches"] for r in ranks],
+        layers=L, ranks=TP_SERVE, backend="gloo",
+        lane="correctness (every all-reduce crosses the host)",
+        heads_a_rank=H // TP_SERVE, kv_heads_a_rank=HKV // TP_SERVE,
+        tick_ms_mean=wall / max(1, ranks[0]["steps"]) * 1e3,
+        ticks=ranks[0]["steps"], start_s=start_s, parted=parted,
+        live_bytes=[r["live_bytes"] for r in ranks],
+        plan={k: plan[k] for k in ("params_bytes", "pool_bytes",
+                                   "last_logits_bytes")},
+        replica_starts=res.stats["replica_starts"])), flush=True)
+    if problems:
+        raise AssertionError("phase 13 (c): " + "; ".join(problems))
+    return total
 
 
 # ---- phase 5: training at full width ----------------------------------------
@@ -4496,16 +5033,19 @@ def main() -> int:
 
     # 4. serving at full width, through the kernel lanes (and 9b: the
     # same requests with live metrics)
-    serve_launches, t_9b, t_11ab = serve_phase(SEED, args.layers)
+    serve_launches, t_9b, t_11ab, t_13 = serve_phase(SEED, args.layers)
     lap("serve")
-    walls["serve"] -= t_9b + t_11ab
+    walls["serve"] -= t_9b + t_11ab + t_13
 
-    # 11 (c). process replicas on the card, one SIGKILL'd and replayed
+    # 11 (c). process replicas on the card, one SIGKILL'd and replayed;
+    # 13 (c): a tensor-parallel replica on the same params file
     gc.collect()
     torch.cuda.empty_cache()
-    for k, v in driver_process_phase(SEED).items():
+    proc_launches, t_13c = driver_process_phase(SEED)
+    for k, v in proc_launches.items():
         serve_launches[k] += v
     lap("driver_process")
+    walls["driver_process"] -= t_13c
 
     # 5. training at full width, 4 layers deep
     gc.collect()
@@ -4560,6 +5100,7 @@ def main() -> int:
     shutil.rmtree(TEL_DIR, ignore_errors=True)
     walls["telemetry_serve"] = t_9b
     walls["driver_inline_generate"] = t_11ab
+    walls["rest_of_serving"] = t_13 + t_13c
     walls["probe"] = t_probe
     print(json.dumps(dict(
         phase="timing", wall_s=walls,
@@ -4571,6 +5112,7 @@ def main() -> int:
         phase11_s=t_11ab + walls["driver_process"],
         # (d)'s share is inside phases 6-8 and 10 (b)
         phase12_s=walls["planner"],
+        phase13_s=walls["rest_of_serving"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
 
     # each kernel's launches on the paths that run it

@@ -44,7 +44,10 @@ columns; `parallel.tensor`), ``wo`` and ``w_down`` row-parallel with
 their f32 partials summed before the one rounding, the embedding and
 the lm_head split by vocabulary (a masked lookup; the vocab-parallel
 chunked CE), the norm gains replicated. Attention runs on the local
-heads, ``H/tp`` q heads over ``Hkv/tp`` KV heads.
+heads, ``H/tp`` q heads over ``Hkv/tp`` KV heads. The serving paths run
+the same way on a tensor-parallel replica's rank
+(`serve.engine.DecodeEngine(mesh=)`), whose pool holds its ``Hkv/tp``
+KV heads and whose logits are gathered whole on every rank.
 
 Weights live in one state dict whose keys mirror the flax tree:
 ``tok_embed``, ``layers.{i}.{attn_norm,wqkv,wo,mlp_norm,w_gate_up,
@@ -191,10 +194,8 @@ class LlamaBlock(nn.Module):
         B, S = x.shape[0], x.shape[1]
         tp = self.tp
         if tp is not None:
-            if cache is not None:
-                raise NotImplementedError(
-                    "serving under the tensor axis is not ported yet "
-                    "(ROADMAP Queue 1 item 8: tensor-parallel replicas)")
+            # this rank's heads; a cache (a serving rank's pool) holds
+            # its Hkv/tp KV heads
             n_q, n_kv = n_q // tp.size, n_kv // tp.size
         h = rms_norm(x, local(self.attn_norm), cfg.norm_eps)
         qkv = column_linear(h, local(self.wqkv).to(cfg.dtype), tp)

@@ -9,9 +9,18 @@ of a Llama training job (twin of the JAX CLI's ``plan``).
 The model is built on the meta device under `ShardedMesh(data, fsdp,
 tensor)` over a shape-only mesh: nothing touches a card or a process
 group. Exit status: 0 fits, 1 does not, 2 an invalid configuration (a
-structured error). ``--serve``, ``--mu-bf16`` and ``--ce-inline-bwd``
-report ``not_ported`` with their ROADMAP items and exit 2; the trace
-section (the JAX CLI's jaxpr audit) reports ``not_ported`` too.
+structured error). ``--serve`` plans a SERVING replica instead
+(`serve/audit.py`: weights, the paged pool, the attention lanes'
+gathered view and the carried logits against the card's memory, with
+the prefix-sharing and speculative pricing), one rank of it with
+``--tp N``::
+
+    python -m ray_lightning_tpu_torch plan --serve --preset llama3-8b \\
+        --seq 4096 --serve-slots 4 [--serve-block-size 16] [--tp 2]
+
+``--mu-bf16`` and ``--ce-inline-bwd`` report ``not_ported`` with their
+ROADMAP items and exit 2; the trace section (the JAX CLI's jaxpr audit)
+reports ``not_ported`` too.
 """
 from __future__ import annotations
 
@@ -21,8 +30,6 @@ import sys
 
 #: what the JAX CLI's legs need, by ROADMAP item
 NOT_PORTED = {
-    "serve": "ROADMAP Queue 1 item 8 (serve/audit.py's HBM itemization, "
-             "serve_kv_plan_bytes)",
     "mu_bf16": "ROADMAP Queue 1 item 3 (LlamaModule(mu_dtype=))",
     "ce_inline_bwd": "ROADMAP Queue 1 item 3 (the fused CE's inline "
                      "backward)",
@@ -64,7 +71,16 @@ def add_plan_parser(sub) -> None:
     p.add_argument("--mu-bf16", action="store_true",
                    help="not ported (item 3)")
     p.add_argument("--serve", action="store_true",
-                   help="not ported (item 8)")
+                   help="plan a SERVING replica instead of a training "
+                        "step: weights + paged KV pool + gathered view "
+                        "vs the card's memory")
+    p.add_argument("--serve-slots", type=int, default=8,
+                   help="serving slot capacity (plan --serve)")
+    p.add_argument("--serve-block-size", type=int, default=16,
+                   help="KV pool block size in tokens (plan --serve)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree of ONE serving replica "
+                        "(plan --serve): prices one rank of it")
     p.add_argument("--no-trace", action="store_true",
                    help="leave out the trace section")
     p.add_argument("--json", action="store_true", dest="as_json",
@@ -94,7 +110,9 @@ def run_plan(args) -> int:
     from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
 
     as_json = getattr(args, "as_json", False)
-    for leg in ("serve", "mu_bf16", "ce_inline_bwd"):
+    if args.serve:
+        return _run_serve_plan(args, as_json)
+    for leg in ("mu_bf16", "ce_inline_bwd"):
         if getattr(args, leg):
             return _invalid(f"--{leg.replace('_', '-')} is not ported yet "
                             f"({NOT_PORTED[leg]})", as_json,
@@ -185,3 +203,67 @@ def _print_extra(overlap_bytes: int, trace) -> None:
               "MiB/device charged in the activation bound")
     if trace is not None:
         print(f"trace: not ported ({trace['not_ported']})")
+
+
+def _run_serve_plan(args, as_json: bool) -> int:
+    """``plan --serve``: a serving replica's bytes (no optimizer) with the
+    prefix-sharing and speculative pricing of the same configuration
+    (every slot sharing a prefix; a quarter-depth draft at the default
+    k). The exit contract is the training plan's."""
+    import dataclasses
+
+    import torch
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.serve.audit import (
+        format_serve_summary,
+        serve_memory_summary,
+        shared_prefix_plan,
+        speculative_plan,
+    )
+    from ray_lightning_tpu_torch.serve.engine import EngineConfig
+
+    for name in ("serve_slots", "serve_block_size", "tp", "seq"):
+        if getattr(args, name) < 1:
+            return _invalid(f"--{name.replace('_', '-')} must be >= 1, "
+                            f"got {getattr(args, name)}", as_json)
+    presets = {"llama3-8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
+    cfg = presets[args.preset](max_seq_len=args.seq, dtype=torch.bfloat16)
+    try:
+        ecfg = EngineConfig(
+            capacity=args.serve_slots, block_size=args.serve_block_size,
+            blocks_per_slot=-(-args.seq // args.serve_block_size),
+            prefill_chunk=min(max(128, args.serve_block_size), args.seq))
+        summary = serve_memory_summary(
+            cfg, ecfg, device_kind=args.device_kind,
+            hbm_bytes=args.hbm_bytes, tp=args.tp)
+        draft_cfg = dataclasses.replace(
+            cfg, n_layers=max(1, cfg.n_layers // 4))
+        prefix = shared_prefix_plan(cfg, ecfg, n_streams=args.serve_slots)
+        spec = speculative_plan(cfg, draft_cfg, ecfg)
+    except ValueError as exc:
+        return _invalid(str(exc), as_json)
+    trace = None if args.no_trace else {"not_ported": NOT_PORTED["trace"]}
+    if as_json:
+        out = {"serve": summary, "fits": summary["fits"],
+               "prefix_sharing": prefix, "speculative": spec}
+        if trace is not None:
+            out["trace"] = trace
+        print(json.dumps(out))
+    else:
+        mib = 1024.0**2
+        print(format_serve_summary(summary))
+        print(f"prefix sharing ({prefix['n_streams']} streams, "
+              f"{prefix['prefix_tokens']}-token prefix): pool bytes saved "
+              f"{prefix['shared_pool_bytes_saved'] / mib:.1f} MiB; prefill "
+              f"tokens saved {prefix['prefill_tokens_saved']}")
+        print(f"speculative (k={spec['k']}, accept "
+              f"{spec['accept_rate']:.2f}): verify step "
+              f"{spec['verify_step_flops'] / 1e9:.2f} GFLOP vs {spec['k']} "
+              f"base ticks "
+              f"{spec['k'] * spec['base_decode_flops_per_token'] / 1e9:.2f}"
+              f" GFLOP; expected tokens/tick "
+              f"{spec['expected_tokens_per_tick']:.2f}; memory-bound "
+              f"speedup {spec['memory_bound_speedup_x']:.2f}x")
+        _print_extra(0, trace)
+    return 0 if summary["fits"] else 1

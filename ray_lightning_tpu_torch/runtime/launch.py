@@ -66,6 +66,20 @@ def local_ranks(num_processes: int,
             for r in range(num_processes)]
 
 
+def join_group(backend: str, rank: int, num_processes: int,
+               rendezvous: Tuple[str, int], **kw) -> None:
+    """Join the default process group at rank 0's store (`_open_store`,
+    run first in worker 0 of the same group)."""
+    import torch.distributed as dist
+
+    host, port = rendezvous
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    store = _STORE if rank == 0 else dist.TCPStore(
+        host, port, num_processes, is_master=False, timeout=timeout)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=num_processes, timeout=timeout, **kw)
+
+
 def _spmd_main(fn: Callable, args: tuple, kwargs: dict, num_processes: int,
                rendezvous: Tuple[str, int], device: Optional[str], rank: int,
                rank_args: tuple, local: Tuple[int, int]):
@@ -94,12 +108,8 @@ def _spmd_main(fn: Callable, args: tuple, kwargs: dict, num_processes: int,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
-    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
-    store = _STORE if rank == 0 else dist.TCPStore(
-        host, port, num_processes, is_master=False, timeout=timeout)
-    dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo", store=store, rank=rank,
-        world_size=num_processes, timeout=timeout, **kw)
+    join_group("nccl" if dev.type == "cuda" else "gloo", rank,
+               num_processes, rendezvous, **kw)
     result = fn(*args, *rank_args, **kwargs)
     # success path only: on an exception the peers may be inside a
     # collective, and the driver tears the failed group down instead

@@ -5,6 +5,8 @@ its smoke gate (twin of `ray_lightning_tpu/serve/cli.py`).
     python -m ray_lightning_tpu_torch serve example --replicas 2 \\
         --backend process [--device cpu]                  # process replicas
     python -m ray_lightning_tpu_torch serve --smoke --device cpu  # the gate
+    python -m ray_lightning_tpu_torch serve llama3-8b          # the plan
+    python -m ray_lightning_tpu_torch serve llama3-8b --autotune out.json
 
 ``example`` serves 8 synthetic requests on a small kernel-tiling Llama
 (head_dim 64, GQA 2:1; bf16 on the card, f32 on the CPU) through the
@@ -29,12 +31,18 @@ bitwise; it exits 1 unless ALL of:
     CPU, the wrappers' plain versions) serve 8 streams token for token
     equal to the reference lanes;
   * prefix sharing: a fleet behind one system prompt equals per-stream
-    `generate` with fewer prefill tokens than without the cache.
+    `generate` with fewer prefill tokens than without the cache;
+  * speculative decoding: greedy streams through a draft-armed engine
+    (an independent draft, k 3) equal plain greedy `generate`, at one
+    token or more a slot-step.
 
-Left out, each reported as ``not_ported`` with its ROADMAP item: the
-decode-step audit (tracecheck, item 13), speculative decoding (item 8),
-``serve llama3-8b``'s static plan and audit (items 4 and 13) and
-``--autotune`` (`serve/sweep.py`, item 8).
+``llama3-8b`` is the static serve plan (`serve/audit.py`) of the
+flagship configuration on the card's memory; exit 1 when it does not
+fit. ``--autotune OUT.json`` sweeps the paged kernels' block size at the
+preset's shape (`serve/sweep.py`; timed on the card only) and writes the
+artifact `serve.sweep.apply_autotune` reads. Left out, reported as
+``not_ported`` with its ROADMAP item: the decode-step audit (tracecheck,
+item 13).
 """
 from __future__ import annotations
 
@@ -48,11 +56,6 @@ import tempfile
 #: the legs the port leaves out, with the ROADMAP item each waits for
 NOT_PORTED = {
     "audit": "ROADMAP Queue 1 item 13 (tracecheck's decode-step audit)",
-    "speculative": "ROADMAP Queue 1 item 8 (speculative decoding)",
-    "llama3_8b_plan": "ROADMAP Queue 1 items 4 and 13 (the static serve "
-                      "plan and audit)",
-    "autotune": "ROADMAP Queue 1 item 8 (serve/sweep.py's block-size "
-                "autotune on the CUDA kernels)",
 }
 
 
@@ -65,7 +68,7 @@ def add_serve_parser(sub) -> None:
                    choices=("example", "llama3-8b"),
                    help="example = a small kernel-tiling Llama served "
                         "through the driver; llama3-8b = the static serve "
-                        "plan (not ported)")
+                        "plan")
     p.add_argument("--smoke", action="store_true",
                    help="the CPU gate (see the module docstring); exit 1 "
                         "on any failed leg")
@@ -86,10 +89,13 @@ def add_serve_parser(sub) -> None:
     p.add_argument("--prefill-batch", type=int, default=1,
                    help="queued prompts admitted per tick through the "
                         "left-padded batched prefill lane")
+    p.add_argument("--seq-budget", type=int, default=4096,
+                   help="llama3-8b: the per-slot token span")
     p.add_argument("--run-dir", default=None,
                    help="telemetry spans + serving.json land here")
     p.add_argument("--autotune", metavar="OUT.json", default=None,
-                   help="the paged kernels' block-size sweep (not ported)")
+                   help="sweep the paged kernels' block size at the "
+                        "preset's shape and write the artifact")
     p.add_argument("--json", action="store_true", dest="as_json",
                    default=argparse.SUPPRESS)
 
@@ -281,6 +287,7 @@ def run_smoke(args) -> int:
         seed=9, temp=0.6, top_k=4, seed_base=91, prompt_floor=2,
         prompt_mod=7)
     leg("prefix_sharing", _smoke_prefix_leg, model)
+    leg("speculative", _smoke_spec_leg, model, reqs[:6], device)
     for name, item in NOT_PORTED.items():
         legs[name] = {"status": "not_ported", "item": item}
     verdict = {"legs": legs, "ok": not failures}
@@ -586,6 +593,135 @@ def _smoke_prefix_leg(failures: list, model) -> dict:
     return leg
 
 
+def _smoke_spec_leg(failures: list, model, prompts_from, device) -> dict:
+    """Speculative decoding: an INDEPENDENT draft (another seed, so the
+    reject path runs) at k 3; the greedy streams equal plain greedy
+    `generate` token for token, at one token or more a slot-step."""
+    from ray_lightning_tpu_torch.serve.engine import (
+        DecodeEngine,
+        DraftConfig,
+        EngineConfig,
+    )
+    from ray_lightning_tpu_torch.serve.scheduler import Request, Scheduler
+
+    reqs = [Request(rid=f"s{i}", prompt=r.prompt, max_new_tokens=6,
+                    seed=61 + i) for i, r in enumerate(prompts_from)]
+    ecfg = EngineConfig(capacity=4, block_size=4, blocks_per_slot=8,
+                        prefill_chunk=4, draft=DraftConfig(k=3))
+    eng = DecodeEngine(model, ecfg, device=device,
+                       draft_model=_tiny_model(device, seed=97))
+    eng.warmup()
+    sched = Scheduler(eng)
+    for r in reqs:
+        sched.submit(r)
+    outputs = {}
+    while sched.busy():
+        for comp in sched.tick():
+            outputs[comp.rid] = list(comp.tokens)
+    bad = _check_outputs(outputs, _references(model, reqs))
+    leg = {"bitwise_mismatches": bad, "k": ecfg.draft.k,
+           "accepted_tokens_per_step": round(
+               sched.accepted_tokens_per_step, 4),
+           "compile_count": -1}
+    if bad:
+        failures.append(f"speculative greedy decode diverges from plain "
+                        f"greedy: {bad}")
+    if sched.accepted_tokens_per_step < 1.0:
+        failures.append(
+            f"speculative decode emitted fewer than one token per "
+            f"slot-step ({sched.accepted_tokens_per_step})")
+    return leg
+
+
+def _flagship(args):
+    """llama3-8b at the per-slot span ``--seq-budget`` (bf16 weights, as
+    the card serves them) and its engine: ``--slots`` slots, the span in
+    ``--block-size`` blocks, chunks of at least 128 tokens."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig
+    from ray_lightning_tpu_torch.serve.engine import EngineConfig
+
+    cfg = LlamaConfig.llama3_8b(max_seq_len=args.seq_budget,
+                                dtype=torch.bfloat16)
+    bps = args.blocks_per_slot or -(-args.seq_budget // args.block_size)
+    return cfg, EngineConfig(capacity=args.slots,
+                             block_size=args.block_size,
+                             blocks_per_slot=bps,
+                             prefill_chunk=max(args.prefill_chunk, 128),
+                             prefill_batch=args.prefill_batch)
+
+
+def _run_flagship(args) -> int:
+    """``serve llama3-8b``: the static plan of the flagship configuration
+    against the card's memory (no weights ship with the repo; with a
+    params file this configuration serves through the same driver). Its
+    decode-step audit is reported ``not_ported``."""
+    from ray_lightning_tpu_torch.serve.audit import (
+        format_serve_summary,
+        serve_memory_summary,
+    )
+
+    cfg, ecfg = _flagship(args)
+    summary = serve_memory_summary(cfg, ecfg)
+    audit = {"not_ported": NOT_PORTED["audit"]}
+    if getattr(args, "as_json", False):
+        print(json.dumps({"preset": "llama3-8b", "plan": summary,
+                          "audit": audit}))
+    else:
+        print(format_serve_summary(summary))
+        print(f"decode-step audit: not ported ({audit['not_ported']})")
+    return 0 if summary["fits"] else 1
+
+
+def _run_autotune(args) -> int:
+    """``serve <preset> --autotune out.json``: the block-size sweep of
+    both paged kernels at the preset's shape (`serve/sweep.py`)."""
+    from ray_lightning_tpu_torch.serve.engine import EngineConfig
+    from ray_lightning_tpu_torch.serve.sweep import (
+        save_artifact,
+        sweep_paged_kernels,
+    )
+    from ray_lightning_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(args.device)
+    if args.preset == "llama3-8b":
+        cfg, ecfg = _flagship(args)
+    else:
+        # the kernel-tiling tiny shape: head_dim 64, which both kernels
+        # take
+        cfg = _tiny_cfg(device)
+        ecfg = EngineConfig(capacity=args.slots, block_size=args.block_size,
+                            blocks_per_slot=args.blocks_per_slot or 8,
+                            prefill_chunk=args.prefill_chunk,
+                            prefill_batch=args.prefill_batch)
+    artifact = sweep_paged_kernels(cfg, ecfg, device=device)
+    save_artifact(artifact, args.autotune)
+    if getattr(args, "as_json", False):
+        print(json.dumps(artifact))
+    else:
+        n_ok = sum(1 for r in artifact["results"]
+                   if r["decode"].get("ok") and r["prefill"].get("ok"))
+        print(f"swept {len(artifact['results'])} geometries ({n_ok} "
+              f"passed both kernels' correctness) on "
+              f"{artifact['device']}")
+        for r in artifact["results"]:
+            t = r["timing"]
+            print(f"  block {r['block_size']:4d} x {r['blocks_per_slot']}: "
+                  + (f"decode {t['decode_ms']:.4f} ms, prefill "
+                     f"{t['prefill_ms']:.4f} ms" if "decode_ms" in t
+                     else next(iter(t.values()))))
+        if artifact["winner"]:
+            print(f"winner ({artifact['winner_source']}): block_size="
+                  f"{artifact['winner']['block_size']} blocks_per_slot="
+                  f"{artifact['winner']['blocks_per_slot']} -> "
+                  f"{args.autotune}")
+        else:
+            print(f"no candidate passed correctness -> {args.autotune} "
+                  "(winner: null)")
+    return 0 if artifact["winner"] else 1
+
+
 def _run_example(args) -> int:
     from ray_lightning_tpu_torch.serve.driver import (
         ReplicaGroupConfig,
@@ -641,10 +777,7 @@ def run_serve(args) -> int:
     if args.smoke:
         return run_smoke(args)
     if args.autotune:
-        raise NotImplementedError(
-            f"serve --autotune is not ported yet: {NOT_PORTED['autotune']}")
+        return _run_autotune(args)
     if args.preset == "llama3-8b":
-        raise NotImplementedError(
-            f"serve llama3-8b is not ported yet: "
-            f"{NOT_PORTED['llama3_8b_plan']}")
+        return _run_flagship(args)
     return _run_example(args)

@@ -49,8 +49,13 @@ Differences from the JAX driver, by design:
     ``compile_count: -1``, and request churn is pinned instead by
     `ops.build.build_seconds` (no kernel built) and the kernels' launch
     counters;
-  * ``tp > 1`` and speculative decoding raise `NotImplementedError`
-    naming their ROADMAP items.
+  * a tensor-parallel replica (``tp > 1``, process replicas of a live
+    session) is a `WorkerGroup` of ``tp`` ranks joined in a gloo group
+    on the driver's card (the ranks share it); rank 0 leads and
+    journals each iteration, the followers replay the journal;
+  * a speculative replica's draft (``draft_model_cfg`` with
+    ``ServeDriver(draft_params=)``) is a `Llama` the inline replicas
+    share, as they share the target.
 """
 from __future__ import annotations
 
@@ -209,7 +214,11 @@ class ReplicaGroupConfig:
     #: extra environment for process replicas
     env: Optional[Dict[str, str]] = None
     start_timeout: float = 180.0
-    #: tensor-parallel degree of each replica (not ported: > 1 raises)
+    #: tensor-parallel degree of each replica: tp > 1 makes every
+    #: PROCESS replica of a live session a `WorkerGroup` of tp ranks in
+    #: one gloo group on the driver's card; the pool shards over KV
+    #: heads, every rank runs the scheduler in lockstep off the request
+    #: channel, rank 0 owns the replica's results and telemetry
     tp: int = 1
     #: where the replicas run: None = the CUDA card, "cpu" = the CPU
     #: (the JAX ``platform`` / ``cpu_devices_per_rank``)
@@ -228,7 +237,10 @@ class ReplicaGroupConfig:
     flight_ring: int = 256
     #: flight ring persist cadence in recorded events
     flight_persist_every: int = 16
-    #: draft model config for speculative decoding (not ported: raises)
+    #: draft model config (`models.llama.LlamaConfig`) for speculative
+    #: decoding: arms together with ``engine.draft``; inline replicas
+    #: only (a process replica reloads ONE params file, which carries
+    #: no draft weights)
     draft_model_cfg: Optional[Any] = None
     #: traffic classes + graceful-overload policy (scheduler.SLOConfig);
     #: None keeps the single-class scheduler
@@ -237,18 +249,25 @@ class ReplicaGroupConfig:
     def __post_init__(self):
         if self.backend not in ("inline", "process"):
             raise ValueError(f"backend={self.backend!r}")
-        if self.draft_model_cfg is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_model_cfg) is not ported yet "
-                "(ROADMAP Queue 1 item 8: speculative decoding)")
+        if self.backend == "process" and (
+                self.engine.draft is not None
+                or self.draft_model_cfg is not None):
+            raise ValueError(
+                "speculative decoding is inline-only: a process "
+                "replica (re)spawns from the params .npz, which "
+                "carries no draft weights")
+        if (self.engine.draft is None) != (self.draft_model_cfg is None):
+            raise ValueError(
+                "engine.draft and draft_model_cfg arm together — set "
+                "both (speculative) or neither")
         if self.n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         if self.tp < 1:
             raise ValueError("tp must be >= 1")
-        if self.tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel replicas (tp > 1) are not ported yet "
-                "(ROADMAP Queue 1 item 8: tensor-parallel replicas)")
+        if self.tp > 1 and self.backend != "process":
+            raise ValueError(
+                "tp > 1 needs backend='process': a sharded replica is "
+                "a WorkerGroup of tp rank processes")
 
 
 @dataclasses.dataclass
@@ -464,14 +483,30 @@ def _serve_loop(engine: DecodeEngine, reserve: str,
 
 # ---- process-replica worker mains ------------------------------------------
 
+def _join_tensor_group(rank: int, tp: int, rendezvous):
+    """One rank of a tensor-parallel replica joins its group: gloo, on
+    the CPU and on the card alike (the ranks of a replica share the
+    driver's card, where NCCL refuses two ranks). Returns the rank's
+    `parallel.tensor.TensorParallel`."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.parallel.tensor import TensorParallel
+    from ray_lightning_tpu_torch.runtime.launch import join_group
+
+    join_group("gloo", rank, tp, rendezvous)
+    return TensorParallel(dist.group.WORLD, tp, rank)
+
+
 def _start_replica(model_cfg, params_path: str, engine_cfg: EngineConfig,
                    compile_cache_dir: Optional[str], device: str,
-                   use_kernels: Optional[bool]):
+                   use_kernels: Optional[bool], mesh=None):
     """In a replica worker: load the weights, warm the step, and time
     each part. Returns ``(engine, timing)``; ``timing`` is the "live"
     item's payload: ``import_s`` (process start to here), ``load_s``
     (model build + params file), ``warmup_s`` (the first tick) and
-    ``build_s`` (the kernel libraries built or loaded in it)."""
+    ``build_s`` (the kernel libraries built or loaded in it). ``mesh``
+    (a rank's tensor group) makes the engine that rank of a
+    tensor-parallel replica."""
     from ray_lightning_tpu_torch.ops import build
     from ray_lightning_tpu_torch.runtime import session
     from ray_lightning_tpu_torch.utils.devices import resolve_device
@@ -493,7 +528,7 @@ def _start_replica(model_cfg, params_path: str, engine_cfg: EngineConfig,
     built0 = build.build_seconds()
     t0 = time.perf_counter()
     engine = DecodeEngine(model, engine_cfg, use_kernels=use_kernels,
-                          device=dev)
+                          device=dev, mesh=mesh)
     engine.warmup()
     warm_s = time.perf_counter() - t0
     return engine, {"warmup_s": round(warm_s, 4),
@@ -562,29 +597,51 @@ def _replica_session_main(model_cfg, params_path: str,
                           channel_epoch: int,
                           slo_kw: Optional[dict],
                           device: str,
-                          use_kernels: Optional[bool]) -> dict:
-    """A live-session replica worker (`serve/channel.py`): work arrives
-    over the replica's command log, and results go back over the side
-    channel BATCHED, one item per loop iteration (tokens, preemptions,
-    completions, the command ack and evictions together)."""
+                          use_kernels: Optional[bool],
+                          tp: int = 1, rendezvous=None,
+                          rank: int = 0) -> dict:
+    """One rank of a live-session replica (`serve/channel.py`): work
+    arrives over the replica's command log, and results go back over the
+    side channel BATCHED, one item per loop iteration (tokens,
+    preemptions, completions, the command ack and evictions together).
+
+    With ``tp > 1`` the replica is a group of ``tp`` ranks, each running
+    the whole host-side scheduler in lockstep over its shard of the
+    model. Rank 0 LEADS: it alone reads the commands at its own pace,
+    journals each iteration to the cursor log (before the tick, whose
+    collectives wait for the followers), emits the results and owns the
+    replica's telemetry. The followers replay the journal; the
+    scheduler's determinism makes their state the leader's, so every
+    rank enters each tick with the same inputs."""
     from ray_lightning_tpu_torch.runtime import session
     from ray_lightning_tpu_torch.serve.channel import (
         ChannelReader,
+        CursorReader,
+        CursorWriter,
         request_from_wire,
         request_to_wire,
     )
 
+    mesh = _join_tensor_group(rank, tp, rendezvous) if tp > 1 else None
     engine, timing = _start_replica(model_cfg, params_path, engine_cfg,
-                                    compile_cache_dir, device, use_kernels)
+                                    compile_cache_dir, device, use_kernels,
+                                    mesh=mesh)
+    leader = rank == 0
     mc = metrics_cfg or {}
-    recorder = _make_recorder(run_dir, replica)
-    metrics = _make_metrics(run_dir, replica, mc)
-    flight = _make_flight(run_dir, replica, mc)
+    tdir = run_dir if leader else None
+    recorder = _make_recorder(tdir, replica)
+    metrics = _make_metrics(tdir, replica, mc)
+    flight = _make_flight(tdir, replica, mc)
     engine.metrics = metrics
     sched = Scheduler(engine, reserve=reserve, metrics=metrics,
                       flight=flight, slo=SLOConfig.from_wire(slo_kw))
     reader = ChannelReader(session_dir, replica, channel_epoch)
-    session.put_queue(("live", replica, timing))
+    cursor_w = (CursorWriter(session_dir, replica, channel_epoch)
+                if leader and tp > 1 else None)
+    cursor_r = (CursorReader(session_dir, replica, channel_epoch)
+                if not leader else None)
+    if leader:
+        session.put_queue(("live", replica, timing))
     kill_after = int((fault or {}).get("kill_after_tokens", 0))
     marker = (os.path.join(fault_dir, f"replica{replica}.killed")
               if fault_dir else None)
@@ -592,7 +649,8 @@ def _replica_session_main(model_cfg, params_path: str,
     state = {"draining": False, "paused": False, "stop": None}
 
     def apply(cmd) -> List:
-        """Apply one command; returns the requests it evicts."""
+        """Apply one command; returns the requests it evicts (the same
+        on every rank; only the leader wires them back)."""
         op = cmd["op"]
         ev: List = []
         if op == "submit":
@@ -631,7 +689,7 @@ def _replica_session_main(model_cfg, params_path: str,
         ev = sched.evict_queued() if state["draining"] else []
         return toks, preempts, dones, ev
 
-    while True:
+    while leader:
         cmds = reader.poll()
         evicted: List = []
         starts: List = []
@@ -644,6 +702,8 @@ def _replica_session_main(model_cfg, params_path: str,
             evicted.extend(apply(cmd))
         sheds = sched.take_sheds()
         if state["stop"] in ("hard", "abort"):
+            if cursor_w is not None and cmds:
+                cursor_w.advance(reader.last_seq, False)
             payload: Dict[str, Any] = {"ack": reader.last_seq}
             if evicted:
                 payload["evicted"] = [[request_to_wire(q), p]
@@ -654,6 +714,10 @@ def _replica_session_main(model_cfg, params_path: str,
                 session.put_queue(("batch", replica, payload))
             break
         do_tick = not state["paused"] and sched.busy()
+        if cursor_w is not None and (cmds or do_tick):
+            # journal BEFORE the tick: its collectives wait until the
+            # followers join, and they join by reading this record
+            cursor_w.advance(reader.last_seq, do_tick)
         toks, preempts, dones, ev2 = (run_tick() if do_tick
                                       else ([], [], [], []))
         evicted.extend(ev2)
@@ -684,6 +748,31 @@ def _replica_session_main(model_cfg, params_path: str,
             break
         if not do_tick and not cmds:
             time.sleep(0.004)
+    if cursor_w is not None:
+        cursor_w.end()
+        cursor_w.close()
+    while not leader:
+        # a follower replays the leader's journal: no policy, no
+        # emissions, only the lockstep state and the tick's collectives
+        rec = cursor_r.next()
+        if rec is None:
+            time.sleep(0.004)
+            continue
+        if rec.get("end"):
+            break
+        target = int(rec["seq"])
+        cmds = reader.take_upto(target)
+        while reader.last_seq < target:
+            # the command file is written before the cursor record, but
+            # a reader can still lag: wait it out
+            time.sleep(0.002)
+            cmds.extend(reader.take_upto(target))
+        for cmd in cmds:
+            apply(cmd)
+        if rec.get("tick"):
+            run_tick()
+        # the leader owns the shed records; a follower drops its copies
+        sched.take_sheds()
     _record_drain(recorder, sched, replica)
     recorder.flush()
     recorder.close()
@@ -694,10 +783,18 @@ def _replica_session_main(model_cfg, params_path: str,
         metrics.tick_end()
     metrics.close()
     flight.close()
-    return {"replica": replica, "completed": len(sched.completions),
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    from ray_lightning_tpu_torch.ops.kernels import launch_counts
+
+    return {"replica": replica, "rank": rank,
+            "completed": len(sched.completions),
             "steps": engine.steps, "warmup_s": timing["warmup_s"],
             "compile_count": NO_COMPILE_COUNT,
-            "occupancy": sched.slot_occupancy}
+            "occupancy": sched.slot_occupancy,
+            "launches": launch_counts(), "live_bytes": engine.live_bytes()}
 
 
 def _card_env(device) -> Dict[str, str]:
@@ -742,7 +839,7 @@ class _ProcessReplica:
 
     __slots__ = ("id", "state", "spawned_at", "warm_s", "writer",
                  "assigned", "live_evt", "thread", "attempts",
-                 "restarts", "error", "result", "acked", "warmups")
+                 "restarts", "error", "acked", "warmups", "ranks")
 
     def __init__(self, rid: int, writer):
         self.id = rid
@@ -758,10 +855,12 @@ class _ProcessReplica:
         self.attempts = 0
         self.restarts = 0
         self.error: Optional[BaseException] = None
-        self.result: Optional[dict] = None
         #: highest command seq the worker acked
         self.acked = 0
         self.warmups: List[dict] = []
+        #: every rank's result of the last group to finish (rank 0's
+        #: stands for the replica)
+        self.ranks: List[dict] = []
 
 
 class ServeDriver:
@@ -780,10 +879,13 @@ class ServeDriver:
                  draft_params=None):
         from ray_lightning_tpu_torch.utils.devices import resolve_device
 
-        if draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_params) is not ported yet "
-                "(ROADMAP Queue 1 item 8: speculative decoding)")
+        if (cfg.draft_model_cfg is not None) != (draft_params is not None):
+            raise ValueError(
+                "cfg.draft_model_cfg and draft_params arm together — "
+                "pass both (speculative inline replicas) or neither")
+        #: the draft's weights, in any form ``params`` takes
+        self.draft_params = draft_params
+        self._draft = None
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.params = params
@@ -836,10 +938,19 @@ class ServeDriver:
                                        self.device)
         return self._model
 
+    def _draft_model(self):
+        """The inline replicas' shared draft model, built once (None
+        without a draft)."""
+        if self._draft is None and self.cfg.draft_model_cfg is not None:
+            self._draft = _build_model(self.cfg.draft_model_cfg,
+                                       self.draft_params, self.device)
+        return self._draft
+
     def _new_engine(self, metrics):
         engine = DecodeEngine(self._serving_model(), self.cfg.engine,
                               use_kernels=self.cfg.use_kernels,
-                              device=self.device, metrics=metrics)
+                              device=self.device, metrics=metrics,
+                              draft_model=self._draft_model())
         engine.warmup()
         return engine
 
@@ -1089,6 +1200,11 @@ class ServeDriver:
         """Serve ``requests`` to completion. ``fault`` (process backend
         only): ``{"replica": r, "kill_after_tokens": n}`` SIGKILLs
         replica ``r`` once, mid-stream — the recovery drill."""
+        if self.cfg.tp > 1:
+            raise ValueError(
+                "tp > 1 replicas are dynamic-session only (start()/"
+                "submit()/stop()): the fixed-batch run() ships its "
+                "request list at spawn and stays tp=1")
         # COPY before stamping: a reused request list must not carry
         # this run's arrival stamps into the next one
         requests = [dataclasses.replace(r) for r in requests]
@@ -1641,6 +1757,7 @@ class ServeDriver:
             classify_failure,
         )
         from ray_lightning_tpu_torch.runtime.group import WorkerGroup
+        from ray_lightning_tpu_torch.runtime.launch import _open_store
         from ray_lightning_tpu_torch.serve.channel import request_to_wire
 
         fault = getattr(self, "_session_fault", None)
@@ -1661,13 +1778,17 @@ class ServeDriver:
                         replay.append({"op": "drain"})
                     rep.writer.begin_epoch(replay)
                 epoch = rep.writer.epoch
+            tp = self.cfg.tp
             group = WorkerGroup(
-                num_workers=1, env=self._worker_env(),
+                num_workers=tp, env=self._worker_env(),
                 log_dir=os.path.join(self._session_dir,
                                      f"replica{rep.id}"),
                 start_timeout=self.cfg.start_timeout)
             try:
                 group.start()
+                # rank 0 serves the tensor group's rendezvous store
+                rendezvous = (("127.0.0.1", group.run_single(
+                    0, _open_store, tp, timeout=60)) if tp > 1 else None)
                 res = group.run(
                     _replica_session_main,
                     shared_args=(
@@ -1676,10 +1797,12 @@ class ServeDriver:
                         self._session_dir, self.cfg.compile_cache_dir,
                         rep_fault, self._session_dir,
                         self._metrics_cfg(), epoch, self._slo_kw(),
-                        self._worker_device(), self.cfg.use_kernels),
+                        self._worker_device(), self.cfg.use_kernels, tp,
+                        rendezvous),
+                    per_rank_args=[(k,) for k in range(tp)],
                     on_queue_item=self._on_session_item)
                 with self._proc_lock:
-                    rep.result = res[0]
+                    rep.ranks = res
                     if rep.state != "stopped":
                         self._finalize_process_replica(rep)
                 return
@@ -1798,8 +1921,9 @@ class ServeDriver:
         for rep in self.replicas.values():
             if rep.error is not None:
                 raise rep.error
-        results = [rep.result for rep in self.replicas.values()
-                   if rep.result]
+        # the leader's (rank 0's) result stands for its replica
+        results = [rep.ranks[0] for rep in self.replicas.values()
+                   if rep.ranks]
         starts = [{"replica": rep.id, "attempt": i, **w}
                   for rep in self.replicas.values()
                   for i, w in enumerate(rep.warmups)]
@@ -1815,6 +1939,12 @@ class ServeDriver:
                              for res in results},
             "restarts_total": sum(rep.restarts
                                   for rep in self.replicas.values()),
+            # each rank's kernel launches and device bytes, by replica
+            "replica_ranks": {
+                rep.id: [{k: r[k] for k in ("rank", "steps", "launches",
+                                            "live_bytes")}
+                         for r in rep.ranks]
+                for rep in self.replicas.values() if rep.ranks},
         })
         result = ServeResult(
             outputs=self.outputs, meta=self.meta,

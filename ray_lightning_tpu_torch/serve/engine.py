@@ -25,11 +25,16 @@ host numpy. Sampling draws from a per-slot `torch.Generator` seeded from
 the slot's [2] uint32 key state, which advances once per emitted token,
 so a request's sampled stream depends only on its seed (JAX's threefry
 bits are not reproduced; greedy streams match the JAX engine).
+
+Speculative decoding (``EngineConfig(draft=DraftConfig(k))``,
+`build_spec_step`) and tensor-parallel replicas (``DecodeEngine(mesh=)``,
+`serving_param_shardings`) are the JAX engine's, with the same gates.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +46,29 @@ from ray_lightning_tpu_torch.ops.attention import (
     paged_attention_uses_kernel,
     paged_prefill_uses_kernel,
 )
-from ray_lightning_tpu_torch.serve.kv_cache import PagedPoolSpec, init_pool
+from ray_lightning_tpu_torch.serve.kv_cache import (
+    PagedPoolSpec,
+    init_pool,
+    validate_pool_tp,
+)
 from ray_lightning_tpu_torch.telemetry.metrics import NULL_METRICS
 from ray_lightning_tpu_torch.utils.devices import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftConfig:
+    """Speculative decoding: a small DRAFT model proposes ``k - 1`` greedy
+    tokens a tick and the target verifies all ``k`` (the carried token
+    plus the proposals) in ONE k-wide chunk. Greedy accept keeps the
+    stream token for token that of plain greedy decode; ``k = 1`` is the
+    base engine's arithmetic (no proposals, one verify row)."""
+
+    #: tokens verified a tick (1 carried + k-1 draft proposals)
+    k: int = 4
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"draft k must be >= 1, got {self.k}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +92,17 @@ class EngineConfig:
     #: together, left-padded and right-aligned to a shared chunk-multiple
     #: width. 1 runs the single-slot lane with no pad inputs.
     prefill_batch: int = 1
+    #: speculative decoding (None = the base single-token step). Set, the
+    #: engine needs a draft model at construction and runs
+    #: `build_spec_step`; the scheduler admits greedy requests only and
+    #: charges the k-1 slot headroom (`scheduler.validate_request`)
+    draft: Optional[DraftConfig] = None
 
     def __post_init__(self):
+        if isinstance(self.draft, dict):
+            # the dataclasses.asdict round trip a config takes to a
+            # process replica
+            object.__setattr__(self, "draft", DraftConfig(**self.draft))
         if self.capacity < 1:
             raise ValueError("capacity must be >= 1")
         if self.prefill_chunk < 1:
@@ -81,6 +115,16 @@ class EngineConfig:
             raise ValueError(
                 f"prefill_chunk {self.prefill_chunk} exceeds "
                 f"max_slot_len "
+                f"{self.blocks_per_slot * self.block_size}")
+        if self.draft is not None and self.prefill_batch != 1:
+            raise ValueError(
+                "speculative decoding (draft=...) requires "
+                "prefill_batch == 1 — the verify chunk rides the "
+                "single-slot program")
+        if self.draft is not None and \
+                self.draft.k > self.blocks_per_slot * self.block_size:
+            raise ValueError(
+                f"draft k {self.draft.k} exceeds max_slot_len "
                 f"{self.blocks_per_slot * self.block_size}")
 
     @property
@@ -170,15 +214,13 @@ def build_step(model, cfg: EngineConfig, fused: bool = False,
     the batched lane only."""
     mcfg = model.cfg
     spec = cfg.pool_spec
-    L, HKV, HD = mcfg.n_layers, mcfg.n_kv_heads, mcfg.head_dim
+    L, HKV, HD = mcfg.n_layers, _local_kv_heads(model), mcfg.head_dim
     C, P, G, CH = cfg.capacity, spec.block_size, spec.gathered_len, \
         cfg.prefill_chunk
     M = spec.blocks_per_slot
     padded = cfg.prefill_batch > 1
     dev = model.device
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    put = _putter(dev)
 
     def write_index(tables, pos, decoding):
         # where this tick's K/V token lands; slots not in the decode
@@ -274,6 +316,145 @@ def build_step(model, cfg: EngineConfig, fused: bool = False,
     return step
 
 
+def _local_kv_heads(model) -> int:
+    """The KV heads a rank's pool holds: all of them off the tensor axis,
+    ``Hkv / tp`` on it."""
+    tp = model.tp
+    return model.cfg.n_kv_heads // (tp.size if tp is not None else 1)
+
+
+def _putter(dev):
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    return put
+
+
+def build_spec_step(model, draft_model, cfg: EngineConfig,
+                    reference: bool = False):
+    """The speculative twin of `build_step` (JAX `build_spec_step`):
+    single-slot prefill lane, reference attention lanes. Per tick, per
+    decoding slot, with ``k = cfg.draft.k``:
+
+      1. ``t0`` is sampled from ``last_logits`` exactly as the base step
+         samples (the scheduler admits greedy requests only);
+      2. the DRAFT runs ``k`` single-token trips over its own paged pool
+         (the same block tables), fed ``[t0, d1..d_{k-1}]``, writing its
+         K/V at ``pos..pos+k-1``; the k-th proposal is discarded;
+      3. the TARGET verifies the chunk ``[t0, d1..d_{k-1}]`` in ONE
+         k-wide call through its dense cache path, writing its K/V at
+         ``pos..pos+k-1``; ``g_{j+1} = argmax(l_j)`` is what plain greedy
+         decode would emit after position ``pos+j``;
+      4. greedy accept: ``m`` is the longest prefix with ``d_j == g_j``
+         (the cumprod of the matches); the slot emits ``[t0, g_1..g_m]``
+         (``n_emit = 1 + m``) and carries ``last_logits = l_m``, so
+         ``g_{m+1}`` is the next tick's ``t0``. K/V written past
+         ``pos+m`` came from rejected tokens: causally masked and
+         overwritten before the stream reaches it.
+
+    The prefill lane runs the chunk through the target AND the draft, so
+    the draft's cache tracks the target position for position.
+
+    The lanes are the JAX engine's: the verify chunk, the draft trips and
+    the prefill chunk take the dense cache path's masked attention over
+    a gathered view (every row at its own ``pos``), because the paged
+    kernels take one token a slot or one ``pos`` a chunk. This is the
+    design, not a fallback; what the lanes cost is priced by
+    `serve.audit.speculative_plan`. The other kernels (RMSNorm in every
+    model call on the card) run as dispatch decides, unless
+    ``reference`` forces the plain versions (the engine's
+    ``use_kernels=False``).
+
+    The returned ``step(pool_k, pool_v, dpool_k, dpool_v, last_logits,
+    tables, pos, decoding, temp, top_k, rngs, prefill)`` updates both
+    pools and ``last_logits`` in place and returns ``(toks [C, k],
+    n_emit [C], rngs' [C, 2])``, the first two on the device."""
+    if cfg.prefill_batch != 1 or cfg.draft is None:
+        raise ValueError("build_spec_step needs cfg.draft and "
+                         "prefill_batch == 1")
+    mcfg, dcfg = model.cfg, draft_model.cfg
+    spec = cfg.pool_spec
+    C, P, G, CH = cfg.capacity, spec.block_size, spec.gathered_len, \
+        cfg.prefill_chunk
+    M, K = spec.blocks_per_slot, cfg.draft.k
+    dev = model.device
+    put = _putter(dev)
+    policy = dispatch.force_reference if reference else contextlib.nullcontext
+    rows = torch.arange(C, device=dev)
+
+    def gather(pool_k, pool_v, idx, mc):
+        n = idx.shape[0]
+        shape = (mc.n_layers, n, G, mc.n_kv_heads, mc.head_dim)
+        return (pool_k[:, idx].reshape(shape),
+                pool_v[:, idx].reshape(shape))
+
+    def scatter(pool_k, pool_v, view, bi, off, at):
+        # the view's positions ``at`` [n, w] land at pool (bi, off)
+        r = torch.arange(at.shape[0], device=dev)[:, None]
+        pool_k[:, bi, off] = view[0][:, r, at]
+        pool_v[:, bi, off] = view[1][:, r, at]
+
+    def step(pool_k, pool_v, dpool_k, dpool_v, last_logits, tables, pos,
+             decoding, temp, top_k, rngs, prefill):
+        idx = put(tables).long()
+        dec = torch.from_numpy(np.asarray(decoding, bool)).to(dev)
+        # rows not decoding run at position 0 and write the scratch block
+        at = np.where(decoding, pos, 0)
+        wp = at[:, None] + np.arange(K)[None, :]
+        bi = put(np.where(decoding[:, None], np.take_along_axis(
+            tables, np.minimum(wp // P, M - 1), axis=1), 0)).long()
+        off = put(np.where(decoding[:, None], wp % P, 0)).long()
+        wp_d = put(wp).long()
+        # ---- t0: the carried token, sampled as the base step does -----
+        t0, new_rngs = _sample(last_logits, decoding, temp, top_k, rngs)
+        with policy():
+            # ---- draft lane: K single-token trips, one gathered view -
+            dview = gather(dpool_k, dpool_v, idx, dcfg)
+            tok, chunk = t0, []
+            for j in range(K):
+                chunk.append(tok)
+                dlogits = draft_model(tok[:, None], dview, wp_d[:, j])
+                tok = torch.argmax(dlogits[:, 0], dim=-1)
+            scatter(dpool_k, dpool_v, dview, bi, off, wp_d)
+            chunk = torch.stack(chunk, dim=1)          # [C, K]
+            # ---- verify lane: ONE K-wide target chunk a slot ---------
+            view = gather(pool_k, pool_v, idx, mcfg)
+            vlogits = model(chunk, view, wp_d[:, 0])  # [C, K, V]
+            scatter(pool_k, pool_v, view, bi, off, wp_d)
+        # ---- greedy accept -------------------------------------------
+        g = torch.argmax(vlogits, dim=-1)               # [C, K]
+        ok = torch.cumprod((chunk[:, 1:] == g[:, :-1]).long(), dim=1)
+        m = ok.sum(dim=1)
+        n_emit = torch.where(dec, 1 + m, torch.zeros_like(m))
+        toks = torch.cat([t0[:, None], g[:, :-1]], dim=1)
+        picked = vlogits[rows, m]
+        last_logits.copy_(torch.where(dec[:, None], picked, last_logits))
+        # ---- prefill lane: the chunk through target AND draft --------
+        slot, ptoks, ppos, last_row = prefill
+        slot, ppos, last_row = int(slot), int(ppos), int(last_row)
+        if slot >= 0:
+            row = idx[slot:slot + 1]
+            wpos = ppos + np.arange(CH)
+            wbi = row[0, put(wpos // P).long()][None]
+            woff = put(wpos % P).long()[None]
+            at_d = put(wpos[None]).long()
+            toks_d = put(np.asarray(ptoks)[None])
+            pos_d = put([ppos]).long()
+            with policy():
+                tview = gather(pool_k, pool_v, row, mcfg)
+                h = model.hidden(toks_d, tview, pos_d)
+                scatter(pool_k, pool_v, tview, wbi, woff, at_d)
+                # the draft's logits are unused here: its first proposal
+                # each tick is fed t0
+                dview = gather(dpool_k, dpool_v, row, dcfg)
+                draft_model.hidden(toks_d, dview, pos_d)
+                scatter(dpool_k, dpool_v, dview, wbi, woff, at_d)
+                if last_row >= 0:
+                    last_logits[slot] = model.logits(h[:, last_row])[0]
+        return toks, n_emit, new_rngs
+
+    return step
+
+
 def _copy_pool_block(pool_k, pool_v, src: int, dst: int) -> None:
     """Copy one block's K/V in place — the copy-on-write fork primitive
     (the JAX twin returns new pools through a donated jit)."""
@@ -294,10 +475,59 @@ def idle_prefill(cfg: EngineConfig):
             np.int32(0), np.int32(-1), np.zeros(B, np.int32))
 
 
+def serving_param_specs(model, params=None,
+                        axis_names=("tensor",)) -> List[Tuple[str, tuple]]:
+    """``(name, spec)`` for each of the serving model's weights, in state
+    dict order (twin of the JAX `serving_param_specs`): the published
+    placement of `models.llama.llama_param_specs` (per-dimension mesh
+    axes, ``()`` replicated), every unknown leaf and every spec naming an
+    axis outside ``axis_names`` replicated: serving meshes are
+    tensor-only. ``params`` (a state dict) defaults to the model's."""
+    from ray_lightning_tpu_torch.models.llama import llama_param_specs
+
+    specs = llama_param_specs(model.cfg)
+    axes = set(axis_names)
+    out = []
+    for name in (params if params is not None else model.state_dict()):
+        spec = specs.get(name, ())
+        if any(ax is not None and ax not in axes for ax in spec):
+            spec = ()
+        out.append((name, spec))
+    return out
+
+
+def serving_param_shardings(model, params, mesh) -> Dict[str, torch.Tensor]:
+    """This rank's piece of each weight of ``params`` (a state dict with
+    every weight whole) under `serving_param_specs`, for the tensor group
+    ``mesh`` (a `parallel.tensor.TensorParallel`): a split dimension is
+    chunked as `parallel.strategy.ShardedMesh` chunks it, the fused
+    weights (``wqkv``, ``w_gate_up``) first put rank-major by
+    `parallel.tensor.fused_row_permutation` so each rank holds its own q
+    heads with their KV groups; replicated leaves stay whole. Views:
+    clone to own them."""
+    from ray_lightning_tpu_torch.models.llama import llama_fused_rows
+    from ray_lightning_tpu_torch.parallel.tensor import (
+        fused_row_permutation,
+    )
+
+    fused = llama_fused_rows(model.cfg)
+    out = {}
+    for name, spec in serving_param_specs(model, params):
+        value = params[name]
+        if "tensor" in spec:
+            dim = spec.index("tensor")
+            if name in fused:
+                value = value[fused_row_permutation(fused[name], mesh.size)
+                              .to(value.device)]
+            value = value.chunk(mesh.size, dim=dim)[mesh.rank]
+        out[name] = value
+    return out
+
+
 class DecodeEngine:
     """One replica's step + its device-resident buffers (``pool_k``,
-    ``pool_v``, ``last_logits``). The host-side request state lives in
-    `serve.scheduler`.
+    ``pool_v``, ``last_logits``; ``dpool_k``/``dpool_v`` under a draft).
+    The host-side request state lives in `serve.scheduler`.
 
     ``use_kernels`` picks the lanes once, here: None follows the
     dispatch policy for the device (the kernel lanes on CUDA unless a
@@ -307,20 +537,29 @@ class DecodeEngine:
     kernel lane also needs the kernel's shape gate to pass: on the CPU a
     refused shape takes the reference lane, on CUDA it raises (the card
     runs the reference lanes only when ``use_kernels=False`` or a
-    `dispatch.force_reference` context asks for them)."""
+    `dispatch.force_reference` context asks for them).
+
+    ``cfg.draft`` arms speculative decoding: ``draft_model`` (a `Llama`
+    holding the draft's weights; ``draft_params``, its state dict, is
+    loaded into it when given) runs `build_spec_step`'s lanes. The draft
+    must share the target's vocabulary and cover the slot, and the
+    engine must be unsharded.
+
+    ``mesh`` (a `parallel.tensor.TensorParallel`: this rank's tensor
+    group) makes the engine one rank of a tensor-parallel replica: the
+    model's weights are replaced by this rank's pieces
+    (`serving_param_shardings`) and `Llama.enable_tensor_parallel` is
+    turned on, so attention runs ``H/tp`` q heads over ``Hkv/tp`` KV
+    heads (the paged kernels at those shapes), the pool holds ``Hkv/tp``
+    heads, and the row-parallel projections all-reduce over the group.
+    ``last_logits`` is replicated (the vocab-parallel head gathers it),
+    so every rank samples the same tokens and the scheduler on each rank,
+    fed the same inputs, stays tp-oblivious."""
 
     def __init__(self, model, cfg: EngineConfig,
                  use_kernels: Optional[bool] = None, device=None,
                  metrics=None, mesh=None, draft_model=None,
                  draft_params=None, max_seq_len_check: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel replicas (mesh=) are not ported yet "
-                "(ROADMAP Queue 1 items 4 and 8)")
-        if draft_model is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft=) is not ported yet "
-                "(ROADMAP Queue 1 item 8)")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -330,29 +569,106 @@ class DecodeEngine:
                 f"engine max_slot_len {cfg.max_slot_len} exceeds the "
                 f"model's max_seq_len {model.cfg.max_seq_len} — RoPE "
                 "tables would be read out of range")
+        if cfg.draft is not None:
+            if draft_model is None:
+                raise ValueError(
+                    "cfg.draft is set but no draft model/params were "
+                    "given — pass draft_model= (and draft_params=)")
+            if mesh is not None:
+                raise ValueError(
+                    "speculative decoding requires an unsharded replica "
+                    "(mesh=None)")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.cfg.vocab_size} != target "
+                    f"vocab {model.cfg.vocab_size} — greedy verify "
+                    "compares token ids across the two models")
+            if max_seq_len_check and \
+                    cfg.max_slot_len > draft_model.cfg.max_seq_len:
+                raise ValueError(
+                    f"engine max_slot_len {cfg.max_slot_len} exceeds the "
+                    f"DRAFT model's max_seq_len "
+                    f"{draft_model.cfg.max_seq_len}")
+            if draft_model.device.type != dev.type:
+                raise ValueError(f"draft model lives on "
+                                 f"{draft_model.device}, engine asked "
+                                 f"for {dev}")
+            if draft_params is not None:
+                draft_model.load_state_dict(draft_params)
         self.model = model
         self.cfg = cfg
         self.spec = cfg.pool_spec
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.size
         mcfg = model.cfg
+        if mesh is not None:
+            validate_pool_tp(mcfg, self.tp)
+            self._shard_weights(mesh)
         if use_kernels is None:
             use_kernels = dispatch.use_kernel(dev)
-        pool_shape = (self.spec.n_blocks, self.spec.block_size,
-                      mcfg.n_kv_heads, mcfg.head_dim)
-        self.fused = paged_attention_uses_kernel(
-            (cfg.capacity, mcfg.n_heads, mcfg.head_dim), pool_shape,
-            use_kernels, dev)
-        self.fused_prefill = paged_prefill_uses_kernel(
-            (cfg.prefill_batch, cfg.prefill_chunk, mcfg.n_heads,
-             mcfg.head_dim), pool_shape, use_kernels, dev)
-        self._step = build_step(model, cfg, fused=self.fused,
-                                fused_prefill=self.fused_prefill)
-        self.pool_k, self.pool_v = init_pool(mcfg, self.spec,
-                                             model.device)
+        n_q, n_kv = mcfg.n_heads // self.tp, mcfg.n_kv_heads // self.tp
+        pool_shape = (self.spec.n_blocks, self.spec.block_size, n_kv,
+                      mcfg.head_dim)
+        self.draft_model = draft_model
+        self.dpool_k = self.dpool_v = None
+        if cfg.draft is not None:
+            # the verify chunk, the draft trips and the prefill chunk run
+            # the reference attention lanes (`build_spec_step`)
+            self.fused = self.fused_prefill = False
+            self._step = build_spec_step(model, draft_model, cfg,
+                                         reference=not use_kernels)
+            self.dpool_k, self.dpool_v = init_pool(draft_model.cfg,
+                                                   self.spec, dev)
+        else:
+            self.fused = paged_attention_uses_kernel(
+                (cfg.capacity, n_q, mcfg.head_dim), pool_shape,
+                use_kernels, dev)
+            self.fused_prefill = paged_prefill_uses_kernel(
+                (cfg.prefill_batch, cfg.prefill_chunk, n_q,
+                 mcfg.head_dim), pool_shape, use_kernels, dev)
+            self._step = build_step(model, cfg, fused=self.fused,
+                                    fused_prefill=self.fused_prefill)
+        self.pool_k, self.pool_v = init_pool(mcfg, self.spec, dev,
+                                             tp=self.tp)
         self.last_logits = torch.zeros((cfg.capacity, mcfg.vocab_size),
-                                       dtype=torch.float32,
-                                       device=model.device)
+                                       dtype=torch.float32, device=dev)
         self.steps = 0
         self.metrics = metrics if metrics is not None else NULL_METRICS
+
+    def _shard_weights(self, mesh) -> None:
+        """Keep only this rank's piece of each weight, then run the
+        model's tensor-parallel forward."""
+        from torch import nn
+
+        model = self.model
+        if model.tp is not None:
+            raise ValueError("the model already runs on a tensor group")
+        with torch.no_grad():
+            pieces = serving_param_shardings(model, model.state_dict(),
+                                             mesh)
+            for name, piece in pieces.items():
+                owner, _, attr = name.rpartition(".")
+                mod = model.get_submodule(owner) if owner else model
+                setattr(mod, attr, nn.Parameter(piece.clone(),
+                                                requires_grad=False))
+        model.enable_tensor_parallel(mesh)
+
+    def live_bytes(self) -> dict:
+        """The bytes this engine holds on its device, by the terms of
+        `serve.audit.serve_memory_summary` and `speculative_plan`: the
+        (rank's) weights, the pool, ``last_logits``, and under a draft its
+        weights and pool."""
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        out = {"params_bytes": nbytes(*self.model.parameters()),
+               "pool_bytes": nbytes(self.pool_k, self.pool_v),
+               "last_logits_bytes": nbytes(self.last_logits)}
+        if self.dpool_k is not None:
+            out["draft_params_bytes"] = nbytes(
+                *self.draft_model.parameters())
+            out["draft_pool_bytes"] = nbytes(self.dpool_k, self.dpool_v)
+        return out
 
     @property
     def attention_path(self) -> str:
@@ -380,32 +696,48 @@ class DecodeEngine:
         )
 
     def copy_block(self, src: int, dst: int) -> None:
-        """Copy pool block ``src`` into ``dst`` (K and V): the
-        scheduler's copy-on-write fork."""
+        """Copy pool block ``src`` into ``dst`` (K and V; the draft's pool
+        too under speculative decoding): the scheduler's copy-on-write
+        fork."""
         with torch.no_grad():
             _copy_pool_block(self.pool_k, self.pool_v, int(src), int(dst))
+            if self.dpool_k is not None:
+                _copy_pool_block(self.dpool_k, self.dpool_v, int(src),
+                                 int(dst))
 
     def tick(self, tables, pos, decoding, temp, top_k, rngs, prefill,
              pad=None):
-        """Run one step; returns ``(toks [C, 1] i32 np, n_emit [C] i32
-        np, rngs' [C, 2] u32 np)``: ``toks[s, 0]`` is slot s's token
-        this tick where ``n_emit[s]`` (the decoding mask). ``pad`` ([C]
-        per-slot left pad) is read on the batched-prefill lane only."""
+        """Run one step; returns ``(toks [C, W] i32 np, n_emit [C] i32
+        np, rngs' [C, 2] u32 np)``: ``toks[s, :n_emit[s]]`` are slot s's
+        tokens this tick, oldest first. W is 1 on the base step
+        (``n_emit`` is the decoding mask) and ``cfg.draft.k`` under
+        speculative decoding, where ``n_emit`` counts the carried token
+        plus the accepted proposals. ``pad`` ([C] per-slot left pad) is
+        read on the batched-prefill lane only."""
         decoding = np.asarray(decoding, bool)
-        if self.cfg.prefill_batch > 1 and pad is None:
-            pad = np.zeros(self.cfg.capacity, np.int32)
-        with torch.no_grad():
-            emitted, new_rngs = self._step(
-                self.pool_k, self.pool_v, self.last_logits,
-                np.asarray(tables, np.int32), np.asarray(pos, np.int32),
+        args = (np.asarray(tables, np.int32), np.asarray(pos, np.int32),
                 decoding, np.asarray(temp, np.float32),
                 np.asarray(top_k, np.int32), np.asarray(rngs, np.uint32),
-                prefill, pad)
-        emitted = emitted.to(torch.int32).cpu().numpy()
+                prefill)
+        spec_mode = self.cfg.draft is not None
+        with torch.no_grad():
+            if spec_mode:
+                toks, n_emit, new_rngs = self._step(
+                    self.pool_k, self.pool_v, self.dpool_k, self.dpool_v,
+                    self.last_logits, *args)
+                toks = toks.to(torch.int32).cpu().numpy()
+                n_emit = n_emit.to(torch.int32).cpu().numpy()
+            else:
+                if self.cfg.prefill_batch > 1 and pad is None:
+                    pad = np.zeros(self.cfg.capacity, np.int32)
+                emitted, new_rngs = self._step(
+                    self.pool_k, self.pool_v, self.last_logits, *args, pad)
+                toks = emitted.to(torch.int32).cpu().numpy()[:, None]
+                n_emit = decoding.astype(np.int32)
         self.steps += 1
         m = self.metrics
         if m.enabled:
-            n_dec = int(decoding.sum())
+            n_dec = int(n_emit.sum())
             n_pf_rows = int(np.sum(np.asarray(prefill[0]) >= 0))
             if n_dec:
                 m.count("decode_tokens", n_dec)
@@ -413,4 +745,4 @@ class DecodeEngine:
                 m.count("prefill_tokens",
                         n_pf_rows * self.cfg.prefill_chunk)
             m.gauge("engine_steps", self.steps)
-        return emitted[:, None], decoding.astype(np.int32), new_rngs
+        return toks, n_emit, new_rngs

@@ -12,6 +12,11 @@ the **scratch block**: never allocated; every write the step must not
 really make (idle slots, vacant prefill rows) is redirected there, and
 every read of it is masked by position before it can influence
 attention.
+
+The byte helpers (`pool_bytes`, `gathered_view_bytes`,
+`serve_kv_plan_bytes`) are the JAX package's arithmetic; with ``tp`` they
+price one rank of a tensor-parallel replica, whose pool holds ``Hkv/tp``
+KV heads (`pool_partition_spec`).
 """
 from __future__ import annotations
 
@@ -60,14 +65,105 @@ class PagedPoolSpec:
                    blocks_per_slot=bps)
 
 
-def init_pool(cfg, spec: PagedPoolSpec, device):
+def init_pool(cfg, spec: PagedPoolSpec, device, tp: int = 1):
     """Zeroed (pool_k, pool_v), leaves
-    ``[n_layers, n_blocks, block_size, n_kv_heads, head_dim]`` in the
-    model's dtype on ``device``."""
+    ``[n_layers, n_blocks, block_size, n_kv_heads / tp, head_dim]`` in
+    the model's dtype on ``device``: with ``tp > 1``, one rank's slice of
+    a tensor-parallel replica's pool (`pool_partition_spec`)."""
+    validate_pool_tp(cfg, tp)
     shape = (cfg.n_layers, spec.n_blocks, spec.block_size,
-             cfg.n_kv_heads, cfg.head_dim)
+             cfg.n_kv_heads // tp, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def validate_pool_tp(cfg, tp: int) -> None:
+    """A tensor-parallel replica splits the pool over the KV-head axis
+    (the one axis every pool consumer, the gathers, the scatters and both
+    paged kernels, treats as independent), so ``tp`` must divide the KV
+    heads: an uneven split would give the ranks pools of other shapes."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"tensor-parallel degree {tp} must divide n_kv_heads "
+            f"{cfg.n_kv_heads}: the paged pool shards over the KV-head "
+            "axis")
+
+
+def pool_partition_spec(tp: int = 1) -> tuple:
+    """Per-dimension mesh axes of one pool leaf ``[L, n_blocks,
+    block_size, Hkv, hd]`` (the convention of
+    `models.llama.llama_param_specs`; ``()`` replicated): the KV heads
+    over ``tensor``, so each rank holds ``[L, n_blocks, P, Hkv/tp, hd]``.
+    Block identity is untouched: one host-side block table drives every
+    rank, and the allocator and the scheduler stay tp-oblivious."""
+    if tp <= 1:
+        return ()
+    return (None, None, None, "tensor", None)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def pool_shard_bytes(cfg, spec: PagedPoolSpec, tp: int = 1) -> int:
+    """One rank's pool bytes (k + v): the head axis divides by ``tp``."""
+    validate_pool_tp(cfg, tp)
+    return pool_bytes(cfg, spec) // tp
+
+
+def pool_bytes(cfg, spec: PagedPoolSpec) -> int:
+    """Bytes held by the pool itself (k + v)."""
+    per = (cfg.n_layers * spec.n_blocks * spec.block_size
+           * cfg.n_kv_heads * cfg.head_dim)
+    return 2 * per * _itemsize(cfg.dtype)
+
+
+def gathered_view_bytes(cfg, spec: PagedPoolSpec, capacity: int) -> int:
+    """Bytes of the dense per-slot view the REFERENCE decode lane gathers
+    (k + v), ``[L, capacity, gathered_len, Hkv, hd]``; the paged decode
+    kernel reads the pool through the block tables and this copy goes."""
+    per = (cfg.n_layers * capacity * spec.gathered_len
+           * cfg.n_kv_heads * cfg.head_dim)
+    return 2 * per * _itemsize(cfg.dtype)
+
+
+def serve_kv_plan_bytes(cfg, spec: PagedPoolSpec, capacity: int,
+                        fused: bool = False, prefill_batch: int = 1,
+                        fused_prefill: bool = False, tp: int = 1) -> dict:
+    """The serving cache's bytes for ``plan --serve``: the pool, the
+    attention lanes' surviving gathered view and the f32 ``last_logits``
+    the engine keeps between ticks.
+
+    ``fused`` prices the paged decode kernel's lane (the capacity-wide
+    view goes; the prefill lane's per-group gather, ``prefill_gather_
+    bytes``, is what survives), ``fused_prefill`` the paged prefill
+    kernel's (that last view goes too). The retired bytes are itemized.
+    ``tp > 1`` prices ONE RANK of a tensor-parallel replica: the pool and
+    every view carry the KV-head axis and divide by ``tp``;
+    ``last_logits`` is replicated on every rank and does not."""
+    validate_pool_tp(cfg, tp)
+    logits = capacity * cfg.vocab_size * 4
+    dense = gathered_view_bytes(cfg, spec, capacity) // tp
+    prefill_gather = gathered_view_bytes(
+        cfg, spec, min(prefill_batch, capacity)) // tp
+    if fused_prefill:
+        prefill_gather = 0
+    if fused:
+        view = prefill_gather
+    else:
+        # the reference decode lane's capacity-wide copy dominates; the
+        # group-sized prefill gather is a slice of the same story
+        view = dense
+        prefill_gather = min(prefill_gather, view)
+    return {
+        "pool_bytes": pool_bytes(cfg, spec) // tp,
+        "gathered_view_bytes": view,
+        "gathered_view_retired_bytes": dense - view,
+        "prefill_gather_bytes": prefill_gather,
+        "last_logits_bytes": logits,
+    }
 
 
 class BlockAllocator:

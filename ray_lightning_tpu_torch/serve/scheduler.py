@@ -1,8 +1,8 @@
 """Host-side slot lifecycle: admission, prefill interleaving, block
 reservation/growth, retirement, preemption (twin of
 `ray_lightning_tpu/serve/scheduler.py`; framework-free, so it is the
-JAX package's policy line for line, minus the speculative-decoding
-headroom, which waits with the draft engine).
+JAX package's policy line for line, the speculative-decoding admission
+and growth included).
 
 The scheduler owns every mutable serving decision and keeps it in plain
 numpy — the compiled step only ever sees fixed-shape arrays built here.
@@ -247,6 +247,15 @@ def validate_request(cfg, spec, req: Request) -> None:
     head-of-line-blocking the replica — review finding, test-pinned).
     ``cfg`` is the `EngineConfig`, ``spec`` its pool spec."""
     total = req.prompt.size + req.max_new_tokens
+    if cfg.draft is not None:
+        if req.temperature != 0.0:
+            raise ValueError(
+                f"request {req.rid}: speculative decoding is "
+                f"greedy-only (temperature 0), got "
+                f"{req.temperature}")
+        # the verify chunk writes k positions from the LAST decode pos
+        # — k-1 headroom keeps the window inside the slot
+        total += cfg.draft.k - 1
     padded = ""
     if cfg.prefill_batch > 1:
         # batched prefill right-aligns the prompt to a chunk multiple
@@ -300,6 +309,10 @@ class Scheduler:
                 "prefix_cache=True requires prefill_batch == 1 — the "
                 "batched lane's left-pad alignment shifts block "
                 "boundaries per group, so chains never line up")
+        if prefix_cache and engine.mesh is not None:
+            raise ValueError(
+                "prefix_cache=True requires an unsharded replica "
+                "(mesh=None), as in the JAX scheduler")
         #: live metrics (telemetry/metrics.py): per-tick gauges + event
         #: counters + completion latency histograms — every recorded
         #: value is a plain host scalar the tick computed anyway, so
@@ -324,6 +337,9 @@ class Scheduler:
         #: the prefill-once assertion's counter (shared prefixes are
         #: admitted at pos > 0 and never re-issued)
         self.prefill_tokens_issued = 0
+        #: tokens the verify chunk advances per tick (1 = base engine)
+        self._spec_k = (self.cfg.draft.k
+                        if self.cfg.draft is not None else 1)
         self._emitted_total = 0
         self._decode_slot_steps = 0
         C = self.cfg.capacity
@@ -709,9 +725,11 @@ class Scheduler:
         return (_PRIORITY_RANK[slot.req.priority], slot.seq)
 
     def _grow(self, s: int, slot: _Slot) -> bool:
-        """Ensure the block this tick's decode write lands in exists.
-        True = ok, False = pool empty (caller preempts)."""
-        idx = int(self.pos[s]) // self.spec.block_size
+        """Ensure every block a decode write can touch this tick
+        exists: positions ``pos .. pos + spec_k - 1`` (k == 1 on the
+        base engine). True = ok, False = pool empty (caller preempts)."""
+        idx = (int(self.pos[s]) + self._spec_k - 1) \
+            // self.spec.block_size
         while len(slot.blocks) <= idx:
             got = self._alloc_or_evict(1)
             if got is None:

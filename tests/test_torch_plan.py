@@ -392,8 +392,7 @@ def test_plan_cli_matches_the_jax_cli(capsys, argv, rc):
     assert "trace" not in bare
 
 
-@pytest.mark.parametrize("flag,item", [("--serve", "item 8"),
-                                       ("--mu-bf16", "item 3"),
+@pytest.mark.parametrize("flag,item", [("--mu-bf16", "item 3"),
                                        ("--ce-inline-bwd", "item 3")])
 def test_plan_cli_legs_not_ported(capsys, flag, item):
     from ray_lightning_tpu_torch.__main__ import main

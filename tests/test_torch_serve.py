@@ -31,8 +31,10 @@ from ray_lightning_tpu_torch.models.llama import (
     LlamaConfig,
     params_from_jax,
 )
+from ray_lightning_tpu_torch.parallel.tensor import TensorParallel
 from ray_lightning_tpu_torch.serve.engine import (
     DecodeEngine,
+    DraftConfig,
     EngineConfig,
     _split_key,
 )
@@ -199,10 +201,14 @@ def test_engine_contract(models):
     cfg = EngineConfig(**ENGINE)
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeEngine(model, cfg)  # the default device is the card
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(model, cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(model, cfg, device="cpu", draft_model=model)
+    # a tensor group must divide the KV heads (one here); a draft config
+    # needs its draft model
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        DecodeEngine(model, cfg, device="cpu",
+                     mesh=TensorParallel(None, 2, 0))
+    with pytest.raises(ValueError, match="draft model"):
+        DecodeEngine(model, dataclasses.replace(
+            cfg, draft=DraftConfig(k=2)), device="cpu")
     with pytest.raises(ValueError, match="max_seq_len"):
         DecodeEngine(model, dataclasses.replace(cfg, blocks_per_slot=32),
                      device="cpu")

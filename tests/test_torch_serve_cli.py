@@ -1,8 +1,8 @@
 """``python -m ray_lightning_tpu_torch serve`` on the CPU: the smoke gate
-passes with every ported leg passed and every left-out leg reported
-``not_ported`` with its ROADMAP item (never as passed), the example
-serves through inline and process replicas, and the presets the port
-lacks raise naming their items."""
+passes with every ported leg passed (the speculative leg among them) and
+every left-out leg reported ``not_ported`` with its ROADMAP item (never
+as passed), the example serves through inline and process replicas, and
+the card stays the default."""
 from __future__ import annotations
 
 import json
@@ -17,9 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORTED = ("inline_churn", "metrics_emission", "replica_kill",
           "metrics_merge", "flight_recorder", "fused_paged",
-          "fused_prefill", "prefix_sharing")
-LEFT_OUT = {"audit": "item 13", "speculative": "item 8",
-            "llama3_8b_plan": "items 4 and 13", "autotune": "item 8"}
+          "fused_prefill", "prefix_sharing", "speculative")
+LEFT_OUT = {"audit": "item 13"}
 
 
 def _serve(*argv, timeout=240):
@@ -50,6 +49,8 @@ def test_smoke_gate_passes_on_the_cpu():
     assert legs["replica_kill"]["restarts"] == {"0": 0, "1": 1}
     assert legs["flight_recorder"]["death"]["kind"] == "retryable"
     assert legs["prefix_sharing"]["shared_block_fraction"] > 0
+    assert legs["speculative"]["bitwise_mismatches"] == []
+    assert legs["speculative"]["accepted_tokens_per_step"] >= 1.0
 
 
 @pytest.mark.parametrize("argv", [
@@ -69,10 +70,9 @@ def test_example_serves(argv, tmp_path):
 def test_left_out_presets_and_the_card_default():
     from ray_lightning_tpu_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="items 4 and 13"):
-        main(["serve", "llama3-8b", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["serve", "--autotune", "out.json", "--device", "cpu"])
+    # the flagship preset is the static plan (no device), and only its
+    # decode-step audit is left out (item 13)
+    assert main(["serve", "llama3-8b", "--device", "cpu"]) == 0
     if not torch.cuda.is_available():
         # the card is the default: no fallback to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):

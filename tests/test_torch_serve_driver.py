@@ -181,12 +181,13 @@ def test_refusals(setup):
                                            "kill_after_tokens": 1})
     with pytest.raises(ValueError, match="npz"):
         ServeDriver(model.cfg, model, _cfg(backend="process"))
-    with pytest.raises(NotImplementedError,
-                       match="item 8: tensor-parallel replicas"):
-        _cfg(backend="process", tp=2)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # a tensor-parallel replica is a group of processes; a draft arms
+    # with its engine config, and with its weights
+    with pytest.raises(ValueError, match="backend='process'"):
+        _cfg(tp=2)
+    with pytest.raises(ValueError, match="arm together"):
         _cfg(draft_model_cfg=model.cfg)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(ValueError, match="arm together"):
         ServeDriver(model.cfg, model, _cfg(), draft_params={})
 
 

@@ -30,7 +30,8 @@ ITEM = {
     # item 4 brought the planner (parallel/plan.py): every name resolves
     "parallel": {},
     "runtime": {"launch_cpu_spmd": "gloo"},
-    "serve": {"serve_kv_plan_bytes": "item 8"},
+    # item 8's remainder brought the serving plan: every name resolves
+    "serve": {},
     "models": {**{n: "item 13" for n in (
         "BertClassifierModule", "BertConfig", "BertEncoder",
         "BertForSequenceClassification", "bert_classifier_params_from_hf",
@@ -91,6 +92,25 @@ def test_serving_front_end_names_resolve():
         assert getattr(serve, name) is getattr(channel, name), name
     assert models.generate is llama.generate
     assert models.init_cache is llama.init_cache
+
+
+def test_rest_of_serving_names_resolve():
+    """Item 8's remainder: the byte plan, the draft config, the static
+    serving plan and the autotune resolve from
+    ``ray_lightning_tpu_torch.serve`` as their modules' objects."""
+    from ray_lightning_tpu_torch import serve
+    from ray_lightning_tpu_torch.serve import audit, engine, kv_cache, sweep
+
+    for mod, names in ((kv_cache, ("serve_kv_plan_bytes", "pool_bytes",
+                                   "validate_pool_tp")),
+                       (engine, ("DraftConfig",)),
+                       (audit, ("serve_memory_summary", "speculative_plan",
+                                "shared_prefix_plan",
+                                "format_serve_summary")),
+                       (sweep, ("sweep_paged_kernels", "apply_autotune"))):
+        for name in names:
+            assert getattr(serve, name) is getattr(mod, name), name
+            assert name in serve.__all__
 
 
 def test_top_level_names_are_the_subpackages_objects():

@@ -639,3 +639,44 @@ def rendezvous_seen():
     return (session.get_actor_rank(), os.environ["MASTER_ADDR"],
             int(os.environ["MASTER_PORT"]),
             store.port if store is not None else None)
+
+
+# ---- tensor-parallel serving -------------------------------------------------
+
+
+def serve_tp_rank(state_dict, cfg_kw, engine_kw, requests):
+    """One rank of a tensor-parallel replica in the launched gloo group:
+    the engine on this rank's shard of ``state_dict`` (`DecodeEngine(
+    mesh=)`), every request served; returns the streams, the rank's live
+    parameter and pool bytes and its heads a pool holds."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_lightning_tpu_torch.parallel.tensor import TensorParallel
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine, EngineConfig
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    cfg = LlamaConfig(**cfg_kw, dtype=torch.float32)
+    model = Llama(cfg, device="cpu")
+    model.load_state_dict(state_dict)
+    tp = TensorParallel(dist.group.WORLD, dist.get_world_size(),
+                        dist.get_rank())
+    eng = DecodeEngine(model, EngineConfig(**engine_kw), device="cpu",
+                       mesh=tp)
+    eng.warmup()
+    sched = Scheduler(eng)
+    for r in requests:
+        sched.submit(r)
+    out = {}
+    while sched.busy():
+        for c in sched.tick():
+            out[c.rid] = list(c.tokens)
+    return {"outputs": out,
+            "params_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+            "pool_bytes": (eng.pool_k.numel() * eng.pool_k.element_size()
+                           + eng.pool_v.numel() * eng.pool_v.element_size()),
+            "last_logits_bytes": (eng.last_logits.numel()
+                                  * eng.last_logits.element_size()),
+            "pool_kv_heads": eng.pool_k.shape[3]}
