@@ -75,8 +75,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
                channel) must match the counts its steps imply.
   7. sweep   — `sweep.run` on the card's pool (the probe finds one card,
                so one trial at a time, each in its own process pinned by
-               ``CUDA_VISIBLE_DEVICES``): (a) three Llama trials of phase
-               5's fit at lr 3e-4, 1e-3 and 0, each validating one
+               ``CUDA_VISIBLE_DEVICES``): (a) two Llama trials of phase
+               5's fit at lr 3e-4 and 0, each validating one
                held-out batch every 2 steps and reporting its loss under
                ASHA (max_t 4, grace 1, factor 2). The lr-3e-4 trial's
                rows must equal phase 5's kernel lane exactly; ASHA must
@@ -245,9 +245,54 @@ Phases, each of which raises (and so exits nonzero) on failure:
                rule). ``DECODE_OWED``/``PREFILL_OWED`` hold the tp 2
                heads and block sizes 8, 64, 128 and 256. ``phase13_s``
                in the ``timing`` line.
+ 14. elastic, autoscale and trace load — (a) inside phase 6 (c),
+               its step-4 checkpoint (FSDP, world 1) resumed by two
+               processes on the card, each a rank of
+               ``ShardedMesh(tensor=2)`` over gloo, through steps 5-8:
+               before step 5 each rank's live state, gathered into
+               canonical rows, equal to the checkpoint's bytes piece by
+               piece (the pieces its restore read, position-weighted
+               digests: parameters, both AdamW moments and their step
+               counts; the scheduler and the step), the move summary
+               ``["tensor"]`` world 1 -> 2, a ``reshard`` span and
+               goodput ``reshard_s`` on each rank, rows within the train
+               limits of 6 (c)'s resumed rows, launches by phase 5's
+               formula at H 16 / Hkv 4, both ranks saving their pieces
+               at step 6 (provenance ``{tensor: 2}``); (b) that step-6
+               checkpoint restored into a one-rank ``FSDP`` fit in this
+               process through steps 7-8: every leaf bitwise the two
+               ranks' step-6 pieces (position-weighted digests taken at
+               their save, so the head-aligned rows must be put back),
+               the span, rows within the train limits of (a)'s rows 7-8,
+               launches by formula, the restore's seconds and bytes; (c)
+               inside phase 4, its model: a seeded MMPP trace
+               (``AUTOSCALE_TRACE``, 24 requests, prompts 128-1536)
+               through `loadgen.run_trace` and an inline
+               ``ServeDriver(n_replicas=1)`` with traffic classes under
+               an `AutoscaleController` (the CLI's ramp policy, cooldowns
+               in ticks): exactly one scale-up 1 -> 2 and one scale-down
+               2 -> 1 in ``autoscale.jsonl``, each acted with its signal
+               snapshot; every rid completed or shed with a typed record,
+               no latency-critical shed; every completed stream the same
+               trace's through a fixed one-replica driver (phase 13's
+               margin rule); launches by phase 4's formula over both
+               replicas' ticks and chunks; the ``report`` CLI's autoscale
+               section and the ``timeline`` CLI's merge of the ledger;
+               per-class TTFT, the shed fraction, tokens/s; (d) after 11
+               (c), on its params file and requests: a live session of
+               one process replica that an `AutoscaleController` grows
+               to two under a scripted burst, ``scale_up_s`` and the new
+               replica's start split, both replicas serving, every
+               stream 11 (c)'s inline one (phase 13's margin rule). Phase 8 (a) runs with
+               ``elastic=ElasticBudget(max_world=2)`` over a capacity
+               oracle whose probe file says 1: its rows still phase 5's,
+               exactly one ``grow_refused`` entry (source ``file``) in
+               its result, its ``reshards.jsonl`` and the report.
+               ``phase14_s`` in the ``timing`` line.
   4b. serve profile — last, phase 4's model serves four of its requests
-               again under `torch.profiler`: the device's busy share and
-               the kernels with the most device time. It runs last
+               again under `torch.profiler`, the device traced alone:
+               the device's busy share and the kernels with the most
+               device time. It runs last
                because after a profiled serving run at this depth every
                later profiler session of the process loses its first
                kernel records (``--profile-sessions`` shows it).
@@ -281,6 +326,7 @@ import functools
 import gc
 import glob
 import json
+import math
 import os
 import shutil
 import statistics
@@ -425,6 +471,57 @@ def rms_inputs(gen: torch.Generator, n: int, d: int, wdt):
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+# ---- the processes the script starts ----------------------------------------
+
+
+def descendants() -> dict:
+    """Every living process below this one, pid -> command line, from
+    /proc: the workers, ranks and replicas the phases start, which none
+    may outlive (zombies are dead and left out)."""
+    parent, cmd = {}, {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                line = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, ValueError):
+            continue  # gone while read
+        if state != "Z":
+            parent[int(name)], cmd[int(name)] = int(ppid), line.strip()
+    found, todo = {}, [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        for child, pp in parent.items():
+            if pp == pid and child not in found:
+                found[child] = cmd[child][:200]
+                todo.append(child)
+    return found
+
+
+def stop_descendants(where: str) -> dict:
+    """End every process still below this one: SIGTERM, then SIGKILL
+    after 5 s. Returns what was found (empty when nothing was left)."""
+    import signal
+
+    left = descendants()
+    if not left:
+        return left
+    log(f"chip_smoke: processes still running {where}: {left}")
+    for sig, wait_s in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in descendants():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + wait_s
+        while descendants() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    return left
 
 
 # ---- timing ----------------------------------------------------------------
@@ -1136,14 +1233,16 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_window(sched, reqs):
+def profile_window(sched, reqs, host: bool = True):
     """Serve ``reqs`` again under `torch.profiler` and print where the
     device time went: the busy share of the window's wall time and the
-    kernels with the most device time."""
+    kernels with the most device time. ``host=False`` traces the device
+    only: the same readings, without the host operators whose
+    aggregation took 29 of the 4b window's 40 s."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         drain(sched, [dataclasses.replace(r, rid=f"p{r.rid}")
                       for r in reqs])
@@ -1166,7 +1265,10 @@ def serve_profile(seed: int, n_layers: int) -> None:
     ``--profile-sessions`` shows it), and phase 9(a) checks a capture."""
     model = build_model(seed, n_layers)
     _, sched, _ = serve(model, engine_config(), use_kernels=None)
-    profile_window(sched, make_requests(model.cfg.vocab_size, seed)[:4])
+    # the device traced alone: aggregating the host's operators took
+    # most of the window's time
+    profile_window(sched, make_requests(model.cfg.vocab_size, seed)[:4],
+                   host=False)
     torch.cuda.empty_cache()
 
 
@@ -1334,7 +1436,11 @@ def serve_phase(seed: int, n_layers: int):
         for k, v in phase().items():
             launches[k] += v
     serve_plan_phase(model, ecfg, live, increment)
-    return launches, t9, t11, time.perf_counter() - t13
+    t13 = time.perf_counter() - t13
+    # -- 14 (c): a bursty trace through the autoscaled driver -------------
+    for k, v in autoscale_phase(model, ecfg).items():
+        launches[k] += v
+    return launches, t9, t11, t13
 
 
 # ---- phase 11: the serving front end on the card ---------------------------
@@ -1664,6 +1770,9 @@ def driver_process_phase(seed: int):
     if problems:
         shutil.rmtree(DRIVER_DIR, ignore_errors=True)
         raise AssertionError("phase 11 (c): " + "; ".join(problems))
+    # 14 (d): the same params file and requests through a process
+    # session that the autoscale controller grows
+    process_scale_up(model, params, ecfg, reqs, ref.outputs)
     # 13 (c): the same params file and requests through a tensor-parallel
     # replica, against the one-card streams
     t13 = time.perf_counter()
@@ -1674,6 +1783,81 @@ def driver_process_phase(seed: int):
     for k, v in tp_launches.items():
         launches[k] += v
     return launches, time.perf_counter() - t13
+
+
+def process_scale_up(model, params: str, ecfg, reqs, want: dict) -> None:
+    """14 (d): a live session of one process replica on 11 (c)'s params
+    file; one poll of an `AutoscaleController` under a scripted burst (a
+    sustained-pressure signal) adds the second process replica, timed
+    (``scale_up_s``, the new replica's start split); then 11 (c)'s
+    requests, submitted to the live session, every stream 11 (c)'s
+    inline stream under phase 13's margin rule (their batches differ
+    from ``run()``'s, which hands each replica its share at once)."""
+    from ray_lightning_tpu_torch.autoscale import (
+        AutoscaleController,
+        ControllerConfig,
+        PolicyConfig,
+        read_ledger,
+    )
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig,
+        ServeDriver,
+    )
+
+    problems = []
+    t_all = time.perf_counter()
+    run_dir = os.path.join(DRIVER_DIR, "scale_up")
+    drv = ServeDriver(serve_config(DRIVER_PROC_LAYERS), params,
+                      ReplicaGroupConfig(
+                          n_replicas=1, backend="process", engine=ecfg,
+                          run_dir=run_dir, compile_cache_dir=build.BUILD,
+                          start_timeout=DRIVER_TIMEOUT_S))
+    try:
+        drv.start()
+        burst = {"available": True, "pressure": 2.0, "queue_depth_now": 8.0,
+                 "queue_depth_p50": 8.0, "occupancy": 1.0,
+                 "total_slots": 4.0}
+        ctl = AutoscaleController(drv, ControllerConfig(
+            policy=PolicyConfig(min_replicas=1, max_replicas=2,
+                                sustain_polls=1)),
+            run_dir=run_dir, signal_fn=lambda: dict(burst))
+        entry = ctl.step(now=0.0)
+        out = entry["outcome"]
+        if not (entry["decision"]["action"] == "scale_up" and out.get("ok")
+                and out.get("added") == [1] and drv.n_live == 2):
+            problems.append(f"the scale-up did not land: {entry}")
+        for r in reqs:
+            drv.submit(r)
+        t0 = time.perf_counter()
+        while drv.busy():
+            drv.tick()
+            time.sleep(0.002)
+        serve_s = time.perf_counter() - t0
+    finally:
+        res = drv.stop()
+    parted = hold_streams(model, reqs, res.outputs, want, "14 (d)",
+                          problems)
+    starts = res.stats["replica_starts"]
+    new = next((st for st in starts if st["replica"] == 1
+                and not st["attempt"]), None)
+    if new is None:
+        problems.append("no start record of the added replica")
+    served = collections.Counter(m.get("replica") for m in res.meta.values())
+    if set(served) != {0, 1}:
+        problems.append(f"requests by replica {dict(served)}: the added "
+                        "replica served none")
+    PHASE14_S["process_scale_up"] = time.perf_counter() - t_all
+    print(json.dumps(dict(
+        phase="autoscale_process", layers=DRIVER_PROC_LAYERS,
+        decision=entry["decision"], outcome=out,
+        scale_up_s=ctl.scale_up_s[0] if ctl.scale_up_s else None,
+        new_replica_start=new, ledger_lines=len(read_ledger(run_dir)),
+        requests=len(reqs), requests_by_replica=dict(served),
+        streams_bitwise=not parted, parted=parted, serve_s=serve_s,
+        phase_wall_s=PHASE14_S["process_scale_up"])), flush=True)
+    if problems:
+        raise AssertionError("phase 14 (d): " + "; ".join(problems))
 
 
 # ---- phase 13: the rest of serving -----------------------------------------
@@ -2464,14 +2648,31 @@ class TimedLlama(LlamaModule):
 
 class TimedCheckpoint(ModelCheckpoint):
     """`ModelCheckpoint` that times each save (DCP write, barrier, digest
-    and meta.json) in the worker."""
+    and meta.json) in the worker; with ``digests``, each save also sends
+    its `save_digests` (14 (a) holds its restore against them), whose
+    seconds the save's leave out."""
+
+    def __init__(self, *a, digests: bool = False, **kw):
+        super().__init__(*a, **kw)
+        self.digests = digests
+        self._digest_s = 0.0
+
+    def on_save_checkpoint(self, trainer, module, checkpoint):
+        if self.digests:
+            t0 = time.perf_counter()
+            rec = save_digests(trainer, checkpoint)
+            torch.cuda.synchronize()
+            self._digest_s = time.perf_counter() - t0
+            _to_driver(dict(kind="save_digests", digest_s=self._digest_s,
+                            **rec))
 
     def _maybe_save(self, trainer, module, metrics, step_based=False):
         t0 = time.perf_counter()
+        self._digest_s = 0.0
         super()._maybe_save(trainer, module, metrics, step_based)
         _to_driver(dict(kind="save", step=trainer.global_step,
                         path=self.best_model_path,
-                        save_s=time.perf_counter() - t0))
+                        save_s=time.perf_counter() - t0 - self._digest_s))
 
 
 def dist_module(seed: int):
@@ -2481,7 +2682,7 @@ def dist_module(seed: int):
 
 
 def dist_trainer(strategy: str, max_steps: int, seed: int,
-                 ckpt_dir=None, overlap: str = "off"):
+                 ckpt_dir=None, overlap: str = "off", digests: bool = False):
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.parallel.strategy import FSDP, DataParallel
 
@@ -2489,7 +2690,7 @@ def dist_trainer(strategy: str, max_steps: int, seed: int,
     if ckpt_dir is not None:
         callbacks.append(TimedCheckpoint(dirpath=ckpt_dir,
                                          every_n_train_steps=RESUME_AT,
-                                         save_top_k=-1))
+                                         save_top_k=-1, digests=digests))
     return Trainer(strategy={"fsdp": FSDP, "ddp": DataParallel}[strategy](
                        overlap=overlap),
                    max_steps=max_steps, log_every_n_steps=1,
@@ -2647,9 +2848,11 @@ def dist_phase(seed: int, ref_rows):
     # the JAX package's own digest knob for 8B-scale checkpoints:
     # (relpath, size) of every file instead of 23 GB of sha256
     env = {"RLT_CKPT_DIGEST": "size"}
+    # the save's digests: what 14 (a)'s restore is held against
     _, got1, wall1 = run_dist("fit", P(me.dist_module, seed),
                               P(me.dist_trainer, "fsdp", RESUME_AT, seed,
-                                ckdir), P(me.dist_data, seed), env=env)
+                                ckdir, digests=True), P(me.dist_data, seed),
+                              env=env)
     save = got1["save"][0]
     path = save["path"]
     nbytes = sum(os.path.getsize(os.path.join(r, f))
@@ -2687,6 +2890,14 @@ def dist_phase(seed: int, ref_rows):
         disk_total_gib=disk.total / 2**30, disk_free_gib=disk.free / 2**30,
         disk_free_after_save_gib=shutil.disk_usage(DIST_DIR).free / 2**30)),
         flush=True)
+    if problems:
+        raise AssertionError("distributed training: " + "; ".join(problems))
+    # 14 (a) and (b): this checkpoint grown onto two tensor ranks, and
+    # their step-6 checkpoint shrunk back onto one FSDP rank
+    for k, v in elastic_phase(seed, path, got1["save_digests"][0],
+                              [(r[1], r[2]) for r in
+                               resumed["rows"]]).items():
+        total[k] += v
     shutil.rmtree(ckdir)
 
     # (d) the reference's matrix: fit, load the best checkpoint, predict
@@ -2772,9 +2983,10 @@ def mnist_eval_data():
 # module level, and the trainables go to `sweep.run` as partials.
 
 #: the Llama trials' learning rates: phase 5's (whose steps the trial
-#: must repeat bit for bit), a faster one, and 0, which cannot learn and
-#: which ASHA must stop
-SWEEP_LRS = (TRAIN_LR, 1e-3, 0.0)
+#: must repeat bit for bit) and 0, which cannot learn and which ASHA must
+#: stop at its first report (a third arm would cost one 8B trial start,
+#: about 30 s of the script's time limit)
+SWEEP_LRS = (TRAIN_LR, 0.0)
 #: a validation pass every SWEEP_VAL_EVERY steps: four reports in 8 steps
 SWEEP_VAL_EVERY = 2
 SWEEP_ASHA = dict(max_t=4, grace_period=1, reduction_factor=2)
@@ -3220,8 +3432,13 @@ RES_DISK_NEED_GIB = 50.0
 #: card memory (GiB) the second attempt may find taken beyond the first's:
 #: less than one CUDA context, so the killed rank's memory must be gone
 RES_FREE_SLACK_GIB = 0.25
-#: (c): the silent-heartbeat budget and the heartbeat interval (s)
-RES_STALL_S, RES_HEARTBEAT_S = 20.0, 2.0
+#: (c): the silent-heartbeat budget and the heartbeat interval (s): five
+#: missed heartbeats, short for the script's time limit
+RES_STALL_S, RES_HEARTBEAT_S = 10.0, 2.0
+#: (c): the budget for a rank's first heartbeat (s): an MNIST worker's
+#: start on the card, many times over, and short of the script's time
+#: limit should a hang ever be judged by it
+RES_STARTUP_GRACE_S = 120.0
 #: (c): preempt at 3 (drained at 4's boundary), hang at 6, corrupt the
 #: newest checkpoint and die at 9; saves every 3 steps
 RES_MNIST_SAVE_EVERY = 3
@@ -3230,9 +3447,11 @@ RES_MNIST_FAULTS = ("preempt:rank=0,step=3;hang:rank=0,step=6,secs=600;"
 
 
 def _res_policy(max_restarts: int):
+    """Backoff from 0.25 s: (c)'s three relaunches sleep 1.75 s in all
+    (7 s from 1 s), short for the script's time limit."""
     from ray_lightning_tpu_torch.resilience import RetryPolicy
 
-    return RetryPolicy(max_restarts=max_restarts, backoff_base_s=1.0,
+    return RetryPolicy(max_restarts=max_restarts, backoff_base_s=0.25,
                        jitter=0.0)
 
 
@@ -3349,12 +3568,21 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     """(a): phase 5's fit under FSDP in a supervised worker, SIGKILL'd at
     step 6 and resumed from the step-4 checkpoint."""
     import chip_smoke as me
+    from ray_lightning_tpu_torch.autoscale import CapacityOracle
+    from ray_lightning_tpu_torch.elastic import ElasticBudget
     from ray_lightning_tpu_torch.resilience import ResilienceConfig
     from ray_lightning_tpu_torch.telemetry import TelemetryConfig
 
     P = functools.partial
     free_card("res_kill")
     ckdir = os.path.join(RES_DIR, "llama")
+    # 14: the elastic ladder up to world 2 over a capacity oracle whose
+    # probe file says one world: the relaunch stays at 1 and the ledger
+    # records the refused grow with the oracle's source
+    os.makedirs(RES_DIR, exist_ok=True)
+    cap_file = os.path.join(RES_DIR, "capacity")
+    with open(cap_file, "w") as f:
+        f.write("1")
     # telemetry on (the default), its ledger refreshed every step: the
     # SIGKILL'd attempt leaves one at step 6, so the goodput can charge
     # its replayed steps 5-6
@@ -3363,7 +3591,9 @@ def resilience_kill(seed: int, ref_rows, problems: list):
         save_every_n_steps=RES_SAVE_EVERY, async_save=False,
         heartbeat_interval_s=RES_HEARTBEAT_S,
         faults=f"kill:rank=0,step={RES_KILL_AT}",
-        telemetry=TelemetryConfig(flush_every_n_steps=1))
+        telemetry=TelemetryConfig(flush_every_n_steps=1),
+        elastic=ElasticBudget(max_world=2, oracle=CapacityOracle(
+            probe_file=cap_file)))
     # the JAX package's digest knob for 8B checkpoints (as phase 6)
     sup, items, wall = res_fit(P(me.res_module, seed),
                                P(me.res_trainer, seed), P(me.dist_data, seed),
@@ -3444,8 +3674,9 @@ def resilience_kill(seed: int, ref_rows, problems: list):
                    goodput_fraction=g["goodput_fraction"],
                    goodput_attempts=g["attempts"], ledger_launch_s=launch,
                    ledger_compile_s=compile_s)
+    refused = elastic_refusal(sup, ckdir, problems)
     row.update(
-        attempts=sup.total_attempts, failure=failure,
+        attempts=sup.total_attempts, failure=failure, reshards=refused,
         starts=[s["step"] for s in starts],
         losses=[r[0] for r in rows1 + rows2],
         rows_equal_phase5=rows1 == ref_rows[:RES_KILL_AT]
@@ -3463,6 +3694,32 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     total = {k: launches[0][k] + launches[1][k] for k in launches[0]}
     shutil.rmtree(ckdir, ignore_errors=True)
     return total
+
+
+def elastic_refusal(sup, ckdir: str, problems: list) -> dict:
+    """(a) under the elastic ladder: exactly one ``grow_refused`` entry,
+    its capacity from the oracle's probe file, in the result, in
+    ``reshards.jsonl`` and in the report's reshard section; no world
+    change."""
+    entries = []
+    with open(os.path.join(ckdir, "reshards.jsonl")) as f:
+        head = json.loads(f.readline())
+        entries = [json.loads(ln) for ln in f if ln.strip()]
+    report = _cli_json(["report", ckdir]).get("reshards") or {}
+    want = [("grow_refused", 1, 2, 1, "file")]
+    for what, got in (("result", sup.reshards), ("ledger", entries)):
+        if [(e.get("reason"), e.get("from_world"), e.get("resolved_max"),
+             e.get("capacity"), e.get("capacity_source"))
+                for e in got] != want:
+            problems.append(f"(a) elastic {what}: {got}")
+    if head.get("version") != "rlt-reshards-v1" or \
+            sup.final_world is not None:
+        problems.append(f"(a) reshard ledger header {head}, final world "
+                        f"{sup.final_world}")
+    if [(r.get("capacity"), r.get("capacity_source"))
+            for r in report.get("grow_refused", [])] != [(1, "file")]:
+        problems.append(f"(a) the report's reshard section {report}")
+    return dict(entries=entries, report=report)
 
 
 def _ledgers(ckdir: str):
@@ -3667,7 +3924,7 @@ def resilience_mnist(problems: list):
             policy=_res_policy(max_restarts),
             save_every_n_steps=RES_MNIST_SAVE_EVERY, async_save=False,
             heartbeat_interval_s=RES_HEARTBEAT_S, stall_timeout_s=RES_STALL_S,
-            faults=faults)
+            startup_grace_s=RES_STARTUP_GRACE_S, faults=faults)
 
     common = (me.mnist_module, me.res_mnist_trainer, me.mnist_data)
     base, _, base_wall = res_fit(*common, cfg("base"))
@@ -4936,6 +5193,775 @@ def planner_phase(seed: int, ref_rows, live: dict) -> dict:
     return total
 
 
+# ---- phase 14: elastic training, closed-loop autoscale, trace load ---------
+#
+# (a) and (b) run inside phase 6 (c), on its step-4 checkpoint; (c) inside
+# phase 4, on its model; (d) after phase 11 (c), on its params file. Each
+# part's seconds land in PHASE14_S, and the timing line's ``phase14_s`` is
+# their sum (taken out of the phases that hold them).
+
+#: (a): tensor ranks (processes sharing the one card over gloo), the step
+#: both save at, and one call's limit
+ELASTIC_RANKS = 2
+ELASTIC_SAVE_AT = 6
+ELASTIC_TIMEOUT_S = 600
+#: (a) and (b) keep their checkpoint, logs and spans here (git-ignored;
+#: removed after)
+ELASTIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "rlt_logs", "chip_smoke_elastic")
+#: (c): the trace, in `loadgen.WorkloadConfig` units (the class mix and
+#: the sampled share are the generator's defaults), and its seed offset
+AUTOSCALE_TRACE = dict(n_requests=24, process="mmpp", rate=0.5,
+                       burst_rate=4.0, prompt_len_min=128,
+                       prompt_len_max=1536, max_new_min=8, max_new_max=32,
+                       vocab_size=128256)
+AUTOSCALE_SEED = 14
+#: (c): best-effort's admission budget (its queue may hold this many)
+AUTOSCALE_BE_BUDGET = 1
+#: (c)'s run dirs (git-ignored; removed after)
+AUTOSCALE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "rlt_logs", "chip_smoke_autoscale")
+#: each part's seconds
+PHASE14_S = {}
+
+
+#: an element's positional weight in `piece_digest`: its flat index in
+#: the whole value, mod this prime, plus one
+DIGEST_PERIOD = 1000003
+
+
+def piece_digest(t, offset=None, full=None, rows=None,
+                 chunk: int = 1 << 24) -> list:
+    """``[sum of words, sum of words x (i mod p + 1)]`` mod 2^64 of a
+    tensor's bits, on its device, where ``i`` is each element's flat index
+    in the whole value (shape ``full``, the tensor's own by default) whose
+    piece at ``offset`` the tensor is; ``rows`` names the whole value's
+    row of each of the piece's rows (a permuted layout). Every bit
+    reaches the first sum and the second places each element, so the
+    digests of a value's disjoint pieces sum to the whole value's."""
+    x = t.detach().contiguous()
+    word = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+            1: torch.uint8}[x.element_size()]
+    w = x.view(word).reshape(max(1, x.shape[0] if x.dim() else 1), -1)
+    full = tuple(full if full is not None else x.shape) or (1,)
+    offset = tuple(offset or (0,) * len(full))
+    stride = [1] * len(full)
+    for d in range(len(full) - 2, -1, -1):
+        stride[d] = stride[d + 1] * full[d + 1]
+    dev = x.device
+    if rows is None:
+        rows = torch.arange(offset[0], offset[0] + w.shape[0], device=dev)
+    rows = rows.to(device=dev, dtype=torch.int64)
+    # the flat index of each element of a piece's row, less the row's
+    inner = torch.zeros((), dtype=torch.int64, device=dev)
+    for d in range(1, x.dim()):
+        inner = inner[..., None] + torch.arange(
+            offset[d], offset[d] + x.shape[d], device=dev) * stride[d]
+    inner = inner.reshape(-1)
+    s0 = torch.zeros((), dtype=torch.int64, device=dev)
+    s1 = torch.zeros((), dtype=torch.int64, device=dev)
+    per = max(1, chunk // max(1, inner.numel()))
+    for i in range(0, w.shape[0], per):
+        part = w[i:i + per].to(torch.int64)
+        pos = (rows[i:i + per, None] * stride[0] + inner[None, :]) \
+            % DIGEST_PERIOD + 1
+        s0 += part.sum()
+        s1 += (part * pos).sum()
+    return [int(s0) % 2**64, int(s1) % 2**64]
+
+
+def _local(v):
+    from torch.distributed.tensor import DTensor
+
+    return v.to_local() if isinstance(v, DTensor) else v
+
+
+def _piece_at(v):
+    """(global offset, shape) of a value's local piece (a whole tensor's
+    is itself)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        if any(type(p).__name__ == "_StridedShard" for p in v.placements):
+            raise ValueError(f"no global offset for {v.placements}")
+        shape, off = compute_local_shape_and_global_offset(
+            v.shape, v.device_mesh, v.placements)
+        return [int(o) for o in off], [int(s) for s in shape]
+    return [0] * v.dim(), list(v.shape)
+
+
+def digest_pieces(leaves: dict, perms=None) -> dict:
+    """``{path: [offset, shape, whole shape, digest]}`` of each leaf's
+    local piece; ``perms`` maps a path to its layout's row permutation
+    (row ``r`` holds the canonical row ``perm[r]``), so that the digest
+    places each element at its canonical index."""
+    out = {}
+    for p, v in leaves.items():
+        off, shape = _piece_at(v)
+        perm = (perms or {}).get(p)
+        rows = None if perm is None else perm[off[0]:off[0] + shape[0]]
+        out[p] = [off, shape, list(v.shape),
+                  piece_digest(_local(v), off, v.shape, rows)]
+    return out
+
+
+def combine_pieces(ranks) -> dict:
+    """The whole values' digests from the ranks' `digest_pieces`: each
+    distinct piece once (a replicated one must digest alike on every
+    rank), summed mod 2^64; ``None`` for a leaf whose pieces disagree or
+    do not cover it."""
+    out = {}
+    for p in set().union(*ranks):
+        seen = {}
+        for pieces in ranks:
+            if p in pieces:
+                off, shape, full, dg = pieces[p]
+                key = (tuple(off), tuple(shape))
+                if seen.setdefault(key, dg) != dg:
+                    seen = None
+                    break
+        if seen is None:
+            out[p] = None
+            continue
+        n = sum(math.prod(k[1]) for k in seen)
+        whole = math.prod(next(r[p][2] for r in ranks if p in r))
+        out[p] = ([sum(d[0] for d in seen.values()) % 2**64,
+                   sum(d[1] for d in seen.values()) % 2**64]
+                  if n == whole else None)
+    return out
+
+
+def state_leaves(params, osd) -> dict:
+    """``{path: value}`` of a state dict pair's tensors: every parameter
+    and optimizer tensor (moments and step counts)."""
+    out = {f"params/{k}": v for k, v in params.items()}
+    for name, st in osd["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"opt/{name}/{k}"] = v
+    return out
+
+
+def live_leaves(trainer, module) -> dict:
+    """The live training state in the canonical layout (the strategy's
+    `state_dicts`; under the tensor axis a gather)."""
+    return state_leaves(*trainer.strategy.state_dicts(
+        module.model, trainer.state.optimizer))
+
+
+def wrapped_pieces(trainer, module) -> dict:
+    """`digest_pieces` of the live training state as the wrapped model
+    holds it (under the tensor axis the fused rows head-aligned, each
+    element digested at its canonical place): no gather."""
+    strategy = trainer.strategy
+    opt = trainer.state.optimizer
+    leaves, perms = {}, {}
+    for n, prm in strategy.unwrap(module.model).named_parameters():
+        perm = strategy._perm(n)
+        st = {k: v for k, v in opt.state.get(prm, {}).items()
+              if torch.is_tensor(v)}
+        for path, v in [(f"params/{n}", prm),
+                        *((f"opt/{n}/{k}", v) for k, v in st.items())]:
+            leaves[path] = v
+            if perm is not None and v.dim():
+                perms[path] = perm
+    return digest_pieces(leaves, perms)
+
+
+def _sched_json(sched) -> dict:
+    return {k: (v.tolist() if torch.is_tensor(v) else v)
+            for k, v in sched.state_dict().items()}
+
+
+def save_digests(trainer, checkpoint) -> dict:
+    """What a save wrote, for a later restore to be held against: the
+    checkpoint's canonical pieces (`digest_pieces`), step and
+    scheduler."""
+    return dict(step=checkpoint["step"], global_step=trainer.global_step,
+                scheduler=_sched_json(trainer.state.scheduler),
+                pieces=digest_pieces(state_leaves(checkpoint["params"],
+                                                  checkpoint["opt_state"])))
+
+
+def time_restore(strategy, marks: dict) -> None:
+    """Mark when ``strategy`` starts and ends building a restore's target
+    and loading what it read (``marks``: name -> perf_counter)."""
+    for name in ("restore_target", "load_state_dicts"):
+        def timed(*a, _f=getattr(strategy, name), _n=name):
+            marks[f"{_n}_start"] = time.perf_counter()
+            out = _f(*a)
+            torch.cuda.synchronize()
+            marks[f"{_n}_end"] = time.perf_counter()
+            return out
+        setattr(strategy, name, timed)
+
+
+def setup_split(t0: float, marks: dict, t_fit_start: float) -> dict:
+    """A resumed fit's seconds to ``on_fit_start``, split: the build and
+    init, the restore target, the read (the reshard span's restore), the
+    load into the layout, and the rest."""
+    if len(marks) < 4:
+        return {}
+    return dict(
+        build_init_s=marks["restore_target_start"] - t0,
+        target_s=marks["restore_target_end"] - marks["restore_target_start"],
+        read_s=marks["load_state_dicts_start"] - marks["restore_target_end"],
+        load_s=marks["load_state_dicts_end"]
+        - marks["load_state_dicts_start"],
+        rest_s=t_fit_start - marks["load_state_dicts_end"])
+
+
+class ElasticProbe(Callback):
+    """In a resumed fit (14 (a)'s ranks, (b)): before the first step, the
+    restored state as ``pieces(trainer, module)`` digests it, with the
+    step and the scheduler, and the seconds to there, split
+    (`time_restore` marks the strategy's restore); every step's (step,
+    loss, grad_norm); the kernels' launches from then on; at a save,
+    `save_digests` and the save's seconds."""
+
+    def __init__(self, pieces, strategy):
+        self.pieces = pieces
+        self.rec = dict(rows=[])
+        self._marks = {}
+        time_restore(strategy, self._marks)
+        self._save_t0 = None
+        #: the fit's start (set by the caller): the seconds to its
+        #: ``on_fit_start`` are the build, the init and the restore
+        self.t0 = time.perf_counter()
+
+    def on_fit_start(self, trainer, module):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.rec.update(setup_s=t0 - self.t0,
+                        setup_split=setup_split(self.t0, self._marks, t0),
+                        restored=dict(
+                            pieces=self.pieces(trainer, module),
+                            step=trainer.state.step,
+                            scheduler=_sched_json(trainer.state.scheduler)),
+                        move=trainer.last_reshard)
+        torch.cuda.synchronize()
+        self.rec["digest_s"] = time.perf_counter() - t0
+        for k in all_kernels():
+            k.launches = 0
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self._save_t0 is not None:
+            torch.cuda.synchronize()
+            self.rec["save_s"] = time.perf_counter() - self._save_t0
+            self._save_t0 = None
+
+    def on_save_checkpoint(self, trainer, module, checkpoint):
+        self.rec["saved"] = save_digests(trainer, checkpoint)
+        torch.cuda.synchronize()
+        self._save_t0 = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, metrics, batch_idx):
+        self.rec["rows"].append((trainer.global_step, float(metrics["loss"]),
+                                 float(metrics["grad_norm"])))
+
+    def on_fit_end(self, trainer, module):
+        torch.cuda.synchronize()
+        self.rec["launches"] = {k.__name__: k.launches
+                                for k in all_kernels()}
+        self.rec["peak"] = torch.cuda.max_memory_allocated()
+
+
+def restore_mismatches(restored, want) -> tuple:
+    """The restored state (the ranks' ``restored`` records) against what
+    a save wrote (``want``: `save_digests` of its ranks): the leaves
+    whose pieces, combined, differ from the saved ones combined, and a
+    step or scheduler that differs. Returns (mismatches, leaves
+    compared)."""
+    got = combine_pieces([r["pieces"] for r in restored])
+    ref = combine_pieces([w["pieces"] for w in want])
+    bad = sorted(p for p in set(got) | set(ref)
+                 if got.get(p) is None or got.get(p) != ref.get(p))
+    for r in restored:
+        for k in ("step", "scheduler"):
+            if any(r[k] != w[k] for w in want):
+                bad.append(k)
+    return bad, len(ref) + 2
+
+
+def _read_telemetry(tdir: str, rank: int) -> dict:
+    """A rank's reshard spans and its goodput ledger's reshard_s."""
+    from ray_lightning_tpu_torch.telemetry.goodput import read_ledgers
+    from ray_lightning_tpu_torch.telemetry.spans import read_spans
+
+    spans = [s for p in glob.glob(os.path.join(tdir,
+                                               f"rank{rank}.*spans.jsonl"))
+             for s in read_spans(p)["spans"] if s["phase"] == "reshard"]
+    ledgers = read_ledgers(tdir, rank=rank)
+    return dict(reshard_spans=len(spans),
+                reshard_span_s=[s["dur"] for s in spans],
+                reshard_meta=[s.get("meta") for s in spans],
+                reshard_s=[lg["buckets"].get("reshard_s") for lg in ledgers])
+
+
+def elastic_worker(rank: int, world: int, port: int, seed: int, ckpt: str,
+                   out: str) -> None:
+    """One rank of 14 (a): phase 5's fit resumed from phase 6 (c)'s
+    world-1 FSDP checkpoint under ``ShardedMesh(tensor=world)`` in a gloo
+    group on the visible card, steps 5-8, saving at ELASTIC_SAVE_AT;
+    writes what its `ElasticProbe` recorded to ``out``."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    cfg, tokens = train_inputs(seed)
+    strategy = ShardedMesh(tensor=world)
+    probe = ElasticProbe(wrapped_pieces, strategy)
+    tdir = os.path.join(ELASTIC_DIR, "telemetry_grow")
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(
+        strategy=strategy, max_steps=TRAIN_STEPS,
+        log_every_n_steps=1, enable_checkpointing=False,
+        enable_progress_bar=False, seed=seed, telemetry=tdir,
+        callbacks=[probe, ModelCheckpoint(
+            dirpath=os.path.join(ELASTIC_DIR, "ckpt"),
+            every_n_train_steps=ELASTIC_SAVE_AT, save_top_k=-1)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = probe.t0 = time.perf_counter()
+    # both ranks of the tensor group read every row
+    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB),
+                ckpt_path=ckpt)
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump(dict(rank=rank, fit_wall_s=time.perf_counter() - t0,
+                       backend=dist.get_backend(),
+                       mesh=trainer.strategy.mesh_shape,
+                       **_read_telemetry(tdir, rank), **probe.rec), f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(target: str, world: int, args: str, what: str,
+                 problems: list):
+    """Start ``world`` processes running ``chip_smoke.<target>(rank,
+    world, <args>, out)`` on the card, wait, and return each rank's JSON
+    (None when one failed: the tails go into ``problems``)."""
+    from ray_lightning_tpu_torch.utils.dist import find_free_port
+
+    port = find_free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
+           "RLT_CKPT_DIGEST": "size",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    outs = [os.path.join(ELASTIC_DIR, f"{what}{r}.json")
+            for r in range(world)]
+    logs = [open(os.path.join(ELASTIC_DIR, f"{what}{r}.log"), "w")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    # unbuffered, with the fault handler: a rank that dies in native
+    # code leaves its Python stack in the log
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-X", "faulthandler", "-c",
+         f"import chip_smoke; chip_smoke.{target}({r}, {world}, {port}, "
+         f"{args}, {outs[r]!r})"],
+        cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, ELASTIC_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        problems.append(f"{what} ranks still running after "
+                        f"{ELASTIC_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs) or not all(map(os.path.exists,
+                                                       outs)):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(ELASTIC_DIR, f"{what}{r}.log")) as f:
+                tails.append(f"rank {r} (rc {procs[r].returncode}): "
+                             + f.read()[-3000:])
+        problems.append(f"{what} ranks failed: " + " | ".join(tails))
+        return None, time.perf_counter() - t0
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _reshard_problems(what: str, rec: dict, axes, worlds, steps,
+                      ref_rows, want_launches, problems: list):
+    """The checks 14 (a)'s ranks and (b) share: the restore bitwise, the
+    move's summary, the reshard span and goodput bucket, the steps, the
+    rows within the train limits, the launches by phase 5's formula."""
+    if rec["mismatches"] or not rec["leaves"]:
+        problems.append(f"{what}: {len(rec['mismatches'])} of "
+                        f"{rec['leaves']} restored leaves differ: "
+                        f"{rec['mismatches'][:8]}")
+    move = rec.get("move") or {}
+    if (move.get("changed_axes") != axes
+            or (move.get("from_world"), move.get("to_world")) != worlds):
+        problems.append(f"{what}: move {move}")
+    if rec["reshard_spans"] != 1 or not (rec["reshard_s"]
+                                         and rec["reshard_s"][-1] > 0):
+        problems.append(f"{what}: {rec['reshard_spans']} reshard span(s), "
+                        f"reshard_s {rec['reshard_s']}")
+    if [r[0] for r in rec["rows"]] != list(steps):
+        problems.append(f"{what}: ran steps {[r[0] for r in rec['rows']]}")
+    d_loss, d_gn, rel = compare_train([tuple(r[1:]) for r in rec["rows"]],
+                                      ref_rows)
+    problems.extend(f"{what} against its reference rows: {p}" for p in rel)
+    if rec["launches"] != want_launches:
+        problems.append(f"{what}: launches {rec['launches']} != "
+                        f"{want_launches}")
+    return d_loss, d_gn
+
+
+def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
+    """14 (a): phase 6 (c)'s world-1 FSDP step-4 checkpoint (23.08 GB of
+    f32 weights and AdamW moments) resumed by ELASTIC_RANKS processes on
+    the card, each a rank of ``ShardedMesh(tensor=2)`` over gloo: every
+    restored leaf, as the ranks hold it (head-aligned rows, each element
+    digested at its canonical place, no gather), bitwise what 6 (c)'s
+    save wrote (``saved``: its `save_digests`, taken by the saving rank),
+    the step and scheduler too; the move ["tensor"] world 1 -> 2 with a
+    `reshard` span and goodput reshard_s on each rank, steps 5-8 within
+    the train limits of 6 (c)'s resumed rows, launches by phase 5's
+    formula at H 16 / Hkv 4, and both ranks saving their pieces at
+    ELASTIC_SAVE_AT. Returns (the ranks' records, the step-6 checkpoint,
+    launches)."""
+    from ray_lightning_tpu_torch.checkpoint import verify_checkpoint
+    from ray_lightning_tpu_torch.checkpoint.io import read_meta
+
+    free_card("elastic_grow")
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    ranks, wall = _spawn_ranks("elastic_worker", ELASTIC_RANKS,
+                               f"{seed}, {ckpt!r}", "grow", problems)
+    total = {k.__name__: 0 for k in all_kernels()}
+    if ranks is None:
+        return None, None, total
+    bad, n = restore_mismatches([r["restored"] for r in ranks], [saved])
+    want = expected_launches(TRAIN_STEPS - RESUME_AT)
+    for r in ranks:
+        r.update(mismatches=bad, leaves=n)
+        d_loss, d_gn = _reshard_problems(
+            f"14 (a) rank {r['rank']}", r, ["tensor"], (1, ELASTIC_RANKS),
+            range(RESUME_AT + 1, TRAIN_STEPS + 1), ref_rows, want, problems)
+        if r["rows"] != ranks[0]["rows"]:
+            problems.append(f"14 (a) rank {r['rank']}'s rows differ from "
+                            "rank 0's")
+        if r["backend"] != "gloo" or "saved" not in r:
+            problems.append(f"14 (a) rank {r['rank']}: {r['backend']}, "
+                            f"saved {'saved' in r}")
+        for k, v in r["launches"].items():
+            total[k] += v
+    path = os.path.join(ELASTIC_DIR, "ckpt", f"step={ELASTIC_SAVE_AT}")
+    meta = read_meta(path)
+    live = {k: v for k, v in meta.get("mesh_spec", {}).items() if v > 1}
+    ok, reason = verify_checkpoint(path)
+    if live != {"tensor": ELASTIC_RANKS} or not ok or \
+            (meta.get("topology") or {}).get("process_count") != \
+            ELASTIC_RANKS:
+        problems.append(f"14 (a) step-{ELASTIC_SAVE_AT} checkpoint: "
+                        f"mesh {meta.get('mesh_spec')}, topology "
+                        f"{meta.get('topology')}, verify {reason}")
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(path) for f in fs)
+    print(json.dumps(dict(
+        phase="elastic_grow", ranks=ELASTIC_RANKS, backend="gloo",
+        lane="correctness (every all-reduce crosses the host)",
+        checkpoint="phase 6 (c) step 4, FSDP world 1",
+        held_against="6 (c)'s step-4 save digests",
+        move=ranks[0]["move"], leaves=n, mismatches=len(bad),
+        setup_s=[r["setup_s"] for r in ranks],
+        setup_split=[r["setup_split"] for r in ranks],
+        restore_digest_s=[r["digest_s"] for r in ranks],
+        reshard_s=[r["reshard_s"] for r in ranks],
+        reshard_span_s=[r["reshard_span_s"] for r in ranks],
+        steps=[x[0] for x in ranks[0]["rows"]],
+        losses=[x[1] for x in ranks[0]["rows"]],
+        grad_norms=[x[2] for x in ranks[0]["rows"]],
+        loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+        save_s=[r.get("save_s") for r in ranks], save_bytes=nbytes,
+        saved_mesh=meta.get("mesh_spec"),
+        peak_gib=[r["peak"] / 2**30 for r in ranks],
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], call_wall_s=wall,
+        launches=[r["launches"] for r in ranks])), flush=True)
+    return ranks, path, total
+
+
+def elastic_shrink(seed: int, path: str, grown, problems: list) -> dict:
+    """14 (b): 14 (a)'s step-6 checkpoint restored into a one-rank FSDP
+    fit in this process (a one-rank NCCL group the strategy starts, as 6
+    (b)'s): every restored leaf bitwise what the two tensor ranks wrote
+    (their `save_digests`, so the head-aligned rows must be put back),
+    the move ["tensor"] 2 -> 1 spanned, steps 7-8 within the train limits
+    of 14 (a)'s. Returns the launches."""
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.parallel.strategy import FSDP
+
+    free_card("elastic_shrink")
+    cfg, tokens = train_inputs(seed)
+    strategy = FSDP()
+    probe = ElasticProbe(
+        lambda trainer, module: digest_pieces(live_leaves(trainer, module)),
+        strategy)
+    tdir = os.path.join(ELASTIC_DIR, "telemetry_shrink")
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(strategy=strategy, max_steps=TRAIN_STEPS,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed, telemetry=tdir,
+                      callbacks=[probe])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = probe.t0 = time.perf_counter()
+    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB),
+                ckpt_path=path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer.strategy.teardown()
+    rec = dict(probe.rec, **_read_telemetry(tdir, 0))
+    bad, n = restore_mismatches([rec["restored"]],
+                                [r["saved"] for r in grown])
+    rec.update(mismatches=bad, leaves=n)
+    ref = [tuple(r[1:]) for r in grown[0]["rows"]
+           if r[0] > ELASTIC_SAVE_AT]
+    d_loss, d_gn = _reshard_problems(
+        "14 (b)", rec, ["tensor"], (ELASTIC_RANKS, 1),
+        range(ELASTIC_SAVE_AT + 1, TRAIN_STEPS + 1), ref,
+        expected_launches(TRAIN_STEPS - ELASTIC_SAVE_AT), problems)
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(path) for f in fs)
+    print(json.dumps(dict(
+        phase="elastic_shrink", strategy="FSDP", world=1,
+        held_against="14 (a)'s ranks' step-6 save digests",
+        move=rec["move"], leaves=n, mismatches=len(bad),
+        setup_s=rec["setup_s"], setup_split=rec["setup_split"],
+        restore_digest_s=rec["digest_s"],
+        restore_s=rec["reshard_span_s"], restore_bytes=nbytes,
+        restore_gb_per_s=[nbytes / s / 1e9 for s in rec["reshard_span_s"]
+                          if s],
+        reshard_s=rec["reshard_s"],
+        steps=[x[0] for x in rec["rows"]], losses=[x[1] for x in rec["rows"]],
+        grad_norms=[x[2] for x in rec["rows"]], loss_max_abs_diff=d_loss,
+        grad_norm_max_rel_diff=d_gn,
+        max_memory_allocated_gib=rec["peak"] / 2**30, fit_wall_s=wall,
+        launches=rec["launches"])), flush=True)
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def elastic_phase(seed: int, ckpt: str, saved, ref_rows) -> dict:
+    """14 (a) and (b), inside phase 6 (c) on its step-4 checkpoint
+    (``saved``: the digests its saving rank took; ``ref_rows``: 6 (c)'s
+    resumed rows 5-8). Returns the launches."""
+    problems = []
+    t0 = time.perf_counter()
+    total = {k.__name__: 0 for k in all_kernels()}
+    try:
+        grown, path, launches = elastic_grow(seed, ckpt, saved, ref_rows,
+                                             problems)
+        for k, v in launches.items():
+            total[k] += v
+        if grown is not None and not problems:
+            for k, v in elastic_shrink(seed, path, grown, problems).items():
+                total[k] += v
+    finally:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+        PHASE14_S["elastic"] = time.perf_counter() - t0 \
+            + saved["digest_s"]
+    if problems:
+        raise AssertionError("phase 14 (a)/(b): " + "; ".join(problems))
+    return total
+
+
+def autoscale_slo():
+    """(c)'s traffic classes: generous latency targets (the watch and the
+    report read them; they shed nothing) and best-effort's admission
+    budget."""
+    from ray_lightning_tpu_torch.serve.scheduler import ClassSLO, SLOConfig
+
+    return SLOConfig(classes={
+        "latency_critical": ClassSLO(ttft_p95_s=10.0, tpot_p95_s=5.0),
+        "standard": ClassSLO(ttft_p95_s=30.0, tpot_p95_s=10.0),
+        "best_effort": ClassSLO(ttft_p95_s=60.0, tpot_p95_s=20.0,
+                                queue_budget=AUTOSCALE_BE_BUDGET)})
+
+
+def _cli_json(argv) -> dict:
+    """``python -m ray_lightning_tpu_torch <argv> --json``'s output, run
+    through the CLI's own entry point in this process."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli([*argv, "--json"])
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _class_stats(meta: dict) -> dict:
+    out = {}
+    for cls in ("latency_critical", "standard", "best_effort"):
+        ms = [m for m in meta.values() if m.get("priority") == cls]
+        ttft = sorted(m["ttft_s"] for m in ms if m["finish_reason"] != "shed")
+        out[cls] = dict(
+            requests=len(ms),
+            shed=sum(m["finish_reason"] == "shed" for m in ms),
+            ttft_p50_s=statistics.median(ttft) if ttft else None,
+            ttft_p95_s=ttft[min(len(ttft) - 1, max(
+                0, -(-95 * len(ttft) // 100) - 1))] if ttft else None)
+    return out
+
+
+def autoscale_phase(model, ecfg) -> dict:
+    """14 (c): a seeded bursty MMPP trace (AUTOSCALE_TRACE) driven by
+    `loadgen.run_trace` through ``ServeDriver(inline, n_replicas=1)``
+    under an `AutoscaleController` (the CLI's ramp policy, cooldowns in
+    ticks): exactly one scale-up 1 -> 2 and one scale-down 2 -> 1, both
+    acted and each with its signal snapshot; every rid completed or shed
+    with a typed record, no latency-critical shed; every completed stream
+    the same trace's through a fixed one-replica driver (bitwise, or
+    parting only under phase 13's margin rule); launches by phase 4's
+    formula over both replicas' ticks and chunks; the report's autoscale
+    section and the timeline's merge of the ledger. Returns the
+    launches."""
+    from ray_lightning_tpu_torch.autoscale import (
+        AutoscaleController,
+        ControllerConfig,
+        read_ledger,
+    )
+    from ray_lightning_tpu_torch.autoscale.cli import _ramp_policy
+    from ray_lightning_tpu_torch.loadgen import (
+        WorkloadConfig,
+        generate_events,
+        run_trace,
+        to_request,
+    )
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig,
+        ServeDriver,
+    )
+
+    problems = []
+    t_all = time.perf_counter()
+    L = model.cfg.n_layers
+    wl = WorkloadConfig(seed=AUTOSCALE_SEED, **AUTOSCALE_TRACE)
+    events = generate_events(wl)
+    span = ecfg.block_size * ecfg.blocks_per_slot
+    over = [e.rid for e in events if len(e.prompt) + e.max_new_tokens > span]
+    if over:
+        problems.append(f"(c) requests past the engine's {span}-token "
+                        f"span: {over}")
+    shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    slo = autoscale_slo()
+
+    def session(run_dir, autoscale: bool):
+        drv = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+            n_replicas=1, backend="inline", engine=ecfg, run_dir=run_dir,
+            metrics_flush_every_n_ticks=2, slo=slo))
+        drv.start()
+        ctl = (AutoscaleController(drv, ControllerConfig(
+            policy=_ramp_policy(2), signal_window=8)) if autoscale
+            else None)
+        sim = run_trace(drv, events, controller=ctl, poll_every_ticks=2)
+        return drv.stop(), ctl, sim
+
+    run_dir = os.path.join(AUTOSCALE_DIR, "autoscaled")
+    (res, ctl, sim), launches, wall = counted(
+        lambda: session(run_dir, True), L, problems, "(c)")
+    (ref, _, _), ref_launches, ref_wall = counted(
+        lambda: session(os.path.join(AUTOSCALE_DIR, "fixed"), False), L,
+        problems, "(c) fixed")
+    ledger = read_ledger(run_dir)
+    acted = [e for e in ledger if e["decision"]["action"] != "hold"]
+    moves = [(e["decision"]["action"], e["decision"]["target"],
+              e["outcome"].get("ok")) for e in acted]
+    if moves != [("scale_up", 2, True), ("scale_down", 1, True)]:
+        problems.append(f"(c) scale events {moves}")
+    if not all(e["signal"].get("available") for e in acted):
+        problems.append("(c) a scale event without its signal snapshot")
+    if len(ledger) != ctl.decisions:
+        problems.append(f"(c) {len(ledger)} ledger lines for "
+                        f"{ctl.decisions} decisions")
+    rids = {e.rid for e in events}
+    terminal = {r for r, m in res.meta.items()
+                if m["finish_reason"] in ("eos", "length", "shed")}
+    if terminal != rids:
+        problems.append(f"(c) rids without a terminal record: "
+                        f"{sorted(rids - terminal)}")
+    sheds = sorted(r for r, m in res.meta.items()
+                   if m["finish_reason"] == "shed")
+    lc_shed = [r for r in sheds
+               if res.meta[r]["priority"] == "latency_critical"]
+    untyped = [r for r in sheds if not (res.meta[r].get("reason")
+                                        and res.meta[r].get(
+                                            "retry_after_s", 0) > 0)]
+    if lc_shed or untyped:
+        problems.append(f"(c) latency-critical shed {lc_shed}, untyped "
+                        f"sheds {untyped}")
+    both = [to_request(e) for e in events
+            if e.rid not in sheds and ref.meta.get(e.rid, {}).get(
+                "finish_reason") not in (None, "shed")]
+    parted = hold_streams(model, both, res.outputs,
+                          {r.rid: ref.outputs[r.rid] for r in both}, "(c)",
+                          problems)
+    report = _cli_json(["report", run_dir])
+    asc = (report.get("serving") or {}).get("autoscale") or {}
+    if (asc.get("scale_ups"), asc.get("scale_downs"),
+            asc.get("decisions")) != (1, 1, ctl.decisions):
+        problems.append(f"(c) report's autoscale section {asc}")
+    timeline = _cli_json(["timeline", run_dir])
+    merged = [e for e in timeline["events"] if e["source"] == "autoscale"]
+    if len(merged) != ctl.decisions:
+        problems.append(f"(c) the timeline merged {len(merged)} autoscale "
+                        f"events of {ctl.decisions}")
+    n_tok = sum(len(v) for v in res.outputs.values())
+    print(json.dumps(dict(
+        phase="autoscale", layers=L, requests=len(events),
+        trace=dict(seed=AUTOSCALE_SEED, **AUTOSCALE_TRACE),
+        ticks=sim["ticks"], decisions=ctl.decisions,
+        scale_events=[dict(now=e["now"], action=e["decision"]["action"],
+                           target=e["decision"]["target"],
+                           duration_s=e["duration_s"],
+                           pressure=e["signal"].get("pressure"))
+                      for e in acted],
+        classes=_class_stats(res.meta), shed=sheds,
+        shed_fraction=len(sheds) / len(events), parted=parted,
+        compared_streams=len(both), new_tokens=n_tok, wall_s=wall,
+        decode_tokens_per_s=n_tok / wall,
+        fixed=dict(wall_s=ref_wall, shed=sorted(
+            r for r, m in ref.meta.items() if m["finish_reason"] == "shed"),
+            classes=_class_stats(ref.meta)),
+        report_autoscale=asc, timeline_autoscale_events=len(merged),
+        launches=launches, fixed_launches=ref_launches,
+        phase_wall_s=time.perf_counter() - t_all)), flush=True)
+    shutil.rmtree(AUTOSCALE_DIR, ignore_errors=True)
+    PHASE14_S["autoscale"] = time.perf_counter() - t_all
+    if problems:
+        raise AssertionError("phase 14 (c): " + "; ".join(problems))
+    return {k: launches[k] + ref_launches[k] for k in launches}
+
+
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm"]
 
@@ -5021,6 +6047,11 @@ def main() -> int:
         now = time.perf_counter()
         walls[name] = now - t_phase
         t_phase = now
+        # a phase stops what it starts: name the one that did not
+        left = descendants()
+        if left:
+            log(f"chip_smoke: after phase {name}, processes still "
+                f"running: {left}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -5035,7 +6066,7 @@ def main() -> int:
     # same requests with live metrics)
     serve_launches, t_9b, t_11ab, t_13 = serve_phase(SEED, args.layers)
     lap("serve")
-    walls["serve"] -= t_9b + t_11ab + t_13
+    walls["serve"] -= t_9b + t_11ab + t_13 + PHASE14_S["autoscale"]
 
     # 11 (c). process replicas on the card, one SIGKILL'd and replayed;
     # 13 (c): a tensor-parallel replica on the same params file
@@ -5045,7 +6076,7 @@ def main() -> int:
     for k, v in proc_launches.items():
         serve_launches[k] += v
     lap("driver_process")
-    walls["driver_process"] -= t_13c
+    walls["driver_process"] -= t_13c + PHASE14_S["process_scale_up"]
 
     # 5. training at full width, 4 layers deep
     gc.collect()
@@ -5072,6 +6103,7 @@ def main() -> int:
     # MNIST train/load/predict matrix
     dist_launches = dist_phase(SEED, train_rows)
     lap("dist")
+    walls["dist"] -= PHASE14_S["elastic"]
 
     # 10b. the same fit through a loopback "remote" worker under FSDP's
     # overlap schedule
@@ -5102,6 +6134,7 @@ def main() -> int:
     walls["driver_inline_generate"] = t_11ab
     walls["rest_of_serving"] = t_13 + t_13c
     walls["probe"] = t_probe
+    walls.update({f"phase14_{k}": v for k, v in PHASE14_S.items()})
     print(json.dumps(dict(
         phase="timing", wall_s=walls,
         # 9c's share is inside "resilience" (its rows carry the timeline
@@ -5113,7 +6146,13 @@ def main() -> int:
         # (d)'s share is inside phases 6-8 and 10 (b)
         phase12_s=walls["planner"],
         phase13_s=walls["rest_of_serving"],
+        # (a) and (b) inside phase 6 (c), (c) inside phase 4, (d) after
+        # 11 (c); 8 (a)'s refused grow costs no time
+        phase14_s=sum(PHASE14_S.values()),
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
+    left = stop_descendants("at the end of the run")
+    if left:
+        raise AssertionError(f"processes outlived their phases: {left}")
 
     # each kernel's launches on the paths that run it
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
@@ -5165,4 +6204,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import signal
+
+    # a SIGTERM (a time limit) unwinds through the finally like a failure
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        rc = main()
+    finally:
+        stop_descendants("as the script exits")
+    sys.exit(rc)

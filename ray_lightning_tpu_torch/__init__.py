@@ -7,7 +7,9 @@ KV pool), training on one card (`core.trainer.Trainer`, with the hot
 loop of `pipeline`), training across processes and hosts
 (`runtime.fit.fit_distributed` under `parallel.strategy.DataParallel` /
 `FSDP`, with `checkpoint.io`; ``hosts=`` with `runtime.SSHTransport`),
-the sweep (`sweep.run`), its supervision (`resilience`) and telemetry.
+the sweep (`sweep.run`), its supervision (`resilience`, with the elastic
+world-size ladder of `elastic`), telemetry, and the closed-loop serving
+autoscaler (`autoscale`) under trace-driven load (`loadgen`).
 The hand-written Hopper kernels live in `ops/kernels/` and `ops/csrc/`.
 
 The top level mirrors the JAX package's ``__all__`` name for name, so a
@@ -55,6 +57,9 @@ _NAMES = {
     "TelemetryConfig": "telemetry",
     "ProfileConfig": "telemetry",
     "resolve_device": "utils.devices",
+    "elastic": "elastic:",
+    "ElasticBudget": "elastic.budget",
+    "reshard_restore": "elastic.reshard",
 }
 
 #: JAX names the port leaves out, and why
@@ -65,9 +70,6 @@ _MISSING = {
     "simulate_cpu_devices": "JAX-only (XLA's virtual CPU devices); the "
                             "port runs one process a device, on gloo "
                             "for the CPU",
-    "elastic": "ROADMAP Queue 1 item 12 (elastic/)",
-    "ElasticBudget": "ROADMAP Queue 1 item 12 (elastic/)",
-    "reshard_restore": "ROADMAP Queue 1 item 12 (elastic/)",
 }
 
 __all__ = [*_NAMES, "__version__"]

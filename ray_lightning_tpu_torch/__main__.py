@@ -14,6 +14,13 @@
     python -m ray_lightning_tpu_torch plan [--preset llama3-8b] \
         [--data D --fsdp F --tensor T] [--batch B --seq S] \
         [--find-max-batch] [--json]
+    python -m ray_lightning_tpu_torch elastic --smoke --device cpu
+    python -m ray_lightning_tpu_torch autoscale [--smoke] --device cpu
+    python -m ray_lightning_tpu_torch loadgen --out trace.jsonl [--seed 7]
+    python -m ray_lightning_tpu_torch loadgen --trace trace.jsonl \
+        --device cpu
+    python -m ray_lightning_tpu_torch loadgen --smoke --device cpu
+    python -m ray_lightning_tpu_torch watch --smoke --device cpu
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
 
 ``supervise`` is resilience/cli.py; ``report``, ``monitor``,
@@ -21,7 +28,10 @@
 (telemetry/); ``perf`` measures the hot loop's prefetch overlap, warm
 start and FSDP schedule (pipeline/cli.py); ``serve`` runs the replica
 driver and its smoke gate (serve/cli.py); ``plan`` is the pre-flight
-memory plan on the meta device (parallel/cli.py); ``--probe`` times a chain of
+memory plan on the meta device (parallel/cli.py); ``elastic`` is the
+elastic-training gate (elastic/cli.py), ``autoscale`` the closed-loop
+serving autoscaler's demo and gate (autoscale/cli.py), ``loadgen`` the
+trace-driven load harness (loadgen/cli.py); ``--probe`` times a chain of
 bf16 matmuls on the card (utils/probe.py) beside its spec-sheet peak.
 """
 import argparse
@@ -53,6 +63,18 @@ def run_probe(args) -> int:
 
 
 def main(argv=None) -> int:
+    from ray_lightning_tpu_torch.autoscale.cli import (
+        add_autoscale_parser,
+        run_autoscale,
+    )
+    from ray_lightning_tpu_torch.elastic.cli import (
+        add_elastic_parser,
+        run_elastic,
+    )
+    from ray_lightning_tpu_torch.loadgen.cli import (
+        add_loadgen_parser,
+        run_loadgen,
+    )
     from ray_lightning_tpu_torch.parallel.cli import add_plan_parser, run_plan
     from ray_lightning_tpu_torch.pipeline.cli import add_perf_parser, run_perf
     from ray_lightning_tpu_torch.resilience.cli import (
@@ -91,11 +113,16 @@ def main(argv=None) -> int:
     add_perf_parser(sub)
     add_serve_parser(sub)
     add_plan_parser(sub)
+    add_elastic_parser(sub)
+    add_autoscale_parser(sub)
+    add_loadgen_parser(sub)
     args = ap.parse_args(argv)
     commands = {"supervise": run_supervise, "report": run_report,
                 "monitor": run_monitor, "timeline": run_timeline,
                 "watch": run_watch, "perf": run_perf,
-                "serve": run_serve, "plan": run_plan}
+                "serve": run_serve, "plan": run_plan,
+                "elastic": run_elastic, "autoscale": run_autoscale,
+                "loadgen": run_loadgen}
     if args.command in commands:
         return commands[args.command](args)
     if args.probe:

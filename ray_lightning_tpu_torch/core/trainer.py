@@ -94,6 +94,7 @@ from ray_lightning_tpu_torch.telemetry.spans import (
     PH_DISPATCH,
     PH_EVAL,
     PH_METRICS,
+    PH_RESHARD,
     PH_STEP,
     TelemetryRecorder,
 )
@@ -205,6 +206,10 @@ class Trainer:
         self._mid_epoch = False
         self._epoch_batches_done = 0
         self._resume_skip_batches = 0
+        #: the move summary of the last cross-mesh restore
+        #: (`elastic.reshard.validate_reshard`; None when the resume
+        #: stayed on its mesh)
+        self.last_reshard: Optional[Dict[str, Any]] = None
         self.last_batch_size: Optional[int] = None
         self._seed = 0
         self.is_fitted = False
@@ -700,11 +705,27 @@ class Trainer:
             raise FileNotFoundError(
                 f"no checkpoint at {ckpt_path!r} (no meta.json)")
         model = self.module.model
-        params, opt_state = self.strategy.state_dicts(model, state.optimizer)
+        params, opt_state = self.strategy.restore_target(model,
+                                                         state.optimizer)
         target = {"params": params, "step": 0, "opt_state": opt_state}
         if state.scheduler is not None:
             target["scheduler"] = state.scheduler.state_dict()
-        restored = restore_checkpoint(ckpt_path, target)
+        move = self.last_reshard = self._reshard_move(meta)
+        if move is not None:
+            # a cross-topology restore: the checkpoint was written on
+            # ANOTHER mesh. The move is validated against its provenance
+            # and the load is accounted as a `reshard` span (goodput's
+            # reshard_s), so an elastic shrink or grow shows in `report`.
+            # DCP reads each rank's pieces of the global tensors, and
+            # the canonical rows go back through load_state_dicts
+            log.warning(
+                "resharding restore: checkpoint %s written on mesh %s, "
+                "restoring onto %s", ckpt_path, move["from_mesh"],
+                move["to_mesh"])
+            with self.telemetry_recorder.span(PH_RESHARD, meta=move):
+                restored = restore_checkpoint(ckpt_path, target)
+        else:
+            restored = restore_checkpoint(ckpt_path, target)
         self.strategy.load_state_dicts(model, state.optimizer,
                                        restored["params"],
                                        restored["opt_state"])
@@ -725,6 +746,38 @@ class Trainer:
         self.global_step = int(meta.get("global_step", 0))
         self.module.on_load_checkpoint(restored)
         self._invoke("on_load_checkpoint", restored)
+
+    def _reshard_move(self, meta: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """When the checkpoint's recorded writing mesh differs from this
+        strategy's mesh (axes of size 1 aside; no mesh is one device),
+        validate the cross-topology move (`elastic.reshard`) and return
+        its summary; None for a same-mesh restore. A checkpoint whose
+        move is ILLEGAL raises `ReshardError` here, with the axis named,
+        instead of failing inside DCP.
+
+        A checkpoint with no ``mesh_spec`` stamp also returns None: its
+        writing mesh is unknowable, so a cross-mesh resume can neither
+        be detected nor validated. DCP fills whatever layout this run
+        built, and a warning marks the blind spot. The elastic
+        supervisor refuses to RESIZE onto such a checkpoint outright
+        (`_begin_reshard`)."""
+        src = meta.get("mesh_spec")
+        cur = {str(k): int(v) for k, v in self.strategy.mesh_shape.items()}
+        if not src:
+            if meta and self.strategy.mesh is not None:
+                log.warning(
+                    "checkpoint carries no sharding provenance: restoring "
+                    "WITHOUT cross-mesh validation — if the writing mesh "
+                    "differed from %s this restore reshards silently; "
+                    "re-save once to stamp provenance", cur)
+            return None
+        src = {str(k): int(v) for k, v in src.items()}
+        if {k: v for k, v in src.items() if v > 1} == \
+                {k: v for k, v in cur.items() if v > 1}:
+            return None
+        from ray_lightning_tpu_torch.elastic.reshard import validate_reshard
+
+        return validate_reshard(meta, cur)
 
     # ------------------------------------------------------------ plumbing
 

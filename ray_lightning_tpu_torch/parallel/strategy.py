@@ -53,6 +53,7 @@ import torch
 from ray_lightning_tpu_torch.parallel import mesh as mesh_lib
 from ray_lightning_tpu_torch.parallel.tensor import (
     TensorParallel,
+    full_value,
     fused_row_permutation,
     local_piece,
 )
@@ -179,6 +180,11 @@ class Strategy:
         from torch.distributed.checkpoint.state_dict import get_state_dict
 
         return get_state_dict(model, optimizer)
+
+    def restore_target(self, model, optimizer) -> tuple:
+        """`state_dicts`' layout for a restore to read into: its values
+        are overwritten, so a strategy may skip computing them."""
+        return self.state_dicts(model, optimizer)
 
     def load_state_dicts(self, model, optimizer, params, osd) -> None:
         """Load `state_dicts`' canonical dicts into the wrapped model and
@@ -675,19 +681,61 @@ class ShardedMesh(FSDP):
         perm = self._perm(name)
         return full if perm is None else full[perm.to(full.device)]
 
+    def restore_target(self, model, optimizer) -> tuple:
+        # `state_dicts`' keys and layout, built here: the model's
+        # state-dict hook would gather each fused leaf's rows, which the
+        # restore overwrites, so a fused leaf is an uninitialised piece
+        from torch.distributed.checkpoint.state_dict import (
+            get_optimizer_state_dict,
+        )
+
+        inner = self.unwrap(model)
+        params = {n: self._canonical_shell(n, p.detach())
+                  for n, p in inner.named_parameters()}
+        for prefix, mod in inner.named_modules():
+            for n, b in mod.named_buffers(prefix=prefix, recurse=False):
+                if b is not None and n.rpartition(".")[2] not in \
+                        mod._non_persistent_buffers_set:
+                    params[n] = b
+        osd = get_optimizer_state_dict(model, optimizer)
+        return params, _map_optim_state(osd, self._canonical_shell)
+
+    def _canonical_placements(self, value) -> tuple:
+        from torch.distributed.tensor import Shard
+
+        return tuple(Shard(p.dim) if type(p).__name__ == "_StridedShard"
+                     else p for p in value.placements)
+
+    def _canonical_shell(self, name: str, value):
+        """`canonical_value`'s layout without its values: this rank's
+        piece uninitialised (no collective)."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        if self._perm(name) is None or not isinstance(value, DTensor):
+            return value
+        placements = self._canonical_placements(value)
+        shape, _ = compute_local_shape_and_global_offset(
+            value.shape, value.device_mesh, placements)
+        return DTensor.from_local(
+            value.to_local().new_empty(shape), value.device_mesh,
+            placements, run_check=False, shape=value.shape,
+            stride=value.stride())
+
     def canonical_value(self, name: str, value):
         """A wrapped parameter's value (or optimizer state) in the
         canonical row order, as a DTensor on its mesh with plain shards
         (a collective: the whole value is gathered)."""
-        from torch.distributed.tensor import DTensor, Shard
+        from torch.distributed.tensor import DTensor
 
         perm = self._perm(name)
         if perm is None or not isinstance(value, DTensor):
             return value
-        full = value.full_tensor()
+        placements = self._canonical_placements(value)
+        full = full_value(value)
         canon = full[torch.argsort(perm).to(full.device)]
-        placements = tuple(Shard(p.dim) if type(p).__name__ ==
-                           "_StridedShard" else p for p in value.placements)
         piece = local_piece(canon, value.device_mesh, placements).clone()
         return DTensor.from_local(piece, value.device_mesh, placements,
                                   run_check=False, shape=canon.shape,
@@ -703,7 +751,7 @@ class ShardedMesh(FSDP):
                     and value.device_mesh == param.device_mesh
                     and value.placements == param.placements):
                 return value
-            value = value.full_tensor()
+            value = full_value(value)
         ploc = param.to_local()
         full = self.layout_value(name, value.to(ploc.device))
         piece = local_piece(full, param.device_mesh, param.placements)

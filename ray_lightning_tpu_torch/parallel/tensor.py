@@ -205,6 +205,62 @@ def fused_row_permutation(parts: Sequence[int], tp: int) -> torch.Tensor:
     return torch.cat(order)
 
 
+def _chunk_sizes(length: int, n: int) -> list:
+    """The sizes of ``torch.chunk(x, n)`` along a dimension of
+    ``length``, padded with zeros to ``n`` entries."""
+    each = -(-length // n) if length else 0
+    sizes = [min(each, max(0, length - k * each)) for k in range(n)]
+    return sizes
+
+
+def full_value(value) -> torch.Tensor:
+    """A DTensor's whole value on its device (anything else as it is),
+    gathered with c10d's ``all_gather_into_tensor`` over each sharded mesh
+    dimension, innermost first (the inverse of `local_piece`).
+    ``DTensor.full_tensor`` goes through the functional collectives, which
+    crash under gloo with CUDA tensors (torch 2.11 on the H100: a
+    segfault in ``wait_tensor``), where c10d's own collective carries
+    them; the tensor ranks that share one card run on gloo. Placements
+    other than plain ``Shard``/``Replicate`` (FSDP2's strided shards, a
+    partial sum) take ``full_tensor``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(value, DTensor):
+        return value
+    placements = value.placements
+    if any(type(p) not in (Shard, Replicate) for p in placements):
+        return value.full_tensor()
+    mesh = value.device_mesh
+    coords = mesh.get_coordinate()
+    out = value.to_local()
+    for i in reversed(range(len(placements))):
+        p = placements[i]
+        if not isinstance(p, Shard):
+            continue
+        # the length mesh dimension i split: the dimension after the
+        # splits of the mesh dimensions before it
+        length = value.shape[p.dim]
+        for j in range(i):
+            q = placements[j]
+            if isinstance(q, Shard) and q.dim == p.dim:
+                length = _chunk_sizes(length, mesh.size(j))[coords[j]]
+        n = mesh.size(i)
+        sizes = _chunk_sizes(length, n)
+        moved = out.movedim(p.dim, 0)
+        pad = sizes[0] - moved.shape[0]
+        if pad:
+            moved = torch.cat([moved, moved.new_zeros(
+                (pad, *moved.shape[1:]))])
+        gathered = moved.new_empty((n * sizes[0], *moved.shape[1:]))
+        dist.all_gather_into_tensor(gathered, moved.contiguous(),
+                                    group=mesh.get_group(i))
+        parts = [g[:s] for g, s in zip(gathered.chunk(n), sizes)] \
+            if sizes[0] else [gathered]
+        out = torch.cat(parts).movedim(0, p.dim)
+    return out.contiguous()
+
+
 def local_piece(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's part of ``full`` under a DTensor's ``placements`` on
     ``mesh``, with ``torch.chunk``'s uneven split (DTensor's and FSDP2's):

@@ -78,30 +78,37 @@ class HeartbeatCallback(Callback):
         muted = self._muted
         rank = session.get_actor_rank()
 
+        def _send() -> bool:
+            """One beat unless muted; False once the channel is gone."""
+            if muted.is_set():
+                return True
+            try:
+                step = int(trainer.global_step)
+                # the recorder's live phase says what the worker is
+                # doing; without telemetry, the step counter
+                rec = getattr(trainer, "telemetry_recorder", NULL_RECORDER)
+                phase = rec.current_phase() if rec.enabled else ""
+                session.put_queue(make_heartbeat(
+                    rank, step, phase or ("step" if step > 0 else "setup"),
+                    span=rec.last_span()))
+            except Exception:  # noqa: BLE001 — the channel closing at
+                # teardown; never crash the worker over it
+                return False
+            return True
+
         def _beat():
-            # the first beat at once: it tells the monitor this rank
-            # reached the fit loop, which ends its startup grace
-            while True:
-                if not muted.is_set():
-                    try:
-                        step = int(trainer.global_step)
-                        # the recorder's live phase says what the worker
-                        # is doing; without telemetry, the step counter
-                        rec = getattr(trainer, "telemetry_recorder",
-                                      NULL_RECORDER)
-                        phase = rec.current_phase() if rec.enabled else ""
-                        session.put_queue(make_heartbeat(
-                            rank, step,
-                            phase or ("step" if step > 0 else "setup"),
-                            span=rec.last_span()))
-                    except Exception:  # noqa: BLE001 — the channel closing
-                        # at teardown; never crash the worker over it
-                        return
-                if stop.wait(self.interval_s):
+            while not stop.wait(self.interval_s):
+                if not _send():
                     return
 
-        threading.Thread(target=_beat, daemon=True,
-                         name=f"rlt-heartbeat-{rank}").start()
+        # the first beat from this thread, before any step: it tells the
+        # monitor this rank reached the fit loop, which ends its startup
+        # grace. Sent from the sender thread it could lose the race with
+        # a rank that hangs in its first steps, and the hang would then
+        # be judged by the startup grace, not the stall budget
+        if _send():
+            threading.Thread(target=_beat, daemon=True,
+                             name=f"rlt-heartbeat-{rank}").start()
 
     def _shutdown(self) -> None:
         if self._stop is not None:

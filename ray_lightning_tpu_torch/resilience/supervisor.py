@@ -18,6 +18,15 @@ unsupervised run would be. The supervisor adds, around it:
                 heartbeat sender, the SIGTERM drain (`PreemptionGuard`),
                 the trainguard when configured, and the fault injector
                 when a plan is given.
+  elastic       ``elastic=ElasticBudget(...)`` makes the world size a
+                ladder: when the retry policy refuses another same-size
+                relaunch, the latest valid checkpoint is resharded onto
+                the largest legal survivor world (the relaunched
+                trainer's cross-mesh restore, `Trainer._reshard_move`);
+                when the capacity oracle reports capacity back, the
+                next relaunch grows. Every change, and every grow the
+                oracle refused, lands in `SupervisedResult.reshards` and
+                ``<checkpoint_dir>/reshards.jsonl``.
   telemetry     every worker records spans and goodput ledgers into the
                 run's ``<checkpoint_dir>/telemetry`` (on by default); the
                 driver records its attempt and backoff spans there and
@@ -54,14 +63,13 @@ from ray_lightning_tpu_torch.resilience.policy import (
     RetryPolicy,
     classify_failure,
 )
-from ray_lightning_tpu_torch.telemetry.spans import PH_ATTEMPT, PH_BACKOFF
+from ray_lightning_tpu_torch.telemetry.spans import (
+    PH_ATTEMPT,
+    PH_BACKOFF,
+    PH_RESHARD,
+)
 
 log = logging.getLogger(__name__)
-
-#: knob -> the ROADMAP item that brings its machinery to the port
-_NOT_PORTED = {
-    "elastic": "Queue 1 item 12 (elastic/)",
-}
 
 
 @dataclasses.dataclass
@@ -72,9 +80,6 @@ class ResilienceConfig:
     step-cadence saves, preemption emergency saves, the fault markers
     and the trainguard's rollback marker (keep it apart from a user
     ModelCheckpoint's dirpath: the supervisor prunes it).
-
-    ``elastic`` raises `NotImplementedError` naming the ROADMAP item
-    that brings it.
     """
 
     checkpoint_dir: str
@@ -116,19 +121,20 @@ class ResilienceConfig:
     #: into SupervisedResult.goodput + ``telemetry/goodput.json``. False
     #: turns it off end to end.
     telemetry: Any = True
+    #: elastic supervision (elastic/budget.py): an ElasticBudget makes
+    #: the world size a LADDER instead of a pin — when the retry policy
+    #: refuses another same-size relaunch, the supervisor reshards the
+    #: latest valid checkpoint onto the largest legal survivor world and
+    #: resumes smaller; when the budget's capacity oracle reports
+    #: capacity back, it grows on the next relaunch. Every change is
+    #: recorded in SupervisedResult.reshards with its batch plan. None:
+    #: a fixed world size
     elastic: Any = None
     #: SLO watch (telemetry/watch.py): True, a WatchConfig or a tuple of
     #: WatchRule evaluates the rules over the run's persisted evidence
     #: after every classified failure and at the end; breaches land in
     #: <checkpoint_dir>/incidents.jsonl and SupervisedResult.incidents
     watch: Any = None
-
-    def __post_init__(self):
-        for knob in _NOT_PORTED:
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"ResilienceConfig({knob}=...) is not ported yet "
-                    f"(ROADMAP {_NOT_PORTED[knob]})")
 
     def resolved_compile_cache_dir(self) -> Optional[str]:
         if self.compile_cache_dir in (None, "off"):
@@ -158,10 +164,28 @@ class SupervisedResult:
     #: (telemetry/goodput.py buckets; None when telemetry is off), also
     #: written to <checkpoint_dir>/telemetry/goodput.json
     goodput: Optional[Dict[str, Any]] = None
+    #: elastic world-size changes, launch order: one entry per
+    #: shrink/grow with from/to world, reason and the batch plan
+    #: (ElasticBudget.batch_plan), and one per grow the capacity oracle
+    #: refused. Also appended to <checkpoint_dir>/reshards.jsonl with a
+    #: clock-alignment header (the timeline merges it)
+    reshards: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
     #: watch-rule breaches fired during supervision (the on-disk record
     #: is <checkpoint_dir>/incidents.jsonl)
     incidents: List[Dict[str, Any]] = dataclasses.field(
         default_factory=list)
+
+    @property
+    def final_world(self) -> Optional[int]:
+        """World size of the attempt that finished (None = unchanged
+        from launch). Only ACTUAL world changes count — the ledger also
+        holds ``grow_refused`` entries (capacity-oracle refusals), which
+        carry no ``to_world``."""
+        for entry in reversed(self.reshards):
+            if entry.get("reason") in ("shrink", "grow"):
+                return entry["to_world"]
+        return None
 
     @property
     def total_attempts(self) -> int:
@@ -195,6 +219,34 @@ class RestartBudgetExceeded(SupervisedFailure):
             f"[{classified.kind}/{classified.cause}] {classified.detail}")
         self.classified = classified
         self.attempts = attempts
+
+
+#: the on-disk reshard ledger beside the checkpoints (the JAX package's
+#: file and format)
+RESHARD_LEDGER = "reshards.jsonl"
+RESHARD_LEDGER_VERSION = "rlt-reshards-v1"
+
+
+def _append_reshard_ledger(directory: str, entry: Dict[str, Any]) -> None:
+    """Append one reshard entry (shrink/grow/grow_refused) to
+    ``<directory>/reshards.jsonl``, writing the clock-alignment header
+    first when creating the file — the ``t0_wall``/monotonic stamp every
+    other ledger carries, so the timeline merger never guesses this
+    stream's epoch. Entries carry their own epoch ``at`` stamp too.
+    Best-effort: a failed bookkeeping write must never cost the run its
+    relaunch."""
+    try:
+        with open(os.path.join(directory, RESHARD_LEDGER), "a") as f:
+            if f.tell() == 0:
+                f.write(json.dumps({
+                    "version": RESHARD_LEDGER_VERSION,
+                    "t0_wall": time.time(),
+                    "t0_perf": time.perf_counter(),
+                    "pid": os.getpid(),
+                }) + "\n")
+            f.write(json.dumps(entry, default=str) + "\n")
+    except OSError:
+        log.exception("could not append to the reshard ledger")
 
 
 def _wrapped_trainer_factory(trainer_factory: Callable[[], Any],
@@ -308,15 +360,19 @@ def supervise(
             log.info("supervise: resuming from earlier run's %s", found)
             ckpt_path = found
 
-    monitor: Optional[HealthMonitor] = None
-    if (kind == "fit" and cfg.stall_timeout_s > 0
-            and cfg.heartbeat_interval_s > 0):
-        # fit only: the heartbeat starts at on_fit_start, which the
-        # eval-family jobs never fire; a monitor there would call a long
-        # healthy validate() hung at startup_grace_s
-        monitor = HealthMonitor(num_processes,
-                                stall_timeout_s=cfg.stall_timeout_s,
-                                startup_grace_s=cfg.startup_grace_s)
+    world = launch_world = num_processes
+
+    def _make_monitor(n: int) -> Optional[HealthMonitor]:
+        if (kind == "fit" and cfg.stall_timeout_s > 0
+                and cfg.heartbeat_interval_s > 0):
+            # fit only: the heartbeat starts at on_fit_start, which the
+            # eval-family jobs never fire; a monitor there would call a
+            # long healthy validate() hung at startup_grace_s
+            return HealthMonitor(n, stall_timeout_s=cfg.stall_timeout_s,
+                                 startup_grace_s=cfg.startup_grace_s)
+        return None
+
+    monitor: Optional[HealthMonitor] = _make_monitor(world)
 
     user_q = kw.pop("on_queue_item", None)
     user_watchdog = kw.pop("watchdog", None)
@@ -339,8 +395,10 @@ def supervise(
         else:
             log.debug("dropping non-callable queue item from rank %d", rank)
 
+    # the workers need no ladder (the driver climbs it), and the budget's
+    # mesh template may be a lambda, which the standard pickle refuses
     wrapped_tf = functools.partial(_wrapped_trainer_factory, trainer_factory,
-                                   cfg)
+                                   dataclasses.replace(cfg, elastic=None))
 
     # driver-side telemetry: attempt/backoff spans into the run's shared
     # dir (rank -1 = the driver), and the wall and backoff the goodput
@@ -403,15 +461,16 @@ def supervise(
     restarts = preemptions = rollbacks = 0
     quarantined: List[int] = []
     failures: List[Dict[str, Any]] = []
+    reshards: List[Dict[str, Any]] = []
     while True:
         if monitor is not None:
             monitor.reset()
         attempts = 1 + restarts + preemptions + rollbacks
         try:
-            with _span(PH_ATTEMPT, attempt=attempts, world=num_processes):
+            with _span(PH_ATTEMPT, attempt=attempts, world=world):
                 result = run_distributed(
                     kind, module_factory, wrapped_tf, data_factory,
-                    num_processes, ckpt_path=ckpt_path,
+                    world, ckpt_path=ckpt_path,
                     on_queue_item=_on_queue_item,
                     watchdog=(_watchdog if (monitor is not None
                                             or user_watchdog is not None)
@@ -420,6 +479,7 @@ def supervise(
             goodput = _assemble(restarts, preemptions, rollbacks)
             return SupervisedResult(result, restarts, preemptions, failures,
                                     rollbacks, quarantined, goodput=goodput,
+                                    reshards=reshards,
                                     incidents=_watch_poll())
         except (KeyboardInterrupt, SystemExit):
             raise
@@ -437,7 +497,35 @@ def supervise(
                 _assemble(restarts, preemptions, rollbacks)
                 _watch_poll()
                 raise SupervisedFailure(fc, attempts) from exc
-            if not policy.allows(restarts, preemptions, fc, rollbacks):
+            allowed = policy.allows(restarts, preemptions, fc, rollbacks)
+            new_world = None
+            if (kind == "fit" and cfg.elastic is not None
+                    and fc.kind != FailureKind.CORRUPTION):
+                # elastic supervision: a refused same-size relaunch
+                # becomes a SHRINK onto the largest legal survivor world;
+                # an allowed relaunch whose capacity oracle reports
+                # another size moves toward it (the grow back). Only
+                # ACTUAL world changes spend max_reshards — refusal
+                # records in the ledger are free
+                spent = sum(1 for e in reshards
+                            if e.get("reason") in ("shrink", "grow"))
+                new_world, grow_refusal = _elastic_decision(
+                    cfg.elastic, world, launch_world, allowed, spent)
+                if grow_refusal is not None:
+                    # the oracle kept a shrunk run small: its answer
+                    # (worlds + source) goes on the record
+                    refusal_entry = {**grow_refusal, "attempt": attempts,
+                                     "at": time.time()}
+                    reshards.append(refusal_entry)
+                    _append_reshard_ledger(cfg.checkpoint_dir,
+                                           refusal_entry)
+                    log.warning(
+                        "supervise: grow %d -> %d refused — capacity "
+                        "oracle (%s) reports %s schedulable world(s)",
+                        world, grow_refusal["resolved_max"],
+                        grow_refusal["capacity_source"],
+                        grow_refusal["capacity"])
+            if new_world is None and not allowed:
                 _assemble(restarts, preemptions, rollbacks)
                 _watch_poll()
                 raise RestartBudgetExceeded(
@@ -458,14 +546,153 @@ def supervise(
             elif kind == "fit":
                 found = latest_checkpoint(cfg.checkpoint_dir)
                 ckpt_path = found if found is not None else original_ckpt
+            if new_world is not None:
+                from ray_lightning_tpu_torch.elastic.reshard import (
+                    ReshardError,
+                )
+
+                try:
+                    entry = _begin_reshard(cfg, world, new_world,
+                                           ckpt_path, attempts, driver_rec)
+                except ReshardError as rexc:
+                    if allowed:
+                        # a refused resize (a legacy resume source) must
+                        # not cost an otherwise allowed same-size relaunch
+                        log.error("supervise: elastic resize %d -> %d "
+                                  "refused (%s); relaunching same-size",
+                                  world, new_world, rexc)
+                    else:
+                        # the fixed-size budget is spent AND the resize
+                        # cannot proceed: terminal, with the goodput
+                        # post-mortem, the refusal chained underneath
+                        _assemble(restarts, preemptions, rollbacks)
+                        _watch_poll()
+                        raise RestartBudgetExceeded(
+                            fc, attempts, policy.max_restarts) from rexc
+                else:
+                    reshards.append(entry)
+                    _append_reshard_ledger(cfg.checkpoint_dir, entry)
+                    world = new_world
+                    monitor = _make_monitor(world)
             log.warning(
                 "supervise: restart %d (retryable %d, preemptions %d, "
-                "rollbacks %d) in %.1fs, resuming from %s",
+                "rollbacks %d) in %.1fs at world %d, resuming from %s",
                 restarts + preemptions + rollbacks, restarts, preemptions,
-                rollbacks, delay, ckpt_path or "scratch")
+                rollbacks, delay, world, ckpt_path or "scratch")
             with _span(PH_BACKOFF):
                 time.sleep(delay)
             backoff_s += delay
+
+
+def _elastic_target_world(budget, world: int, launch_world: int,
+                          allowed: bool,
+                          reshards_done: int) -> Optional[int]:
+    """Just the target world of `_elastic_decision` (the JAX package's
+    helper of the same name)."""
+    return _elastic_decision(budget, world, launch_world, allowed,
+                             reshards_done)[0]
+
+
+def _elastic_decision(budget, world: int, launch_world: int,
+                      allowed: bool, reshards_done: int):
+    """The elastic supervision decision: given the current world,
+    whether the retry policy still allows a SAME-SIZE relaunch, and how
+    many topology changes were already spent, pick the next world size —
+    or None for "no change" (the caller then relaunches same-size or,
+    when not allowed, exhausts the budget).
+
+      * not allowed — the fixed-size story is over: shrink to the largest
+        legal world STRICTLY below the current one, bounded by the
+        reported capacity.
+      * allowed and the capacity oracle reports another size: move
+        toward it (how a shrunk run grows back).
+
+    Returns ``(target, grow_refusal)``: ``grow_refusal`` is a
+    ledger-shaped dict when the run sits BELOW its resolved max and the
+    oracle's answer is what kept it there (its worlds and source go on
+    the record). Never proposes the current world, never exceeds
+    max_reshards, and only proposes rungs `ElasticBudget.legal`
+    accepts."""
+    if budget is None or reshards_done >= budget.max_reshards:
+        return None, None
+    answer = budget.capacity_answer(launch_world)
+    raw_cap = answer.worlds if answer.worlds is not None \
+        else budget.resolved_max(launch_world)
+    cap = min(raw_cap, budget.resolved_max(launch_world))
+    if not allowed:
+        return (budget.largest_legal(min(cap, world - 1), launch_world),
+                None)
+    if cap != world:
+        target = budget.largest_legal(cap, launch_world)
+        if target is not None and target != world:
+            return target, None
+    if world < budget.resolved_max(launch_world) and cap <= world:
+        # a shrunk run could grow but the oracle says capacity has not
+        # returned: refuse, and say WHO said so
+        return None, {
+            "reason": "grow_refused",
+            "from_world": world,
+            "resolved_max": budget.resolved_max(launch_world),
+            "capacity": raw_cap,
+            "capacity_source": answer.source,
+            "capacity_detail": answer.detail,
+        }
+    return None, None
+
+
+def _begin_reshard(cfg: ResilienceConfig, world: int, new_world: int,
+                   ckpt_path: Optional[str], attempts: int,
+                   driver_rec) -> Dict[str, Any]:
+    """Validate and record one elastic world change. The resume source
+    must carry sharding provenance (a legacy checkpoint restores only
+    onto its own layout: resharding it would be a silent lie about what
+    was trained); the cross-topology restore itself happens in the
+    relaunched workers' trainer (`Trainer._reshard_move`), accounted as
+    the `reshard` goodput bucket."""
+    from ray_lightning_tpu_torch.checkpoint.io import read_meta
+    from ray_lightning_tpu_torch.elastic.budget import _resolve
+    from ray_lightning_tpu_torch.elastic.reshard import (
+        ReshardError,
+        validate_reshard,
+    )
+
+    move = None
+    if ckpt_path is not None:
+        meta = read_meta(ckpt_path)
+        if "mesh_spec" not in meta:
+            raise ReshardError(
+                f"elastic resize {world} -> {new_world} refused: resume "
+                f"source {ckpt_path} carries no sharding provenance "
+                "(legacy checkpoint — its writing mesh is unknowable, "
+                "so the move cannot be validated). Re-save it once on "
+                "the current mesh, or start the elastic run from a "
+                "provenance-stamped checkpoint")
+        # mesh-level validation against the WRITER's provenance, with the
+        # budget's real mesh template as the target; the workers
+        # validate again against the mesh they build
+        target_sizes = _resolve(cfg.elastic.spec_for, new_world).sizes()
+        move = validate_reshard(meta, target_sizes)["from_mesh"]
+    entry: Dict[str, Any] = {
+        "from_world": world,
+        "to_world": new_world,
+        "reason": "shrink" if new_world < world else "grow",
+        "attempt": attempts,
+        "at": time.time(),
+        "ckpt": ckpt_path,
+        "from_mesh": move,
+        "batch_plan": cfg.elastic.batch_plan(world, new_world),
+    }
+    log.warning(
+        "supervise: elastic %s %d -> %d (resuming from %s); batch "
+        "plan: %s", entry["reason"], world, new_world,
+        ckpt_path or "scratch",
+        entry["batch_plan"].get("note", "global batch preserved"))
+    if driver_rec is not None:
+        with driver_rec.span(PH_RESHARD, meta={
+                k: entry[k] for k in ("from_world", "to_world",
+                                      "reason", "attempt")}):
+            pass
+    return entry
 
 
 def _rollback_target(cfg: ResilienceConfig, rollbacks: int,

@@ -48,6 +48,7 @@ DRIFT_THRESHOLD = 0.25
 
 #: the autoscale controller's decision ledger, beside the telemetry dir
 AUTOSCALE_LEDGER = "autoscale.jsonl"
+RESHARD_LEDGER = "reshards.jsonl"
 
 #: where the drift section's prediction would come from
 DRIFT_UNAVAILABLE = ("the static step prediction needs analysis/"
@@ -322,11 +323,11 @@ def build_serving_section(run_dir: str) -> Optional[Dict[str, Any]]:
 
 def read_autoscale_ledger(run_dir: str,
                           tail_bytes: Optional[int] = None) -> List[dict]:
-    """The entries of ``<run_dir>/autoscale.jsonl`` in the JAX
-    package's format (its ``autoscale.controller.read_ledger``; the
-    autoscaler is not ported, but its ledgers are read). A missing file
-    is no decisions; unparseable lines are skipped; the clock-alignment
-    header line is not an entry."""
+    """The entries of ``<run_dir>/autoscale.jsonl`` (the ledger that
+    `autoscale.controller.AutoscaleController` writes, in the JAX
+    package's format: either package's ledger reads here). A missing
+    file is no decisions; unparseable lines are skipped; the
+    clock-alignment header line is not an entry."""
     from ray_lightning_tpu_torch.telemetry.spans import ledger_tail_lines
 
     out: List[dict] = []
@@ -487,6 +488,44 @@ def build_incidents_section(run_dir: str,
     return section
 
 
+def build_reshard_section(run_dir: str,
+                          tail_bytes: Optional[int] = None
+                          ) -> Optional[Dict[str, Any]]:
+    """The elastic supervisor's reshard ledger, summarized
+    (``<run_dir>/reshards.jsonl``, `resilience.supervisor`; the JAX
+    package's file, so either package's ledger reads here): the world
+    changes, the grows the capacity oracle refused (with its answer and
+    source), and the final world. None when the run never changed
+    world or asked to."""
+    from ray_lightning_tpu_torch.telemetry.spans import ledger_tail_lines
+
+    tdir = telemetry_dir(run_dir)
+    base = run_dir if tdir != run_dir else os.path.dirname(run_dir)
+    try:
+        first, body = ledger_tail_lines(
+            os.path.join(base, RESHARD_LEDGER), tail_bytes)
+    except OSError:
+        return None
+    entries = []
+    for line in [first] + body:
+        try:
+            obj = json.loads(line)
+        except (json.JSONDecodeError, TypeError):
+            continue
+        if isinstance(obj, dict) and "reason" in obj:
+            entries.append(obj)
+    if not entries:
+        return None
+    keep = ("from_world", "to_world", "reason", "attempt")
+    changes = [{k: e[k] for k in keep if k in e} for e in entries
+               if e["reason"] in ("shrink", "grow")]
+    refused = [{k: e[k] for k in ("from_world", "resolved_max", "capacity",
+                                  "capacity_source", "attempt") if k in e}
+               for e in entries if e["reason"] == "grow_refused"]
+    return {"changes": changes, "grow_refused": refused,
+            "final_world": changes[-1]["to_world"] if changes else None}
+
+
 def build_report(run_dir: str, preset: Optional[str] = None,
                  threshold: float = DRIFT_THRESHOLD) -> Dict[str, Any]:
     timeline = load_timeline(run_dir)
@@ -507,6 +546,9 @@ def build_report(run_dir: str, preset: Optional[str] = None,
     incidents = build_incidents_section(run_dir)
     if incidents:
         out["incidents"] = incidents
+    reshards = build_reshard_section(run_dir)
+    if reshards:
+        out["reshards"] = reshards
     if preset:
         out["drift"] = build_drift(
             {"label": preset, "error": DRIFT_UNAVAILABLE}, timeline,
@@ -522,6 +564,16 @@ def _print_report(out: Dict[str, Any]) -> None:
         print(f"streams: {', '.join(streams.get('present') or ['none'])}"
               + (f" (missing: {', '.join(missing)})" if missing
                  else ""))
+    rs = out.get("reshards")
+    if rs:
+        moves = ", ".join(f"{c['reason']} {c.get('from_world')}->"
+                          f"{c.get('to_world')}" for c in rs["changes"])
+        print(f"reshards: {moves or 'none'}; final world "
+              f"{rs['final_world']}")
+        for r in rs["grow_refused"]:
+            print(f"  grow_refused {r.get('from_world')}->"
+                  f"{r.get('resolved_max')}: capacity {r.get('capacity')} "
+                  f"({r.get('capacity_source')})")
     inc = out.get("incidents")
     if inc:
         by_rule = ", ".join(f"{r}x{n}" for r, n in

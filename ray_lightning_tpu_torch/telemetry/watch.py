@@ -132,6 +132,46 @@ BUILTIN_RULES: Tuple[WatchRule, ...] = (
 )
 
 
+def class_slo_rules(slo, sustain: int = 1) -> Tuple[WatchRule, ...]:
+    """Per-traffic-class SLO rules from a `serve.scheduler.SLOConfig`
+    (duck-typed: anything with ``.classes`` / ``.shed_classes``): one
+    TTFT-p95 and one TPOT-p95 rule per class against that class's own
+    merged histogram (``serving.ttft_<class>_p95_s`` — class-keyed
+    hists exist only when the scheduler runs with the SLOConfig
+    armed), plus one shed-visibility rule per shed class
+    (``load.sheds_<class>``). A breach in ONE class fires a
+    class-named incident instead of being averaged into the pooled
+    tail; latency_critical breaches page, the rest warn
+    (docs/SERVING.md "traffic & SLO classes")."""
+    rules: list = []
+    for cls in sorted(slo.classes):
+        spec = slo.classes[cls]
+        sev = "page" if cls == "latency_critical" else "warn"
+        rules.append(WatchRule(
+            f"slo_ttft_{cls}", f"serving.ttft_{cls}_p95_s", ">",
+            spec.ttft_p95_s, sustain=sustain, severity=sev,
+            description=f"{cls} TTFT p95 above its per-class SLO "
+                        f"target ({spec.ttft_p95_s:g}s) — this "
+                        "class's admission latency breached, whatever "
+                        "the pooled tail says"))
+        rules.append(WatchRule(
+            f"slo_tpot_{cls}", f"serving.tpot_{cls}_p95_s", ">",
+            spec.tpot_p95_s, sustain=sustain, severity=sev,
+            description=f"{cls} TPOT p95 above its per-class SLO "
+                        f"target ({spec.tpot_p95_s:g}s) — decode "
+                        "progress for this class is being crowded "
+                        "out"))
+    for cls in slo.shed_classes:
+        rules.append(WatchRule(
+            f"shed_{cls}", f"load.sheds_{cls}", ">=", 1, sustain=1,
+            severity="warn",
+            description=f"overload shed {cls} work (typed records "
+                        "with retry-after hints, never silence) — "
+                        "expected under a protective burst, but a "
+                        "paper trail the run must carry"))
+    return tuple(rules)
+
+
 @dataclasses.dataclass
 class WatchConfig:
     """``watch=`` coercion target (supervisor / controller / CLI)."""
@@ -524,7 +564,7 @@ def add_watch_parser(sub) -> None:
              "incidents.jsonl with metric evidence + a timeline "
              "excerpt (docs/OBSERVABILITY.md 'watch rules & "
              "incidents')")
-    p.add_argument("run_dir")
+    p.add_argument("run_dir", nargs="?", default=None)
     p.add_argument("--follow", action="store_true",
                    help="re-evaluate every --interval seconds until ^C")
     p.add_argument("--interval", type=float, default=15.0)
@@ -535,6 +575,16 @@ def add_watch_parser(sub) -> None:
                    help="record incidents without actuating the "
                         "evidence hooks (no CAPTURE marker, no forced "
                         "flight persist)")
+    p.add_argument("--smoke", action="store_true",
+                   help="gate mode: injected serving latency stall "
+                        "fires the ttft rule exactly once with a "
+                        "parseable incident (evidence + excerpt + one "
+                        "marker capture), and the run's unified "
+                        "timeline exports valid Chrome-trace JSON "
+                        "with >= 4 sources")
+    p.add_argument("--device", default=None,
+                   help="--smoke's device: the gate runs on the CPU "
+                        "(--device cpu), where its oracle is bitwise")
     p.add_argument("--json", action="store_true", dest="as_json",
                    default=argparse.SUPPRESS)
 
@@ -548,6 +598,11 @@ def _cli_rules(args) -> Tuple[WatchRule, ...]:
 
 
 def run_watch(args) -> int:
+    if args.smoke:
+        return _run_smoke(args)
+    if not args.run_dir:
+        print("error: pass a run dir or --smoke", file=sys.stderr)
+        return 2
     if not os.path.isdir(args.run_dir):
         print(f"error: {args.run_dir} is not a directory",
               file=sys.stderr)
@@ -576,3 +631,202 @@ def run_watch(args) -> int:
         if not args.follow:
             return 0
         time.sleep(max(0.2, args.interval))
+
+
+# ---- the smoke gate --------------------------------------------------------
+
+
+def _smoke_serving_run(run_dir: str, device, stall_s: float = 0.25):
+    """A scripted serving session with one INJECTED latency stall:
+    requests r0..r5 serve normally, then a late request's prefill
+    window absorbs a host sleep — its measured TTFT is ~``stall_s``
+    where its peers' are milliseconds, so a ttft_p99 rule with a
+    threshold between the two fires deterministically. Driven under an
+    autoscale controller (fabricated hold signal) so the run dir also
+    carries an autoscale ledger for the timeline leg."""
+    from ray_lightning_tpu_torch.autoscale import (
+        AutoscaleController, ControllerConfig, PolicyConfig,
+    )
+    from ray_lightning_tpu_torch.serve.cli import _references, _tiny_setup
+    from ray_lightning_tpu_torch.serve.driver import (
+        ReplicaGroupConfig, ServeDriver,
+    )
+    from ray_lightning_tpu_torch.serve.engine import EngineConfig
+
+    model, reqs = _tiny_setup(8, 8, device)
+    refs = _references(model, reqs)
+    ecfg = EngineConfig(capacity=4, block_size=4, blocks_per_slot=8,
+                        prefill_chunk=4)
+    drv = ServeDriver(model.cfg, model, ReplicaGroupConfig(
+        n_replicas=1, backend="inline", engine=ecfg, run_dir=run_dir,
+        device=device.type, metrics_flush_every_n_ticks=2))
+    drv.start()
+    ctl = AutoscaleController(drv, ControllerConfig(
+        policy=PolicyConfig(min_replicas=1, max_replicas=1)),
+        run_dir=run_dir)
+    # healthy phase: most requests flow normally
+    for req in reqs[:-1]:
+        drv.submit(req)
+    tick = 0
+    while drv.busy():
+        drv.tick()
+        tick += 1
+        if tick % 4 == 0:
+            ctl.step(now=float(tick))
+    # the stall: submit the last request, admit it (first tick), then
+    # stall the host mid-prefill — its admission->first-token wall
+    # (TTFT) absorbs the sleep, exactly how a wedged device tunnel or
+    # an interactive-priority stall shows up in production
+    drv.submit(reqs[-1])
+    drv.tick()
+    time.sleep(stall_s)
+    while drv.busy():
+        drv.tick()
+        tick += 1
+    ctl.step(now=float(tick))
+    result = drv.stop()
+    return result, refs, reqs
+
+
+def _run_smoke(args) -> int:
+    import tempfile
+
+    from ray_lightning_tpu_torch.telemetry.incidents import read_incidents
+    from ray_lightning_tpu_torch.telemetry.timeline import (
+        load_timeline_events, to_chrome_trace, validate_chrome_trace,
+    )
+    from ray_lightning_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(getattr(args, "device", None))
+    if device.type != "cpu":
+        print("watch --smoke is the CPU gate (f32, where its oracle is "
+              "bitwise): pass --device cpu. On the card, chip_smoke.py "
+              "phase 14 drives the controller and the watch",
+              file=sys.stderr)
+        return 2
+    out: Dict[str, Any] = {"gate": "watch --smoke"}
+    failures: List[str] = []
+    stall_s = 0.25
+    with tempfile.TemporaryDirectory(prefix="rlt-watch-") as tmp:
+        run_dir = os.path.join(tmp, "run")
+        result, refs, reqs = _smoke_serving_run(run_dir, device,
+                                                stall_s=stall_s)
+        bad = [rid for rid, ref in refs.items()
+               if list(result.outputs.get(rid, [])) != ref]
+        if bad:
+            failures.append(f"stalled run diverged from generate(): "
+                            f"{bad}")
+        # ---- leg 1: the rule must fire exactly once -------------------
+        rules = tuple(
+            dataclasses.replace(r, threshold=stall_s / 2)
+            if r.name == "ttft_p99" else r for r in BUILTIN_RULES)
+        engine = WatchEngine(run_dir, WatchConfig(rules=rules))
+        first = engine.poll()
+        second = engine.poll()   # episode stays open: no second fire
+        third = engine.poll()
+        parsed = read_incidents(run_dir)
+        ttft_incidents = [i for i in parsed["incidents"]
+                          if i.get("rule") == "ttft_p99"]
+        out["watch"] = {
+            "fired_first_poll": [i["rule"] for i in first],
+            "fired_later_polls": [i["rule"] for i in second + third],
+            "ledger_incidents": len(parsed["incidents"]),
+            "ttft_incidents": len(ttft_incidents),
+            "unparseable_lines": parsed["unparseable_lines"],
+        }
+        if [i["rule"] for i in first] != ["ttft_p99"]:
+            failures.append(
+                f"first poll fired {[i['rule'] for i in first]} — "
+                "want exactly the injected ttft_p99 breach")
+        if second or third:
+            failures.append(
+                "a sustained breach re-fired on later polls "
+                f"({[i['rule'] for i in second + third]}) — one "
+                "episode must be one incident")
+        if len(ttft_incidents) != 1 or parsed["unparseable_lines"]:
+            failures.append(
+                f"incidents.jsonl holds {len(ttft_incidents)} ttft "
+                f"record(s) ({parsed['unparseable_lines']} "
+                "unparseable) — want exactly one, parseable")
+        # ---- leg 2: the incident record contract ----------------------
+        if ttft_incidents:
+            inc = ttft_incidents[0]
+            ev = inc.get("evidence") or {}
+            if not (ev.get("value") and ev["value"] > stall_s / 2
+                    and ev.get("sketch")):
+                failures.append(
+                    f"incident evidence is not auditable: {ev}")
+            if not inc.get("timeline_excerpt"):
+                failures.append(
+                    "incident carries no timeline excerpt")
+            actions = inc.get("actions") or {}
+            marker = actions.get("profiler_marker")
+            out["incident"] = {
+                "value": ev.get("value"),
+                "excerpt_events": len(inc.get("timeline_excerpt")
+                                      or []),
+                "actions": actions,
+            }
+            if not marker or not os.path.exists(marker):
+                failures.append(
+                    "evidence capture did not drop the profiler "
+                    f"CAPTURE marker (actions={actions})")
+        # ---- leg 3: unified timeline + Chrome export ------------------
+        timeline = load_timeline_events(run_dir)
+        doc = to_chrome_trace(timeline["events"])
+        problems = validate_chrome_trace(doc)
+        non_meta = [ev for ev in doc["traceEvents"]
+                    if ev.get("ph") != "M"]
+        cats = {ev["cat"] for ev in non_meta}
+        ts_list = [ev["ts"] for ev in non_meta
+                   if not (ev.get("args") or {}).get("unaligned")]
+        out["timeline"] = {
+            "events": len(non_meta),
+            "sources": sorted(cats),
+            "garbage_lines": timeline["garbage_lines"],
+            "unaligned": timeline["unaligned"],
+            "chrome_valid": not problems,
+        }
+        if problems:
+            failures.append(
+                f"chrome trace failed validation: {problems[:3]}")
+        if len(cats) < 4:
+            failures.append(
+                f"trace carries {sorted(cats)} — want >= 4 distinct "
+                "source subsystems in one pane")
+        if ts_list != sorted(ts_list):
+            failures.append(
+                "aligned trace events are not ordered by aligned time")
+    out["ok"] = not failures
+    if failures:
+        out["failures"] = failures
+    print(json.dumps(out) if getattr(args, "as_json", False)
+          else _smoke_text(out))
+    if failures:
+        for f in failures:
+            print(f"watch --smoke FAILED: {f}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _smoke_text(out: Dict[str, Any]) -> str:
+    lines = [f"watch --smoke: {'ok' if out['ok'] else 'FAILED'}"]
+    w = out.get("watch") or {}
+    lines.append(
+        f"  rule fire: {'ok' if w.get('ttft_incidents') == 1 else 'FAILED'} "
+        f"(first poll {w.get('fired_first_poll')}, later "
+        f"{w.get('fired_later_polls')}, ledger "
+        f"{w.get('ledger_incidents')} incident(s))")
+    inc = out.get("incident") or {}
+    if inc:
+        lines.append(
+            f"  incident: ttft_p99 {inc.get('value'):.3f}s, "
+            f"{inc.get('excerpt_events')} excerpt event(s), actions "
+            f"{sorted((inc.get('actions') or {}))}")
+    tl = out.get("timeline") or {}
+    lines.append(
+        f"  timeline: {'ok' if tl.get('chrome_valid') and len(tl.get('sources') or []) >= 4 else 'FAILED'} "
+        f"({tl.get('events')} event(s) from {tl.get('sources')})")
+    for f in out.get("failures", ()):
+        lines.append(f"  FAILED: {f}")
+    return "\n".join(lines)

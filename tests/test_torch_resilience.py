@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 import signal as _signal
+import threading
 import time
 
 import jax.numpy as jnp
@@ -303,6 +304,35 @@ def test_heartbeat_payload_matches_jax():
     assert mine == theirs and phealth.HEARTBEAT_KIND == jhealth.HEARTBEAT_KIND
 
 
+def test_heartbeat_first_beat_is_sent_before_fit_start_returns():
+    """The beat that ends the monitor's startup grace leaves on the
+    caller's thread, before the first step can run: a rank that hangs in
+    its first steps is then judged by the stall budget, never by the
+    startup grace."""
+    from ray_lightning_tpu_torch.runtime import session
+
+    senders = []
+
+    class _Q:
+        def put_queue(self, item):
+            senders.append((threading.current_thread(), item))
+
+    session.init_session(rank=0, world_size=1, queue=_Q())
+    try:
+        class _T:
+            global_step = 4
+
+        cb = phealth.HeartbeatCallback(interval_s=60.0)
+        cb.on_fit_start(_T(), None)
+        assert len(senders) == 1
+        thread, item = senders[0]
+        assert thread is threading.current_thread()
+        assert phealth.is_heartbeat(item) and item["step"] == 4
+        cb.on_fit_end(_T(), None)
+    finally:
+        session.reset_session()
+
+
 def test_heartbeat_callback_beats_at_once_and_mutes(monkeypatch):
     """In a worker session the sender beats at fit start (ending the
     monitor's startup grace) and then every interval; `mute` (the hang
@@ -409,14 +439,40 @@ def test_resilience_exports_match_jax():
 @pytest.mark.parametrize("knob,item", [
     ("elastic", "Queue 1 item 12"), ("compile_cache_dir", "Queue 1 item 7"),
 ])
-def test_unported_resilience_knobs_raise(tmp_path, knob, item):
-    """``elastic`` still raises naming its item; ``compile_cache_dir``
-    (the hot loop's item) is ported: a directory becomes the workers'
-    kernel cache, one plan a subdirectory, and None or "off" keep the
-    package's own build directory."""
+def test_unported_resilience_knobs_raise(tmp_path, monkeypatch, knob, item):
+    """Both knobs are ported now, each with its item. ``elastic`` (item
+    12) takes an `ElasticBudget`: the driver keeps the ladder, and the
+    config the workers' trainer factory gets carries none.
+    ``compile_cache_dir`` (the hot loop's item 7): a directory becomes
+    the workers' kernel cache, one plan a subdirectory, and None or
+    "off" keep the package's own build directory."""
     if knob == "elastic":
-        with pytest.raises(NotImplementedError, match=item):
-            pres.ResilienceConfig(str(tmp_path), **{knob: True})
+        import functools
+
+        from ray_lightning_tpu_torch.elastic import ElasticBudget
+
+        assert item == "Queue 1 item 12"
+        budget = ElasticBudget(min_world=1, max_reshards=2)
+        cfg = pres.ResilienceConfig(str(tmp_path), **{knob: budget})
+        assert cfg.elastic is budget
+        shipped = []
+
+        def fake_run(kind, mf, tf, df, n, **kw):
+            shipped.append((n, tf))
+            return "done"
+
+        # supervise() imports run_distributed per call, from runtime.fit
+        import ray_lightning_tpu_torch.runtime.fit as fit_mod
+
+        monkeypatch.setattr(fit_mod, "run_distributed", fake_run)
+        out = pres.fit_supervised(
+            torch_jobs.sup_module, torch_jobs.sup_trainer,
+            torch_jobs.sup_data, 2, resilience=cfg)
+        assert out.result == "done" and out.reshards == []
+        assert out.final_world is None
+        (n, tf), = shipped
+        assert n == 2 and isinstance(tf, functools.partial)
+        assert tf.args[1].elastic is None
     else:
         from ray_lightning_tpu_torch.pipeline.compile_cache import (
             plan_cache_dir,

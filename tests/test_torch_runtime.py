@@ -248,8 +248,9 @@ def test_unported_runtime_parts_raise(tmp_path):
     """What raised before the cross-host transports came, and what still
     raises: the transports construct now (their remote semantics are
     `test_remote_transport_two_hosts`'s), ``hosts=`` still needs a remote
-    transport, and of `ResilienceConfig`'s knobs only ``elastic`` waits
-    for its item."""
+    transport, and `ResilienceConfig`'s knobs are all ported (``elastic``
+    with item 12: a budget the supervisor keeps, whose ladder answers
+    here with no worker started)."""
     ssh = SSHTransport()
     assert ssh.is_remote and ssh._command("h") == [
         "ssh", "-o", "BatchMode=yes", "h", "--", "python3", "-u", "-"]
@@ -257,13 +258,16 @@ def test_unported_runtime_parts_raise(tmp_path):
     assert loop.is_remote and loop.allows_loopback and loop.spawned == []
     with pytest.raises(ValueError, match="remote transport"):
         WorkerGroup(hosts=["a", "b"])
+    from ray_lightning_tpu_torch.elastic import ElasticBudget
     from ray_lightning_tpu_torch.resilience import ResilienceConfig
+    from ray_lightning_tpu_torch.resilience.supervisor import (
+        _elastic_decision,
+    )
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        run_distributed("fit", torch_jobs.llama_module,
-                        torch_jobs.trainer, torch_jobs.llama_data, 1,
-                        resilience=ResilienceConfig(str(tmp_path),
-                                                    elastic="x"))
+    budget = ElasticBudget(min_world=1, capacity_fn=lambda: 1)
+    assert ResilienceConfig(str(tmp_path), elastic=budget).elastic is budget
+    # a refused same-size relaunch of 2 shrinks to the one world left
+    assert _elastic_decision(budget, 2, 2, False, 0) == (1, None)
     cfg = ResilienceConfig(str(tmp_path), compile_cache_dir="x")
     assert cfg.resolved_compile_cache_dir() == "x"
     with pytest.raises(ValueError, match="kind"):

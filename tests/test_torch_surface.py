@@ -22,9 +22,8 @@ from ray_lightning_tpu_torch._lazy import NotPortedError
 
 #: the JAX names the port leaves out, with what their error must name
 ITEM = {
-    "": {"launch_cpu_spmd": "gloo", "simulate_cpu_devices": "JAX-only",
-         "elastic": "item 12", "ElasticBudget": "item 12",
-         "reshard_restore": "item 12"},
+    # item 12 brought elastic/: every top-level name resolves
+    "": {"launch_cpu_spmd": "gloo", "simulate_cpu_devices": "JAX-only"},
     "core": {n: "item 2" for n in (
         "chunk_tokens", "pack_sequences", "tokenize_and_pack")},
     # item 4 brought the planner (parallel/plan.py): every name resolves
@@ -45,6 +44,10 @@ ITEM = {
     "pipeline": {},
     "sweep": {"TpuResources": "GpuResources"},
     "resilience": {},
+    # item 12: elastic, autoscale and loadgen, every name
+    "elastic": {},
+    "autoscale": {},
+    "loadgen": {},
 }
 
 

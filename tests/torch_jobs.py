@@ -141,10 +141,12 @@ def make_strategy(name, **kw):
 
 
 def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
-            every_n_train_steps=None, extra=(), **strategy_kw):
+            every_n_train_steps=None, extra=(), telemetry=None,
+            **strategy_kw):
     """A Llama trainer that reports rank 0's steps over the side channel,
-    with a step-cadence `ModelCheckpoint` into ``ckpt_dir`` if given and
-    the callbacks named in ``extra`` (classes of this module)."""
+    with a step-cadence `ModelCheckpoint` into ``ckpt_dir`` if given, the
+    callbacks named in ``extra`` (classes of this module) and
+    ``telemetry`` (`Trainer(telemetry=)`)."""
     from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
     from ray_lightning_tpu_torch.core.trainer import Trainer
 
@@ -157,7 +159,7 @@ def trainer(strategy="ddp", max_steps=4, clip=None, ckpt_dir=None,
                    max_steps=max_steps,
                    gradient_clip_val=clip, log_every_n_steps=1,
                    enable_checkpointing=False, enable_progress_bar=False,
-                   callbacks=callbacks, seed=0)
+                   callbacks=callbacks, seed=0, telemetry=telemetry)
 
 
 def _np_full(t):
@@ -178,6 +180,120 @@ def full_state(trainer, module):
             {name: {k: _np_full(v) for k, v in entry.items()
                     if k != "step"}
              for name, entry in opt["state"].items()})
+
+
+def resume_state(trainer, module):
+    """Every rank together: the whole training state in the canonical
+    layout — parameters, the optimizer's state with its step counts, the
+    scheduler's state and the trainer's step — as
+    ``(params, opt, scheduler, step)``; what a checkpoint holds."""
+    params, opt = trainer.strategy.state_dicts(module.model,
+                                               trainer.state.optimizer)
+    sched = trainer.state.scheduler
+    return ({k: _np_full(v) for k, v in params.items()},
+            {name: {k: _np_full(v) for k, v in entry.items()}
+             for name, entry in opt["state"].items()},
+            sched.state_dict() if sched is not None else None,
+            int(trainer.state.step))
+
+
+class FitStartState(Callback):
+    """At the fit's start (after the restore) every rank sends
+    ("start", rank, `resume_state`, the trainer's move summary)."""
+
+    def on_fit_start(self, trainer, module):
+        from ray_lightning_tpu_torch.runtime import session
+
+        session.put_queue(("start", session.get_actor_rank(),
+                           resume_state(trainer, module),
+                           trainer.last_reshard))
+
+
+class FitEndState(Callback):
+    """At the fit's end every rank sends ("end", rank, `resume_state`)."""
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch.runtime import session
+
+        session.put_queue(("end", session.get_actor_rank(),
+                           resume_state(trainer, module)))
+
+
+def reshard_arrays_job():
+    """Two ranks: `elastic.reshard_arrays` moves a Shard(0) DTensor to
+    Replicate on its mesh, a plain tensor onto Shard(1), a DTensor onto
+    another mesh of the same ranks, and one back to a plain tensor.
+    Returns each move's verdict."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (
+        DTensor,
+        Replicate,
+        Shard,
+        distribute_tensor,
+    )
+
+    from ray_lightning_tpu_torch.elastic.reshard import reshard_arrays
+
+    rank = dist.get_rank()
+    fsdp = init_device_mesh("cpu", (2,), mesh_dim_names=("fsdp",))
+    tensor = init_device_mesh("cpu", (2,), mesh_dim_names=("tensor",))
+    full = torch.arange(32, dtype=torch.float32).reshape(4, 8)
+    tree = {"w": distribute_tensor(full, fsdp, [Shard(0)]),
+            "deep": {"b": full * 2, "k": distribute_tensor(
+                full * 3, fsdp, [Shard(1)])},
+            "gone": distribute_tensor(full * 4, fsdp, [Shard(0)])}
+    moved = reshard_arrays(tree, {
+        "w": (fsdp, [Replicate()]),
+        "deep": {"b": (fsdp, [Shard(1)]), "k": (tensor, [Shard(0)])},
+        "gone": None})
+    one = reshard_arrays({"x": full}, (tensor, [Shard(0)]))
+    return {
+        "replicated": bool(torch.equal(moved["w"].to_local(), full)),
+        "plain_sharded": bool(torch.equal(
+            moved["deep"]["b"].to_local(),
+            (full * 2)[:, 4 * rank:4 * rank + 4])),
+        "cross_mesh": (moved["deep"]["k"].device_mesh.mesh_dim_names
+                       == ("tensor",) and bool(torch.equal(
+                           moved["deep"]["k"].to_local(),
+                           (full * 3)[2 * rank:2 * rank + 2]))),
+        "to_plain": (not isinstance(moved["gone"], DTensor)
+                     and bool(torch.equal(moved["gone"], full * 4))),
+        "one_spec": bool(torch.equal(one["x"].full_tensor(), full)),
+    }
+
+
+def full_value_job():
+    """Four ranks: `parallel.tensor.full_value` against
+    ``DTensor.full_tensor`` on a (2, 2) mesh and on each of its rows, with
+    uneven shards (torch.chunk's), two mesh dimensions sharding one
+    tensor dimension, and replicated ones. Returns the cases' verdicts."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from ray_lightning_tpu_torch.parallel.tensor import full_value
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "tensor"))
+    full = torch.arange(7 * 5 * 3, dtype=torch.float32).reshape(7, 5, 3)
+    cases = {
+        "shard0_shard0": [Shard(0), Shard(0)],
+        "shard1_shard0": [Shard(1), Shard(0)],
+        "replicate_shard2": [Replicate(), Shard(2)],
+        "shard0_replicate": [Shard(0), Replicate()],
+        "replicate": [Replicate(), Replicate()],
+    }
+    out = {}
+    for name, placements in cases.items():
+        dt = distribute_tensor(full, mesh, placements)
+        got = full_value(dt)
+        out[name] = bool(torch.equal(got, full)
+                         and torch.equal(got, dt.full_tensor()))
+    one = distribute_tensor(full, mesh["tensor"], [Shard(1)])
+    out["one_dim_uneven"] = bool(torch.equal(full_value(one), full))
+    out["plain"] = full_value(full) is full
+    return out
 
 
 class LiveBytes(Callback):
@@ -258,6 +374,63 @@ def _tp_rank_setup(params_np, toks, mask, cfg_kw, strategy_kw):
     t = torch.from_numpy(np.asarray(toks)[rows])
     m = None if mask is None else torch.from_numpy(np.asarray(mask)[rows])
     return module, strategy, t, m
+
+
+def restore_target_job(params_np, toks, cfg_kw, strategy_kw):
+    """One AdamW step of the tiny Llama under ``ShardedMesh(
+    **strategy_kw)``, then the strategy's restore target against its
+    canonical ``state_dicts``: the same keys, and each value the same
+    kind, global shape, placements and local shape; the unfused leaves
+    the live storage a restore writes into; no gather (the calls to
+    `full_value`) while the target is built. Returns the verdicts."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_lightning_tpu_torch.parallel import strategy as strategy_mod
+
+    module, strategy, t, _ = _tp_rank_setup(params_np, toks, None, cfg_kw,
+                                            strategy_kw)
+    opt = module.configure_optimizers()
+    opt = opt[0] if isinstance(opt, tuple) else opt
+    module._loss(module.params, t[:, :-1], t[:, 1:], None).backward()
+    opt.step()
+    gathers = []
+    full_value = strategy_mod.full_value
+    strategy_mod.full_value = lambda v: gathers.append(1) or full_value(v)
+    try:
+        params, osd = strategy.restore_target(module.model, opt)
+        n_target = len(gathers)
+        canon_params, canon_osd = strategy.state_dicts(module.model, opt)
+    finally:
+        strategy_mod.full_value = full_value
+
+    def leaves(p, o):
+        out = {f"params/{k}": v for k, v in p.items()}
+        for name, st in o["state"].items():
+            out.update({f"opt/{name}/{k}": v for k, v in st.items()})
+        return out
+
+    got, want = leaves(params, osd), leaves(canon_params, canon_osd)
+    out = {"keys": set(got) == set(want),
+           "param_groups": osd["param_groups"] == canon_osd["param_groups"],
+           "no_gather": n_target == 0, "gathered_after": len(gathers) > 0}
+    for k in sorted(set(got) & set(want)):
+        a, b = got[k], want[k]
+        if not torch.is_tensor(b):
+            out[k] = a == b
+            continue
+        same = (type(a) is type(b) and a.shape == b.shape
+                and a.dtype == b.dtype)
+        if isinstance(b, DTensor):
+            same = same and a.placements == b.placements and \
+                a.to_local().shape == b.to_local().shape
+        fused = strategy._perm(k.split("/")[1]) is not None
+        if not fused:
+            same = same and (a.to_local() if isinstance(a, DTensor) else
+                             a).data_ptr() == (b.to_local() if isinstance(
+                                 b, DTensor) else b).data_ptr()
+        out[k] = bool(same)
+    return out
 
 
 def _canonical_grads(module, strategy):
