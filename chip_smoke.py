@@ -5,7 +5,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
 
   1. device  — a CUDA card is required; prints ``nvidia-smi``'s name and
                power limit.
-  2. build   — compiles the five CUDA sources of ``ops/csrc`` (one nvcc
+  2. build   — compiles the six CUDA sources of ``ops/csrc`` (one nvcc
                per source, all at once), timed.
   3. kernels — each kernel's wrapper on card tensors at the serving and
                training shapes of Llama-3-8B, in bf16, against its plain
@@ -58,14 +58,17 @@ Phases, each of which raises (and so exits nonzero) on failure:
                steps under `torch.profiler`.
   6. dist    — training across processes on the card (one rank: NCCL
                refuses two ranks on one card): (a) phase 5's fit through
-               `fit_distributed(num_processes=1)` under `FSDP` in a worker
-               process; (b) the same fit under `DataParallel` in this
-               process (a one-rank NCCL group the strategy starts); (c) a
+               `fit_distributed(num_processes=1)` under
+               ``FSDP(overlap="on")`` in a worker process that a
+               `LoopbackTransport` starts (10 (b)); (b) the same fit
+               under `DataParallel` in this process (a one-rank NCCL
+               group the strategy starts); (c) a
                `fit_distributed` run that saves at step 4
-               (`ModelCheckpoint`, 23 GB of f32 weights and AdamW moments)
-               and a fresh one resumed from that checkpoint through step
-               8, with the bytes and the save, verify and restore
-               seconds; (d) the reference's MNIST matrix: fit with
+               (`ModelCheckpoint`, 23 GB of f32 weights and AdamW moments,
+               the script's one save of this size: the card's machine may
+               write 45 GiB a run), with the bytes and the save and
+               verify seconds; 14 (a) and 8 (a) resume it; (d) the
+               reference's MNIST matrix: fit with
                `EarlyStopping` and `ModelCheckpoint` under `RayXlaPlugin`,
                predict from the best checkpoint in a worker, load it here
                and predict again. Every fit's per-step loss and grad_norm
@@ -101,9 +104,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
                and one per sweep (wall, the report round trip).
   8. resilience — (a) phase 5's fit under `FSDP` through
                `fit_distributed(resilience=ResilienceConfig(...))` in one
-               supervised worker, SIGKILL'd by the fault injector at step
-               6 and resumed from its step-4 checkpoint: two attempts,
-               steps 1-6 and 5-8 equal to phase 5's kernel lane bitwise,
+               supervised worker whose checkpoint directory holds phase 6
+               (c)'s step-4 checkpoint (hard links), resumed from it,
+               SIGKILL'd by the fault injector at step 6 and resumed from
+               it again (no save): two attempts, steps 5-6 and 5-8 equal
+               to phase 5's kernel lane bitwise,
                the card as free at the second start as at the first, each
                attempt's launches (sent per step from the worker) as its
                steps imply, with the save, restore and relaunch seconds;
@@ -154,11 +159,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
                step time, first step's wall, ``compile_time_s``,
                prefetch occupancy and wait, and peak (the prefetched
                lane's may exceed the other's only by its buffers); (b)
-               phase 5's fit through ``fit_distributed(FSDP(overlap=
-               "on"), hosts=["localhost"], transport=LoopbackTransport())``
-               in one worker: rows bitwise phase 5's, launches phase 5's,
-               the worker on ``cuda:0`` of the visible set with no
-               driver-only variable in its environment, the call's wall;
+               inside phase 6, as its (a): phase 5's fit through
+               ``fit_distributed(FSDP(overlap="on"), hosts=["localhost"],
+               transport=LoopbackTransport())`` in one worker: rows
+               bitwise phase 5's, launches phase 5's, the worker on
+               ``cuda:0`` of the visible set with no driver-only variable
+               in its environment, the call's wall;
                (c) ``python -m ray_lightning_tpu_torch perf --smoke`` on
                the card, its JSON line. Phase 8 also prints each
                supervised attempt's ``compile_s`` beside its first step's
@@ -256,15 +262,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
                counts; the scheduler and the step), the move summary
                ``["tensor"]`` world 1 -> 2, a ``reshard`` span and
                goodput ``reshard_s`` on each rank, rows within the train
-               limits of 6 (c)'s resumed rows, launches by phase 5's
-               formula at H 16 / Hkv 4, both ranks saving their pieces
-               at step 6 (provenance ``{tensor: 2}``); (b) that step-6
-               checkpoint restored into a one-rank ``FSDP`` fit in this
-               process through steps 7-8: every leaf bitwise the two
-               ranks' step-6 pieces (position-weighted digests taken at
-               their save, so the head-aligned rows must be put back),
-               the span, rows within the train limits of (a)'s rows 7-8,
-               launches by formula, the restore's seconds and bytes; (c)
+               limits of phase 6 (a)'s rows (phase 5's bitwise), launches
+               by phase 5's formula at H 16 / Hkv 4 (the way back, a
+               tensor-rank checkpoint restored on one FSDP rank, is held
+               on the CPU only: a second 23 GB save would pass the 45
+               GiB the card's machine may write a run); (c)
                inside phase 4, its model: a seeded MMPP trace
                (``AUTOSCALE_TRACE``, 24 requests, prompts 128-1536)
                through `loadgen.run_trace` and an inline
@@ -289,6 +291,38 @@ Phases, each of which raises (and so exits nonzero) on failure:
                exactly one ``grow_refused`` entry (source ``file``) in
                its result, its ``reshards.jsonl`` and the report.
                ``phase14_s`` in the ``timing`` line.
+ 15. the Llama path's knobs — after phase 12: (a) the AdamW kernel
+               (``ops/csrc/adamw.cu``, a bf16 first moment) on phase 5's
+               27 parameters (1.92 G elements, seeded) against its plain
+               version on copies, at steps 1 and 100: a step with
+               ``found_inf`` 1 leaves both lanes bitwise as they were,
+               a real one gives the moments bitwise and the parameters
+               within 1 ulp; timed beside its bound (24 bytes an element)
+               and ``torch._fused_adamw_`` (f32 moments) on the same
+               tensors; (b) phase 5's fit with ``LlamaModule(mu_dtype=
+               torch.bfloat16)``, ``remat_policy="attn_out"`` and
+               ``ce_inline_bwd=True``, kernel lane against reference lane
+               within ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_RTOL``, 4 flash
+               forward launches a step (8 under "nothing") and one AdamW
+               launch, ``exp_avg`` bf16, the optimizer's live bytes and
+               the parameters' equal to the plan's to the byte, the peak
+               under the plan's total; (c) one forward and backward of
+               the model under "dots" against no remat (the same
+               projection GEMMs in the backward; "nothing" runs more),
+               then 2-step fits under "dots" (within the train limits of
+               phase 5's rows) and, under ``FSDP`` with the bf16 first
+               moment, with tied embeddings (no ``lm_head``, every
+               parameter and moment a DTensor whose local shard the
+               AdamW kernel steps, the parameters' and the optimizer's
+               bytes the plan's); (d) the Llama example, the slice's
+               entry point, through its ``main``: the 1B model at B 2,
+               S 2048 for 2 steps with ``--mu-bf16 --remat-policy
+               attn_out --ce-inline-bwd`` (its launches, a finite loss
+               near ln V, a bf16 ``exp_avg``, its checkpoint written
+               under the git-ignored ``rlt_logs/chip_smoke_example/``
+               and removed). ``phase15_s`` in the
+               ``timing`` line; the AdamW kernel in the kernels' summary
+               (``"replaces": null``, with a note).
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`, the device traced alone:
                the device's busy share and the kernels with the most
@@ -2371,14 +2405,14 @@ class StepProbe:
 
 def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None,
                inspect=None, batch: int = None, steps: int = None,
-               **trainer_kw):
+               module_kw=None, **trainer_kw):
     """One `Trainer.fit` of `LlamaModule` over ``tokens`` (``strategy``
     default `SingleDevice()``, more `Trainer` keywords in
-    ``trainer_kw``; ``batch`` and ``steps`` default to phase 5's);
-    returns the StepProbe (its ``metrics`` the fit's callback_metrics),
-    the fit's wall time, the peak device memory and the parameter count.
-    ``inspect(trainer, module)`` runs after the fit, before both are
-    freed."""
+    ``trainer_kw``, more `LlamaModule` keywords in ``module_kw``;
+    ``batch`` and ``steps`` default to phase 5's); returns the StepProbe
+    (its ``metrics`` the fit's callback_metrics), the fit's wall time,
+    the peak device memory and the parameter count. ``inspect(trainer,
+    module)`` runs after the fit, before both are freed."""
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.llama import LlamaModule
@@ -2387,7 +2421,7 @@ def train_once(cfg, tokens, seed: int, callbacks=(), strategy=None,
     steps = steps or TRAIN_STEPS
     probe = StepProbe()
     module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
-                         total_steps=TRAIN_STEPS)
+                         total_steps=TRAIN_STEPS, **(module_kw or {}))
     trainer = Trainer(strategy=strategy or SingleDevice(),
                       max_steps=steps,
                       log_every_n_steps=1, enable_checkpointing=False,
@@ -2422,15 +2456,16 @@ def train_inputs(seed: int):
     return cfg, tokens
 
 
-def train_reference(cfg, tokens, seed: int):
-    """The fit through the reference lanes, which must launch no kernel."""
+def train_reference(cfg, tokens, seed: int, **kw):
+    """The fit through the reference lanes, which must launch no kernel
+    (``kw``: more `train_once` keywords)."""
     from ray_lightning_tpu_torch.ops import dispatch
 
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     with dispatch.force_reference():
-        out = train_once(cfg, tokens, seed)
+        out = train_once(cfg, tokens, seed, **kw)
     launched = {k.__name__: k.launches for k in kernels if k.launches}
     if launched:
         raise AssertionError(f"reference lanes launched {launched}")
@@ -2557,7 +2592,7 @@ def train_phase(seed: int):
 # (`chip_smoke`; the standard pickle sends the factories below by
 # reference), so everything they run is defined at module level.
 
-#: the resume leg's first run stops and saves here; the second resumes
+#: 6 (c)'s run stops and saves here; 14 (a) and 8 (a) resume from it
 RESUME_AT = 4
 #: limit of one `fit_distributed` call, in seconds
 DIST_TIMEOUT_S = 600
@@ -2737,11 +2772,12 @@ def run_dist(kind: str, module_factory, trainer_factory, data_factory,
     return res, by_kind, time.perf_counter() - t0
 
 
-def expected_launches(steps: int, warm_ups: int = 1):
+def expected_launches(steps: int, warm_ups: int = 1,
+                      layers: int = TRAIN_LAYERS):
     """The kernels' launches of a fit of ``steps`` train steps (phase 5's
-    counts): the warm start's forward and backward (one a fit, the
-    trainer's default) launch what a step does."""
-    L, n = TRAIN_LAYERS, steps + warm_ups
+    counts; ``layers`` blocks): the warm start's forward and backward (one
+    a fit, the trainer's default) launch what a step does."""
+    L, n = layers, steps + warm_ups
     want = {k.__name__: 0 for k in all_kernels()}
     want.update(flash_fwd_kernel=2 * L * n,
                 flash_bwd_dkv_kernel=L * n,
@@ -2784,7 +2820,9 @@ def fit_row(phase: str, probe: dict, wall: float, ref_rows, want,
 
 
 def dist_phase(seed: int, ref_rows):
-    """Phase 6; returns the kernels' launches over its four fits."""
+    """Phase 6; returns the kernels' launches over its fits and (c)'s
+    step-4 checkpoint, which 14 (a) and 8 (a) resume (the caller removes
+    it)."""
     import numpy as np
 
     import chip_smoke as me  # the name the workers import
@@ -2798,16 +2836,9 @@ def dist_phase(seed: int, ref_rows):
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     os.makedirs(DIST_DIR)
 
-    # (a) fit_distributed, FSDP, one NCCL rank
-    free_card("dist_fsdp")
-    _, got, wall = run_dist("fit", P(me.dist_module, seed),
-                            P(me.dist_trainer, "fsdp", TRAIN_STEPS, seed),
-                            P(me.dist_data, seed))
-    fsdp = got["fit"][0]
-    fit_row("dist_fsdp", fsdp, wall, ref_rows, expected_launches(TRAIN_STEPS),
-            problems)
-    if fsdp["backend"] != "nccl":
-        problems.append(f"dist_fsdp ran on {fsdp['backend']}")
+    # (a) fit_distributed, FSDP(overlap="on"), one NCCL rank started by
+    # the loopback transport (10 (b))
+    fsdp = hot_loop_remote(seed, ref_rows, problems)
     # 12 (d): FSDP builds on the meta device and fills its shards leaf
     # by leaf; the rows above are phase 5's bitwise all the same
     if fsdp["init_path"] != "meta":
@@ -2841,8 +2872,9 @@ def dist_phase(seed: int, ref_rows):
         expected_launches(TRAIN_STEPS), problems)
     del probe, strategy
 
-    # (c) resume: save at RESUME_AT, resume in a fresh job from it
-    free_card("dist_resume")
+    # (c) save at RESUME_AT; 14 (a) resumes it on two tensor ranks and 8
+    # (a) on one FSDP rank (two fresh attempts under the supervisor)
+    free_card("dist_save")
     ckdir = os.path.join(DIST_DIR, "ckpt")
     disk = shutil.disk_usage(DIST_DIR)
     # the JAX package's own digest knob for 8B-scale checkpoints:
@@ -2865,40 +2897,27 @@ def dist_phase(seed: int, ref_rows):
     verify_s = time.perf_counter() - t0
     if not ok:
         problems.append(f"verify_checkpoint({path}): {reason}")
-    _, got2, wall2 = run_dist("fit", P(me.dist_module, seed),
-                              P(me.dist_trainer, "fsdp", TRAIN_STEPS, seed),
-                              P(me.dist_data, seed), ckpt_path=path, env=env)
-    first, resumed = got1["fit"][0], got2["fit"][0]
-    if [r[0] for r in resumed["rows"]] != list(
-            range(RESUME_AT + 1, TRAIN_STEPS + 1)):
-        problems.append(f"resume ran steps {[r[0] for r in resumed['rows']]}")
+    first = got1["fit"][0]
     fsdp_rows = [(r[1], r[2]) for r in fsdp["rows"]]
-    fit_row("dist_resume_first", first, wall1, fsdp_rows[:RESUME_AT],
+    fit_row("dist_save", first, wall1, fsdp_rows[:RESUME_AT],
             expected_launches(RESUME_AT), problems)
-    fit_row("dist_resume_second", resumed, wall2, fsdp_rows[RESUME_AT:],
-            expected_launches(TRAIN_STEPS - RESUME_AT), problems,
-            restore_s=got2["restore"][0]["restore_s"])
-    for probe in (first, resumed):
-        for k, v in probe["launches"].items():
-            total[k] += v
+    for k, v in first["launches"].items():
+        total[k] += v
     print(json.dumps(dict(
         phase="dist_checkpoint", path=os.path.relpath(path, DIST_DIR),
         bytes=nbytes, files=sum(len(fs) for _, _, fs in os.walk(path)),
         save_s=save["save_s"], digest_mode="size", digest_s=digest_s,
         verify_s=verify_s,
-        verify=reason, restore_s=got2["restore"][0]["restore_s"],
-        disk_total_gib=disk.total / 2**30, disk_free_gib=disk.free / 2**30,
+        verify=reason, disk_total_gib=disk.total / 2**30,
+        disk_free_gib=disk.free / 2**30,
         disk_free_after_save_gib=shutil.disk_usage(DIST_DIR).free / 2**30)),
         flush=True)
     if problems:
         raise AssertionError("distributed training: " + "; ".join(problems))
-    # 14 (a) and (b): this checkpoint grown onto two tensor ranks, and
-    # their step-6 checkpoint shrunk back onto one FSDP rank
+    # 14 (a): this checkpoint grown onto two tensor ranks
     for k, v in elastic_phase(seed, path, got1["save_digests"][0],
-                              [(r[1], r[2]) for r in
-                               resumed["rows"]]).items():
+                              fsdp_rows[RESUME_AT:]).items():
         total[k] += v
-    shutil.rmtree(ckdir)
 
     # (d) the reference's matrix: fit, load the best checkpoint, predict
     from ray_lightning_tpu_torch.core.trainer import Trainer
@@ -2931,10 +2950,10 @@ def dist_phase(seed: int, ref_rows):
         val_accuracy=res.metrics.get("ptl/val_accuracy"), accuracy=acc,
         reload_equals_fit=same, fit_wall_s=wall, predict_wall_s=pwall)),
         flush=True)
-    shutil.rmtree(DIST_DIR)
+    shutil.rmtree(mdir)
     if problems:
         raise AssertionError("distributed training: " + "; ".join(problems))
-    return total
+    return total, path
 
 
 def mnist_module(lr: float = 1e-2):
@@ -3425,10 +3444,11 @@ def sweep_phase(seed: int, ref_rows):
 RES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "rlt_logs", "chip_smoke_resilience")
 #: (a): the supervisor's step cadence and the step whose batch end kills
-#: the worker
-RES_SAVE_EVERY, RES_KILL_AT = 4, 6
-#: (a) keeps at most two 23 GB checkpoints (steps 4 and 8) at once
-RES_DISK_NEED_GIB = 50.0
+#: the worker. Both attempts resume phase 6 (c)'s step-4 checkpoint and
+#: write none (no step of 5-8 is a multiple of 16: the card's machine
+#: may write 45 GiB a run, and 6 (c)'s 23 GB save is the one the
+#: script's budget holds), so the second attempt replays steps 5-6
+RES_SAVE_EVERY, RES_KILL_AT = 16, 6
 #: card memory (GiB) the second attempt may find taken beyond the first's:
 #: less than one CUDA context, so the killed rank's memory must be gone
 RES_FREE_SLACK_GIB = 0.25
@@ -3564,9 +3584,11 @@ def res_fit(module_factory, trainer_factory, data_factory, cfg, **kw):
     return out, list(me.RECEIVED), time.perf_counter() - t0
 
 
-def resilience_kill(seed: int, ref_rows, problems: list):
-    """(a): phase 5's fit under FSDP in a supervised worker, SIGKILL'd at
-    step 6 and resumed from the step-4 checkpoint."""
+def resilience_kill(seed: int, ref_rows, ckpt: str, problems: list):
+    """(a): phase 5's fit under FSDP in a supervised worker whose
+    checkpoint directory holds phase 6 (c)'s step-4 checkpoint ``ckpt``
+    (hard links: no bytes written): resumed from it, SIGKILL'd at step 6
+    and resumed from it again."""
     import chip_smoke as me
     from ray_lightning_tpu_torch.autoscale import CapacityOracle
     from ray_lightning_tpu_torch.elastic import ElasticBudget
@@ -3576,6 +3598,8 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     P = functools.partial
     free_card("res_kill")
     ckdir = os.path.join(RES_DIR, "llama")
+    shutil.copytree(ckpt, os.path.join(ckdir, os.path.basename(ckpt)),
+                    copy_function=os.link)
     # 14: the elastic ladder up to world 2 over a capacity oracle whose
     # probe file says one world: the relaunch stays at 1 and the ledger
     # records the refused grow with the oracle's source
@@ -3621,7 +3645,7 @@ def resilience_kill(seed: int, ref_rows, problems: list):
             and "SIGKILL" in failure.get("cause", "")):
         problems.append(f"(a) attempts {sup.total_attempts}, failures "
                         f"{sup.failures}")
-    if [s["step"] for s in starts] != [0, RES_SAVE_EVERY] or \
+    if [s["step"] for s in starts] != [RESUME_AT, RESUME_AT] or \
             len(attempts) != 2:
         problems.append(f"(a) attempts started at {[s['step'] for s in starts]}"
                         f" and ran {[[i['step'] for i in a] for a in attempts]}")
@@ -3630,24 +3654,28 @@ def resilience_kill(seed: int, ref_rows, problems: list):
     first, second = attempts
     rows1 = [(i["loss"], i["grad_norm"]) for i in first]
     rows2 = [(i["loss"], i["grad_norm"]) for i in second]
-    if [i["step"] for i in first] != list(range(1, RES_KILL_AT + 1)) or \
-            rows1 != ref_rows[:RES_KILL_AT]:
-        problems.append("(a) the killed attempt's steps differ from phase 5's")
-    if [i["step"] for i in second] != list(range(RES_SAVE_EVERY + 1,
+    if [i["step"] for i in first] != list(range(RESUME_AT + 1,
+                                                RES_KILL_AT + 1)) or \
+            rows1 != ref_rows[RESUME_AT:RES_KILL_AT]:
+        problems.append("(a) the killed attempt's steps 5-6 differ from "
+                        "phase 5's")
+    if [i["step"] for i in second] != list(range(RESUME_AT + 1,
                                                  TRAIN_STEPS + 1)) or \
-            rows2 != ref_rows[RES_SAVE_EVERY:]:
+            rows2 != ref_rows[RESUME_AT:]:
         problems.append("(a) the resumed attempt's steps 5-8 differ from "
                         "phase 5's")
     launches = [a[-1]["launches"] for a in attempts]
-    if launches[1] != expected_launches(TRAIN_STEPS - RES_SAVE_EVERY):
+    if launches[1] != expected_launches(TRAIN_STEPS - RESUME_AT):
         problems.append(f"(a) resumed launches {launches[1]}")
-    if launches[0] != expected_launches(RES_KILL_AT):
+    if launches[0] != expected_launches(RES_KILL_AT - RESUME_AT):
         problems.append(f"(a) killed attempt's launches {launches[0]}")
     free = [m["free"] / 2**30 for m in mems]
     if len(free) != 2 or free[1] < free[0] - RES_FREE_SLACK_GIB:
         problems.append(f"(a) free card memory at the attempts' starts "
                         f"{free} GiB")
     saves = [s["save_s"] for s in by.get("save", [])]
+    if saves:
+        problems.append(f"(a) saved {len(saves)} checkpoint(s)")
     restore = [r["restore_s"] for r in by.get("restore", [])]
     setup = [s["t"] - s["proc_start"] for s in starts]
     g = check_goodput("(a)", sup, os.path.join(ckdir, "telemetry"), problems)
@@ -3656,7 +3684,7 @@ def resilience_kill(seed: int, ref_rows, problems: list):
         launch = [a.get("launch_s") for a in _ledgers(ckdir)]
         if not (b["rollback_replay_s"] > 0
                 and [a["replay_steps"] for a in g["attempts"]] == [
-                    0, RES_KILL_AT - RES_SAVE_EVERY]):
+                    0, RES_KILL_AT - RESUME_AT]):
             problems.append(f"(a) replay {b['rollback_replay_s']} s, "
                             f"attempts {g['attempts']}")
         # the ledgers' launch seconds end where the fit starts, before
@@ -3679,8 +3707,8 @@ def resilience_kill(seed: int, ref_rows, problems: list):
         attempts=sup.total_attempts, failure=failure, reshards=refused,
         starts=[s["step"] for s in starts],
         losses=[r[0] for r in rows1 + rows2],
-        rows_equal_phase5=rows1 == ref_rows[:RES_KILL_AT]
-        and rows2 == ref_rows[RES_SAVE_EVERY:],
+        rows_equal_phase5=rows1 == ref_rows[RESUME_AT:RES_KILL_AT]
+        and rows2 == ref_rows[RESUME_AT:],
         free_gib_at_attempt_start=free, save_s=saves, restore_s=restore,
         # failure classified (driver clock) -> the relaunched worker's
         # process start; then its imports, rendezvous, build and restore
@@ -3989,19 +4017,17 @@ def _dead(pid: int) -> bool:
     return False
 
 
-def resilience_phase(seed: int, ref_rows):
-    """Phase 8; returns the kernels' launches over its fits."""
+def resilience_phase(seed: int, ref_rows, ckpt: str):
+    """Phase 8 (``ckpt``: phase 6 (c)'s step-4 checkpoint, removed here
+    after (a)); returns the kernels' launches over its fits."""
     problems = []
-    # phase 6's and 7's checkpoints are gone (they remove their dirs);
-    # anything a cut run left is removed here before (a)'s 23 GB saves
-    for d in (DIST_DIR, SWEEP_DIR, RES_DIR):
+    for d in (SWEEP_DIR, RES_DIR):
         shutil.rmtree(d, ignore_errors=True)
     os.makedirs(RES_DIR)
-    free_gib = shutil.disk_usage(RES_DIR).free / 2**30
-    if free_gib < RES_DISK_NEED_GIB:
-        raise AssertionError(f"resilience: {free_gib:.1f} GiB free on disk, "
-                             f"(a) needs {RES_DISK_NEED_GIB}")
-    total = resilience_kill(seed, ref_rows, problems)
+    try:
+        total = resilience_kill(seed, ref_rows, ckpt, problems)
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
     for k, v in resilience_guard(seed, ref_rows, problems).items():
         total[k] = total.get(k, 0) + v
     resilience_mnist(problems)
@@ -4366,29 +4392,31 @@ def check_goodput(what: str, sup, tdir: str, problems: list) -> dict:
 
 def timeline_cli(tdir: str, problems: list) -> dict:
     """(c): ``python -m ray_lightning_tpu_torch timeline <dir> --json``
-    over a supervised run's telemetry: events from every ledger there,
-    and a Chrome trace that passes the validator."""
+    over a supervised run's telemetry, through the CLI's entry point in
+    this process: events from every ledger there, and a Chrome trace
+    that passes the validator."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
     from ray_lightning_tpu_torch.telemetry.goodput import read_ledgers
     from ray_lightning_tpu_torch.telemetry.timeline import (
         validate_chrome_trace,
     )
 
-    root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "ray_lightning_tpu_torch", "timeline", tdir,
-         "--json"], capture_output=True, text=True, cwd=root, timeout=120)
     chrome = os.path.join(tdir, "timeline.trace.json")
-    out2 = subprocess.run(
-        [sys.executable, "-m", "ray_lightning_tpu_torch", "timeline", tdir,
-         "--chrome", chrome], capture_output=True, text=True, cwd=root,
-        timeout=120)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rcs = [cli(["timeline", tdir, "--json"])]
+    doc_text = out.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcs.append(cli(["timeline", tdir, "--chrome", chrome]))
     wall = time.perf_counter() - t0
-    if out.returncode or out2.returncode:
-        problems.append(f"timeline CLI failed: {out.stderr[-400:]}"
-                        f"{out2.stderr[-400:]}")
+    if any(rcs):
+        problems.append(f"timeline CLI failed: exit {rcs}")
         return {}
-    doc = json.loads(out.stdout)
+    doc = json.loads(doc_text)
     files = os.listdir(tdir)
     span_files = [f for f in files if f.endswith(".spans.jsonl")]
     ledgers = read_ledgers(tdir, rank=None)
@@ -4834,18 +4862,17 @@ def hot_loop_sync(seed: int, ref_rows):
     return total
 
 
-def hot_loop_remote(seed: int, ref_rows):
-    """(b) phase 5's fit through ``fit_distributed`` under
-    ``FSDP(overlap="on")`` in one worker started by `LoopbackTransport`
-    on ``hosts=["localhost"]``: rows and launches phase 5's, the worker
-    on cuda:0 of the visible set, none of the driver's own environment.
-    Returns the launches."""
+def hot_loop_remote(seed: int, ref_rows, problems: list) -> dict:
+    """(b), run as phase 6 (a): phase 5's fit through
+    ``fit_distributed`` under ``FSDP(overlap="on")`` in one worker
+    started by `LoopbackTransport` on ``hosts=["localhost"]``: rows and
+    launches phase 5's, an NCCL rank on cuda:0 of the visible set, none
+    of the driver's own environment. Returns the worker's probe."""
     import chip_smoke as me
     from ray_lightning_tpu_torch.runtime import LoopbackTransport
 
     P = functools.partial
-    problems = []
-    free_card("hot_loop_remote")
+    free_card("dist_fsdp")
     transport = LoopbackTransport()
     os.environ[SMOKE_DRIVER_ONLY] = "driver"
     try:
@@ -4855,10 +4882,9 @@ def hot_loop_remote(seed: int, ref_rows):
             P(me.dist_data, seed), hosts=["localhost"], transport=transport)
     finally:
         os.environ.pop(SMOKE_DRIVER_ONLY, None)
-        shutil.rmtree(DIST_DIR, ignore_errors=True)
     probe = got["fit"][0]
     env = probe["env"]
-    fit_row("hot_loop_remote", probe, wall, ref_rows,
+    fit_row("dist_fsdp", probe, wall, ref_rows,
             expected_launches(TRAIN_STEPS), problems,
             spawned=transport.spawned, overlap=probe["overlap"], env=env,
             first_step_s=probe["first_step_s"],
@@ -4870,13 +4896,12 @@ def hot_loop_remote(seed: int, ref_rows):
             and env["CUDA_VISIBLE_DEVICES"] == visible
             and env["LOCAL_RANK"] == "0"
             and transport.spawned == [("localhost", 0)]):
-        problems.append(f"worker on {probe['device']} ({probe['backend']}, "
-                        f"overlap {probe['overlap']}), environment {env} "
-                        f"(the driver's CUDA_VISIBLE_DEVICES {visible!r}), "
-                        f"spawned {transport.spawned}")
-    if problems:
-        raise AssertionError("hot loop (b): " + "; ".join(problems))
-    return probe["launches"]
+        problems.append(f"dist_fsdp: worker on {probe['device']} "
+                        f"({probe['backend']}, overlap {probe['overlap']}), "
+                        f"environment {env} (the driver's "
+                        f"CUDA_VISIBLE_DEVICES {visible!r}), spawned "
+                        f"{transport.spawned}")
+    return probe
 
 
 def hot_loop_perf() -> None:
@@ -5193,20 +5218,475 @@ def planner_phase(seed: int, ref_rows, live: dict) -> dict:
     return total
 
 
+# ---- phase 15: the Llama training path's knobs ------------------------
+#
+# (a) the AdamW kernel (bf16 first moment) against its plain version at
+# phase 5's parameter set; (b) phase 5's fit with the bf16 first moment,
+# remat policy "attn_out" and the inline CE, kernel lane against reference
+# lane under phase 5's limits, against its plan; (c) a "dots" fit and a
+# tied fit under FSDP with the bf16 first moment, two steps each; (d) the
+# Llama example at 1B, two steps. Runs after phase 12.
+
+#: (a): the step counts the kernel is checked at (the bias corrections of
+#: a first and a late step), the learning rate and AdamW's constants as
+#: `LlamaModule` gives them
+ADAMW_STEPS = (1, 100)
+ADAMW_LR, ADAMW_BETAS, ADAMW_EPS, ADAMW_WD = 3e-4, (0.9, 0.95), 1e-8, 0.1
+#: (c): the short fits' steps
+KNOB_STEPS = 2
+
+
+def _bits(ts) -> list:
+    """An integer checksum of each tensor's bits (a changed element
+    changes it): what a skipped step must leave as it was."""
+    ints = {4: torch.int32, 2: torch.int16}
+    return [int(t.view(ints[t.element_size()]).sum(dtype=torch.int64))
+            for t in ts]
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in f32 ulps of ``want``."""
+    w = want.abs()
+    ulp = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+    return float(((got - want).abs() / ulp).max())
+
+
+def adamw_check(gen: torch.Generator):
+    """15 (a): `adamw_step_kernel` on phase 5's 27 parameters (1.92 G
+    elements) against `adamw_step_plain` on copies: at steps 1 and 100 a
+    skipped step (``found_inf`` 1) leaves both lanes' parameters, moments
+    and step counts bitwise as they were, and a real one agrees, the
+    first and second moments bitwise and the parameters within 1 ulp (the
+    two compute the same operations, each rounded once, but for the
+    bias corrections' ``powf``). Timed with CUDA events beside its bound
+    (24 bytes an element over 3.35 TB/s) and torch's fused AdamW (f32
+    moments) on the same tensors. Returns the kernels' row."""
+    from ray_lightning_tpu_torch.models.llama import Llama
+    from ray_lightning_tpu_torch.ops.kernels.adamw import (
+        adamw_bytes,
+        adamw_step_kernel,
+        adamw_step_plain,
+    )
+
+    cfg, _ = train_inputs(SEED)
+    shapes = [tuple(p.shape) for p in Llama(
+        cfg, device="meta", param_dtype=torch.float32).parameters()]
+    dev = "cuda"
+
+    def randn(s, scale):
+        return torch.randn(s, generator=gen, device=dev).mul_(scale)
+
+    pk = [randn(s, 0.02) for s in shapes]
+    g = [randn(s, 1e-3) for s in shapes]
+    mk = [randn(s, 1e-4).to(torch.bfloat16) for s in shapes]
+    vk = [randn(s, 1e-3).square_() for s in shapes]
+    sk = [torch.zeros((), device=dev) for _ in shapes]
+    pp, mp, vp, sp = ([t.clone() for t in ts] for ts in (pk, mk, vk, sk))
+    n = sum(t.numel() for t in pk)
+    lr = torch.full((), ADAMW_LR, device=dev)
+    done = torch.zeros(len(pk), dtype=torch.int32, device=dev)
+    b1, b2 = ADAMW_BETAS
+
+    def kernel(found=None):
+        adamw_step_kernel(pk, g, mk, vk, sk, lr, found, b1, b2, ADAMW_EPS,
+                          ADAMW_WD, done)
+
+    def plain(found=None):
+        adamw_step_plain(pp, g, mp, vp, sp, lr, found, b1, b2, ADAMW_EPS,
+                         ADAMW_WD)
+
+    skip = torch.ones((), device=dev)
+    checks, max_err, max_ulps = [], 0.0, 0.0
+    for step in ADAMW_STEPS:
+        for lane in ((pp, pk), (mp, mk), (vp, vk)):
+            for a, b in zip(*lane):
+                a.copy_(b)
+        for s_ in sk + sp:
+            s_.fill_(step - 1)
+        before = _bits(pk + mk + vk + sk), _bits(pp + mp + vp + sp)
+        launched = adamw_step_kernel.launches
+        kernel(skip)
+        plain(skip)
+        torch.cuda.synchronize()
+        after = _bits(pk + mk + vk + sk), _bits(pp + mp + vp + sp)
+        if after != before or adamw_step_kernel.launches != launched + 1:
+            raise AssertionError(f"adamw at step {step}: found_inf 1 "
+                                 "changed the state")
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+        ulps = max(_ulps(a, b) for a, b in zip(pk, pp))
+        err = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+        m_same = all(torch.equal(a, b) for a, b in zip(mk, mp))
+        v_same = all(torch.equal(a, b) for a, b in zip(vk, vp))
+        s_ok = all(float(a) == step == float(b) for a, b in zip(sk, sp))
+        finite = all(bool(torch.isfinite(a).all()) for a in pk)
+        checks.append(dict(step=step, param_max_ulps=ulps,
+                           param_max_abs_err=err, exp_avg_bitwise=m_same,
+                           exp_avg_sq_bitwise=v_same, steps_ok=s_ok))
+        if not (ulps <= 1.0 and m_same and v_same and s_ok and finite):
+            raise AssertionError(f"adamw kernel against plain at step "
+                                 f"{step}: {checks[-1]}")
+        max_err, max_ulps = max(max_err, err), max(max_ulps, ulps)
+    kernel_ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3)
+    # torch's fused AdamW, f32 moments, on the plain lane's tensors
+    del mp
+    lib_m = [torch.zeros_like(t) for t in pp]
+    library_ms = time_ms(lambda: torch._fused_adamw_(
+        pp, g, lib_m, vp, [], sp, lr=lr, beta1=b1, beta2=b2,
+        weight_decay=ADAMW_WD, eps=ADAMW_EPS, amsgrad=False,
+        maximize=False))
+    b_ms, b_by = bound(adamw_bytes(pk, mk), 0)
+    row = dict(kernel="adamw_step", shape=dict(
+        tensors=len(pk), elements=n, exp_avg="bfloat16",
+        steps=list(ADAMW_STEPS)), checks=checks, max_abs_err=max_err,
+        param_max_ulps=max_ulps, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="torch._fused_adamw_ (f32 moments)",
+        bound_ms=b_ms, bound_by=b_by, bytes=adamw_bytes(pk, mk),
+        library_bytes=adamw_bytes(pp, lib_m))
+    print(json.dumps(row), flush=True)
+    del pk, g, mk, vk, pp, vp, lib_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def knob_launches(steps: int, warm_ups: int = 1, attn_out=False,
+                  mu=False, layers: int = TRAIN_LAYERS) -> dict:
+    """A fit's launches under the knobs: "attn_out" runs the flash
+    forward once a layer and step (never again in the backward), the
+    bf16 first moment one AdamW launch a step and warm-up (the warm-up's
+    is a skipped step); the rest is phase 5's formula."""
+    want = expected_launches(steps, warm_ups, layers)
+    n = steps + warm_ups
+    if attn_out:
+        want["flash_fwd_kernel"] = layers * n
+    if mu:
+        want["adamw_step_kernel"] = n
+    return want
+
+
+def knobs_fit(seed: int, problems: list) -> dict:
+    """15 (b): phase 5's fit with ``mu_dtype=torch.bfloat16``,
+    ``remat_policy="attn_out"`` and ``ce_inline_bwd=True``: kernel lane
+    against reference lane under phase 5's limits; its launches; the
+    first moment bf16; the optimizer's live bytes equal to the plan's to
+    the byte; the peak under the plan's total. Returns the launches."""
+    from ray_lightning_tpu_torch.parallel.plan import (
+        llama_activation_bytes,
+        plan_train_memory,
+    )
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    cfg, tokens = train_inputs(seed)
+    cfg = dataclasses.replace(cfg, remat_policy="attn_out",
+                              ce_inline_bwd=True)
+    mkw = dict(mu_dtype=torch.bfloat16)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    live, dtypes = {}, set()
+
+    def inspect(trainer, module):
+        live.update(live_bytes(trainer, module))
+        dtypes.update(str(st["exp_avg"].dtype)
+                      for st in trainer.state.optimizer.state.values())
+
+    probe, wall, peak, _ = train_once(cfg, tokens, seed, inspect=inspect,
+                                      module_kw=mkw)
+    launches = {k.__name__: k.launches for k in kernels}
+    want = knob_launches(TRAIN_STEPS, attn_out=True, mu=True)
+    if launches != want:
+        problems.append(f"(b) launches {launches} != {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_wall, ref_peak, _ = train_reference(cfg, tokens, seed,
+                                                 module_kw=mkw)
+    d_loss, d_gn, lanes = compare_train(probe.rows, ref.rows)
+    problems += [f"(b) {p}" for p in lanes]
+    plan = plan_train_memory(
+        LlamaModule(cfg, **mkw), SingleDevice(), 1, None,
+        activation_bytes_per_device=llama_activation_bytes(cfg, TB, TS),
+        device_kind=torch.cuda.get_device_name(0))
+    n_elems = plan.params_bytes_per_device // 4
+    if dtypes != {"torch.bfloat16"}:
+        problems.append(f"(b) exp_avg dtypes {dtypes}")
+    if plan.opt_bytes_per_device != live["opt"]:
+        problems.append(f"(b) plan optimizer {plan.opt_bytes_per_device} "
+                        f"!= live {live['opt']}")
+    if plan.params_bytes_per_device != live["params"]:
+        problems.append(f"(b) plan params {plan.params_bytes_per_device} "
+                        f"!= live {live['params']}")
+    if not plan.per_device_total >= peak:
+        problems.append(f"(b) plan total {plan.per_device_total} < peak "
+                        f"{peak}")
+    step_s = statistics.median(b - a for a, b in zip(probe.t[2:],
+                                                     probe.t[3:]))
+    print(json.dumps(dict(
+        phase="knobs_fit", layers=TRAIN_LAYERS, steps=TRAIN_STEPS,
+        batch=TB, seq=TS, mu_dtype="bfloat16", remat_policy="attn_out",
+        ce_inline_bwd=True, losses=[r[0] for r in probe.rows],
+        grad_norms=[r[1] for r in probe.rows],
+        ref_losses=[r[0] for r in ref.rows],
+        loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+        flash_fwd_per_step=launches["flash_fwd_kernel"]
+        / (TRAIN_STEPS + 1), launches=launches, exp_avg_dtypes=sorted(dtypes),
+        live=live, plan=plan_terms(plan), peak=peak,
+        opt_terms=dict(exp_avg=2 * n_elems, exp_avg_sq=4 * n_elems,
+                       steps=plan.opt_bytes_per_device - 6 * n_elems),
+        plan_minus_peak_gib=(plan.per_device_total - peak) / 2**30,
+        step_s_p50=step_s, tokens_per_s=TB * TS / step_s, fit_wall_s=wall,
+        ref_fit_wall_s=ref_wall, ref_peak=ref_peak)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dots_recompute(seed: int, problems: list) -> None:
+    """15 (c), first: one forward and backward of phase 5's model (B 2,
+    S 2048) without remat, under "nothing" and under "dots", counting
+    the projection GEMMs the backward runs (a dispatch mode sees what
+    runs, not what the checkpoint's cache hands back) and the flash
+    forward's launches in it. "dots" must run no GEMM beyond the unchecked
+    backward's; its flash forward runs again (no dot)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ray_lightning_tpu_torch.models.llama import Llama, init_params_
+    from ray_lightning_tpu_torch.ops import remat
+    from ray_lightning_tpu_torch.ops.kernels.flash import flash_fwd_kernel
+
+    class Gemms(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in remat.DOTS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg, tokens = train_inputs(seed)
+    model = Llama(cfg, device="cuda", param_dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    init_params_(model, gen).requires_grad_(True)
+    t = torch.from_numpy(tokens[:TB]).cuda()
+    counts = {}
+    for name, c in (("no_remat", dataclasses.replace(cfg, remat=False)),
+                    ("nothing", cfg),
+                    ("dots", dataclasses.replace(cfg, remat_policy="dots"))):
+        model.cfg = c
+        for layer in model.layers:
+            layer.cfg = c
+        loss = model(t[:, :-1], targets=t[:, 1:])
+        fwd = flash_fwd_kernel.launches
+        with Gemms() as gemms:
+            loss.backward()
+        torch.cuda.synchronize()
+        counts[name] = dict(gemms=gemms.n,
+                            flash_fwd=flash_fwd_kernel.launches - fwd)
+        model.zero_grad(set_to_none=True)
+    L = TRAIN_LAYERS
+    if not (counts["dots"]["gemms"] == counts["no_remat"]["gemms"]
+            < counts["nothing"]["gemms"]
+            and counts["dots"]["flash_fwd"] == L
+            and counts["nothing"]["flash_fwd"] == L
+            and counts["no_remat"]["flash_fwd"] == 0):
+        problems.append(f"(c) backward GEMMs and flash forwards {counts}")
+    print(json.dumps(dict(phase="knobs_dots_recompute", backward=counts)),
+          flush=True)
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def short_fits(seed: int, ref_rows, problems: list) -> dict:
+    """15 (c), then: phase 5's fit under "dots", and a tied phase 5 model
+    under `FSDP` with the bf16 first moment, KNOB_STEPS steps each:
+    launches by phase 5's formula (and one AdamW launch a step and
+    warm-up for the second); "dots"'s rows within the train limits of
+    phase 5's first rows (the same arithmetic, its GEMM outputs kept
+    rather than recomputed); the tied model without an ``lm_head``,
+    every parameter and first moment a DTensor (FSDP2's shard over a
+    one-rank mesh, stepped through its local tensor), the first moment
+    bf16, its parameter and optimizer bytes equal to its plan's. Returns
+    the launches."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from ray_lightning_tpu_torch.parallel.plan import plan_train_memory
+    from ray_lightning_tpu_torch.parallel.strategy import FSDP
+
+    cfg, tokens = train_inputs(seed)
+    toks = tokens[:KNOB_STEPS * TB]
+    total = {k.__name__: 0 for k in all_kernels()}
+    mkw = dict(mu_dtype=torch.bfloat16)
+    for name, c, kw in (
+            ("dots", dataclasses.replace(cfg, remat_policy="dots"), {}),
+            ("tied", dataclasses.replace(cfg, tie_embeddings=True),
+             dict(strategy=FSDP(), module_kw=mkw))):
+        kernels = all_kernels()
+        for k in kernels:
+            k.launches = 0
+        info = {}
+
+        def inspect(trainer, module):
+            info.update(live_bytes(trainer, module))
+            info["lm_head"] = hasattr(module.model, "lm_head")
+            states = trainer.state.optimizer.state.values()
+            info["dtensors"] = all(isinstance(p, DTensor) for p in
+                                   module.params.values()) and all(
+                isinstance(st["exp_avg"], DTensor) for st in states)
+            info["exp_avg"] = sorted({str(st["exp_avg"].dtype)
+                                      for st in states})
+
+        probe, wall, peak, n_params = train_once(c, toks, seed,
+                                                 steps=KNOB_STEPS,
+                                                 inspect=inspect, **kw)
+        launches = {k.__name__: k.launches for k in kernels}
+        for k, v in launches.items():
+            total[k] += v
+        want = knob_launches(KNOB_STEPS, mu="module_kw" in kw)
+        if launches != want:
+            problems.append(f"(c) {name}: launches {launches} != {want}")
+        losses = [r[0] for r in probe.rows]
+        if not all(map(np.isfinite, losses)):
+            problems.append(f"(c) {name}: losses {losses}")
+        row = dict(phase=f"knobs_{name}", steps=KNOB_STEPS, losses=losses,
+                   grad_norms=[r[1] for r in probe.rows], peak=peak,
+                   params=n_params, live=info, fit_wall_s=wall,
+                   launches=launches)
+        if name == "dots":
+            d_loss, d_gn, lanes = compare_train(probe.rows,
+                                                ref_rows[:KNOB_STEPS])
+            problems += [f"(c) dots against phase 5: {p}" for p in lanes]
+            row.update(loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
+                       bitwise_phase5=probe.rows == ref_rows[:KNOB_STEPS])
+        else:
+            plan = plan_train_memory(LlamaModule(c, **mkw), FSDP(), 1, None)
+            if (info["lm_head"] or not info["dtensors"]
+                    or info["exp_avg"] != ["torch.bfloat16"]
+                    or plan.params_bytes_per_device != info["params"]
+                    or plan.opt_bytes_per_device != info["opt"]):
+                problems.append(f"(c) tied under FSDP: {info} against the "
+                                f"plan's {plan_terms(plan)}")
+            row.update(strategy="FSDP", mu_dtype="bfloat16",
+                       plan=plan_terms(plan))
+        print(json.dumps(row), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+#: (d): the example's arguments (the 1B model: Llama-3-8B's state is more
+#: than one card holds), its depth, and where it runs (git-ignored;
+#: removed after)
+EXAMPLE_ARGS = ["--model", "1b", "--seq-len", str(TS), "--batch-size",
+                str(TB), "--max-steps", "2", "--mu-bf16", "--remat-policy",
+                "attn_out", "--ce-inline-bwd", "--fused-ce", "on"]
+EXAMPLE_LAYERS = 16
+EXAMPLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "rlt_logs", "chip_smoke_example")
+
+
+def example_leg(problems: list) -> dict:
+    """15 (d): the Llama example (`ray_lightning_tpu_torch.examples.
+    llama_fsdp_example`), the slice's entry point, through its ``main``
+    as ``python -m`` calls it, from a scratch directory where it writes
+    its checkpoint: `EXAMPLE_ARGS`, in this process under its one-rank
+    `ShardedMesh`. It must exit 0 with the summary line's loss finite
+    and within 2 of ln V (random weights' cross-entropy), the first
+    moment bf16, its launches those of 2 steps and a warm-up of a
+    16-layer model under "attn_out" with the bf16 moment, and a
+    checkpoint written. Returns the launches."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.examples import llama_fsdp_example as ex
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    shutil.rmtree(EXAMPLE_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLE_DIR)
+    here, digest = os.getcwd(), os.environ.get("RLT_CKPT_DIGEST")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(EXAMPLE_DIR)
+        # the digest of file sizes, as phases 6 and 8 save
+        os.environ["RLT_CKPT_DIGEST"] = "size"
+        with contextlib.redirect_stdout(out):
+            rc = ex.main(EXAMPLE_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(here)
+        if digest is None:
+            os.environ.pop("RLT_CKPT_DIGEST", None)
+        else:
+            os.environ["RLT_CKPT_DIGEST"] = digest
+    wall = time.perf_counter() - t0
+    ck_dir = os.path.join(EXAMPLE_DIR, "llama_fsdp", "checkpoints")
+    ckpts = sorted(os.listdir(ck_dir)) if os.path.isdir(ck_dir) else []
+    ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(ck_dir) for f in fs)
+    shutil.rmtree(EXAMPLE_DIR, ignore_errors=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    lines = out.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    vocab = ex.model_config(ex.parser().parse_args(EXAMPLE_ARGS)).vocab_size
+    loss = summary.get("loss", math.nan)
+    want = knob_launches(2, attn_out=True, mu=True, layers=EXAMPLE_LAYERS)
+    if not (rc == 0 and math.isfinite(loss)
+            and abs(loss - math.log(vocab)) < 2
+            and summary.get("exp_avg_dtype") == "torch.bfloat16"
+            and summary.get("steps") == 2 and ckpts):
+        problems.append(f"(d) example: rc {rc}, summary {summary}, "
+                        f"checkpoints {ckpts}")
+    if launches != want:
+        problems.append(f"(d) example: launches {launches} != {want}")
+    print(json.dumps(dict(phase="knobs_example", args=EXAMPLE_ARGS,
+                          summary=summary, checkpoints=ckpts,
+                          checkpoint_bytes=ck_bytes,
+                          ln_vocab=math.log(vocab), launches=launches,
+                          wall_s=wall)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def knobs_phase(seed: int, ref_rows):
+    """Phase 15 (a)-(d); returns the launches of (b), (c) and (d)'s fits
+    and (a)'s kernel row."""
+    problems = []
+    free_card("knobs")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    row = adamw_check(gen)
+    total = knobs_fit(seed, problems)
+    dots_recompute(seed, problems)
+    for k, v in short_fits(seed, ref_rows, problems).items():
+        total[k] += v
+    for k, v in example_leg(problems).items():
+        total[k] += v
+    if problems:
+        raise AssertionError("phase 15, the Llama path's knobs: "
+                             + "; ".join(problems))
+    return total, row
+
+
 # ---- phase 14: elastic training, closed-loop autoscale, trace load ---------
 #
-# (a) and (b) run inside phase 6 (c), on its step-4 checkpoint; (c) inside
+# (a) runs inside phase 6 (c), on its step-4 checkpoint; (c) inside
 # phase 4, on its model; (d) after phase 11 (c), on its params file. Each
 # part's seconds land in PHASE14_S, and the timing line's ``phase14_s`` is
 # their sum (taken out of the phases that hold them).
 
-#: (a): tensor ranks (processes sharing the one card over gloo), the step
-#: both save at, and one call's limit
+#: (a): tensor ranks (processes sharing the one card over gloo) and one
+#: call's limit
 ELASTIC_RANKS = 2
-ELASTIC_SAVE_AT = 6
 ELASTIC_TIMEOUT_S = 600
-#: (a) and (b) keep their checkpoint, logs and spans here (git-ignored;
-#: removed after)
+#: (a) keeps its logs and spans here (git-ignored; removed after)
 ELASTIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "rlt_logs", "chip_smoke_elastic")
 #: (c): the trace, in `loadgen.WorkloadConfig` units (the class mix and
@@ -5346,13 +5826,6 @@ def state_leaves(params, osd) -> dict:
     return out
 
 
-def live_leaves(trainer, module) -> dict:
-    """The live training state in the canonical layout (the strategy's
-    `state_dicts`; under the tensor axis a gather)."""
-    return state_leaves(*trainer.strategy.state_dicts(
-        module.model, trainer.state.optimizer))
-
-
 def wrapped_pieces(trainer, module) -> dict:
     """`digest_pieces` of the live training state as the wrapped model
     holds it (under the tensor axis the fused rows head-aligned, each
@@ -5416,19 +5889,17 @@ def setup_split(t0: float, marks: dict, t_fit_start: float) -> dict:
 
 
 class ElasticProbe(Callback):
-    """In a resumed fit (14 (a)'s ranks, (b)): before the first step, the
+    """In a resumed fit (14 (a)'s ranks): before the first step, the
     restored state as ``pieces(trainer, module)`` digests it, with the
     step and the scheduler, and the seconds to there, split
     (`time_restore` marks the strategy's restore); every step's (step,
-    loss, grad_norm); the kernels' launches from then on; at a save,
-    `save_digests` and the save's seconds."""
+    loss, grad_norm); the kernels' launches from then on."""
 
     def __init__(self, pieces, strategy):
         self.pieces = pieces
         self.rec = dict(rows=[])
         self._marks = {}
         time_restore(strategy, self._marks)
-        self._save_t0 = None
         #: the fit's start (set by the caller): the seconds to its
         #: ``on_fit_start`` are the build, the init and the restore
         self.t0 = time.perf_counter()
@@ -5447,17 +5918,6 @@ class ElasticProbe(Callback):
         self.rec["digest_s"] = time.perf_counter() - t0
         for k in all_kernels():
             k.launches = 0
-
-    def on_train_batch_start(self, trainer, module, batch, batch_idx):
-        if self._save_t0 is not None:
-            torch.cuda.synchronize()
-            self.rec["save_s"] = time.perf_counter() - self._save_t0
-            self._save_t0 = None
-
-    def on_save_checkpoint(self, trainer, module, checkpoint):
-        self.rec["saved"] = save_digests(trainer, checkpoint)
-        torch.cuda.synchronize()
-        self._save_t0 = time.perf_counter()
 
     def on_train_batch_end(self, trainer, module, metrics, batch_idx):
         self.rec["rows"].append((trainer.global_step, float(metrics["loss"]),
@@ -5506,8 +5966,8 @@ def elastic_worker(rank: int, world: int, port: int, seed: int, ckpt: str,
                    out: str) -> None:
     """One rank of 14 (a): phase 5's fit resumed from phase 6 (c)'s
     world-1 FSDP checkpoint under ``ShardedMesh(tensor=world)`` in a gloo
-    group on the visible card, steps 5-8, saving at ELASTIC_SAVE_AT;
-    writes what its `ElasticProbe` recorded to ``out``."""
+    group on the visible card, steps 5-8; writes what its `ElasticProbe`
+    recorded to ``out``."""
     import torch.distributed as dist
 
     from ray_lightning_tpu_torch.core.data import DataLoader
@@ -5526,9 +5986,7 @@ def elastic_worker(rank: int, world: int, port: int, seed: int, ckpt: str,
         strategy=strategy, max_steps=TRAIN_STEPS,
         log_every_n_steps=1, enable_checkpointing=False,
         enable_progress_bar=False, seed=seed, telemetry=tdir,
-        callbacks=[probe, ModelCheckpoint(
-            dirpath=os.path.join(ELASTIC_DIR, "ckpt"),
-            every_n_train_steps=ELASTIC_SAVE_AT, save_top_k=-1)])
+        callbacks=[probe])
     torch.cuda.reset_peak_memory_stats()
     t0 = probe.t0 = time.perf_counter()
     # both ranks of the tensor group read every row
@@ -5601,7 +6059,7 @@ def _spawn_ranks(target: str, world: int, args: str, what: str,
 
 def _reshard_problems(what: str, rec: dict, axes, worlds, steps,
                       ref_rows, want_launches, problems: list):
-    """The checks 14 (a)'s ranks and (b) share: the restore bitwise, the
+    """The checks of each of 14 (a)'s ranks: the restore bitwise, the
     move's summary, the reshard span and goodput bucket, the steps, the
     rows within the train limits, the launches by phase 5's formula."""
     if rec["mismatches"] or not rec["leaves"]:
@@ -5636,13 +6094,8 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
     save wrote (``saved``: its `save_digests`, taken by the saving rank),
     the step and scheduler too; the move ["tensor"] world 1 -> 2 with a
     `reshard` span and goodput reshard_s on each rank, steps 5-8 within
-    the train limits of 6 (c)'s resumed rows, launches by phase 5's
-    formula at H 16 / Hkv 4, and both ranks saving their pieces at
-    ELASTIC_SAVE_AT. Returns (the ranks' records, the step-6 checkpoint,
-    launches)."""
-    from ray_lightning_tpu_torch.checkpoint import verify_checkpoint
-    from ray_lightning_tpu_torch.checkpoint.io import read_meta
-
+    the train limits of ``ref_rows``, launches by phase 5's formula at
+    H 16 / Hkv 4. Returns the launches."""
     free_card("elastic_grow")
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     os.makedirs(ELASTIC_DIR)
@@ -5650,7 +6103,7 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
                                f"{seed}, {ckpt!r}", "grow", problems)
     total = {k.__name__: 0 for k in all_kernels()}
     if ranks is None:
-        return None, None, total
+        return total
     bad, n = restore_mismatches([r["restored"] for r in ranks], [saved])
     want = expected_launches(TRAIN_STEPS - RESUME_AT)
     for r in ranks:
@@ -5661,23 +6114,10 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
         if r["rows"] != ranks[0]["rows"]:
             problems.append(f"14 (a) rank {r['rank']}'s rows differ from "
                             "rank 0's")
-        if r["backend"] != "gloo" or "saved" not in r:
-            problems.append(f"14 (a) rank {r['rank']}: {r['backend']}, "
-                            f"saved {'saved' in r}")
+        if r["backend"] != "gloo":
+            problems.append(f"14 (a) rank {r['rank']}: {r['backend']}")
         for k, v in r["launches"].items():
             total[k] += v
-    path = os.path.join(ELASTIC_DIR, "ckpt", f"step={ELASTIC_SAVE_AT}")
-    meta = read_meta(path)
-    live = {k: v for k, v in meta.get("mesh_spec", {}).items() if v > 1}
-    ok, reason = verify_checkpoint(path)
-    if live != {"tensor": ELASTIC_RANKS} or not ok or \
-            (meta.get("topology") or {}).get("process_count") != \
-            ELASTIC_RANKS:
-        problems.append(f"14 (a) step-{ELASTIC_SAVE_AT} checkpoint: "
-                        f"mesh {meta.get('mesh_spec')}, topology "
-                        f"{meta.get('topology')}, verify {reason}")
-    nbytes = sum(os.path.getsize(os.path.join(d, f))
-                 for d, _, fs in os.walk(path) for f in fs)
     print(json.dumps(dict(
         phase="elastic_grow", ranks=ELASTIC_RANKS, backend="gloo",
         lane="correctness (every all-reduce crosses the host)",
@@ -5694,99 +6134,26 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
         grad_norms=[x[2] for x in ranks[0]["rows"]],
         loss_max_abs_diff=d_loss, grad_norm_max_rel_diff=d_gn,
         loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
-        save_s=[r.get("save_s") for r in ranks], save_bytes=nbytes,
-        saved_mesh=meta.get("mesh_spec"),
         peak_gib=[r["peak"] / 2**30 for r in ranks],
         fit_wall_s=[r["fit_wall_s"] for r in ranks], call_wall_s=wall,
         launches=[r["launches"] for r in ranks])), flush=True)
-    return ranks, path, total
-
-
-def elastic_shrink(seed: int, path: str, grown, problems: list) -> dict:
-    """14 (b): 14 (a)'s step-6 checkpoint restored into a one-rank FSDP
-    fit in this process (a one-rank NCCL group the strategy starts, as 6
-    (b)'s): every restored leaf bitwise what the two tensor ranks wrote
-    (their `save_digests`, so the head-aligned rows must be put back),
-    the move ["tensor"] 2 -> 1 spanned, steps 7-8 within the train limits
-    of 14 (a)'s. Returns the launches."""
-    from ray_lightning_tpu_torch.core.data import DataLoader
-    from ray_lightning_tpu_torch.core.trainer import Trainer
-    from ray_lightning_tpu_torch.parallel.strategy import FSDP
-
-    free_card("elastic_shrink")
-    cfg, tokens = train_inputs(seed)
-    strategy = FSDP()
-    probe = ElasticProbe(
-        lambda trainer, module: digest_pieces(live_leaves(trainer, module)),
-        strategy)
-    tdir = os.path.join(ELASTIC_DIR, "telemetry_shrink")
-    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
-                         total_steps=TRAIN_STEPS)
-    trainer = Trainer(strategy=strategy, max_steps=TRAIN_STEPS,
-                      log_every_n_steps=1, enable_checkpointing=False,
-                      enable_progress_bar=False, seed=seed, telemetry=tdir,
-                      callbacks=[probe])
-    torch.cuda.reset_peak_memory_stats()
-    t0 = probe.t0 = time.perf_counter()
-    trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB),
-                ckpt_path=path)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    trainer.strategy.teardown()
-    rec = dict(probe.rec, **_read_telemetry(tdir, 0))
-    bad, n = restore_mismatches([rec["restored"]],
-                                [r["saved"] for r in grown])
-    rec.update(mismatches=bad, leaves=n)
-    ref = [tuple(r[1:]) for r in grown[0]["rows"]
-           if r[0] > ELASTIC_SAVE_AT]
-    d_loss, d_gn = _reshard_problems(
-        "14 (b)", rec, ["tensor"], (ELASTIC_RANKS, 1),
-        range(ELASTIC_SAVE_AT + 1, TRAIN_STEPS + 1), ref,
-        expected_launches(TRAIN_STEPS - ELASTIC_SAVE_AT), problems)
-    nbytes = sum(os.path.getsize(os.path.join(d, f))
-                 for d, _, fs in os.walk(path) for f in fs)
-    print(json.dumps(dict(
-        phase="elastic_shrink", strategy="FSDP", world=1,
-        held_against="14 (a)'s ranks' step-6 save digests",
-        move=rec["move"], leaves=n, mismatches=len(bad),
-        setup_s=rec["setup_s"], setup_split=rec["setup_split"],
-        restore_digest_s=rec["digest_s"],
-        restore_s=rec["reshard_span_s"], restore_bytes=nbytes,
-        restore_gb_per_s=[nbytes / s / 1e9 for s in rec["reshard_span_s"]
-                          if s],
-        reshard_s=rec["reshard_s"],
-        steps=[x[0] for x in rec["rows"]], losses=[x[1] for x in rec["rows"]],
-        grad_norms=[x[2] for x in rec["rows"]], loss_max_abs_diff=d_loss,
-        grad_norm_max_rel_diff=d_gn,
-        max_memory_allocated_gib=rec["peak"] / 2**30, fit_wall_s=wall,
-        launches=rec["launches"])), flush=True)
-    del trainer, module
-    gc.collect()
-    torch.cuda.empty_cache()
-    return rec["launches"]
+    return total
 
 
 def elastic_phase(seed: int, ckpt: str, saved, ref_rows) -> dict:
-    """14 (a) and (b), inside phase 6 (c) on its step-4 checkpoint
-    (``saved``: the digests its saving rank took; ``ref_rows``: 6 (c)'s
-    resumed rows 5-8). Returns the launches."""
+    """14 (a), inside phase 6 (c) on its step-4 checkpoint (``saved``:
+    the digests its saving rank took; ``ref_rows``: phase 6 (a)'s rows
+    5-8, phase 5's bitwise). Returns the launches."""
     problems = []
     t0 = time.perf_counter()
-    total = {k.__name__: 0 for k in all_kernels()}
     try:
-        grown, path, launches = elastic_grow(seed, ckpt, saved, ref_rows,
-                                             problems)
-        for k, v in launches.items():
-            total[k] += v
-        if grown is not None and not problems:
-            for k, v in elastic_shrink(seed, path, grown, problems).items():
-                total[k] += v
+        total = elastic_grow(seed, ckpt, saved, ref_rows, problems)
     finally:
         shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
         PHASE14_S["elastic"] = time.perf_counter() - t0 \
             + saved["digest_s"]
     if problems:
-        raise AssertionError("phase 14 (a)/(b): " + "; ".join(problems))
+        raise AssertionError("phase 14 (a): " + "; ".join(problems))
     return total
 
 
@@ -5963,12 +6330,13 @@ def autoscale_phase(model, ecfg) -> dict:
 
 
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
-           "rmsnorm"]
+           "rmsnorm", "adamw"]
 
 
 def all_kernels():
     """Every kernel wrapper with a launch counter."""
     from ray_lightning_tpu_torch.ops.kernels import flash
+    from ray_lightning_tpu_torch.ops.kernels.adamw import adamw_step_kernel
     from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
         paged_attention_kernel)
     from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
@@ -5977,7 +6345,7 @@ def all_kernels():
 
     return (paged_attention_kernel, paged_prefill_kernel, rms_norm_kernel,
             flash.flash_fwd_kernel, flash.flash_bwd_dkv_kernel,
-            flash.flash_bwd_dq_kernel)
+            flash.flash_bwd_dq_kernel, adamw_step_kernel)
 
 
 def nvidia_smi() -> str:
@@ -6098,18 +6466,19 @@ def main() -> int:
     plan_launches = planner_phase(SEED, train_rows, train_live)
     lap("planner")
 
+    # 15. the Llama path's knobs: the AdamW kernel with a bf16 first
+    # moment, phase 5's fit under mu_dtype + "attn_out" + the inline CE,
+    # a "dots" fit, a tied fit under FSDP and the Llama example
+    knob_launches, adamw_row = knobs_phase(SEED, train_rows)
+    rows.append(adamw_row)
+    lap("knobs")
+
     # 6. training across processes: fit_distributed under FSDP,
-    # DataParallel in this process, a checkpoint and its resume, and the
-    # MNIST train/load/predict matrix
-    dist_launches = dist_phase(SEED, train_rows)
+    # DataParallel in this process, a checkpoint (resumed by 14 (a) and 8
+    # (a)), and the MNIST train/load/predict matrix
+    dist_launches, dist_ckpt = dist_phase(SEED, train_rows)
     lap("dist")
     walls["dist"] -= PHASE14_S["elastic"]
-
-    # 10b. the same fit through a loopback "remote" worker under FSDP's
-    # overlap schedule
-    for k, v in hot_loop_remote(SEED, train_rows).items():
-        hot_launches[k] += v
-    lap("hot_loop_remote")
 
     # 7. the sweep: Llama-3-8B trials under ASHA, each in its own process
     # on the card, and the reference's Tune example over fit_distributed
@@ -6119,7 +6488,7 @@ def main() -> int:
     # 8. resilience: a SIGKILL'd FSDP fit resumed under the supervisor,
     # the trainguard's skip, preemption / stall / corruption recovered,
     # the SDC digest on the card
-    res_launches = resilience_phase(SEED, train_rows)
+    res_launches = resilience_phase(SEED, train_rows, dist_ckpt)
     lap("resilience")
 
     # 10c. the perf CLI on the card
@@ -6140,15 +6509,17 @@ def main() -> int:
         # 9c's share is inside "resilience" (its rows carry the timeline
         # CLI's seconds)
         phase9_s=t_9b + t_probe + walls["telemetry_train"],
-        phase10_s=sum(walls[k] for k in ("hot_loop_sync", "hot_loop_remote",
+        # (b) is 6 (a): its wall is inside "dist"
+        phase10_s=sum(walls[k] for k in ("hot_loop_sync",
                                          "hot_loop_perf")),
         phase11_s=t_11ab + walls["driver_process"],
         # (d)'s share is inside phases 6-8 and 10 (b)
         phase12_s=walls["planner"],
         phase13_s=walls["rest_of_serving"],
-        # (a) and (b) inside phase 6 (c), (c) inside phase 4, (d) after
+        # (a) inside phase 6 (c), (c) inside phase 4, (d) after
         # 11 (c); 8 (a)'s refused grow costs no time
         phase14_s=sum(PHASE14_S.values()),
+        phase15_s=walls["knobs"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:
@@ -6158,7 +6529,7 @@ def main() -> int:
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
                 + tel_launches[k] + dist_launches[k] + sweep_launches[k]
                 + res_launches.get(k, 0) + hot_launches[k]
-                + plan_launches[k]
+                + plan_launches[k] + knob_launches[k]
                 for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",
@@ -6179,7 +6550,15 @@ def main() -> int:
         "flash_bwd_dq": ("flash_bwd_dq_kernel", "cuda",
                          "ray_lightning_tpu_torch/ops/csrc/flash_bwd.cu",
                          "ray_lightning_tpu/ops/pallas/flash.py:221"),
+        # replaces no Pallas kernel (note below)
+        "adamw_step": ("adamw_step_kernel", "cuda",
+                       "ray_lightning_tpu_torch/ops/csrc/adamw.cu", None),
     }
+    notes = {"adamw_step": "replaces no Pallas kernel: the JAX package's "
+             "update is optax adamw(mu_dtype=), fused by XLA "
+             "(ray_lightning_tpu/models/llama.py LlamaModule."
+             "configure_optimizers); no torch optimizer computes the "
+             "update from the f32 moment before storing it in bf16"}
     summary = []
     for name, (fn, route, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -6195,7 +6574,8 @@ def main() -> int:
             ms=main_shape["kernel_ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"],
             bound_by=main_shape["bound_by"],
-            library_ms=main_shape["library_ms"]))
+            library_ms=main_shape["library_ms"],
+            **({"note": notes[name]} if name in notes else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ _NAMES = {
     "LlamaModule": "llama",
     "generate": "llama",
     "init_cache": "llama",
+    "llama_params_from_hf": "hf_interop",
     "MLP": "mlp",
     "MLPClassifier": "mlp",
     "MNISTClassifier": "mlp",
@@ -16,11 +17,12 @@ _ITEM_13 = "ROADMAP Queue 1 item 13 (the remaining models)"
 _MISSING = {
     **{n: _ITEM_13 for n in (
         "BertClassifierModule", "BertConfig", "BertEncoder",
-        "BertForSequenceClassification", "bert_classifier_params_from_hf",
-        "bert_params_from_hf", "MoEClassifierModule", "MoEMLP",
+        "BertForSequenceClassification", "MoEClassifierModule", "MoEMLP",
         "moe_param_specs", "ResNet", "ResNetModule", "resnet18",
         "resnet34", "resnet50")},
-    "llama_params_from_hf": "ROADMAP Queue 1 item 3 (models/hf_interop.py)",
+    **{n: "ROADMAP Queue 1 item 13 (d) (BERT and the BERT half of "
+          "models/hf_interop.py)" for n in (
+        "bert_classifier_params_from_hf", "bert_params_from_hf")},
 }
 
 __all__ = list(_NAMES)

@@ -18,11 +18,13 @@ of all data-parallel ranks.
 
 Four attention paths, as in `LlamaBlock.__call__`:
 
-  * TRAINING (``cache is None``): RoPE on the first S positions, then
+  * TRAINING (``cache is None``): the QKV projection and RoPE on the
+    first S positions as one operator (`ops.remat.qkv_rope`), then
     causal `flash_attention` (the hand-written forward and backward
     kernels), each block under `torch.utils.checkpoint` when
     ``cfg.remat`` (policy "nothing": the block's input is kept, the rest
-    recomputed in the backward);
+    recomputed in the backward; "dots" and "attn_out" keep more,
+    `ops/remat.py`);
   * paged PREFILL (`PagedPrefillView`): a CH-token chunk per group row
     against one layer's shared block pool; the chunk's K/V is written
     into the pool before attention (`ops.attention.paged_prefill`);
@@ -51,8 +53,9 @@ KV heads and whose logits are gathered whole on every rank.
 
 Weights live in one state dict whose keys mirror the flax tree:
 ``tok_embed``, ``layers.{i}.{attn_norm,wqkv,wo,mlp_norm,w_gate_up,
-w_down}``, ``final_norm``, ``lm_head``; linears in the `nn.Linear`
-layout ``[out, in]``.
+w_down}``, ``final_norm``, ``lm_head`` (absent under ``tie_embeddings``,
+where the embedding is the head); linears in the `nn.Linear` layout
+``[out, in]``.
 """
 from __future__ import annotations
 
@@ -67,7 +70,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_lightning_tpu_torch.core.module import TpuModule
-from ray_lightning_tpu_torch.ops import dispatch
 from ray_lightning_tpu_torch.ops.attention import (
     PagedDecodeView,
     PagedPrefillView,
@@ -78,10 +80,12 @@ from ray_lightning_tpu_torch.ops.attention import (
 )
 from ray_lightning_tpu_torch.ops.fused_ce import (
     fused_cross_entropy_sum,
+    inline_cross_entropy,
     vocab_parallel_cross_entropy_sum,
 )
 from ray_lightning_tpu_torch.ops.norms import rms_norm
 from ray_lightning_tpu_torch.ops.precision import pin_f32_accumulation
+from ray_lightning_tpu_torch.ops.remat import checkpoint_context_fn, qkv_rope
 from ray_lightning_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from ray_lightning_tpu_torch.parallel.tensor import (
     column_linear,
@@ -104,18 +108,24 @@ class LlamaConfig:
     max_seq_len: int = 8192
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    #: the embedding is the head too: no ``lm_head`` weight; the logits
+    #: are the f32 product of the hidden states and the table (the JAX
+    #: ``embed.attend`` over its f32 table)
+    tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
     #: checkpoint each block in training (the backward recomputes it)
     remat: bool = True
-    #: what the checkpoint saves; only "nothing" (the block input) is
-    #: ported, "dots" and "attn_out" raise when a model is built
+    #: what the checkpoint saves beyond the block input (`ops/remat.py`):
+    #: "nothing", "dots" (the projection GEMMs' outputs) or "attn_out" (q
+    #: and k after RoPE, v, and the flash kernel's O and lse)
     remat_policy: str = "nothing"
     #: chunked fused cross-entropy for the loss (ops/fused_ce.py); None =
     #: auto, on for vocabularies of 2**16 or more
     fused_ce: Optional[bool] = None
     #: logits tile height of the fused CE
     ce_chunk_tokens: int = 1024
-    #: the fused CE's inline-backward variant (raises: not ported yet)
+    #: the fused CE computes its gradients inside the forward's chunk loop
+    #: (no logits tile built twice) for a [V, D] f32 residual
     ce_inline_bwd: bool = False
 
     def __post_init__(self):
@@ -198,17 +208,18 @@ class LlamaBlock(nn.Module):
             # its Hkv/tp KV heads
             n_q, n_kv = n_q // tp.size, n_kv // tp.size
         h = rms_norm(x, local(self.attn_norm), cfg.norm_eps)
+        if cache is None:
+            # the QKV GEMM and RoPE as one operator, which the remat
+            # policies "dots" and "attn_out" keep (ops/remat.py)
+            q, k, v = qkv_rope(h, local(self.wqkv).to(cfg.dtype), cos, sin,
+                               n_q, n_kv, hd, tp)
+            return self._finish(x, flash_attention(q, k, v, causal=True))
         qkv = column_linear(h, local(self.wqkv).to(cfg.dtype), tp)
         q, k, v = torch.split(qkv, [n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.reshape(B, S, n_q, hd)
         k = k.reshape(B, S, n_kv, hd)
         v = v.reshape(B, S, n_kv, hd)
         ar = torch.arange(S, device=x.device)
-        if cache is None:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-            attn = flash_attention(q, k, v, causal=True)
-            return self._finish(x, attn)
         ck, cv = cache
         if isinstance(paged, PagedPrefillView):
             positions = (pos + ar)[None, :].expand(B, S)
@@ -300,10 +311,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
-        if cfg.remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet "
-                "(ROADMAP Queue 1 item 3); use 'nothing'")
         dev = resolve_device(device)
         pin_f32_accumulation()
         self.cfg = cfg
@@ -312,7 +319,8 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, dev, wd) for _ in range(cfg.n_layers)])
         self.final_norm = _param((cfg.dim,), torch.float32, dev)
-        self.lm_head = _param((cfg.vocab_size, cfg.dim), wd, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.vocab_size, cfg.dim), wd, dev)
         self.tp = None
         self.register_buffer("cos", None, persistent=False)
         self.register_buffer("sin", None, persistent=False)
@@ -336,6 +344,13 @@ class Llama(nn.Module):
             layer.tp = tp
 
     @property
+    def head(self) -> torch.Tensor:
+        """The output projection [V, D]: ``lm_head``, or the embedding
+        table of a tied model."""
+        return (self.tok_embed if self.cfg.tie_embeddings
+                else self.lm_head)
+
+    @property
     def device(self) -> torch.device:
         t = self.tok_embed
         return t.to_local().device if hasattr(t, "to_local") else t.device
@@ -352,10 +367,10 @@ class Llama(nn.Module):
                                      self.tp).to(cfg.dtype)
         if cache is None:
             remat = cfg.remat and torch.is_grad_enabled()
+            context_fn = checkpoint_context_fn(cfg.remat_policy)
             for layer in self.layers:
                 x = (checkpoint(layer, x, self.cos, self.sin,
-                                use_reentrant=False,
-                                context_fn=dispatch.checkpoint_context_fn)
+                                use_reentrant=False, context_fn=context_fn)
                      if remat else layer(x, self.cos, self.sin))
         else:
             ck, cv = cache
@@ -366,7 +381,12 @@ class Llama(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """lm_head projection keeping the f32 accumulator (under the
-        tensor axis, every rank's vocabulary slice gathered)."""
+        tensor axis, every rank's vocabulary slice gathered); a tied
+        model's is the f32 product with the embedding table."""
+        if self.cfg.tie_embeddings:
+            return vocab_parallel_logits(h.float().contiguous(),
+                                         local(self.tok_embed).float(),
+                                         self.tp)
         return vocab_parallel_logits(h.contiguous(),
                                      local(self.lm_head).to(self.cfg.dtype),
                                      self.tp)
@@ -384,20 +404,29 @@ class Llama(nn.Module):
         if targets is None:
             return self.logits(h)
         cfg = self.cfg
-        if self.tp is not None:
+        head = local(self.head)
+        if cfg.use_fused_ce and cfg.ce_inline_bwd:
+            # the gradients come from the forward's chunk loop, which
+            # takes the denominator first
+            return inline_cross_entropy(
+                h, head, targets, mask, denominator,
+                chunk_tokens=cfg.ce_chunk_tokens, compute_dtype=cfg.dtype,
+                tp=self.tp)
+        if self.tp is not None and (cfg.use_fused_ce
+                                    or not cfg.tie_embeddings):
             # the vocab-split loss: chunked and recomputed as the fused CE,
-            # or one tile of every token (the materialized logits' loss)
+            # or one tile of every token (the materialized logits' loss;
+            # a tied model's is its f32 logits' below)
             fused = cfg.use_fused_ce
             loss_sum, count = vocab_parallel_cross_entropy_sum(
-                h, local(self.lm_head), targets, self.tp, mask,
+                h, head, targets, self.tp, mask,
                 chunk_tokens=(cfg.ce_chunk_tokens if fused
                               else targets.numel()),
                 compute_dtype=cfg.dtype, checkpointed=fused)
         elif cfg.use_fused_ce:
             loss_sum, count = fused_cross_entropy_sum(
-                h, self.lm_head, targets, mask,
-                chunk_tokens=cfg.ce_chunk_tokens, compute_dtype=cfg.dtype,
-                inline_backward=cfg.ce_inline_bwd)
+                h, head, targets, mask, chunk_tokens=cfg.ce_chunk_tokens,
+                compute_dtype=cfg.dtype)
         else:
             loss_sum, count = token_loss_sum(self.logits(h), targets, mask)
         if denominator is None:
@@ -467,8 +496,9 @@ def llama_param_specs(cfg: LlamaConfig) -> Dict[str, tuple]:
     lm_head split the vocabulary. The strategies overlay ``fsdp`` on a
     free dimension."""
     specs: Dict[str, tuple] = {"tok_embed": ("tensor", None),
-                               "final_norm": (),
-                               "lm_head": ("tensor", None)}
+                               "final_norm": ()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("tensor", None)
     for i in range(cfg.n_layers):
         for k, v in _PER_LAYER_SPECS.items():
             specs[f"layers.{i}.{k}"] = v
@@ -512,7 +542,8 @@ def params_from_jax(params_np: Dict[str, Any], cfg: LlamaConfig,
     as they are. Matmul weights and the embedding are stored in ``dtype``
     (default ``cfg.dtype``: the serving model, where rounding once at
     load rounds as the JAX model's cast at each use does; the trainer
-    passes float32 for its master weights). Norm gains stay f32."""
+    passes float32 for its master weights). Norm gains stay f32. A tied
+    config's tree has no ``lm_head``."""
     wd = dtype or cfg.dtype
 
     def t(a, dtype):
@@ -526,8 +557,9 @@ def params_from_jax(params_np: Dict[str, Any], cfg: LlamaConfig,
                 for k, v in params_np[f"layer_{i}"].items()}
 
     sd = {"tok_embed": t(params_np["tok_embed"]["embedding"], wd),
-          "final_norm": t(params_np["final_norm"], torch.float32),
-          "lm_head": t(np.asarray(params_np["lm_head"]["kernel"]).T, wd)}
+          "final_norm": t(params_np["final_norm"], torch.float32)}
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = t(np.asarray(params_np["lm_head"]["kernel"]).T, wd)
     for i in range(cfg.n_layers):
         lp = layer(i)
         for name in _LAYER_KERNELS:
@@ -674,18 +706,18 @@ class LlamaModule(TpuModule):
     parameter under optax's warmup-cosine schedule. The AdamW is torch's
     fused one with a tensor lr under `DeviceLambdaLR`: the trainguard's
     skip (``found_inf``) then leaves the moments, the step counts and the
-    schedule's position as they were, on the device."""
+    schedule's position as they were, on the device. ``mu_dtype=
+    torch.bfloat16`` (the twin of optax's ``mu_dtype``) stores the first
+    moment in bf16 through `core.optim.MuAdamW`, whose one-launch kernel
+    computes the update from the f32 moment before rounding it; the second
+    moment stays f32. ``mu_dtype`` None or ``torch.float32`` is the fused
+    AdamW."""
 
     def __init__(self, cfg: Optional[LlamaConfig] = None,
                  lr: float = 3e-4, weight_decay: float = 0.1,
                  warmup_steps: int = 100, total_steps: int = 10000,
                  mu_dtype: Optional[Any] = None, **cfg_overrides):
         super().__init__()
-        if mu_dtype is not None:
-            raise NotImplementedError(
-                "LlamaModule(mu_dtype=...) is not ported yet (ROADMAP "
-                "Queue 1 item 3): torch's AdamW keeps its moments in the "
-                "parameters' dtype")
         if cfg is None:
             cfg = LlamaConfig(**cfg_overrides)
         elif cfg_overrides:
@@ -695,6 +727,7 @@ class LlamaModule(TpuModule):
         self.weight_decay = weight_decay
         self.warmup_steps = warmup_steps
         self.total_steps = total_steps
+        self.mu_dtype = mu_dtype
         self.save_hyperparameters(
             cfg=cfg, lr=lr, weight_decay=weight_decay,
             warmup_steps=warmup_steps, total_steps=total_steps,
@@ -736,11 +769,19 @@ class LlamaModule(TpuModule):
         from ray_lightning_tpu_torch.core.schedule import DeviceLambdaLR
 
         lr = self.lr
-        opt = torch.optim.AdamW(
-            self.model.parameters(),
-            lr=torch.tensor(lr, dtype=torch.float32, device=self.device),
-            betas=(0.9, 0.95), eps=1e-8, weight_decay=self.weight_decay,
-            fused=True)
+        kw = dict(lr=torch.tensor(lr, dtype=torch.float32,
+                                  device=self.device),
+                  betas=(0.9, 0.95), eps=1e-8,
+                  weight_decay=self.weight_decay)
+        if self.mu_dtype in (None, torch.float32):
+            opt = torch.optim.AdamW(self.model.parameters(), fused=True, **kw)
+        elif self.mu_dtype == torch.bfloat16:
+            from ray_lightning_tpu_torch.core.optim import MuAdamW
+
+            opt = MuAdamW(self.model.parameters(), **kw)
+        else:
+            raise ValueError(f"mu_dtype={self.mu_dtype}: bfloat16 (MuAdamW) "
+                             "or float32 / None (the fused AdamW)")
 
         def factor(step: torch.Tensor) -> torch.Tensor:
             if not lr:

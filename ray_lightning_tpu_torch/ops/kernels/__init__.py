@@ -8,6 +8,7 @@ def launch_counts() -> dict:
     for every hand-written kernel of this process (a wrapper counts its
     own launches on the card; every count stays 0 on the CPU)."""
     from ray_lightning_tpu_torch.ops.kernels import (
+        adamw,
         flash,
         paged_attention,
         paged_prefill,
@@ -18,4 +19,4 @@ def launch_counts() -> dict:
         paged_attention.paged_attention_kernel,
         paged_prefill.paged_prefill_kernel, rmsnorm.rms_norm_kernel,
         flash.flash_fwd_kernel, flash.flash_bwd_dkv_kernel,
-        flash.flash_bwd_dq_kernel)}
+        flash.flash_bwd_dq_kernel, adamw.adamw_step_kernel)}

@@ -266,17 +266,37 @@ flash_bwd_dkv_kernel.launches = 0
 flash_bwd_dq_kernel.launches = 0
 
 
+@torch.library.custom_op("rltt::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, q_offset: int, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd_kernel` as an operator of its own (``rltt::flash_fwd``):
+    a `TorchDispatchMode` sees it, so selective checkpointing can save its
+    ``(o, lse)`` and skip it in the recomputation (remat policy
+    "attn_out", `ops/remat.py`). It launches the kernel on CUDA tensors
+    and runs the plain version on CPU tensors, as the wrapper does."""
+    return flash_fwd_kernel(q, k, v, causal, q_offset, scale)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, q_offset, scale):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with the kernels' backward (twin of the custom-vjp
     `_flash_bhsd`): the forward saves ``(q, k, v, o, lse)``, as
     `_flash_fwd_rule` does, and the backward computes delta, then runs
     pass 1 (dK, dV) and pass 2 (dQ). Under `torch.utils.checkpoint` the
-    forward runs again in the backward, launching its kernel again."""
+    forward runs again in the backward, launching its kernel again,
+    unless the checkpoint's policy saved the ``rltt::flash_fwd``
+    operator's outputs ("attn_out")."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int, scale: float):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd_kernel(q, k, v, causal, q_offset, scale)
+        o, lse = flash_fwd_op(q, k, v, causal, q_offset, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, q_offset, scale)
         return o

@@ -18,9 +18,11 @@ the prefix-sharing and speculative pricing), one rank of it with
     python -m ray_lightning_tpu_torch plan --serve --preset llama3-8b \\
         --seq 4096 --serve-slots 4 [--serve-block-size 16] [--tp 2]
 
-``--mu-bf16`` and ``--ce-inline-bwd`` report ``not_ported`` with their
-ROADMAP items and exit 2; the trace section (the JAX CLI's jaxpr audit)
-reports ``not_ported`` too.
+``--mu-bf16`` plans the bf16 first moment (`core.optim.MuAdamW`),
+``--ce-inline-bwd`` the fused CE's inline backward and its residuals,
+``--remat-policy`` the blocks' checkpoint policy (a port option: the JAX
+CLI plans "nothing"). The trace section (the JAX CLI's jaxpr audit)
+reports ``not_ported``.
 """
 from __future__ import annotations
 
@@ -30,9 +32,6 @@ import sys
 
 #: what the JAX CLI's legs need, by ROADMAP item
 NOT_PORTED = {
-    "mu_bf16": "ROADMAP Queue 1 item 3 (LlamaModule(mu_dtype=))",
-    "ce_inline_bwd": "ROADMAP Queue 1 item 3 (the fused CE's inline "
-                     "backward)",
     "trace": "ROADMAP Queue 1 item 13 (analysis/tracecheck.py as a "
              "torch.fx walk)",
 }
@@ -67,9 +66,15 @@ def add_plan_parser(sub) -> None:
                    help="ignore --batch and report the largest per-device "
                         "batch that fits")
     p.add_argument("--ce-inline-bwd", action="store_true",
-                   help="not ported (item 3)")
+                   help="the fused CE's inline backward: charge its "
+                        "dx and f32 dW residuals")
     p.add_argument("--mu-bf16", action="store_true",
-                   help="not ported (item 3)")
+                   help="Adam's first moment in bf16 (LlamaModule("
+                        "mu_dtype=torch.bfloat16))")
+    p.add_argument("--remat-policy", choices=("nothing", "dots", "attn_out"),
+                   default="nothing",
+                   help="the blocks' checkpoint policy ('attn_out' charges "
+                        "its saved attention residuals)")
     p.add_argument("--serve", action="store_true",
                    help="plan a SERVING replica instead of a training "
                         "step: weights + paged KV pool + gathered view "
@@ -98,6 +103,8 @@ def _invalid(msg: str, as_json: bool, **extra) -> int:
 
 
 def run_plan(args) -> int:
+    import torch
+
     from ray_lightning_tpu_torch.models.llama import LlamaConfig, LlamaModule
     from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
     from ray_lightning_tpu_torch.parallel.plan import (
@@ -112,11 +119,6 @@ def run_plan(args) -> int:
     as_json = getattr(args, "as_json", False)
     if args.serve:
         return _run_serve_plan(args, as_json)
-    for leg in ("mu_bf16", "ce_inline_bwd"):
-        if getattr(args, leg):
-            return _invalid(f"--{leg.replace('_', '-')} is not ported yet "
-                            f"({NOT_PORTED[leg]})", as_json,
-                            not_ported=NOT_PORTED[leg])
     checked = ("data", "fsdp", "tensor", "seq") if args.find_max_batch \
         else ("data", "fsdp", "tensor", "batch", "seq")
     for name in checked:
@@ -125,7 +127,13 @@ def run_plan(args) -> int:
                             f"{getattr(args, name)}", as_json)
     presets = {"llama3-8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
     cfg = presets[args.preset](remat=True, fused_ce=True,
-                               max_seq_len=args.seq)
+                               max_seq_len=args.seq,
+                               ce_inline_bwd=args.ce_inline_bwd,
+                               remat_policy=args.remat_policy)
+    mu_dtype = torch.bfloat16 if args.mu_bf16 else None
+
+    def module():
+        return LlamaModule(cfg, mu_dtype=mu_dtype)
 
     def strategy():
         return ShardedMesh(data=args.data, fsdp=args.fsdp,
@@ -145,7 +153,7 @@ def run_plan(args) -> int:
     try:
         if args.find_max_batch:
             local, plan = find_max_local_batch(
-                LlamaModule(cfg), strategy(), n_devices, None,
+                module(), strategy(), n_devices, None,
                 lambda b: llama_activation_bytes(
                     cfg, b, args.seq,
                     weight_shard_degree=args.fsdp * args.tensor)
@@ -171,7 +179,7 @@ def run_plan(args) -> int:
                 _print_extra(overlap_bytes, trace)
             return 0 if local >= 1 else 1
         plan = plan_train_memory(
-            LlamaModule(cfg), strategy(), n_devices, None,
+            module(), strategy(), n_devices, None,
             activation_bytes_per_device=llama_activation_bytes(
                 cfg, args.batch // dp, args.seq,
                 weight_shard_degree=args.fsdp * args.tensor)

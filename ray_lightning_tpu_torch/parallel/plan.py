@@ -8,10 +8,10 @@ prove a training configuration fits the card BEFORE allocating it.
     (`Strategy.planned_shard`, the code `wrap_model` lays the shards out
     with) over a shape-only mesh (axis sizes, no process group). That
     includes FSDP2's ``Shard(0)`` with its ceil-padded storage where the
-    JAX rule replicates a leaf. The optimizer's bytes are what torch's
-    fused AdamW holds after its first step: two moments shaped and
-    sharded like the parameters, and one f32 ``step`` scalar a
-    parameter;
+    JAX rule replicates a leaf. The optimizer's bytes are what its state
+    holds after the first step: two moments shaped and sharded like the
+    parameters, each in its stored dtype (`core.optim.MuAdamW`'s first
+    moment in bf16), and one f32 ``step`` scalar a parameter;
   * activations are an analytic bound (`llama_activation_bytes`, the JAX
     formula unchanged).
 
@@ -133,19 +133,29 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
 
 def optimizer_state_bytes(optimizer, shapes: Mapping[int, tuple]) -> int:
     """The device bytes ``optimizer`` holds after its first step, for
-    parameters of the given (per-device) shapes, keyed by ``id(param)``:
-    Adam and AdamW keep two moments (three with amsgrad) shaped like each
-    parameter and, fused or capturable, an f32 ``step`` scalar on the
-    device (else on the host). Other optimizers raise."""
+    parameters of the given (per-device) shapes, keyed by ``id(param)``,
+    each moment at the dtype it is stored in: Adam and AdamW keep two
+    moments (three with amsgrad) in the parameter's dtype and, fused or
+    capturable, an f32 ``step`` scalar on the device (else on the host);
+    `core.optim.MuAdamW` keeps its first moment in bf16, its second in
+    f32 and an f32 ``step``. Other optimizers raise."""
+    from ray_lightning_tpu_torch.core.optim import MuAdamW
+
     total = 0
     for group in optimizer.param_groups:
         for p in group["params"]:
-            n = _nbytes(shapes[id(p)], p.dtype)
+            shape = shapes[id(p)]
+            if isinstance(optimizer, MuAdamW):
+                total += (_nbytes(shape, optimizer.mu_dtype)
+                          + _nbytes(shape, torch.float32)
+                          + torch.float32.itemsize)
+                continue
             if not isinstance(optimizer, (torch.optim.Adam,
                                           torch.optim.AdamW)):
                 raise NotImplementedError(
                     f"the planner counts Adam and AdamW state, not "
                     f"{type(optimizer).__name__}")
+            n = _nbytes(shape, p.dtype)
             total += n * (3 if group.get("amsgrad") else 2)
             if group.get("fused") or group.get("capturable"):
                 total += torch.float32.itemsize

@@ -67,6 +67,40 @@ from ray_lightning_tpu_torch.utils.dist import global_norm
 log = logging.getLogger(__name__)
 
 
+#: the fused steps of the built-in modules' optimizers (`LlamaModule`'s
+#: AdamW, `MNISTClassifier`'s Adam) with the schedule's device tensor lr
+#: (`core.schedule.DeviceLambdaLR`): torch ships them without a Meta
+#: kernel
+_TENSOR_LR_STEPS = ("_fused_adamw_.tensor_lr", "_fused_adam_.tensor_lr")
+_META_LIB = []
+
+
+def register_fused_step_meta() -> None:
+    """Give each of `_TENSOR_LR_STEPS` that lacks one a Meta kernel that
+    does nothing (the ops update their inputs in place and return none).
+    DTensor's sharding propagation runs an op on fake tensors; with no
+    Meta kernel the fake run falls back to the real kernel on real
+    zero-filled copies of every argument: every parameter, gradient and
+    moment copied once more on the first step of each process (a fresh
+    FSDP worker's warm start at Llama-3-8B width, 4 layers, on an H100:
+    13.4 s with the fallback, 1.4 s without). The step's values do not
+    change. Idempotent."""
+    if _META_LIB:
+        return
+    lib = torch.library.Library("aten", "IMPL")
+    for name in _TENSOR_LR_STEPS:
+        op = "aten::" + name
+        if (not torch._C._dispatch_has_kernel(op)
+                or torch._C._dispatch_has_kernel_for_dispatch_key(op, "Meta")):
+            continue
+        lib.impl(name, _fused_step_noop, "Meta")
+    _META_LIB.append(lib)
+
+
+def _fused_step_noop(*args, **kwargs) -> None:
+    return None
+
+
 class Strategy:
     """Base strategy: one device, no process group."""
 
@@ -440,6 +474,7 @@ class FSDP(_GroupStrategy):
     def wrap_model(self, model):
         from torch.distributed.fsdp import FSDPModule
 
+        register_fused_step_meta()
         if isinstance(model, FSDPModule):
             return model
         return self._shard_units(model, self.mesh, self._placement)
@@ -764,6 +799,7 @@ class ShardedMesh(FSDP):
         from torch.distributed.fsdp import FSDPModule
         from torch.distributed.tensor import Shard
 
+        register_fused_step_meta()
         if isinstance(model, FSDPModule) or getattr(model, "_rlt_wrapped",
                                                     False):
             return model

@@ -39,6 +39,7 @@ import dataclasses
 from typing import Any, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from ray_lightning_tpu_torch.ops.precision import (
     _mm_f32_out,
@@ -90,7 +91,14 @@ class _RowLinear(torch.autograd.Function):
     def forward(ctx, x, w, tp):
         ctx.save_for_backward(x, w)
         x2 = x.reshape(-1, x.shape[-1])
-        out = _all_reduce(_mm_f32_out(x2, w), tp).to(x.dtype)
+        part = _mm_f32_out(x2, w)
+        if _get_current_dispatch_mode_stack():
+            # a selective checkpoint's cache (remat policy "dots",
+            # ops/remat.py) may keep the GEMM's own output for the
+            # recomputation, which must find it unreduced: the all-reduce
+            # works on a copy
+            part = part.clone()
+        out = _all_reduce(part, tp).to(x.dtype)
         return out.reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod

@@ -27,12 +27,21 @@ other's writer.
   control state (drain, pause). The respawned worker reads it from
   offset 0; the scheduler's determinism makes the replayed streams
   bitwise.
-- **Cursor files** (``epoch<k>.cursor``): a leader's iteration journal
-  that lets followers of a multi-rank replica apply the same commands
-  at the same loop iteration. The port's replicas are one rank each
-  until tensor-parallel replicas come (ROADMAP Queue 1 item 8), so only
-  the tests write and read them; the format is kept so both packages'
-  logs stay one format.
+- **Cursor files** (``epoch<k>.cursor``): the lockstep of a
+  tensor-parallel replica (``tp > 1``, `serve/driver.py`
+  `_live_replica_loop`). Every rank holds a whole host-side scheduler
+  and must apply the same commands at the same loop iteration, or the
+  ranks' admission orders part and the sharded step is fed different
+  inputs. Rank 0, the leader, alone reads the command log; it journals
+  each state-changing iteration ("consumed commands up to seq N, then
+  ticked or not") to the cursor file with `CursorWriter`, before the
+  tick whose collectives wait for the followers. The followers read the
+  command log only through `CursorReader`: they evaluate no scheduling
+  policy and replay the leader's journal, which the scheduler's
+  determinism makes their state. The journal is per epoch like the
+  command log, so a respawn's replay resets both together. A one-rank
+  replica writes none. The format is the JAX package's, so either
+  package reads the other's files.
 
 The channel is a FILE, not a socket: the worker loop is single-threaded
 and polls between ticks, a file gives seekability (replay is a reader

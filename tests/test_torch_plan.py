@@ -13,6 +13,7 @@ steps, in two gloo processes under `FSDP` and four under
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 
@@ -395,8 +396,47 @@ def test_plan_cli_matches_the_jax_cli(capsys, argv, rc):
 @pytest.mark.parametrize("flag,item", [("--mu-bf16", "item 3"),
                                        ("--ce-inline-bwd", "item 3")])
 def test_plan_cli_legs_not_ported(capsys, flag, item):
+    """The legs item 3 ported give a plan: at fsdp 1 (both packages keep
+    every leaf whole) each flag moves the port's bytes as it moves the
+    JAX CLI's, byte for byte (the bf16 first moment takes 2 bytes a
+    parameter off, the inline CE adds its residuals to the bound), with
+    the same verdict; both together too."""
+    from ray_lightning_tpu.__main__ import main as jmain
+    from ray_lightning_tpu_torch.__main__ import main as pmain
+
+    base = ["plan", "--preset", "llama3-8b", "--fsdp", "1", "--batch", "2",
+            "--seq", "2048", "--device-kind", "TPU v5p", "--json",
+            "--no-trace"]
+    got = {}
+    for main in (pmain, jmain):
+        for extra in ([], [flag], ["--mu-bf16", "--ce-inline-bwd"]):
+            rc, out = _cli(main, base + extra, capsys)
+            assert rc == 1 and "not_ported" not in out
+            got[main, tuple(extra)] = out["per_device_bytes"]
+    for extra in ([flag], ["--mu-bf16", "--ce-inline-bwd"]):
+        delta = [got[m, tuple(extra)] - got[m, ()] for m in (pmain, jmain)]
+        assert delta[0] == delta[1] != 0, (extra, delta)
+    # the tiny preset fits either way
+    rc, out = _cli(pmain, ["plan", "--preset", "tiny", flag, "--json"],
+                   capsys)
+    assert rc == 0 and out["fits"] and item == "item 3"
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "attn_out"])
+def test_plan_cli_remat_policy(capsys, policy):
+    """``--remat-policy`` (the port's own flag) charges "attn_out"'s saved
+    residuals in the activation bound and nothing for the others, as
+    `llama_activation_bytes` does."""
     from ray_lightning_tpu_torch.__main__ import main
 
-    rc, out = _cli(main, ["plan", "--preset", "tiny", flag, "--json"],
-                   capsys)
-    assert rc == 2 and item in out["not_ported"]
+    argv = ["plan", "--preset", "llama3-8b", "--fsdp", "1", "--batch", "2",
+            "--seq", "2048", "--json", "--no-trace"]
+    rc0, base = _cli(main, argv, capsys)
+    rc, out = _cli(main, argv + ["--remat-policy", policy], capsys)
+    cfg = _cfg_8b(max_seq_len=2048)
+    extra = (plan.llama_activation_bytes(
+        dataclasses.replace(cfg, remat_policy=policy), 2, 2048)
+        - plan.llama_activation_bytes(cfg, 2, 2048))
+    assert rc == rc0 == 1
+    assert out["per_device_bytes"] - base["per_device_bytes"] == extra
+    assert (extra > 0) == (policy == "attn_out")

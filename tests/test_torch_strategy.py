@@ -274,6 +274,38 @@ def test_group_strategies_in_process_match_single_device(name):
         assert torch.equal(got, v), k
 
 
+def test_fsdp_fused_step_runs_no_fake_fallback(monkeypatch):
+    """The fused AdamW step over FSDP's DTensor parameters with the
+    schedule's tensor lr: DTensor's sharding propagation finds a Meta
+    kernel for ``_fused_adamw_.tensor_lr`` (`register_fused_step_meta`)
+    instead of running the real kernel on real copies of every argument
+    (the fake-tensor fallback), and the fit stays `SingleDevice`'s
+    bitwise."""
+    import torch._subclasses.fake_tensor as fake_tensor
+
+    fallbacks = []
+    real = fake_tensor.run_fallback_kernel
+
+    def spy(mode, func, *args, **kwargs):
+        fallbacks.append(str(func))
+        return real(mode, func, *args, **kwargs)
+
+    monkeypatch.setattr(fake_tensor, "run_fallback_kernel", spy)
+    toks = torch_jobs.tokens(8, 12, seed=4)
+    mask = np.ones((8, 12), np.float32)
+    ref_rows, ref_params, _ = _fit(SingleDevice(device="cpu"), None, toks,
+                                   mask)
+    rows, params, _ = _fit(torch_jobs.make_strategy("fsdp"), None, toks,
+                           mask)
+    assert fallbacks == []
+    for name in ("_fused_adamw_.tensor_lr", "_fused_adam_.tensor_lr"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::" + name, "Meta"), name
+    assert rows == ref_rows
+    for k, v in ref_params.items():
+        assert torch.equal(params[k].full_tensor(), v), k
+
+
 def test_fsdp_placement_follows_the_jax_rule():
     """The placement callback shards each parameter on the dimension
     `fsdp_auto_spec` picks for its shape; where the JAX rule replicates,

@@ -155,10 +155,18 @@ def test_fused_ce_matches_jax(B, S, chunk, masked):
 
 
 def test_fused_ce_inline_backward_raises():
-    h = torch.zeros(1, 2, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """The inline backward gives the mask no gradient (the JAX path's
+    caveat): a mask that asks for one is refused; a plain mask runs."""
+    h = torch.zeros(1, 2, 4, requires_grad=True)
+    mask = torch.ones(1, 2, requires_grad=True)
+    with pytest.raises(ValueError, match="mask no gradient"):
         fused_cross_entropy(h, torch.zeros(8, 4), torch.zeros(1, 2).long(),
-                            inline_backward=True)
+                            mask, inline_backward=True)
+    loss = fused_cross_entropy(h, torch.zeros(8, 4),
+                               torch.zeros(1, 2).long(), mask.detach(),
+                               inline_backward=True)
+    loss.backward()
+    assert h.grad.shape == h.shape
 
 
 # ---- LlamaModule loss and gradients ----------------------------------------
@@ -212,16 +220,22 @@ def test_llama_module_loss_and_grads_match_jax(fused, remat):
 
 
 def test_llama_remat_policies_and_inline_ce_raise():
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        Llama(LlamaConfig.tiny(remat=True, remat_policy="dots"),
+    """Every JAX remat policy builds (test_torch_llama_knobs.py holds
+    them); what the JAX config refuses, the port's refuses; a first
+    moment of a dtype the optimizer does not store raises."""
+    for policy in ("nothing", "dots", "attn_out"):
+        Llama(LlamaConfig.tiny(remat=True, remat_policy=policy),
               device="cpu")
-    Llama(LlamaConfig.tiny(remat=False, remat_policy="dots"), device="cpu")
     with pytest.raises(ValueError, match="remat_policy"):
         LlamaConfig.tiny(remat_policy="everything")
     with pytest.raises(ValueError, match="fused CE"):
         LlamaConfig.tiny(ce_inline_bwd=True)
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        LlamaModule(LlamaConfig.tiny(), mu_dtype=torch.bfloat16)
+    LlamaConfig.tiny(ce_inline_bwd=True, fused_ce=True)
+    m = LlamaModule(LlamaConfig.tiny(), mu_dtype=torch.float16)
+    m.device = torch.device("cpu")
+    m.setup()
+    with pytest.raises(ValueError, match="mu_dtype"):
+        m.configure_optimizers()
 
 
 def test_schedule_matches_optax():

@@ -111,7 +111,7 @@ def tokens(n, s, seed=0, vocab=256):
 
 
 def llama_module(params_np=None, lr=1e-2, warmup_steps=1, total_steps=4,
-                 **cfg_kw):
+                 mu_dtype=None, **cfg_kw):
     import torch
 
     from ray_lightning_tpu_torch.models.llama import (
@@ -122,7 +122,7 @@ def llama_module(params_np=None, lr=1e-2, warmup_steps=1, total_steps=4,
 
     cfg = LlamaConfig(**TINY, dtype=torch.float32, **cfg_kw)
     m = LlamaModule(cfg, lr=lr, warmup_steps=warmup_steps,
-                    total_steps=total_steps)
+                    total_steps=total_steps, mu_dtype=mu_dtype)
     if params_np is not None:
         m.params = params_from_jax(params_np, cfg, dtype=torch.float32)
     return m
@@ -478,14 +478,16 @@ def tp_logit_grads(params_np, toks, cfg_kw, strategy_kw, seed):
     return float(loss), _canonical_grads(module, strategy)
 
 
-def vocab_parallel_ce(seed, n_tokens, vocab, dim, chunk):
+def vocab_parallel_ce(seed, n_tokens, vocab, dim, chunk, inline=False):
     """The vocab-split chunked CE of seeded inputs over this rank's
     vocabulary rows, and its gradients: rank 0 returns (loss sum, the
-    hidden states' gradient, the whole lm_head gradient)."""
+    hidden states' gradient, the whole lm_head gradient). ``inline``:
+    the inline-backward CE over a denominator of 1 (the same sum)."""
     import torch
     import torch.distributed as dist
 
     from ray_lightning_tpu_torch.ops.fused_ce import (
+        inline_cross_entropy,
         vocab_parallel_cross_entropy_sum,
     )
     from ray_lightning_tpu_torch.parallel.tensor import TensorParallel
@@ -501,8 +503,13 @@ def vocab_parallel_ce(seed, n_tokens, vocab, dim, chunk):
     m = torch.tensor((rng.random((2, n_tokens // 2)) > 0.2)
                      .astype(np.float32))
     w = w_full.chunk(world)[rank].clone().requires_grad_(True)
-    loss, count = vocab_parallel_cross_entropy_sum(
-        h, w, t, tp, m, chunk_tokens=chunk, compute_dtype=torch.float32)
+    if inline:
+        count = m.sum()
+        loss = inline_cross_entropy(h, w, t, m, torch.ones(()), chunk,
+                                    torch.float32, tp=tp)
+    else:
+        loss, count = vocab_parallel_cross_entropy_sum(
+            h, w, t, tp, m, chunk_tokens=chunk, compute_dtype=torch.float32)
     loss.backward()
     parts = [torch.empty_like(w.grad) for _ in range(world)]
     dist.all_gather(parts, w.grad)
