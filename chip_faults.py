@@ -44,9 +44,26 @@ Prints one JSON line per run, then a summary line; exits 0 when the
 control passes both checks and the kernel check rejects every fault.
 Run from the repository root: ``python3 chip_faults.py`` (about five
 minutes on one H100, with the full 32-layer model for serving).
+
+``--bert`` runs phase 16's checks instead, on the flash faults that
+BERT-base's attention (bidirectional, MHA, head dim 64) can show and on
+three small ones (O or dV scaled by 1.01; one (head, batch row) block of
+384 skipping its last KV tile in dQ):
+
+  kernels — the three flash kernels at ``BERT_FLASH_CASES`` and FLASH_OWED's
+            "bert S 512": the worst share of the tolerance.
+  lanes   — 16 (b)'s BERT-base fit through the kernels built from those
+            sources against the reference lane's rows, each gap of
+            `chip_smoke.compare_bert` beside its limit.
+
+At S 128 the forward walks one KV tile, so a missing rescale shows only
+at S 512. It exits 0 when the control passes both checks and the kernel
+check rejects every fault taken from FAULTS; the small ones are reported
+(about two minutes on one H100).
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -117,15 +134,40 @@ FAULTS = {
         "flash_bwd.cu", "dp[i] = sc[i] * (dp[i] - row_delta[e >> 1]) * scale;",
         "dp[i] = sc[i] * dp[i] * scale;"),
 }
+#: ``--bert``: the faults of FAULTS that BERT's attention can show
+BERT_FAULTS = ("flash_fwd_last_tile_skipped", "flash_fwd_no_rescale",
+               "flash_dkv_no_delta", "flash_dkv_last_q_tile_skipped",
+               "flash_dq_last_tile_skipped", "flash_dq_no_delta")
+#: ``--bert``: faults within the elementwise tolerance (a 1% scale) or
+#: confined to one (head, batch row) block of BERT's 384 in dQ
+SMALL_FAULTS = {
+    "flash_fwd_o_scaled_1.01": (
+        "flash_fwd.cu", "const float inv = l[h2] == 0.f ? 0.f : 1.f / l[h2];",
+        "const float inv = l[h2] == 0.f ? 0.f : 1.01f / l[h2];"),
+    "flash_dv_scaled_1.01": (
+        "flash_bwd.cu",
+        "pack2(dv_acc[4 * j + 2 * h2], dv_acc[4 * j + 2 * h2 + 1]);",
+        "pack2(1.01f * dv_acc[4 * j + 2 * h2], "
+        "1.01f * dv_acc[4 * j + 2 * h2 + 1]);"),
+    "flash_dq_one_block_last_tile_skipped": (
+        "flash_bwd.cu", "const int n_tiles = kv_tiles_seen<",
+        "const int n_tiles = -(h == 0 && b == 0) + kv_tiles_seen<"),
+}
 #: every kernel source, built together from the sources or a planted copy
 SOURCES = smoke.SOURCES
+#: ``--bert``: the sources BERT's fit launches
+BERT_SOURCES = ["flash_fwd", "flash_bwd"]
+#: ``--bert``: the flash shapes of phase 16
+BERT_CASES = {**smoke.BERT_FLASH_CASES,
+              "bert S 512": smoke.FLASH_OWED["bert S 512"]}
 #: the flat tolerance, |err| <= FLAT + FLAT |b|, shown for comparison
 FLAT = 2e-2
 
 
-def use_sources(fault):
-    """Build the kernels from the sources (``fault`` None) or from a copy
-    with ``fault`` planted, and make the wrappers load those builds."""
+def use_sources(fault, sources=SOURCES):
+    """Build ``sources`` from the kernel sources (``fault`` None) or from
+    a copy with ``fault`` planted, and make the wrappers load those
+    builds."""
     from ray_lightning_tpu_torch.ops import build
 
     csrc = os.path.join(os.path.dirname(build.__file__), "csrc")
@@ -135,7 +177,7 @@ def use_sources(fault):
         planted = os.path.join(out, "csrc")
         shutil.rmtree(planted, ignore_errors=True)
         shutil.copytree(csrc, planted)
-        src, text, new = FAULTS[fault]
+        src, text, new = {**FAULTS, **SMALL_FAULTS}[fault]
         path = os.path.join(planted, src)
         with open(path) as f:
             code = f.read()
@@ -146,7 +188,7 @@ def use_sources(fault):
         csrc = planted
     build.CSRC, build.BUILD = csrc, out
     build._libs.clear()  # the wrappers' next call loads the new builds
-    build.build_all(SOURCES)
+    build.build_all(sources)
 
 
 def flat_share(got, want) -> float:
@@ -227,13 +269,14 @@ def lanes(model, reqs):
     return smoke.compare_lanes(model, ecfg, reqs, probe, done)
 
 
-def flash_shares():
+def flash_shares(cases=None):
     """{"<case> <output>": share of chip_smoke's tolerance} of the three
-    flash kernels as they are built now, at chip_smoke's flash shapes."""
+    flash kernels as they are built now, at ``cases`` (chip_smoke's
+    flash shapes by default)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(smoke.SEED)
     out = {}
-    for name, dims in smoke.FLASH_CASES.items():
+    for name, dims in (cases or smoke.FLASH_CASES).items():
         shares = smoke.FlashCase(gen, *dims).shares()
         out.update({f"{name} {k}": v[1] for k, v in shares.items()})
         torch.cuda.empty_cache()
@@ -276,11 +319,65 @@ def train_run(fault, ref_rows):
     return row
 
 
-def main() -> int:
+def bert_run(fault, ref_rows):
+    """One ``--bert`` run: the flash kernels as built now at BERT_CASES,
+    and 16 (b)'s kernel-lane fit against ``ref_rows``."""
+    shares = flash_shares(BERT_CASES)
+    row = dict(fault=fault or "none", kernel_share=shares)
+    row["kernel_rejects"] = [k for k, v in shares.items()
+                             if not v <= 1.0]
+    cfg, data = smoke.bert_inputs(smoke.SEED)
+    probe = smoke.bert_fit(cfg, data, smoke.SEED)[0]
+    gaps, problems = smoke.compare_bert(probe.rows, ref_rows)
+    row["lanes"] = dict(losses=[r[0] for r in probe.rows],
+                        grad_norms=[r[1] for r in probe.rows],
+                        **{k: v[0] for k, v in gaps.items()})
+    row["lanes_rejects"] = [k for k, (got, tol) in gaps.items()
+                            if not got <= tol]
+    row["lanes_problems"] = problems
+    return row
+
+
+def bert_main() -> int:
+    from ray_lightning_tpu_torch.ops import dispatch
+
+    use_sources(None, BERT_SOURCES)
+    cfg, data = smoke.bert_inputs(smoke.SEED)
+    with dispatch.force_reference():
+        ref_rows = smoke.bert_fit(cfg, data, smoke.SEED)[0].rows
+    rows = {}
+    for fault in [None, *BERT_FAULTS, *SMALL_FAULTS]:
+        if fault is not None:
+            use_sources(fault, BERT_SOURCES)
+        row = bert_run(fault, ref_rows)
+        print(json.dumps(row), flush=True)
+        rows[row["fault"]] = row
+    control = rows.pop("none")
+    control_passes = not (control["kernel_rejects"]
+                          or control["lanes_rejects"])
+    ok = control_passes and all(rows[f]["kernel_rejects"]
+                                for f in BERT_FAULTS)
+    print(json.dumps(dict(
+        control_passes=control_passes,
+        kernel_check_rejects={k: bool(v["kernel_rejects"])
+                              for k, v in rows.items()},
+        lanes_check_rejects={k: v["lanes_rejects"] for k, v in rows.items()},
+        ok=ok)), flush=True)
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--bert", action="store_true",
+                    help="only the flash faults through phase 16's checks "
+                         "(BERT-base's shapes and its fit)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         smoke.log("chip_faults: no CUDA device available")
         return 1
     print(smoke.nvidia_smi(), flush=True)
+    if args.bert:
+        return bert_main()
     use_sources(None)
     cases = KernelCases()
     model = smoke.build_model(smoke.SEED, 32)

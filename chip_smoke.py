@@ -166,7 +166,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
                ``cuda:0`` of the visible set with no driver-only variable
                in its environment, the call's wall;
                (c) ``python -m ray_lightning_tpu_torch perf --smoke`` on
-               the card, its JSON line. Phase 8 also prints each
+               the card through the CLI's entry point in this process,
+               its JSON line. Phase 8 also prints each
                supervised attempt's ``compile_s`` beside its first step's
                wall, and every attempt of (a) must book one.
  11. serving front end — (a) inside phase 4, its model and requests
@@ -223,8 +224,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
                (no paged kernel; RMSNorm 2L+1 a target call, 2L'+1 a
                draft call), the draft's live weight and pool bytes equal
                to `speculative_plan`'s, ``accepted_tokens_per_step``,
-               tokens/s, TPOT and the peak; then phase 4's model
-               drafting for itself (a reading); (b) a 2-layer full-width
+               tokens/s, TPOT and the peak; (b) a 2-layer full-width
                f32 model drafting for itself on 2 greedy requests:
                ``accepted_tokens_per_step == 4`` (a rejection only where
                the f32 plain lane's margin is under 1e-4 of its largest
@@ -323,6 +323,38 @@ Phases, each of which raises (and so exits nonzero) on failure:
                and removed). ``phase15_s`` in the
                ``timing`` line; the AdamW kernel in the kernels' summary
                (``"replaces": null``, with a note).
+ 16. the BASELINE's ResNet and BERT and the examples — after phase
+               15: (a) the flash forward, dK/dV and dQ at BERT-base's
+               attention (B 32, S 128, H = Hkv = 12, hd 64, full),
+               timed as phase 3's rows against SDPA and the bound
+               (``BERT_FLASH_CASES``; S 512 at B 8 untimed in
+               ``FLASH_OWED``); (b) BERT-base at full width (12 layers,
+               dim 768, vocab 30522; seeded f32 masters, bf16 compute,
+               no dropout) through `Trainer.fit` with `SingleDevice`: 8
+               AdamW steps at B 32, S 128 on `synthetic_sst` rows fed
+               without ``attention_mask`` (12 flash forwards, 12 dK/dV
+               and 12 dQ a step and a warm-up), the same 8 steps under
+               `dispatch.force_reference` (no kernel), loss and
+               grad_norm within ``BERT_LOSS_TOL`` / ``BERT_GNORM_RTOL``
+               a step and, over the first ``BERT_EARLY`` steps (both
+               lanes at the seed's weights), within
+               ``BERT_EARLY_LOSS_TOL`` / ``BERT_EARLY_GNORM_RTOL``;
+               then one batch's logits on the trained weights
+               without a mask (the flash kernels) and with an all-ones
+               mask (the dense path: no flash launch) within
+               ``BERT_LOGIT_TOL``; step ms, tokens/s, peak; (c)
+               ResNet-50 with the CIFAR stem, 8 steps at B 128 on
+               seeded 32x32x3 images: a finite, falling loss, none of
+               the seven kernels launched; step ms, images/s, peak; (d)
+               ``mnist_dp_example``, ``cifar_resnet_example --prefetch``
+               and ``bert_finetune_example`` through their ``main`` at
+               their smoke sizes on the card, each ending with its JAX
+               twin's line (their files under the git-ignored
+               ``rlt_logs/chip_smoke_examples/``, removed after); (e)
+               the doctor's ``--json`` naming the card and its memory,
+               and the CIFAR example's batches made by the native
+               batcher. ``phase16_s`` and each part's seconds in the
+               ``timing`` line.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`, the device traced alone:
                the device's busy share and the kernels with the most
@@ -334,9 +366,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 ``python3 chip_smoke.py`` (``--layers N`` sets the serve phase's depth,
-16 by default, 32 the whole model). Two other modes build the kernels and
-then only measure: ``--train-spread N`` runs phase 5's lane comparison at
-seeds 0..N-1 (the spread the train limits are set from), and ``--ab-old
+16 by default, 32 the whole model). Three other modes build the kernels
+and then only measure: ``--train-spread N`` runs phase 5's lane comparison
+at seeds 0..N-1 (the spread the train limits are set from), ``--bert-spread
+N`` phase 16 (b)'s (the BERT limits'), and ``--ab-old
 CSRC`` times the decode and RMSNorm (and, as a control on the turns,
 the dQ and prefill) in turns with a build of older sources.
 ``--profile-sessions N`` counts, in N fresh processes, the device events
@@ -915,6 +948,8 @@ FLASH_OWED = {
     # phase 12's tensor-parallel heads a rank: tensor 2 and tensor 8
     "tp 2": (TB, TS, TS, TH // 2, THKV // 2, HD, True, 0),
     "tp 8": (TB, TS, TS, TH // 8, THKV // 8, HD, True, 0),
+    # phase 16: BERT-base at its max_seq_len, bidirectional, hd 64
+    "bert S 512": (8, 512, 512, 12, 12, 64, False, 0),
 }
 #: the batch rows of the B_max flash row (phase 12 (b)'s batch, planned)
 #: held against the plain version: the kernels run at the full batch,
@@ -1049,13 +1084,15 @@ def check_empty_rows(c: FlashCase):
         raise AssertionError(f"flash empty rows: {bad} not exact")
 
 
-def check_flash(gen: torch.Generator):
+def check_flash(gen: torch.Generator, cases=None):
     """The three flash kernels against their plain versions at every
-    shape of FLASH_CASES; one JSON row per (kernel, shape), timed."""
+    shape of ``cases`` (FLASH_CASES); one JSON row per (kernel, shape),
+    timed."""
     import torch.nn.functional as F
 
     rows = []
-    for name, (B, Sq, Sk, H, Hkv, hd, causal, off) in FLASH_CASES.items():
+    for name, (B, Sq, Sk, H, Hkv, hd, causal, off) in (
+            cases or FLASH_CASES).items():
         c = FlashCase(gen, B, Sq, Sk, H, Hkv, hd, causal, off)
         shares = c.shares()
         bad = {k: v for k, v in shares.items() if not v[1] <= 1.0}
@@ -2027,8 +2064,8 @@ def spec_session(model, ecfg, reqs, draft_model, problems, what):
 
 def spec_phase(seed: int, model, ecfg, reqs, phase4_done):
     """13 (a): phase 4's greedy requests through an inline driver whose
-    draft is an independent quarter-depth Llama-3-8B, bf16; then phase
-    4's model drafting for itself (a reading). Returns the launches."""
+    draft is an independent quarter-depth Llama-3-8B, bf16. Returns the
+    launches."""
     from ray_lightning_tpu_torch.serve.audit import speculative_plan
 
     problems = []
@@ -2059,17 +2096,9 @@ def spec_phase(seed: int, model, ecfg, reqs, phase4_done):
     del draft, res, sched
     gc.collect()
     torch.cuda.empty_cache()
-    # a reading only: the bf16 target drafting for itself at full depth
-    res2, sched2, _, launches2, wall2 = spec_session(
-        model, ecfg, greedy, model, problems, "(a) self-draft")
-    print(json.dumps(serve_row(
-        "speculative_self_draft_bf16", res2, wall2, launches2,
-        layers=model.cfg.n_layers, k=SPEC_K,
-        accepted_tokens_per_step=sched2.accepted_tokens_per_step)),
-        flush=True)
     if problems:
         raise AssertionError("phase 13 (a): " + "; ".join(problems))
-    return {k: launches[k] + launches2[k] for k in launches}
+    return launches
 
 
 class EmitProbe:
@@ -4806,8 +4835,6 @@ SMOKE_DRIVER_ONLY = "RLT_SMOKE_DRIVER_ONLY"
 #: its buffers (up to depth + 1 batches of [TB, TS + 1] int64, 33 KB
 #: each) with the allocator's rounding, far below this
 HOT_PEAK_SLACK_BYTES = 8 * 2**20
-#: limit of the perf CLI's run
-PERF_TIMEOUT_S = 300
 
 
 def hot_loop_sync(seed: int, ref_rows):
@@ -4905,24 +4932,29 @@ def hot_loop_remote(seed: int, ref_rows, problems: list) -> dict:
 
 
 def hot_loop_perf() -> None:
-    """(c) ``python -m ray_lightning_tpu_torch perf --smoke`` on the card:
-    its exit code and its JSON line."""
+    """(c) ``python -m ray_lightning_tpu_torch perf --smoke`` on the card,
+    through the CLI's entry point in this process (a process of its own
+    would pay the imports again): its exit code and its JSON line."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "ray_lightning_tpu_torch", "perf", "--smoke"],
-        capture_output=True, text=True, timeout=PERF_TIMEOUT_S,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = out.stdout.strip().splitlines()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["perf", "--smoke"])
+    lines = out.getvalue().strip().splitlines()
     try:
         result = json.loads(lines[-1]) if lines else None
     except json.JSONDecodeError:
         result = None
-    print(json.dumps(dict(phase="hot_loop_perf", rc=out.returncode,
+    print(json.dumps(dict(phase="hot_loop_perf", rc=rc,
                           wall_s=time.perf_counter() - t0, perf=result)),
           flush=True)
-    if out.returncode != 0 or result is None:
-        raise AssertionError(f"hot loop (c): perf --smoke exited "
-                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+    if rc != 0 or result is None:
+        raise AssertionError(f"hot loop (c): perf --smoke exited {rc}:\n"
+                             f"{out.getvalue()[-3000:]}")
 
 
 #: every CUDA source the kernels are built from
@@ -6329,6 +6361,388 @@ def autoscale_phase(model, ecfg) -> dict:
     return {k: launches[k] + ref_launches[k] for k in launches}
 
 
+# ---- phase 16: the BASELINE's ResNet and BERT, the examples, the doctor -----
+
+#: 16 (a): the flash kernels at BERT-base's attention in a training step
+#: (B 32, S 128, H = Hkv = 12, hd 64, bidirectional), timed as phase 3's
+#: rows; its S 512 (`max_seq_len`) twin is in FLASH_OWED
+BERT_FLASH_CASES = {"bert full": (32, 128, 128, 12, 12, 64, False, 0)}
+#: 16 (b): BERT-base's fit: batch, sequence, steps, learning rate (the
+#: JAX module's default; at 1e-4 a fit from random weights parts the two
+#: lanes' grad norms by up to 31% within 8 steps)
+BERT_B, BERT_S, BERT_STEPS, BERT_LR = 32, 128, 8, 2e-5
+#: 16 (b): kernel lanes against reference lanes, per step: |delta loss|
+#: and |delta grad_norm| / grad_norm; and the classifier logits of the
+#: kernel lane against the dense (masked) path on the same weights. Each
+#: is 1.5x the largest reading of sound kernels over eight weight-and-data
+#: seeds (``--bert-spread 8``, PERF.md)
+#: (4.01e-3, 8.62e-2 and 1.59e-2; a BERT-base from random weights takes
+#: grad norms from 3 to 60 within 8 steps, and the relative gap is
+#: widest where the norm is smallest)
+BERT_LOSS_TOL = 6.1e-3
+BERT_GNORM_RTOL = 1.3e-1
+BERT_LOGIT_TOL = 2.4e-2
+#: 16 (b): the first steps, which both lanes take at the seed's own
+#: weights (step 0's learning rate is 0, and so is its weight decay):
+#: their gaps are the kernels' alone, before AdamW's first update
+#: amplifies them. Held at 1.5x these steps' largest reading over the
+#: same eight seeds (``--bert-spread 8``, PERF.md: 1.46e-3 and 8.85e-3,
+#: the latter again where the norm is smallest, 4.1)
+BERT_EARLY = 2
+BERT_EARLY_LOSS_TOL = 2.2e-3
+BERT_EARLY_GNORM_RTOL = 1.33e-2
+#: 16 (c): ResNet-50 (CIFAR stem) batch, steps and learning rate (at 0.1
+#: GroupNorm ResNet-50 from its initialisation diverges within 8 steps)
+RESNET_B, RESNET_STEPS, RESNET_LR = 128, 8, 0.01
+#: 16 (d): the in-process examples through their ``main`` at their smoke
+#: sizes on the card, and the line each must end with
+EXAMPLES16 = (("mnist_dp_example", ["--smoke-test"], "final val accuracy: "),
+              ("cifar_resnet_example", ["--smoke-test", "--prefetch"],
+               "val_acc="),
+              ("bert_finetune_example", ["--smoke-test"], "val_acc="))
+#: where (d)'s examples write (git-ignored; removed after)
+EXAMPLES16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "rlt_logs", "chip_smoke_examples")
+
+
+def bert_inputs(seed: int):
+    """BERT-base at full width (12 layers, dim 768, 12 heads, vocab
+    30522), f32 masters, bf16 compute, no dropout; and ``BERT_STEPS``
+    batches of `synthetic_sst` rows (seeded) with no ``attention_mask``,
+    so attention takes the flash kernels."""
+    from ray_lightning_tpu_torch.examples.bert_finetune_example import (
+        synthetic_sst)
+    from ray_lightning_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.base(max_seq_len=BERT_S, dropout=0.0)
+    data = synthetic_sst(BERT_STEPS * BERT_B, BERT_S, cfg.vocab_size, seed)
+    del data["attention_mask"]
+    return cfg, data
+
+
+def bert_fit(cfg, data, seed: int, inspect=None):
+    """One `Trainer.fit` of `BertClassifierModule` under `SingleDevice`
+    (AdamW, warmup 2 of ``BERT_STEPS``; weights from ``seed``): the
+    StepProbe, the fit's wall, its peak."""
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.bert import BertClassifierModule
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    probe = StepProbe()
+    module = BertClassifierModule(cfg, num_classes=2, lr=BERT_LR,
+                                  warmup_steps=2, total_steps=BERT_STEPS)
+    trainer = Trainer(strategy=SingleDevice(), max_steps=BERT_STEPS,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed,
+                      callbacks=[probe.callback])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    trainer.fit(module, DataLoader(data, batch_size=BERT_B))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if trainer.global_step != BERT_STEPS:
+        raise AssertionError(f"BERT fit ran {trainer.global_step} steps")
+    peak = torch.cuda.max_memory_allocated()
+    if inspect is not None:
+        inspect(module)
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return probe, wall, peak
+
+
+def bert_lanes(seed: int):
+    """16 (b)'s readings at ``seed``: the kernel-lane fit (its launches),
+    the same fit under `dispatch.force_reference` (which must launch no
+    kernel), and on the kernel lane's trained weights one batch's logits
+    without a mask (the flash kernels) and with an all-ones mask (the
+    dense path; its flash launches)."""
+    from ray_lightning_tpu_torch.ops import dispatch
+
+    cfg, data = bert_inputs(seed)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    logits = {}
+
+    def inspect(module):
+        batch = {k: torch.from_numpy(v[:BERT_B]).cuda()
+                 for k, v in data.items()}
+        with torch.no_grad():
+            logits["flash"] = module._forward(module.params, batch).float()
+            before = {k.__name__: k.launches for k in kernels}
+            masked = dict(batch, attention_mask=torch.ones_like(
+                batch["input_ids"]))
+            logits["dense"] = module._forward(module.params, masked).float()
+            logits["dense_launches"] = {
+                k.__name__: k.launches - before[k.__name__]
+                for k in kernels if k.launches != before[k.__name__]}
+
+    probe, wall, peak = bert_fit(cfg, data, seed, inspect)
+    launches = {k.__name__: k.launches for k in kernels}
+    for k in kernels:
+        k.launches = 0
+    with dispatch.force_reference():
+        ref, ref_wall, ref_peak = bert_fit(cfg, data, seed)
+    ref_launched = {k.__name__: k.launches for k in kernels if k.launches}
+    gaps, problems = compare_bert(probe.rows, ref.rows)
+    d_logit = (logits["flash"] - logits["dense"]).abs().max().item()
+    return dict(cfg=cfg, probe=probe, wall=wall, peak=peak, ref=ref,
+                ref_wall=ref_wall, ref_peak=ref_peak, launches=launches,
+                ref_launched=ref_launched, gaps=gaps, problems=problems,
+                d_logit=d_logit, dense_launches=logits["dense_launches"])
+
+
+def compare_bert(rows, ref_rows):
+    """16 (b)'s kernel lane against its reference lane, per step: {name:
+    (gap, limit)} of |delta loss| and |delta grad_norm| / grad_norm over
+    the first ``BERT_EARLY`` steps and over the whole fit, and the
+    problems (a gap over its limit, or a lane cut short)."""
+    def gap(col, n):
+        pairs = list(zip(rows, ref_rows))[:n]
+        if col == 0:
+            return max(abs(a[0] - b[0]) for a, b in pairs)
+        return max(abs(a[1] - b[1]) / b[1] for a, b in pairs)
+
+    gaps = {"loss_early": (gap(0, BERT_EARLY), BERT_EARLY_LOSS_TOL),
+            "grad_norm_rel_early": (gap(1, BERT_EARLY),
+                                    BERT_EARLY_GNORM_RTOL),
+            "loss": (gap(0, len(rows)), BERT_LOSS_TOL),
+            "grad_norm_rel": (gap(1, len(rows)), BERT_GNORM_RTOL)}
+    problems = [f"{name} differs by {got:.4g} > {tol}"
+                for name, (got, tol) in gaps.items() if not got <= tol]
+    if len(rows) != len(ref_rows):
+        problems.append(f"{len(rows)} steps against {len(ref_rows)}")
+    return gaps, problems
+
+
+def bert_spread(seeds):
+    """16 (b)'s lane comparison at each of ``seeds`` (weights and rows):
+    the spread BERT_LOSS_TOL, BERT_GNORM_RTOL and BERT_LOGIT_TOL are set
+    from."""
+    readings = []
+    for seed in seeds:
+        r = bert_lanes(seed)
+        row = dict(phase="bert_spread", seed=seed,
+                   **{k: v[0] for k, v in r["gaps"].items()},
+                   logits=r["d_logit"],
+                   losses=[x[0] for x in r["probe"].rows],
+                   ref_losses=[x[0] for x in r["ref"].rows],
+                   grad_norms=[x[1] for x in r["probe"].rows],
+                   ref_grad_norms=[x[1] for x in r["ref"].rows])
+        print(json.dumps(row), flush=True)
+        readings.append(row)
+    print(json.dumps(dict(phase="bert_spread_summary", seeds=list(seeds),
+                          **{k: max(r[k] for r in readings) for k in (
+                              *r["gaps"], "logits")})), flush=True)
+
+
+def bert_phase(seed: int, problems: list) -> dict:
+    """16 (b): BERT-base's kernel lane (12 flash forwards, 12 dK/dV and
+    12 dQ a step and a warm-up) against its reference lane within the
+    BERT limits, the masked batch on the dense path; returns the kernel
+    lane's launches and its logits forward's."""
+    import numpy as np
+
+    r = bert_lanes(seed)
+    L, n = r["cfg"].n_layers, BERT_STEPS + 1
+    want = {k.__name__: 0 for k in all_kernels()}
+    # the fit's steps and warm-up, then the unmasked logits forward
+    want.update(flash_fwd_kernel=L * n + L, flash_bwd_dkv_kernel=L * n,
+                flash_bwd_dq_kernel=L * n)
+    if r["launches"] != want:
+        problems.append(f"(b) launches {r['launches']} != {want}")
+    if r["ref_launched"]:
+        problems.append(f"(b) reference lane launched {r['ref_launched']}")
+    if r["dense_launches"]:
+        problems.append(f"(b) the masked batch launched "
+                        f"{r['dense_launches']}")
+    losses = [x[0] for x in r["probe"].rows]
+    if not all(map(np.isfinite, losses)):
+        problems.append(f"(b) losses {losses}")
+    problems += [f"(b) {p}" for p in r["problems"]]
+    if not r["d_logit"] <= BERT_LOGIT_TOL:
+        problems.append(f"(b) logits, flash vs dense, differ by "
+                        f"{r['d_logit']:.4g} > {BERT_LOGIT_TOL}")
+    t = r["probe"].t
+    step_s = statistics.median(b - a for a, b in zip(t[2:], t[3:]))
+    rt = r["ref"].t
+    ref_step_s = statistics.median(b - a for a, b in zip(rt[2:], rt[3:]))
+    print(json.dumps(dict(
+        phase="bert", layers=L, dim=r["cfg"].dim, heads=r["cfg"].n_heads,
+        vocab=r["cfg"].vocab_size, batch=BERT_B, seq=BERT_S,
+        steps=BERT_STEPS, losses=losses,
+        grad_norms=[x[1] for x in r["probe"].rows],
+        ref_losses=[x[0] for x in r["ref"].rows],
+        gaps=r["gaps"], logits_max_abs_diff=r["d_logit"],
+        logit_tol=BERT_LOGIT_TOL,
+        step_ms_p50=step_s * 1e3, tokens_per_s=BERT_B * BERT_S / step_s,
+        peak_gib=r["peak"] / 2**30, fit_wall_s=r["wall"],
+        ref_step_ms_p50=ref_step_s * 1e3, ref_peak_gib=r["ref_peak"] / 2**30,
+        launches=r["launches"], masked_launches=r["dense_launches"])),
+        flush=True)
+    return r["launches"]
+
+
+def resnet_phase(seed: int, problems: list) -> dict:
+    """16 (c): ResNet-50 with the CIFAR stem (`ResNetModule("resnet50")`,
+    bf16, GroupNorm, nesterov SGD with the clip), ``RESNET_STEPS`` steps
+    at ``RESNET_B`` on seeded 32x32x3 images: a finite, falling loss and
+    no launch of the seven kernels (convolutions and GroupNorm are
+    library calls, as in JAX)."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.resnet import ResNetModule
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    rng = np.random.default_rng(seed)
+    n = RESNET_B * RESNET_STEPS
+    y = rng.integers(0, 10, n).astype(np.int32)
+    base = rng.standard_normal((10, 1, 1, 3)).astype(np.float32) * 3
+    x = base[y] + 0.3 * rng.standard_normal((n, 32, 32, 3)).astype(
+        np.float32)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    probe = StepProbe()
+    module = ResNetModule("resnet50", num_classes=10, lr=RESNET_LR,
+                          total_steps=RESNET_STEPS)
+    trainer = Trainer(strategy=SingleDevice(), max_steps=RESNET_STEPS,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed,
+                      callbacks=[probe.callback])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    trainer.fit(module, DataLoader({"x": x, "y": y}, batch_size=RESNET_B))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_params = module.num_params()
+    del trainer, module
+    launches = {k.__name__: k.launches for k in kernels}
+    losses = [r[0] for r in probe.rows]
+    if not (len(losses) == RESNET_STEPS and all(map(np.isfinite, losses))
+            and losses[-1] < losses[0]):
+        problems.append(f"(c) ResNet-50 losses {losses}")
+    if any(launches.values()):
+        problems.append(f"(c) ResNet-50 launched {launches}")
+    step_s = statistics.median(b - a for a, b in zip(probe.t[2:],
+                                                     probe.t[3:]))
+    print(json.dumps(dict(
+        phase="resnet", variant="resnet50", cifar_stem=True,
+        params=n_params, batch=RESNET_B, steps=RESNET_STEPS, losses=losses,
+        grad_norms=[r[1] for r in probe.rows], step_ms_p50=step_s * 1e3,
+        images_per_s=RESNET_B / step_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, fit_wall_s=wall,
+        launches=launches)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def examples_phase(problems: list) -> dict:
+    """16 (d): each of EXAMPLES16 through its ``main`` with ``--device
+    cuda`` (the default) at its smoke size, in a scratch directory: exit
+    0 and its JAX twin's final line; the CIFAR one on the native batcher.
+    Returns the launches."""
+    import contextlib
+    import importlib
+    import io
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    here = os.getcwd()
+    rows = []
+    for name, argv, last in EXAMPLES16:
+        ex = importlib.import_module(f"ray_lightning_tpu_torch.examples."
+                                     f"{name}")
+        shutil.rmtree(EXAMPLES16_DIR, ignore_errors=True)
+        os.makedirs(EXAMPLES16_DIR)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(EXAMPLES16_DIR)
+            with contextlib.redirect_stdout(out):
+                rc = ex.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(here)
+        lines = out.getvalue().strip().splitlines()
+        row = dict(example=name, argv=argv, rc=rc,
+                   last=lines[-1] if lines else None,
+                   wall_s=time.perf_counter() - t0)
+        if name == "cifar_resnet_example":
+            row["summary"] = json.loads(lines[-2])
+            if not row["summary"]["native_batches"]:
+                problems.append(f"(e) the native batcher did not make "
+                                f"{name}'s batches: {row}")
+        if rc != 0 or not (lines and lines[-1].startswith(last)):
+            problems.append(f"(d) {name}: rc {rc}, last line {row['last']}")
+        rows.append(row)
+    shutil.rmtree(EXAMPLES16_DIR, ignore_errors=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    print(json.dumps(dict(phase="examples", rows=rows, launches=launches)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def doctor_check(problems: list) -> None:
+    """16 (e): ``python -m ray_lightning_tpu_torch --json`` (its ``main``,
+    in this process) names the card and its memory."""
+    import contextlib
+    import io
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["--json"])
+    info = json.loads(out.getvalue().strip().splitlines()[-1])
+    dev = (info.get("devices") or [{}])[0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not (rc == 0 and info.get("device_count") == torch.cuda.device_count()
+            and dev.get("name") == torch.cuda.get_device_name(0)
+            and dev.get("total_memory_bytes") == total
+            and dev.get("capability") == "9.0"):
+        problems.append(f"(e) doctor: rc {rc}, {info}")
+    print(json.dumps(dict(phase="doctor", rc=rc, info=info)), flush=True)
+
+
+def baseline_phase(seed: int, gen: torch.Generator):
+    """Phase 16: (a) the flash kernels at BERT's shape, (b) BERT-base,
+    (c) ResNet-50, (d) the in-process examples, (e) the doctor and the
+    native batcher. Returns (a)'s kernel rows, the launches of (b)-(d)
+    and each part's seconds."""
+    problems, walls = [], {}
+    t0 = time.perf_counter()
+    rows = check_flash(gen, BERT_FLASH_CASES)
+    walls["a"] = time.perf_counter() - t0
+    free_card("bert")
+    total = bert_phase(seed, problems)
+    walls["b"] = time.perf_counter() - t0 - walls["a"]
+    for k, v in resnet_phase(seed, problems).items():
+        total[k] += v
+    walls["c"] = time.perf_counter() - t0 - walls["a"] - walls["b"]
+    for k, v in examples_phase(problems).items():
+        total[k] += v
+    walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    doctor_check(problems)
+    walls["e"] = time.perf_counter() - t0 - sum(walls.values())
+    print(json.dumps(dict(phase="baseline_timing", wall_s=walls)),
+          flush=True)
+    if problems:
+        raise AssertionError("phase 16, the BASELINE's models and the "
+                             "examples: " + "; ".join(problems))
+    return rows, total, walls
+
+
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm", "adamw"]
 
@@ -6367,6 +6781,10 @@ def main() -> int:
                     help="only build, then time the decode and RMSNorm "
                          "(and the dQ and prefill) in turns with an old "
                          "build of the sources in CSRC")
+    ap.add_argument("--bert-spread", type=int, default=0, metavar="N",
+                    help="only build, then run phase 16 (b)'s BERT lanes' "
+                         "comparison at seeds 0..N-1 and print each "
+                         "seed's readings")
     ap.add_argument("--profile-sessions", type=int, default=0, metavar="N",
                     help="only count, in N fresh processes, the device "
                          "events of each of their profiler sessions, then "
@@ -6402,6 +6820,9 @@ def main() -> int:
                           nvcc_s=time.perf_counter() - t0)), flush=True)
     if args.train_spread:
         train_spread(range(args.train_spread))
+        return 0
+    if args.bert_spread:
+        bert_spread(range(args.bert_spread))
         return 0
     if args.ab_old:
         ab_phase(args.ab_old)
@@ -6473,6 +6894,13 @@ def main() -> int:
     rows.append(adamw_row)
     lap("knobs")
 
+    # 16. the BASELINE's ResNet and BERT: the flash kernels at BERT's
+    # shape, BERT-base's lanes, ResNet-50, the in-process examples, the
+    # doctor and the native batcher
+    bert_rows, base_launches, base_walls = baseline_phase(SEED, gen)
+    rows += bert_rows
+    lap("baseline")
+
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint (resumed by 14 (a) and 8
     # (a)), and the MNIST train/load/predict matrix
@@ -6520,6 +6948,7 @@ def main() -> int:
         # 11 (c); 8 (a)'s refused grow costs no time
         phase14_s=sum(PHASE14_S.values()),
         phase15_s=walls["knobs"],
+        phase16_s=walls["baseline"], phase16_parts_s=base_walls,
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:
@@ -6529,7 +6958,7 @@ def main() -> int:
     launches = {k: serve_launches.get(k, 0) + train_launches[k]
                 + tel_launches[k] + dist_launches[k] + sweep_launches[k]
                 + res_launches.get(k, 0) + hot_launches[k]
-                + plan_launches[k] + knob_launches[k]
+                + plan_launches[k] + knob_launches[k] + base_launches[k]
                 for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",

@@ -1,5 +1,6 @@
 """``python -m ray_lightning_tpu_torch``: the port's command line.
 
+    python -m ray_lightning_tpu_torch [--json] [--probe] [--device cpu]
     python -m ray_lightning_tpu_torch supervise --smoke --device cpu
     python -m ray_lightning_tpu_torch supervise my_project.jobs:make_job \\
         --processes 1 --max-restarts 3
@@ -31,33 +32,88 @@ driver and its smoke gate (serve/cli.py); ``plan`` is the pre-flight
 memory plan on the meta device (parallel/cli.py); ``elastic`` is the
 elastic-training gate (elastic/cli.py), ``autoscale`` the closed-loop
 serving autoscaler's demo and gate (autoscale/cli.py), ``loadgen`` the
-trace-driven load harness (loadgen/cli.py); ``--probe`` times a chain of
-bf16 matmuls on the card (utils/probe.py) beside its spec-sheet peak.
+trace-driven load harness (loadgen/cli.py). With no subcommand it is the
+doctor (twin of the JAX package's): the package, torch and CUDA
+versions, this process's rank, world size and local rank from the
+environment, and each visible CUDA device with its index, name, memory
+and compute capability (none with ``--device cpu``); ``--json`` prints
+the same dict; ``--probe`` adds a timed chain of bf16 matmuls on the
+card (utils/probe.py) beside its spec-sheet peak.
 """
 import argparse
 import json
 import sys
 
 
-def run_probe(args) -> int:
+def collect(probe: bool = False, device=None) -> dict:
+    """The process's topology (the JAX doctor's `collect`, for CUDA):
+    versions, rank / world size / local rank as the environment gives
+    them, every visible CUDA device unless ``device`` is the CPU, and
+    with ``probe`` the bf16 matmul rate on ``device`` (the card by
+    default) beside its spec-sheet peak."""
+    import os
+    import platform
+
     import torch
 
-    from ray_lightning_tpu_torch.utils.devices import resolve_device
-    from ray_lightning_tpu_torch.utils.probe import (
-        device_peak_tflops,
-        matmul_tflops,
-    )
+    import ray_lightning_tpu_torch as rlt
 
-    dev = resolve_device(args.device)
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    info = {"device": name, "matmul_tflops": matmul_tflops(device=dev),
-            "peak_tflops": device_peak_tflops(name)}
+    cpu = device is not None and torch.device(device).type == "cpu"
+    n = 0 if cpu else torch.cuda.device_count()
+    devices = []
+    for i in range(n):
+        props = torch.cuda.get_device_properties(i)
+        devices.append({
+            "index": i, "name": props.name,
+            "total_memory_bytes": props.total_memory,
+            "total_memory_gib": round(props.total_memory / 2**30, 2),
+            "capability": f"{props.major}.{props.minor}"})
+    env = os.environ
+    info = {
+        "package": f"ray_lightning_tpu_torch {rlt.__version__}",
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "python": platform.python_version(),
+        "rank": int(env.get("RANK", 0)),
+        "world_size": int(env.get("WORLD_SIZE", 1)),
+        "local_rank": int(env.get("LOCAL_RANK", 0)),
+        "cuda_visible_devices": env.get("CUDA_VISIBLE_DEVICES"),
+        "device_count": n, "devices": devices,
+    }
+    if probe:
+        from ray_lightning_tpu_torch.utils.devices import resolve_device
+        from ray_lightning_tpu_torch.utils.probe import (
+            device_peak_tflops,
+            matmul_tflops,
+        )
+
+        dev = resolve_device(device)
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu")
+        info.update(device=name, matmul_tflops=matmul_tflops(device=dev),
+                    peak_tflops=device_peak_tflops(name))
+    return info
+
+
+def run_doctor(args) -> int:
+    info = collect(probe=args.probe, device=args.device)
     if args.as_json:
         print(json.dumps(info))
-    else:
+        return 0
+    print(f"{info['package']}  (torch {info['torch']}, cuda "
+          f"{info['cuda']}, python {info['python']})")
+    print(f"rank {info['rank']}/{info['world_size']}  local rank "
+          f"{info['local_rank']}  CUDA devices {info['device_count']}"
+          + (f" (CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']})"
+             if info["cuda_visible_devices"] is not None else ""))
+    for d in info["devices"]:
+        print(f"  [{d['index']}] {d['name']}  {d['total_memory_gib']} GiB  "
+              f"sm_{d['capability'].replace('.', '')}")
+    if not info["devices"]:
+        print("  no CUDA device")
+    if args.probe:
         peak = info["peak_tflops"]
-        print(f"{name}: {info['matmul_tflops']:.1f} TFLOP/s bf16 matmul "
+        print(f"probe: {info['device']}: {info['matmul_tflops']:.1f} "
+              "TFLOP/s bf16 matmul "
               + (f"(spec peak {peak:g})" if peak else "(no spec peak)"))
     return 0
 
@@ -99,10 +155,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="python -m ray_lightning_tpu_torch")
     ap.add_argument("--probe", action="store_true",
-                    help="time a chain of bf16 matmuls on the device and "
-                         "print the rate beside its spec-sheet peak")
+                    help="also time a chain of bf16 matmuls on the device "
+                         "and print the rate beside its spec-sheet peak")
     ap.add_argument("--device", default=None,
-                    help="the probe's device (default: the CUDA card)")
+                    help="cpu: list no CUDA device and probe the CPU "
+                         "(default: the CUDA card)")
     ap.add_argument("--json", action="store_true", dest="as_json")
     sub = ap.add_subparsers(dest="command")
     add_supervise_parser(sub)
@@ -125,10 +182,7 @@ def main(argv=None) -> int:
                 "loadgen": run_loadgen}
     if args.command in commands:
         return commands[args.command](args)
-    if args.probe:
-        return run_probe(args)
-    ap.print_usage(sys.stderr)
-    return 2
+    return run_doctor(args)
 
 
 if __name__ == "__main__":

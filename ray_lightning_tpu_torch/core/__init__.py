@@ -9,13 +9,12 @@ _NAMES = {
     "TrainState": "state",
     "DataLoader": "data",
     "DataModule": "data",
+    **{n: "text" for n in (
+        "chunk_tokens", "pack_sequences", "tokenize_and_pack")},
     **{n: "callbacks" for n in (
         "Callback", "EarlyStopping", "ModelCheckpoint", "ProgressLogger",
         "MemoryMonitor", "ThroughputMonitor")},
 }
-_MISSING = {n: "ROADMAP Queue 1 item 2 (core/text.py)" for n in (
-    "chunk_tokens", "pack_sequences", "tokenize_and_pack")}
-
 __all__ = list(_NAMES)
 
-__getattr__, __dir__ = lazy_exports(__name__, _NAMES, _MISSING)
+__getattr__, __dir__ = lazy_exports(__name__, _NAMES)

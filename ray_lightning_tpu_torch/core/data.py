@@ -5,14 +5,20 @@ Batches are dicts (or tuples) of numpy arrays with a leading batch axis;
 the strategy moves them to the device. ``drop_last`` defaults to True so
 every step sees one shape. In a multi-process job each process yields
 only its shard (the DistributedSampler semantics), which
-`ensure_sharded` forces onto the loaders. The native prefetching batcher
-is not ported yet.
+`ensure_sharded` forces onto the loaders. ``prefetch=True`` assembles the
+batches on the native batcher's threads (`ray_lightning_tpu_torch.native`),
+in the same order and shapes; where it cannot be built the loader takes
+the numpy path, logs why, and says so in ``native``.
 """
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 class DataLoader:
@@ -31,12 +37,9 @@ class DataLoader:
         num_shards: int = 1,
         shard_index: int = 0,
         prefetch: bool = False,
+        num_workers: Optional[int] = None,
         sharded_externally: bool = False,
     ):
-        if prefetch:
-            raise NotImplementedError(
-                "DataLoader(prefetch=True) needs the native batcher, which "
-                "is not ported yet (ROADMAP Queue 1 item 13)")
         self.data = data
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -44,6 +47,13 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.prefetch = prefetch
+        #: with ``prefetch``: None before the first epoch, then True when
+        #: the native batcher assembles the batches, False when the
+        #: loader fell back to the numpy path (the reason is logged)
+        self.native: Optional[bool] = None
+        self._num_workers = num_workers
+        self._batcher = None
         #: ``data`` already holds or yields just THIS process's rows;
         #: `ensure_sharded` then leaves the loader alone
         self.sharded_externally = sharded_externally
@@ -59,6 +69,15 @@ class DataLoader:
         for leaf in leaves:
             if len(leaf) != self._n:
                 raise ValueError("all arrays must share leading dim")
+
+    @property
+    def num_workers(self) -> int:
+        """The native batcher's thread count, read when it is built, so a
+        strategy's ``RLT_NUM_CPUS_PER_WORKER`` (`RayXlaPlugin(
+        num_cpus_per_worker=)`) applies to a loader made before the fit."""
+        if self._num_workers is not None:
+            return max(1, self._num_workers)
+        return max(1, int(os.environ.get("RLT_NUM_CPUS_PER_WORKER", 2)))
 
     def set_epoch(self, epoch: int) -> None:
         """DistributedSampler.set_epoch parity: reshuffles per epoch."""
@@ -86,11 +105,47 @@ class DataLoader:
             shard = idx[self.shard_index * per:(self.shard_index + 1) * per]
         else:
             shard = idx
+        if self.prefetch and (batcher := self._get_batcher()) is not None:
+            # the batcher's threads assemble the batches ahead of the
+            # loop: the numpy path's order and shapes
+            batcher.set_epoch(shard)
+            yield from batcher
+            self._epoch += 1
+            return
         n = len(shard)
         stop = n - n % self.batch_size if self.drop_last else n
         for start in range(0, stop, self.batch_size):
             yield _tree_take(self.data, shard[start:start + self.batch_size])
         self._epoch += 1
+
+    def _get_batcher(self):
+        """The native batcher, built on first use; None (and ``native``
+        False) for data it cannot carry (not a dict of numeric numpy
+        arrays) or when the library cannot be built."""
+        if self._batcher is not None:
+            return self._batcher
+        from ray_lightning_tpu_torch.native import NativeBatcher
+
+        if not isinstance(self.data, dict) or not all(
+                isinstance(v, np.ndarray)
+                and (np.issubdtype(v.dtype, np.number) or v.dtype == np.bool_)
+                for v in self.data.values()):
+            why = "the data is not a dict of numeric numpy arrays"
+        else:
+            try:
+                # copies out of its slots (the JAX loader's mode): a
+                # batch stays valid however long its consumer holds it
+                self._batcher = NativeBatcher(
+                    self.data, self.batch_size, drop_last=self.drop_last,
+                    n_threads=self.num_workers)
+                self.native = True
+                return self._batcher
+            except (RuntimeError, ValueError) as exc:
+                why = str(exc)
+        log.warning("DataLoader(prefetch=True): the numpy path, not the "
+                    "native batcher (%s)", why)
+        self.prefetch, self.native = False, False
+        return None
 
 
 class ThrottledLoader:

@@ -12,6 +12,7 @@ semantics otherwise: update ``k`` (0-based) runs at
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, List
 
 import torch
@@ -66,3 +67,42 @@ class DeviceLambdaLR:
     def load_state_dict(self, state: dict) -> None:
         self._count.copy_(torch.as_tensor(state["last_epoch"]))
         self._apply()
+
+
+def warmup_cosine_decay(step, init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0):
+    """optax's ``warmup_cosine_decay_schedule`` at ``step``: linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    to ``end_value`` at ``decay_steps`` (counted from step 0, warmup
+    included), flat after. ``step`` an int gives a float; a device
+    tensor gives an f64 device tensor, computed there (no host read)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+    if isinstance(step, torch.Tensor):
+        s = step.double()
+        warm = init_value + (peak_value - init_value) * s / max(
+            warmup_steps, 1)
+        t = torch.clamp(s - warmup_steps, max=span)
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / span))
+        return torch.where(s < warmup_steps, warm,
+                           peak_value * ((1 - alpha) * cosine + alpha))
+    if step < warmup_steps:
+        return init_value + (peak_value - init_value) * step / warmup_steps
+    t = min(step - warmup_steps, span)
+    cosine = 0.5 * (1 + math.cos(math.pi * t / span))
+    return peak_value * ((1 - alpha) * cosine + alpha)
+
+
+def scheduled(optimizer: torch.optim.Optimizer, schedule: Callable,
+              peak_lr: float) -> DeviceLambdaLR:
+    """A `DeviceLambdaLR` that runs ``optimizer`` (built with the tensor
+    lr ``peak_lr``) at ``schedule(step)``, a function of the device step
+    count (`warmup_cosine_decay` with its constants bound)."""
+
+    def factor(step: torch.Tensor) -> torch.Tensor:
+        if not peak_lr:
+            return torch.zeros((), dtype=torch.float64, device=step.device)
+        return schedule(step) / peak_lr
+
+    return DeviceLambdaLR(optimizer, factor)

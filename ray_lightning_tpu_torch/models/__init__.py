@@ -3,6 +3,11 @@ first use."""
 from ray_lightning_tpu_torch._lazy import lazy_exports
 
 _NAMES = {
+    **{n: "bert" for n in (
+        "BertClassifierModule", "BertConfig", "BertEncoder",
+        "BertForSequenceClassification")},
+    "bert_classifier_params_from_hf": "hf_interop",
+    "bert_params_from_hf": "hf_interop",
     "Llama": "llama",
     "LlamaConfig": "llama",
     "LlamaModule": "llama",
@@ -12,18 +17,11 @@ _NAMES = {
     "MLP": "mlp",
     "MLPClassifier": "mlp",
     "MNISTClassifier": "mlp",
+    **{n: "resnet" for n in (
+        "ResNet", "ResNetModule", "resnet18", "resnet34", "resnet50")},
 }
-_ITEM_13 = "ROADMAP Queue 1 item 13 (the remaining models)"
-_MISSING = {
-    **{n: _ITEM_13 for n in (
-        "BertClassifierModule", "BertConfig", "BertEncoder",
-        "BertForSequenceClassification", "MoEClassifierModule", "MoEMLP",
-        "moe_param_specs", "ResNet", "ResNetModule", "resnet18",
-        "resnet34", "resnet50")},
-    **{n: "ROADMAP Queue 1 item 13 (d) (BERT and the BERT half of "
-          "models/hf_interop.py)" for n in (
-        "bert_classifier_params_from_hf", "bert_params_from_hf")},
-}
+_MISSING = {n: "ROADMAP Queue 1 item 13 (c) (the expert axis and MoE)"
+            for n in ("MoEClassifierModule", "MoEMLP", "moe_param_specs")}
 
 __all__ = list(_NAMES)
 

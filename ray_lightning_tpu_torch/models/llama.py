@@ -70,6 +70,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_lightning_tpu_torch.core.module import TpuModule
+from ray_lightning_tpu_torch.core.schedule import (
+    warmup_cosine_decay,
+)
 from ray_lightning_tpu_torch.ops.attention import (
     PagedDecodeView,
     PagedPrefillView,
@@ -673,31 +676,6 @@ def token_loss_sum(logits: torch.Tensor, targets: torch.Tensor,
     return (losses * m).sum(), m.sum()
 
 
-def warmup_cosine_decay(step, init_value: float, peak_value: float,
-                        warmup_steps: int, decay_steps: int,
-                        end_value: float = 0.0):
-    """optax's ``warmup_cosine_decay_schedule`` at ``step``: linear from
-    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
-    to ``end_value`` at ``decay_steps`` (counted from step 0, warmup
-    included), flat after. ``step`` an int gives a float; a device
-    tensor gives an f64 device tensor, computed there (no host read)."""
-    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    span = decay_steps - warmup_steps
-    if isinstance(step, torch.Tensor):
-        s = step.double()
-        warm = init_value + (peak_value - init_value) * s / max(
-            warmup_steps, 1)
-        t = torch.clamp(s - warmup_steps, max=span)
-        cosine = 0.5 * (1 + torch.cos(math.pi * t / span))
-        return torch.where(s < warmup_steps, warm,
-                           peak_value * ((1 - alpha) * cosine + alpha))
-    if step < warmup_steps:
-        return init_value + (peak_value - init_value) * step / warmup_steps
-    t = min(step - warmup_steps, span)
-    cosine = 0.5 * (1 + math.cos(math.pi * t / span))
-    return peak_value * ((1 - alpha) * cosine + alpha)
-
-
 class LlamaModule(TpuModule):
     """TpuModule wrapper: next-token prediction on {"tokens": [B, S+1]}
     (or {"inputs", "targets"} pairs), twin of the JAX `LlamaModule`. The
@@ -766,7 +744,7 @@ class LlamaModule(TpuModule):
                                    end_value=self.lr * 0.1)
 
     def configure_optimizers(self):
-        from ray_lightning_tpu_torch.core.schedule import DeviceLambdaLR
+        from ray_lightning_tpu_torch.core.schedule import scheduled
 
         lr = self.lr
         kw = dict(lr=torch.tensor(lr, dtype=torch.float32,
@@ -783,13 +761,7 @@ class LlamaModule(TpuModule):
             raise ValueError(f"mu_dtype={self.mu_dtype}: bfloat16 (MuAdamW) "
                              "or float32 / None (the fused AdamW)")
 
-        def factor(step: torch.Tensor) -> torch.Tensor:
-            if not lr:
-                return torch.zeros((), dtype=torch.float64,
-                                   device=step.device)
-            return self.schedule(step) / lr
-
-        return opt, DeviceLambdaLR(opt, factor)
+        return opt, scheduled(opt, self.schedule, lr)
 
     def _split(self, batch):
         if "tokens" in batch:

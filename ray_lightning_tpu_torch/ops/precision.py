@@ -9,11 +9,15 @@ full contraction. Two shapes of it:
   * `linear_f32_out` — ``f32_out_dot_general`` (the vocab projection):
     the output KEEPS the f32 accumulator, so sampling runs on unrounded
     logits.
+  * `dense_f32_acc` — ``F32AccDense``: the f32 accumulator plus an f32
+    bias, rounded once; the bias gradient is a sum of f32 cotangents.
 
 Both stay library matmuls, as the JAX package leaves them to XLA.
 Weights use the `nn.Linear` layout ``[out, in]``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,3 +72,16 @@ def linear_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the operands are already rounded to their dtype."""
     out = _LinearF32Out.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[0])
+
+
+def dense_f32_acc(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w.T + b`` (the twin of ``F32AccDense``) from ``w`` cast to
+    x's dtype: f32 accumulator, f32 bias add, one rounding back to x's
+    dtype. In f32 it is `F.linear`, as the JAX dense is ``nn.Dense``."""
+    if x.dtype == torch.float32:
+        return F.linear(x, w.float(), None if b is None else b.float())
+    y = linear_f32_out(x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)

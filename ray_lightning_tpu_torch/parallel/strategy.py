@@ -934,10 +934,9 @@ class RayXlaPlugin(DataParallel):
     """The reference RayPlugin's constructor (ray_ddp.py:89-94) over
     `DataParallel`.
 
-    ``num_cpus_per_worker`` is accepted and recorded, and changes
-    nothing: the JAX loader sizes its prefetch pool from it, and the
-    port's `DataLoader` has no prefetch pool yet (ROADMAP Queue 1 item
-    13). ``use_gpu`` picks the device
+    An explicit ``num_cpus_per_worker`` is exported to the worker as
+    ``RLT_NUM_CPUS_PER_WORKER``, which sizes `DataLoader(prefetch=True)`'s
+    native batcher pool, as in JAX. ``use_gpu`` picks the device
     the port's way: None (the default) is the card unless
     ``device="cpu"``; True is the card; False needs ``device="cpu"``
     and raises without it, rather than choosing one."""
@@ -954,10 +953,16 @@ class RayXlaPlugin(DataParallel):
         if use_gpu and is_cpu:
             raise ValueError("RayXlaPlugin(use_gpu=True, device='cpu') "
                              "asks for both devices")
+        env = dict(kwargs.pop("env", None) or {})
+        if num_cpus_per_worker is not None:
+            # only an explicit budget: a default would retune every
+            # loader of the process, not this strategy's
+            env.setdefault("RLT_NUM_CPUS_PER_WORKER",
+                           str(max(1, num_cpus_per_worker)))
         self.num_cpus_per_worker = max(1, num_cpus_per_worker or 1)
         self.use_gpu = use_gpu
         super().__init__(num_workers=num_workers, init_hook=init_hook,
-                         **kwargs)
+                         env=env, **kwargs)
 
 
 # ---- spec helpers --------------------------------------------------------

@@ -172,8 +172,17 @@ class DevicePrefetcher(Iterable[Any]):
             self._final_put(_Raise(exc))
 
     def _place_one(self, item: Any, stream) -> Any:
-        """(placed batch, the event its copies complete at or None)."""
+        """(placed batch, the event its copies complete at or None).
+
+        A zero-copy batch (`native.SlotBatch`) is a view into a slot that
+        the batcher takes back when the next batch is pulled, which this
+        thread does long before the consumer is done: on the CPU, where
+        placing aliases the arrays, it is copied out of the slot first;
+        on a card, the pull waits for the copies' event."""
+        zero_copy = getattr(item, "zero_copy", False)
         if stream is None:
+            if zero_copy:
+                item = {k: v.copy() for k, v in item.items()}
             return self._place(item), None
         import torch
 
@@ -181,6 +190,8 @@ class DevicePrefetcher(Iterable[Any]):
             placed = self._place(item)
             ready = torch.cuda.Event()
             ready.record(stream)
+        if zero_copy:
+            ready.synchronize()
         return placed, ready
 
     def _final_put(self, sentinel: Any) -> None:

@@ -17,9 +17,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "ray_lightning_tpu_torch", "ops", "csrc")
 
 
-@pytest.mark.parametrize("fault", sorted(chip_faults.FAULTS))
+ALL_FAULTS = {**chip_faults.FAULTS, **chip_faults.SMALL_FAULTS}
+
+
+@pytest.mark.parametrize("fault", sorted(ALL_FAULTS))
 def test_fault_text_occurs_once_in_its_source(fault):
-    src, text, planted = chip_faults.FAULTS[fault]
+    src, text, planted = ALL_FAULTS[fault]
     with open(os.path.join(CSRC, src)) as f:
         code = f.read()
     assert code.count(text) == 1, f"{fault}: {text!r} in {src}"
@@ -33,6 +36,15 @@ def test_every_source_is_built():
     for name in chip_faults.SOURCES:
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             built[f"{name}.cu"] = f.read()
-    for src in {src for src, _, _ in chip_faults.FAULTS.values()}:
+    for src in {src for src, _, _ in ALL_FAULTS.values()}:
         assert src in built or any(f'#include "{src}"' in code
                                    for code in built.values()), src
+
+
+def test_bert_faults_are_planted_in_the_sources_bert_builds():
+    """``--bert`` builds only the flash sources: each of its faults is
+    planted in one of them."""
+    faults = [chip_faults.FAULTS[f] for f in chip_faults.BERT_FAULTS]
+    faults += list(chip_faults.SMALL_FAULTS.values())
+    for src, _, _ in faults:
+        assert src[:-len(".cu")] in chip_faults.BERT_SOURCES, src

@@ -8,6 +8,13 @@ embeddings) and once across two gloo processes; each must end with a
 finite loss after 4 steps, and its JSON line must say what ran.
 ``--pipe > 1`` is refused naming its ROADMAP item, ``--no-scan-layers``
 is accepted and documented as changing nothing.
+
+The other five (`mnist_dp_example` also with ``--tune`` and across two
+gloo processes, `mnist_sweep_example`, `pod_launch_example`,
+`cifar_resnet_example --prefetch`, `bert_finetune_example`), each with
+``--smoke-test --device cpu`` on its synthetic data, must print the
+final line its JAX twin prints; the CIFAR one must say the native
+batcher made its batches.
 """
 from __future__ import annotations
 
@@ -23,10 +30,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULE = "ray_lightning_tpu_torch.examples.llama_fsdp_example"
 
 
-def _run(args, cwd, timeout=240):
+def _run(args, cwd, timeout=240, module=MODULE):
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    return subprocess.run([sys.executable, "-m", MODULE, *args], cwd=cwd,
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
 
@@ -77,3 +84,61 @@ def test_llama_fsdp_example_refusals_and_help(tmp_path):
     for flag in ("--mu-bf16", "--remat-policy", "--ce-inline-bwd",
                  "--tie-embeddings", "--device"):
         assert flag in text
+
+
+#: example -> (extra flags, the final line's start)
+EXAMPLES = {
+    "mnist_dp": ("mnist_dp_example", [], "final val accuracy: "),
+    "mnist_dp_tune": ("mnist_dp_example", ["--tune"],
+                      "Best hyperparameters: "),
+    "mnist_dp_two_workers": ("mnist_dp_example", ["--num-workers", "2"],
+                             "final val accuracy: "),
+    "mnist_sweep": ("mnist_sweep_example", [], None),
+    "pod_launch": ("pod_launch_example", [], "pod launch round-trip OK"),
+    "cifar_resnet_prefetch": ("cifar_resnet_example", ["--prefetch"],
+                              "val_acc="),
+    "bert_finetune": ("bert_finetune_example", [], "val_acc="),
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_example_smoke(name, tmp_path):
+    script, extra, last = EXAMPLES[name]
+    out = _run(["--smoke-test", "--device", "cpu", *extra], str(tmp_path),
+               timeout=180,
+               module=f"ray_lightning_tpu_torch.examples.{script}")
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    if name == "mnist_sweep":
+        # the JAX example's lines, then a row per trial
+        assert any(line.startswith("Best hyperparameters: ")
+                   for line in lines)
+        best = [line for line in lines if line.startswith(
+            "Best checkpoint: ")]
+        assert best and os.path.isdir(best[0].split(": ", 1)[1])
+        assert sum(line.startswith("{'trial_id'") for line in lines) == 2
+        return
+    assert lines[-1].startswith(last), lines[-3:]
+    if name.startswith("mnist_dp") and not name.endswith("tune"):
+        assert float(lines[-1].split(": ")[1]) > 0.5
+    if script in ("cifar_resnet_example", "bert_finetune_example"):
+        summary = json.loads(lines[-2])
+        assert np.isfinite(summary["loss"]) and summary["device"] == "cpu"
+        if script == "cifar_resnet_example":
+            # 7 batches an epoch, two epochs (and the fit's example batch)
+            assert summary["steps"] == 14
+            assert summary["native_batches"] >= 14
+
+
+def test_examples_refuse_a_missing_card(tmp_path):
+    """Without ``--device cpu`` on a machine with no card, each example
+    says so instead of training somewhere else."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    for script in ("mnist_dp_example", "cifar_resnet_example",
+                   "bert_finetune_example", "mnist_sweep_example"):
+        out = _run(["--smoke-test"], str(tmp_path),
+                   module=f"ray_lightning_tpu_torch.examples.{script}")
+        assert out.returncode == 2 and "--device cpu" in out.stderr, script

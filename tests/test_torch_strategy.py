@@ -223,8 +223,12 @@ def test_ray_xla_plugin_device_rule_and_env(monkeypatch):
     assert isinstance(p, DataParallel) and p.num_cpus_per_worker == 3
     try:
         assert p.setup() == torch.device("cpu")
-        # recorded only: nothing in the port reads it yet
-        assert "RLT_NUM_CPUS_PER_WORKER" not in os.environ
+        # exported, as JAX does: it sizes the native batcher's pool of
+        # every DataLoader(prefetch=True) in the worker
+        assert os.environ["RLT_NUM_CPUS_PER_WORKER"] == "3"
+        from ray_lightning_tpu_torch.core.data import DataLoader
+
+        assert DataLoader({"x": np.zeros(4)}, prefetch=True).num_workers == 3
         assert hook_ran == [1]
         assert dist.is_initialized() and dist.get_backend() == "gloo"
         assert p.mesh_shape == {"data": 1} and p.world_size == 1

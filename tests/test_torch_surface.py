@@ -24,21 +24,16 @@ from ray_lightning_tpu_torch._lazy import NotPortedError
 ITEM = {
     # item 12 brought elastic/: every top-level name resolves
     "": {"launch_cpu_spmd": "gloo", "simulate_cpu_devices": "JAX-only"},
-    "core": {n: "item 2" for n in (
-        "chunk_tokens", "pack_sequences", "tokenize_and_pack")},
+    # item 2 brought core/text.py: every name resolves
+    "core": {},
     # item 4 brought the planner (parallel/plan.py): every name resolves
     "parallel": {},
     "runtime": {"launch_cpu_spmd": "gloo"},
     # item 8's remainder brought the serving plan: every name resolves
     "serve": {},
-    # item 3 brought models/hf_interop.py's Llama half
-    "models": {**{n: "item 13" for n in (
-        "BertClassifierModule", "BertConfig", "BertEncoder",
-        "BertForSequenceClassification", "MoEClassifierModule", "MoEMLP",
-        "moe_param_specs", "ResNet", "ResNetModule", "resnet18",
-        "resnet34", "resnet50")},
-        **{n: r"item 13 \(d\)" for n in (
-            "bert_classifier_params_from_hf", "bert_params_from_hf")}},
+    # item 13 (d) brought BERT, ResNet and hf_interop's BERT half
+    "models": {n: r"item 13 \(c\)" for n in (
+        "MoEClassifierModule", "MoEMLP", "moe_param_specs")},
     "ops": {n: "item 13" for n in (
         "ulysses_attention", "ulysses_attention_local", "ring_attention",
         "ring_attention_local", "gpipe_apply", "pipeline_param_spec")},
@@ -117,6 +112,31 @@ def test_rest_of_serving_names_resolve():
             assert name in serve.__all__
 
 
+def test_slice_13_names_resolve():
+    """Item 2 and item 13 (d): `core/text.py`, BERT, ResNet and the BERT
+    half of `hf_interop` resolve from their subpackages as the objects
+    their modules define; MoE still names item 13 (c)."""
+    from ray_lightning_tpu_torch import core, models
+    from ray_lightning_tpu_torch.core import text
+    from ray_lightning_tpu_torch.models import bert, hf_interop, resnet
+
+    for pkg, mod, names in (
+            (core, text, ("chunk_tokens", "pack_sequences",
+                          "tokenize_and_pack")),
+            (models, bert, ("BertClassifierModule", "BertConfig",
+                            "BertEncoder", "BertForSequenceClassification")),
+            (models, resnet, ("ResNet", "ResNetModule", "resnet18",
+                              "resnet34", "resnet50")),
+            (models, hf_interop, ("bert_params_from_hf",
+                                  "bert_classifier_params_from_hf"))):
+        for name in names:
+            assert getattr(pkg, name) is getattr(mod, name), name
+            assert name in pkg.__all__
+    for name in ("MoEMLP", "MoEClassifierModule", "moe_param_specs"):
+        with pytest.raises(NotPortedError, match=r"item 13 \(c\)"):
+            getattr(models, name)
+
+
 def test_top_level_names_are_the_subpackages_objects():
     """The top level re-exports, it does not copy: the same objects as
     the modules that define them, the subpackages themselves for
@@ -156,7 +176,8 @@ def test_a_script_switches_packages_with_its_import():
     "ray_lightning_tpu_torch", "ray_lightning_tpu_torch.core",
     "ray_lightning_tpu_torch.parallel", "ray_lightning_tpu_torch.models",
     "ray_lightning_tpu_torch.ops", "ray_lightning_tpu_torch.serve",
-    "ray_lightning_tpu_torch.pipeline", "ray_lightning_tpu_torch.runtime"])
+    "ray_lightning_tpu_torch.pipeline", "ray_lightning_tpu_torch.runtime",
+    "ray_lightning_tpu_torch.native"])
 def test_import_loads_no_torch_and_no_jax(module):
     code = (f"import sys, {module}, ray_lightning_tpu_torch as r; "
             "r.__all__; "
