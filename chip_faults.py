@@ -60,6 +60,25 @@ At S 128 the forward walks one KV tile, so a missing rescale shows only
 at S 512. It exits 0 when the control passes both checks and the kernel
 check rejects every fault taken from FAULTS; the small ones are reported
 (about two minutes on one H100).
+
+``--axes`` runs phase 17's flash checks instead, on every flash fault of
+FAULTS and the three small ones:
+
+  kernels — the three flash kernels at ``FLASH_OWED_17`` (the ring's
+            blocks, Ulysses' heads), held as phase 3 holds those rows:
+            O and lse by `chip_smoke.tolerance_ratio`, the gradients by
+            `chip_smoke.truth_ratio` (an f64 reference); beside it the
+            gradients' share under `tolerance_ratio` alone (the rule of
+            every other flash row).
+  ring    — 17 (b)'s ring at B 1, S 8192, H 32, Hkv 8, hd 128, causal,
+            its two ranks driven in this process (`ring_attention_ranks`
+            over a `LocalShift`): O, dQ, dK and dV of the kernel lane
+            against the plain-version lane by `truth_ratio`, as 17 (b)
+            holds them, beside `tolerance_ratio`; and each lane's largest
+            and rms error against the f64 reference.
+
+It exits 0 when the control passes both checks and the kernel check
+rejects every fault taken from FAULTS (about five minutes on one H100).
 """
 from __future__ import annotations
 
@@ -162,6 +181,9 @@ BERT_CASES = {**smoke.BERT_FLASH_CASES,
               "bert S 512": smoke.FLASH_OWED["bert S 512"]}
 #: the flat tolerance, |err| <= FLAT + FLAT |b|, shown for comparison
 FLAT = 2e-2
+#: ``--axes``: the flash faults of FAULTS (every one shows at the ring's
+#: shapes: causal and full blocks, GQA)
+AXES_FAULTS = tuple(f for f in FAULTS if f.startswith("flash"))
 
 
 def use_sources(fault, sources=SOURCES):
@@ -366,11 +388,154 @@ def bert_main() -> int:
     return 0 if ok else 1
 
 
+def axes_flash_shares():
+    """{"<case> <output>": (share by phase 3's rule, share by
+    `tolerance_ratio` alone)} of the flash kernels as built now at
+    FLASH_OWED_17; the gradients' two rules differ, O's and lse's not."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(smoke.SEED)
+    out = {}
+    for name, dims in smoke.FLASH_OWED_17.items():
+        case = smoke.FlashCase(gen, *dims)
+        held = case.shares(truth=True)
+        strict = case.shares()
+        out.update({f"{name} {k}": (v[1], strict[k][1])
+                    for k, v in held.items()})
+        del case
+        torch.cuda.empty_cache()
+    return out
+
+
+class RingCase:
+    """17 (b)'s inputs, the f64 reference and the plain-version lane
+    (the wrappers' plain versions under `force_reference`: no kernel, so
+    the same for every fault), per rank."""
+
+    def __init__(self):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(smoke.SEED)
+        B, S, H, Hkv, hd = smoke.RING_B, smoke.RING_S, smoke.TH, \
+            smoke.THKV, smoke.HD
+        rn = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+        self.q, self.k, self.v = rn(B, S, H, hd), rn(B, S, Hkv, hd), \
+            rn(B, S, Hkv, hd)
+        self.do = rn(B, S, H, hd)
+        self.n = smoke.AXES_RANKS
+        ref = smoke.f64_attention(self.q, self.k, self.v, self.do, True)
+        self.ref = {k: self.chunks(t) for k, t in ref.items()}
+        del ref
+        torch.cuda.empty_cache()
+        self.plain = self.run(reference=True)
+
+    def chunks(self, t) -> list:
+        cut = t.shape[1] // self.n
+        return [t[:, r * cut:(r + 1) * cut].contiguous()
+                for r in range(self.n)]
+
+    def run(self, reference=False) -> dict:
+        """{output: per-rank tensors} of the ring, both ranks here."""
+        import contextlib
+
+        from ray_lightning_tpu_torch.ops import dispatch
+        from ray_lightning_tpu_torch.ops.ring_attention import (
+            ring_attention_ranks)
+
+        qs, ks, vs = ([c.requires_grad_() for c in self.chunks(t)]
+                      for t in (self.q, self.k, self.v))
+        ctx = (dispatch.force_reference() if reference
+               else contextlib.nullcontext())
+        with ctx:
+            outs = ring_attention_ranks(qs, ks, vs, causal=True)
+            torch.autograd.backward(outs, self.chunks(self.do))
+        return {"o": [o.detach() for o in outs],
+                "dq": [t.grad for t in qs], "dk": [t.grad for t in ks],
+                "dv": [t.grad for t in vs]}
+
+    def shares(self) -> dict:
+        """{output: readings} of the kernel lane as built now: its share
+        by 17 (b)'s rule (`truth_ratio`) and by `tolerance_ratio`, the
+        worst rank's, and each lane's largest and rms error against the
+        f64 reference."""
+        got = self.run()
+        out = {}
+        for name in ("o", "dq", "dk", "dv"):
+            dims = (-1,) if name == "o" else smoke.SLAB
+            row = dict(rule_share=0.0, tolerance_share=0.0,
+                       kernel_vs_f64_max=0.0, plain_vs_f64_max=0.0,
+                       kernel_vs_f64_rms=0.0, plain_vs_f64_rms=0.0)
+            for a, b, t in zip(got[name], self.plain[name], self.ref[name]):
+                row["rule_share"] = max(row["rule_share"],
+                                        smoke.truth_ratio(a, b, t, dims)[1])
+                row["tolerance_share"] = max(
+                    row["tolerance_share"],
+                    smoke.tolerance_ratio(a, b, dims)[1])
+                for lane, x in (("kernel", a), ("plain", b)):
+                    e = x.double() - t
+                    row[f"{lane}_vs_f64_max"] = max(
+                        row[f"{lane}_vs_f64_max"], e.abs().max().item())
+                    row[f"{lane}_vs_f64_rms"] = max(
+                        row[f"{lane}_vs_f64_rms"],
+                        e.pow(2).mean().sqrt().item())
+            out[name] = row
+        del got
+        torch.cuda.empty_cache()
+        return out
+
+
+def axes_main() -> int:
+    use_sources(None, BERT_SOURCES)
+    ring = RingCase()
+    rows = {}
+    for fault in [None, *AXES_FAULTS, *SMALL_FAULTS]:
+        if fault is not None:
+            use_sources(fault, BERT_SOURCES)
+        shares = axes_flash_shares()
+        ring_shares = ring.shares()
+        row = dict(fault=fault or "none",
+                   kernel_share={k: v[0] for k, v in shares.items()},
+                   strict_share={k: v[1] for k, v in shares.items()},
+                   ring=ring_shares)
+        row["kernel_rejects"] = [k for k, v in shares.items()
+                                 if not v[0] <= 1.0]
+        row["strict_rejects"] = [k for k, v in shares.items()
+                                 if not v[1] <= 1.0]
+        row["ring_rejects"] = [k for k, v in ring_shares.items()
+                               if not v["rule_share"] <= 1.0]
+        row["ring_strict_rejects"] = [k for k, v in ring_shares.items()
+                                      if not v["tolerance_share"] <= 1.0]
+        print(json.dumps(row), flush=True)
+        rows[row["fault"]] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    control = rows.pop("none")
+    control_passes = not (control["kernel_rejects"]
+                          or control["ring_rejects"])
+    ok = control_passes and all(rows[f]["kernel_rejects"]
+                                for f in AXES_FAULTS)
+    print(json.dumps(dict(
+        control_passes=control_passes,
+        kernel_check_rejects={k: bool(v["kernel_rejects"])
+                              for k, v in rows.items()},
+        strict_rule_rejects={k: bool(v["strict_rejects"])
+                             for k, v in rows.items()},
+        ring_check_rejects={k: bool(v["ring_rejects"])
+                            for k, v in rows.items()},
+        ring_strict_rejects={k: bool(v["ring_strict_rejects"])
+                             for k, v in rows.items()},
+        ok=ok)), flush=True)
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bert", action="store_true",
                     help="only the flash faults through phase 16's checks "
                          "(BERT-base's shapes and its fit)")
+    ap.add_argument("--axes", action="store_true",
+                    help="only the flash faults through phase 17's checks "
+                         "(the ring's and Ulysses' flash shapes and the "
+                         "ring's lanes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         smoke.log("chip_faults: no CUDA device available")
@@ -378,6 +543,8 @@ def main(argv=None) -> int:
     print(smoke.nvidia_smi(), flush=True)
     if args.bert:
         return bert_main()
+    if args.axes:
+        return axes_main()
     use_sources(None)
     cases = KernelCases()
     model = smoke.build_model(smoke.SEED, 32)

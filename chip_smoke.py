@@ -355,6 +355,34 @@ Phases, each of which raises (and so exits nonzero) on failure:
                and the CIFAR example's batches made by the native
                batcher. ``phase16_s`` and each part's seconds in the
                ``timing`` line.
+ 17. the sequence, pipeline and expert axes — after phase 16, whose
+               time its two-rank gloo group and a two-rank probe spend
+               importing (they wait for the phase's gate), the group's
+               ranks also paying a fresh process's first flash call
+               there (`warm_process`, ``warm_s``): (a) the probe
+               prints which of gloo's c10d calls carry CUDA tensors
+               between two processes on the card (`all_to_all_single`,
+               even and to a neighbour only, which the shifts of
+               `parallel.comm` use under gloo with CUDA tensors, and
+               `batch_isend_irecv`, last, since it may kill its
+               processes); (b) ring and Ulysses attention over the
+               two-rank ``seq`` axis at B 1, S 8192, H 32, Hkv 8, hd
+               128, causal, bf16: O, dQ, dK, dV of the ring's kernel lane
+               against its plain-version lane (`truth_ratio`, an f64
+               reference) and both against the one-device flash kernels
+               on the whole sequence, the flash launches a rank by its
+               visible blocks, forward and backward ms by CUDA events and
+               the host ms waited for rotations; ``FLASH_OWED_17`` holds
+               the ring's blocks and Ulysses' heads untimed in phase 3;
+               (c) phase 5's fit under ``ShardedMesh(seq=2)`` (ring) and
+               (d) under ``ShardedMesh(pipe=2)`` (2 microbatches), 2
+               steps each, within the train limits of phase 5's rows,
+               with each step's gradient reduction timed; (e)
+               `MoEClassifierModule` at its JAX defaults under
+               ``ShardedMesh(expert=2)`` within ``MOE_RTOL`` of its
+               one-rank fit. ``phase17_s`` in the ``timing`` line;
+               ``--axes-only`` runs phase 3's ``FLASH_OWED_17`` rows,
+               phase 5 and phase 17 alone.
   4b. serve profile — last, phase 4's model serves four of its requests
                again under `torch.profiler`, the device traced alone:
                the device's busy share and the kernels with the most
@@ -951,6 +979,16 @@ FLASH_OWED = {
     # phase 16: BERT-base at its max_seq_len, bidirectional, hd 64
     "bert S 512": (8, 512, 512, 12, 12, 64, False, 0),
 }
+#: phase 17's flash shapes (same fields), checked after FLASH_OWED and
+#: the B_max row, so the seeded draws of those stay what they were: a
+#: ring block of Llama-3-8B's max_seq_len over two ranks (causal on the
+#: diagonal, whole below it) and Ulysses' heads a rank over the whole
+#: sequence
+FLASH_OWED_17 = {
+    "ring block causal": (1, 4096, 4096, TH, THKV, HD, True, 0),
+    "ring block full": (1, 4096, 4096, TH, THKV, HD, False, 0),
+    "ulysses 2": (1, 8192, 8192, TH // 2, THKV // 2, HD, True, 0),
+}
 #: the batch rows of the B_max flash row (phase 12 (b)'s batch, planned)
 #: held against the plain version: the kernels run at the full batch,
 #: whose plain [B, H, S, S] scores would not fit beside it
@@ -964,6 +1002,19 @@ ZERO_GRAD_ATOL = 1e-4
 #: gradient row can cancel to zero (dQ of the first query is exactly 0)
 #: while its rounding noise does not
 SLAB = (1, 3)
+#: phase 17's flash rows, sequences of 4096 and 8192: there the plain
+#: version's own bf16 rounding of dS and of its output puts it, at a few
+#: elements a draw, as far from an f64 reference as the tolerance allows
+#: (`scripts/flash_truth.py`, 16 draws at S 4096: where the kernel uses
+#: most of the tolerance, it is the nearer of the two about as often as
+#: the plain version is). An element of these rows' gradients beyond the
+#: tolerance of the plain version passes only where the kernel is no
+#: further from the f64 reference than the plain version, plus the same
+#: tolerance around it. 17 (b) holds the ring's O, dQ, dK and dV so too:
+#: there its two lanes' largest errors against f64 are equal. Under this
+#: rule the rows and the ring still reject every planted flash fault
+#: (`chip_faults.py --axes`)
+TRUTH_HELD = tuple(FLASH_OWED_17)
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -1031,23 +1082,85 @@ class FlashCase:
     def dq_plain(self):
         return self.F.flash_bwd_dq_plain(*self.bwd_in())
 
-    def shares(self):
+    def shares(self, truth: bool = False):
         """{output: (max |err|, share of the tolerance)} of every kernel
-        output against its plain version (the caller judges them)."""
+        output against its plain version (the caller judges them); with
+        ``truth``, the gradients' shares by `truth_ratio`."""
         po, plse = self.fwd_plain()
         out = {"o": tolerance_ratio(self.o, po),
                "lse": tolerance_ratio(self.lse, plse)}
         lse_err = (self.lse - plse).abs().max().item()
         out["lse_abs"] = (lse_err, lse_err / LSE_ATOL)
         del po, plse
+        ref = (f64_attention(self.q, self.k, self.v, self.do, *self.args)
+               if truth else None)
         dk, dv = self.dkv()
         pdk, pdv = self.dkv_plain()
-        out["dk"] = tolerance_ratio(dk, pdk, SLAB)
-        out["dv"] = tolerance_ratio(dv, pdv, SLAB)
+        pdq = self.dq_plain()
+
+        def ratio(name, got, want):
+            if ref is None:
+                return tolerance_ratio(got, want, SLAB)
+            return truth_ratio(got, want, ref[name])
+
+        out["dk"] = ratio("dk", dk, pdk)
+        out["dv"] = ratio("dv", dv, pdv)
         del pdk, pdv
-        out["dq"] = tolerance_ratio(self.dq(), self.dq_plain(), SLAB)
+        out["dq"] = ratio("dq", self.dq(), pdq)
         torch.cuda.synchronize()
         return out
+
+
+def f64_attention(q, k, v, do, causal: bool, off: int = 0) -> dict:
+    """O, dQ, dK and dV of the attention of q, k, v [B, S, heads, hd]
+    with the cotangent ``do``, in f64 from the given (bf16) values, one KV
+    head's group at a time."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    r, scale = h // hkv, hd ** -0.5
+    rows = off + torch.arange(sq, device=q.device)[:, None]
+    vis = (rows >= torch.arange(sk, device=q.device)[None, :] if causal
+           else torch.ones(sq, sk, dtype=torch.bool, device=q.device))
+    out = {"o": torch.zeros_like(q), "dq": torch.zeros_like(q),
+           "dk": torch.zeros_like(k), "dv": torch.zeros_like(v)}
+    for g in range(hkv):
+        heads = slice(g * r, (g + 1) * r)
+        qg, dog, kg, vg = q[:, :, heads], do[:, :, heads], k[:, :, g], \
+            v[:, :, g]
+        s = torch.einsum("bird,bjd->brij", qg, kg) * scale
+        p = torch.softmax(s.masked_fill(~vis, float("-inf")), dim=-1)
+        og = torch.einsum("brij,bjd->bird", p, vg)
+        out["o"][:, :, heads] = og
+        dp = torch.einsum("bird,bjd->brij", dog, vg)
+        delta = (dog * og).sum(-1).permute(0, 2, 1)[..., None]
+        ds = p * (dp - delta) * scale
+        out["dq"][:, :, heads] = torch.einsum("brij,bjd->bird", ds, kg)
+        out["dk"][:, :, g] = torch.einsum("brij,bird->bjd", ds, qg)
+        out["dv"][:, :, g] = torch.einsum("brij,bird->bjd", p, dog)
+        del s, p, og, dp, ds
+    return out
+
+
+def truth_ratio(got: torch.Tensor, plain: torch.Tensor,
+                truth: torch.Tensor, rms_dims=SLAB):
+    """(max |got - plain|, largest share): an element's share is the
+    lesser of its share of the tolerance against the plain version
+    (`tolerance_ratio`'s, the rms over ``rms_dims``) and of |got - truth|
+    against |plain - truth| plus the tolerance around the f64
+    ``truth``."""
+    got, plain = got.double(), plain.double()
+    err = (got - plain).abs()
+
+    def tol(ref):
+        rms = ref.pow(2).mean(dim=rms_dims, keepdim=True).sqrt()
+        return ATOL_RMS * rms + RTOL * ref.abs()
+
+    vs_plain = torch.where(err == 0, torch.zeros_like(err), err / tol(plain))
+    vs_truth = (got - truth).abs() / ((plain - truth).abs() + tol(truth))
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf")
+    return err.max().item(), torch.minimum(vs_plain, vs_truth).max().item()
 
 
 def sdpa_args(c: FlashCase):
@@ -1151,22 +1264,27 @@ def check_flash(gen: torch.Generator, cases=None):
     return rows
 
 
-def check_flash_owed(gen: torch.Generator):
+def check_flash_owed(gen: torch.Generator, only=None):
     """The three flash kernels against their plain versions at every
-    shape of FLASH_OWED and at phase 12 (b)'s planned batch (its
-    BMAX_ROWS held), and the RMSNorm at that batch's every row, untimed;
-    one JSON line per shape."""
+    shape of FLASH_OWED, at phase 12 (b)'s planned batch (its BMAX_ROWS
+    held) and of FLASH_OWED_17, and the RMSNorm at that batch's every
+    row, untimed; one JSON line per shape. ``only``: those FLASH_OWED_17
+    rows alone."""
     from ray_lightning_tpu_torch.ops.kernels.rmsnorm import (
         rms_norm_kernel, rms_norm_plain)
 
-    b_max = planned_max_batch()[0]
-    owed = {**FLASH_OWED,
-            f"B_max {b_max}": (b_max, TS, TS, TH, THKV, HD, True, 0)}
+    if only is not None:
+        owed = {k: FLASH_OWED_17[k] for k in only}
+    else:
+        b_max = planned_max_batch()[0]
+        owed = {**FLASH_OWED,
+                f"B_max {b_max}": (b_max, TS, TS, TH, THKV, HD, True, 0),
+                **FLASH_OWED_17}
     for name, dims in owed.items():
         case = FlashCase(gen, *dims)
         if name.startswith("B_max"):
             case = case.rows([r % dims[0] for r in BMAX_ROWS])
-        shares = case.shares()
+        shares = case.shares(truth=name in TRUTH_HELD)
         zero = ("dq", "dk") if dims[2] == 1 else ()
         bad = {k: v for k, v in shares.items()
                if not (v[0] <= ZERO_GRAD_ATOL if k in zero else v[1] <= 1.0)}
@@ -1177,6 +1295,9 @@ def check_flash_owed(gen: torch.Generator):
                               tolerance_share={k: v[1] for k, v in
                                                shares.items()})), flush=True)
     del case
+    if only is not None:
+        torch.cuda.empty_cache()
+        return
     # phase 12 (b)'s RMSNorm: B_max x TS rows at D with the f32 gain
     n = b_max * TS
     x, w = rms_inputs(gen, n, D, torch.float32)
@@ -6743,6 +6864,540 @@ def baseline_phase(seed: int, gen: torch.Generator):
     return rows, total, walls
 
 
+# ---- phase 17: the sequence, pipeline and expert axes ---------------------
+#
+# Two gloo ranks share the card (NCCL refuses two ranks on one card), as
+# in phases 12 (c), 13 (c) and 14 (a). A two-rank probe first says which
+# of gloo's c10d calls carry CUDA tensors; then one two-rank group runs
+# (b) ring and Ulysses attention at Llama-3-8B's width, (c) phase 5's fit
+# under ShardedMesh(seq=2), (d) under ShardedMesh(pipe=2) and (e) the MoE
+# classifier under ShardedMesh(expert=2) against its one-rank fit.
+
+AXES_RANKS = 2
+AXES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rlt_logs", "chip_smoke_axes")
+AXES_TIMEOUT_S = 420
+PROBE_TIMEOUT_S = 60
+#: phase 17's processes start during phase 16 and import there; this file
+#: appearing lets them go on to the card and the process group
+AXES_GATE = os.path.join(AXES_DIR, "go")
+#: (b): Llama-3-8B's attention at its max_seq_len, two ranks of 4096
+RING_B, RING_S = 1, 8192
+#: (c)-(d): phase 5's fit, this many steps
+AXES_STEPS = 2
+#: (e): the MoE classifier's data (the JAX test's), global batch, steps,
+#: and how far its expert-parallel rows may sit from its one-rank rows
+#: (f32 both: the reductions' order alone differs)
+MOE_ROWS, MOE_BATCH, MOE_STEPS, MOE_RTOL = 256, 64, 4, 1e-4
+
+
+def _await_gate() -> None:
+    """Wait for phase 17 to open AXES_GATE (the processes import while
+    the phase before runs)."""
+    while not os.path.exists(AXES_GATE):
+        time.sleep(0.05)
+
+
+def probe_worker(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of 17 (a): which c10d calls of a gloo group carry CUDA
+    tensors between two processes on the card. Each answer is written to
+    ``out`` as it comes; `batch_isend_irecv` goes last, since gloo's
+    point-to-point may hand a device pointer to its transport and kill
+    the process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    _await_gate()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=30))
+    res = {}
+
+    def record(key, value):
+        res[key] = value
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+    dev = torch.device("cuda")
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 100 * rank
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)
+    want = torch.cat([torch.arange(4) + 4 * rank + 100 * s
+                      for s in range(world)]).float()
+    record("all_to_all_even", bool(torch.equal(y.cpu(), want)))
+    # neighbour-only splits: the ring's rotation on gloo's all-to-all
+    ins, outs = [0] * world, [0] * world
+    ins[nxt], outs[prv] = 5, 5
+    x5 = torch.full((5,), float(rank), device=dev)
+    y5 = torch.empty(5, device=dev)
+    dist.all_to_all_single(y5, x5, outs, ins)
+    record("all_to_all_neighbour",
+           bool(torch.equal(y5.cpu(), torch.full((5,), float(prv)))))
+    record("batch_isend_irecv", "started")
+    z = torch.empty(5, device=dev)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x5, nxt),
+                                     dist.P2POp(dist.irecv, z, prv)]):
+        w.wait()
+    record("batch_isend_irecv",
+           bool(torch.equal(z.cpu(), torch.full((5,), float(prv)))))
+    dist.destroy_process_group()
+
+
+def ring_lane(seed: int) -> dict:
+    """17 (b) on this rank: ring and Ulysses attention over the two-rank
+    ``seq`` axis at B 1, S 8192 (4096 a rank), H 32, Hkv 8, hd 128,
+    causal, bf16. O, dQ, dK and dV of the ring's kernel lane against the
+    same ring through the kernels' plain versions (its lane under
+    `force_reference`; held as phase 17's flash rows are, `truth_ratio`
+    with an f64 reference) and against the one-device flash kernels on
+    the whole sequence;
+    Ulysses' against the latter; forward and backward ms by CUDA events
+    (medians of 3), the host seconds a rank waited for its rotations, and
+    the wall seconds of each part of the lane (``parts_s``)."""
+    import contextlib
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_lightning_tpu_torch.ops import dispatch
+    from ray_lightning_tpu_torch.ops.kernels import flash as F
+    from ray_lightning_tpu_torch.ops.ring_attention import ring_attention
+    from ray_lightning_tpu_torch.ops.ulysses import ulysses_attention
+    from ray_lightning_tpu_torch.parallel import comm
+
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    mesh = init_device_mesh("cuda", (AXES_RANKS,), mesh_dim_names=("seq",))
+    r, n = mesh["seq"].get_local_rank(), AXES_RANKS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                device="cuda").to(torch.bfloat16)
+    q, k, v = rn(RING_B, RING_S, TH, HD), rn(RING_B, RING_S, THKV, HD), \
+        rn(RING_B, RING_S, THKV, HD)
+    do = rn(RING_B, RING_S, TH, HD)
+    cut = RING_S // n
+    part("setup")
+
+    def chunk(t):
+        return t[:, r * cut:(r + 1) * cut].contiguous()
+
+    def run(fn, reference=False, timing=None):
+        qs, ks, vs = (chunk(t).requires_grad_() for t in (q, k, v))
+        ctx = (dispatch.force_reference() if reference
+               else contextlib.nullcontext())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with ctx:
+            ev[0].record()
+            o = fn(qs, ks, vs, mesh, causal=True)
+            ev[1].record()
+            o.backward(chunk(do))
+            ev[2].record()
+        torch.cuda.synchronize()
+        if timing is not None:
+            timing.append((ev[0].elapsed_time(ev[1]),
+                           ev[1].elapsed_time(ev[2])))
+        return [t.detach() for t in (o, qs.grad, ks.grad, vs.grad)]
+
+    # the one-device kernels on the whole sequence, this rank's rows
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    of = F.flash_attention_kernel(qf, kf, vf, causal=True)
+    part("one_device_fwd")
+    of.backward(do)
+    whole = [chunk(t.detach()) for t in (of, qf.grad, kf.grad, vf.grad)]
+    del qf, kf, vf, of
+    part("one_device_bwd")
+    names = ("o", "dq", "dk", "dv")
+    # the f64 reference, this rank's rows: the plain lane is held as
+    # phase 17's flash rows are (`truth_ratio`, TRUTH_HELD)
+    ref = {n: chunk(t) for n, t in f64_attention(q, k, v, do, True).items()}
+    torch.cuda.empty_cache()
+    part("f64")
+    out = {}
+    for kind, fn in (("ring", ring_attention),
+                     ("ulysses", ulysses_attention)):
+        kernels = all_kernels()
+        for kk in kernels:
+            kk.launches = 0
+        got = run(fn)
+        launches = {kk.__name__: kk.launches for kk in kernels}
+        part(kind)
+        shares = {}
+        against = {"whole": whole}
+        if kind == "ring":
+            against["plain"] = run(fn, reference=True)
+            part("ring_plain")
+        for lane, want in against.items():
+            for name, a, b in zip(names, got, want):
+                dims = (-1,) if name == "o" else SLAB
+                err, share = (truth_ratio(a, b, ref[name], dims)
+                              if lane == "plain"
+                              else tolerance_ratio(a, b, dims))
+                shares[f"{name} vs {lane}"] = (err, share)
+        del against
+        part(f"{kind}_shares")
+        times = []
+        for _ in range(3):
+            for key in comm.SHIFT_STATS:
+                comm.SHIFT_STATS[key] = 0
+            run(fn, timing=times)
+        stats = dict(comm.SHIFT_STATS)
+        part(f"{kind}_timed")
+        fwd = statistics.median(t[0] for t in times)
+        bwd = statistics.median(t[1] for t in times)
+        out[kind] = dict(shares=shares, launches=launches, fwd_ms=fwd,
+                         bwd_ms=bwd, shifts=stats["calls"],
+                         shift_bytes=stats["bytes"],
+                         wait_ms=stats["wait_s"] * 1e3,
+                         wait_share=stats["wait_s"] * 1e3 / (fwd + bwd))
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["parts_s"] = parts
+    return out
+
+
+def axes_fit(seed: int, strategy, cfg_kw: dict) -> dict:
+    """(c) and (d) on this rank: phase 5's fit for AXES_STEPS steps under
+    ``strategy`` with ``cfg_kw`` on the config: its rows, step time, the
+    seconds its gradients' reductions took, its peak and launches."""
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+
+    cfg, tokens = train_inputs(seed)
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    probe = StepProbe()
+    reduce_s = []
+    finish = strategy.finish_grads
+
+    def timed_finish(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finish(*a, **kw)
+        torch.cuda.synchronize()
+        if kw.get("reduce", True):
+            reduce_s.append(time.perf_counter() - t0)
+
+    strategy.finish_grads = timed_finish
+
+    class Zero(Callback):
+        def on_fit_start(self, trainer, module):
+            for kk in all_kernels():
+                kk.launches = 0
+
+    module = LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(strategy=strategy, max_steps=AXES_STEPS,
+                      log_every_n_steps=1, enable_checkpointing=False,
+                      enable_progress_bar=False, seed=seed,
+                      callbacks=[Zero(), probe.callback])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    # every rank reads every row: seq and pipe ranks share the batch
+    trainer.fit(module, DataLoader({"tokens": tokens[:AXES_STEPS * TB]},
+                                   batch_size=TB))
+    torch.cuda.synchronize()
+    rec = dict(rows=probe.rows, fit_wall_s=time.perf_counter() - t0,
+               step_s=[b - a for a, b in zip(probe.t[1:], probe.t[2:])],
+               first_step_s=probe.first_step_s(), reduce_s=reduce_s,
+               peak=torch.cuda.max_memory_allocated(),
+               mesh=trainer.strategy.mesh_shape,
+               init_path=trainer.init_path,
+               launches={kk.__name__: kk.launches for kk in all_kernels()},
+               params=sum(p.numel() for p in module.params.values()))
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_data(seed: int):
+    """(e)'s rows: the JAX MoE test's separable classes, 32 features."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 4, MOE_ROWS).astype(np.int64)
+    centers = rng.standard_normal((4, 32)).astype(np.float32) * 3
+    x = centers[y] + rng.standard_normal((MOE_ROWS, 32)).astype(np.float32)
+    return {"x": x, "y": y}
+
+
+def moe_lane(seed: int, rank: int) -> dict:
+    """(e) on this rank: `MoEClassifierModule` at its JAX defaults under
+    ``ShardedMesh(expert=2)`` (each rank two of the four experts and half
+    of each global batch), then on rank 0 the same module's one-rank fit
+    over the same global batches."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.moe import MoEClassifierModule
+    from ray_lightning_tpu_torch.parallel.strategy import (
+        ShardedMesh,
+        SingleDevice,
+    )
+
+    data = moe_data(seed)
+    half = MOE_ROWS // AXES_RANKS
+    per = MOE_BATCH // AXES_RANKS
+
+    def fit(strategy, loader):
+        probe = StepProbe()
+        module = MoEClassifierModule(in_features=32)
+        trainer = Trainer(strategy=strategy, max_steps=MOE_STEPS,
+                          log_every_n_steps=1, enable_checkpointing=False,
+                          enable_progress_bar=False, seed=seed,
+                          callbacks=[probe.callback])
+        trainer.fit(module, loader)
+        w = dict(trainer.strategy.unwrap(module.model).named_parameters())[
+            "moe.w_gate_up"]
+        return probe.rows, (w.to_local() if hasattr(w, "to_local")
+                            else w).shape[0]
+
+    strategy = ShardedMesh(expert=AXES_RANKS)
+    mine = {k: v[rank * half:(rank + 1) * half] for k, v in data.items()}
+    rows, local = fit(strategy, DataLoader(mine, batch_size=per))
+    out = dict(rows=rows, local_experts=local)
+    if rank == 0:
+        order = np.concatenate([
+            np.r_[s * per:(s + 1) * per] + r * half
+            for s in range(MOE_STEPS) for r in range(AXES_RANKS)])
+        one = {k: v[order] for k, v in data.items()}
+        out["one_rank_rows"], _ = fit(SingleDevice(),
+                                      DataLoader(one, batch_size=MOE_BATCH))
+    return out
+
+
+def warm_process() -> dict:
+    """A fresh process's one-time costs of the card, paid before phase
+    17's gate opens (while the phase before runs): the CUDA context, the
+    flash kernels' libraries, one small flash forward and backward.
+    Their launches are not counted (every lane zeroes the counts).
+    Returns each part's seconds."""
+    from ray_lightning_tpu_torch.ops import build
+    from ray_lightning_tpu_torch.ops.kernels import flash as F
+
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    x = torch.randn(1, 128, 2, HD, device="cuda").to(torch.bfloat16)
+    part("cuda")
+    for name in ("flash_fwd", "flash_bwd"):
+        build.load(name)
+    part("load")
+    q, k, v = (x.clone().requires_grad_() for _ in range(3))
+    o = F.flash_attention_kernel(q, k, v, causal=True)
+    part("fwd")
+    o.backward(x)
+    part("bwd")
+    return parts
+
+
+def axes_worker(rank: int, world: int, port: int, seed: int,
+                out: str) -> None:
+    """One rank of 17 (b)-(e) in a gloo group on the visible card; writes
+    each lane's record to ``out``."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    warm = warm_process()
+    _await_gate()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    rec = {"rank": rank, "backend": dist.get_backend(), "warm_s": warm}
+    t0 = time.perf_counter()
+    rec["ring"] = ring_lane(seed)
+    rec["ring_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["seq_fit"] = axes_fit(seed, ShardedMesh(seq=world),
+                              dict(seq_parallel=True))
+    rec["seq_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["pipe_fit"] = axes_fit(seed, ShardedMesh(pipe=world),
+                               dict(pipeline_microbatches=2))
+    rec["pipe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["moe"] = moe_lane(seed, rank)
+    rec["moe_s"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _spawn(target: str, args: str, what: str, timeout: float) -> list:
+    """Start AXES_RANKS processes running ``chip_smoke.<target>(rank,
+    world, port, <args>, out)`` on the card (they wait for AXES_GATE);
+    returns the processes, their outputs, their logs and their time
+    limit, counted from the gate's opening."""
+    from ray_lightning_tpu_torch.utils.dist import find_free_port
+
+    port = find_free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    outs = [os.path.join(AXES_DIR, f"{what}{r}.json")
+            for r in range(AXES_RANKS)]
+    logs = [os.path.join(AXES_DIR, f"{what}{r}.log")
+            for r in range(AXES_RANKS)]
+    procs = []
+    for r in range(AXES_RANKS):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", "-X", "faulthandler", "-c",
+                 f"import chip_smoke; chip_smoke.{target}({r}, "
+                 f"{AXES_RANKS}, {port}, {args}{outs[r]!r})"],
+                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+    return [procs, outs, logs, timeout]
+
+
+def _reap(spawned, opened: float) -> tuple:
+    """Wait for a `_spawn`'s processes until its time limit from
+    ``opened`` (the gate's opening), kill what is left; (return codes,
+    outputs or None each, log tails)."""
+    procs, outs, logs, timeout = spawned
+    deadline = opened + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    got, tails = [], []
+    for o, lg in zip(outs, logs):
+        if os.path.exists(o):
+            with open(o) as f:
+                got.append(json.load(f))
+        else:
+            got.append(None)
+        with open(lg) as f:
+            tails.append(f.read()[-3000:])
+    return [p.returncode for p in procs], got, tails
+
+
+def axes_start(seed: int) -> tuple:
+    """Start phase 17's processes, the probe's and the lanes', which
+    import and then wait for `axes_phase` to open their gate."""
+    shutil.rmtree(AXES_DIR, ignore_errors=True)
+    os.makedirs(AXES_DIR)
+    return (_spawn("probe_worker", "", "probe", PROBE_TIMEOUT_S),
+            _spawn("axes_worker", f"{seed}, ", "axes", AXES_TIMEOUT_S))
+
+
+def axes_phase(ref_rows, spawned) -> dict:
+    """Phase 17 on the processes `axes_start` started: the probe (a)
+    beside the lanes (b)-(e) of one two-rank gloo group on the card; (c)
+    and (d) within the train limits of phase 5's rows, (b) within the
+    flash tolerances, (e) within MOE_RTOL of its one-rank fit. Returns
+    the kernels' launches, both ranks together."""
+    problems = []
+    probe, lanes = spawned
+    free_card("axes")
+    t0 = time.perf_counter()
+    with open(AXES_GATE, "w"):
+        pass
+    prc, pres, ptails = _reap(probe, t0)
+    answers = {}
+    for key in ("all_to_all_even", "all_to_all_neighbour",
+                "batch_isend_irecv"):
+        vals = [p.get(key) if p else None for p in pres]
+        answers[key] = (vals[0] if all(v is True for v in vals)
+                        or all(v is False for v in vals)
+                        else f"no ({vals}, rc {prc})")
+    print(json.dumps(dict(phase="axes_probe", backend="gloo",
+                          tensors="cuda", carries=answers,
+                          shift_route_under_gloo_cuda="all_to_all",
+                          wall_s=time.perf_counter() - t0)), flush=True)
+    if answers["all_to_all_neighbour"] is not True:
+        problems.append(f"gloo's all_to_all_single does not carry CUDA "
+                        f"tensors to a neighbour: {answers}; {ptails}")
+    rc, ranks, tails = _reap(lanes, t0)
+    wall = time.perf_counter() - t0
+    total = {k.__name__: 0 for k in all_kernels()}
+    if any(rc) or not all(ranks):
+        problems.append(f"axes ranks failed (rc {rc}): " + " | ".join(tails))
+        raise AssertionError("phase 17: " + "; ".join(problems))
+    for r in ranks:
+        for lane in ("ring", "ulysses"):
+            bad = {k: v for k, v in r["ring"][lane]["shares"].items()
+                   if not v[1] <= 1.0}
+            if bad:
+                problems.append(f"17 (b) rank {r['rank']} {lane}: out of "
+                                f"tolerance {bad}")
+            for k, v in r["ring"][lane]["launches"].items():
+                total[k] += v
+        # the ring: rank r's causal forward runs r + 1 visible blocks
+        want_fwd = r["rank"] + 1
+        got = r["ring"]["ring"]["launches"]
+        if (got["flash_fwd_kernel"], got["flash_bwd_dkv_kernel"],
+                got["flash_bwd_dq_kernel"]) != (want_fwd,) * 3:
+            problems.append(f"17 (b) rank {r['rank']} ring launches {got}")
+        for lane in ("seq_fit", "pipe_fit"):
+            fit = r[lane]
+            d_loss, d_gn, rel = compare_train(fit["rows"],
+                                              ref_rows[:AXES_STEPS])
+            fit.update(loss_max_abs_diff=d_loss,
+                       grad_norm_max_rel_diff=d_gn)
+            problems.extend(f"17 {lane} rank {r['rank']} against phase 5: "
+                            f"{p}" for p in rel)
+            if fit["rows"] != ranks[0][lane]["rows"]:
+                problems.append(f"17 {lane}: rank {r['rank']}'s rows differ "
+                                "from rank 0's")
+            for k, v in fit["launches"].items():
+                total[k] += v
+        if r["backend"] != "gloo":
+            problems.append(f"17 rank {r['rank']}: {r['backend']}")
+    moe = ranks[0]["moe"]
+    for r in ranks:
+        if r["moe"]["rows"] != moe["rows"] or r["moe"]["local_experts"] != 2:
+            problems.append(f"17 (e) rank {r['rank']}: rows "
+                            f"{r['moe']['rows']}, "
+                            f"{r['moe']['local_experts']} experts")
+    moe_rel = max(abs(a - b) / abs(b) for x, y in zip(
+        moe["rows"], moe["one_rank_rows"]) for a, b in zip(x, y))
+    if not moe_rel <= MOE_RTOL:
+        problems.append(f"17 (e): expert-parallel rows {moe['rows']} vs "
+                        f"one-rank {moe['one_rank_rows']}")
+    print(json.dumps(dict(
+        phase="axes", ranks=AXES_RANKS, backend="gloo",
+        lane="correctness (every collective crosses the host)",
+        ring={r["rank"]: r["ring"] for r in ranks},
+        ring_shape=dict(B=RING_B, S=RING_S, H=TH, Hkv=THKV, hd=HD,
+                        causal=True, a_rank=RING_S // AXES_RANKS),
+        seq_fit={r["rank"]: r["seq_fit"] for r in ranks},
+        pipe_fit={r["rank"]: r["pipe_fit"] for r in ranks},
+        moe=dict(rows=moe["rows"], one_rank_rows=moe["one_rank_rows"],
+                 max_rel_diff=moe_rel, rtol=MOE_RTOL),
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+        lane_s={k: [r[f"{k}_s"] for r in ranks]
+                for k in ("ring", "seq", "pipe", "moe")},
+        warm_s={r["rank"]: r["warm_s"] for r in ranks},
+        call_wall_s=wall)), flush=True)
+    if problems:
+        raise AssertionError("phase 17: " + "; ".join(problems))
+    shutil.rmtree(AXES_DIR, ignore_errors=True)
+    return total
+
+
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm", "adamw"]
 
@@ -6785,6 +7440,10 @@ def main() -> int:
                     help="only build, then run phase 16 (b)'s BERT lanes' "
                          "comparison at seeds 0..N-1 and print each "
                          "seed's readings")
+    ap.add_argument("--axes-only", action="store_true",
+                    help="only build, check the flash kernels at phase "
+                         "17's shapes, run phase 5's fit for its rows and "
+                         "then phase 17")
     ap.add_argument("--profile-sessions", type=int, default=0, metavar="N",
                     help="only count, in N fresh processes, the device "
                          "events of each of their profiler sessions, then "
@@ -6826,6 +7485,18 @@ def main() -> int:
         return 0
     if args.ab_old:
         ab_phase(args.ab_old)
+        return 0
+    if args.axes_only:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        check_flash_owed(gen, only=("ring block causal", "ring block full",
+                                    "ulysses 2"))
+        spawned = axes_start(SEED)
+        _, train_rows, _, _ = train_phase(SEED)
+        t0 = time.perf_counter()
+        axes_phase(train_rows, spawned)
+        print(json.dumps(dict(phase="timing", phase17_s=time.perf_counter()
+                              - t0)), flush=True)
         return 0
 
     # each phase's wall seconds, printed before the kernels' summary
@@ -6894,12 +7565,22 @@ def main() -> int:
     rows.append(adamw_row)
     lap("knobs")
 
+    # 17's processes start here and import while phase 16 runs
+    axes_spawned = axes_start(SEED)
+
     # 16. the BASELINE's ResNet and BERT: the flash kernels at BERT's
     # shape, BERT-base's lanes, ResNet-50, the in-process examples, the
     # doctor and the native batcher
     bert_rows, base_launches, base_walls = baseline_phase(SEED, gen)
     rows += bert_rows
     lap("baseline")
+
+    # 17. the sequence, pipeline and expert axes: the gloo probe, ring and
+    # Ulysses at Llama-3-8B's attention width, phase 5's fit under
+    # seq=2 and pipe=2, the MoE classifier under expert=2, all as two
+    # gloo ranks on the card
+    axes_launches = axes_phase(train_rows, axes_spawned)
+    lap("axes")
 
     # 6. training across processes: fit_distributed under FSDP,
     # DataParallel in this process, a checkpoint (resumed by 14 (a) and 8
@@ -6949,6 +7630,7 @@ def main() -> int:
         phase14_s=sum(PHASE14_S.values()),
         phase15_s=walls["knobs"],
         phase16_s=walls["baseline"], phase16_parts_s=base_walls,
+        phase17_s=walls["axes"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:
@@ -6959,6 +7641,7 @@ def main() -> int:
                 + tel_launches[k] + dist_launches[k] + sweep_launches[k]
                 + res_launches.get(k, 0) + hot_launches[k]
                 + plan_launches[k] + knob_launches[k] + base_launches[k]
+                + axes_launches[k]
                 for k in train_launches}
     meta = {
         "paged_decode": ("paged_attention_kernel", "cuda",

@@ -464,6 +464,8 @@ class Trainer:
             # optimizer's update (weight decay), as with optax's zero grad
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.strategy.finish_grads([(n, p.grad) for n, p in params.items()
+                                    if p.requires_grad])
         grads = [p.grad for p in trainable]
         grad_norm = self.strategy.global_norm(grads)
         if self.gradient_clip_val:
@@ -536,6 +538,9 @@ class Trainer:
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # the gradients are dropped: their reductions are not needed
+        self.strategy.finish_grads([(n, p.grad) for n, p in params.items()
+                                    if p.requires_grad], reduce=False)
         self.strategy.global_norm([p.grad for p in trainable])
         opt = self.state.optimizer
         if opt is not None and _skips_on_found_inf(opt):

@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
-from ray_lightning_tpu_torch.parallel.mesh import _NOT_PORTED, MeshSpec
+from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
 from ray_lightning_tpu_torch.parallel.plan import dp_degree
 
 __all__ = ["ElasticBudget"]
@@ -55,18 +55,8 @@ def _default_spec(world: int) -> MeshSpec:
 
 
 def _resolve(spec_for: Callable[[int], MeshSpec], world: int) -> MeshSpec:
-    """``spec_for(world)`` resolved at ``world``. A template whose
-    resolved mesh asks for an axis the port does not build raises
-    `NotImplementedError` naming its ROADMAP item: that is a missing
-    port, not an illegal world, so the ladder must not read it as one."""
-    spec = spec_for(world).resolve(world)
-    for ax, why in _NOT_PORTED.items():
-        if getattr(spec, ax) != 1:
-            raise NotImplementedError(
-                f"ElasticBudget: the mesh template asks for "
-                f"{ax}={getattr(spec, ax)} at world {world}, an axis the "
-                f"port does not build yet (ROADMAP {why})")
-    return spec
+    """``spec_for(world)`` resolved at ``world`` (every axis builds)."""
+    return spec_for(world).resolve(world)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Llama-3-style pretraining under FSDP (twin of
 `examples/llama_fsdp_example.py`): the same flags, on the card.
 
-A world of one (``--data``, ``--fsdp`` and ``--tensor`` all 1, as on a
-machine with one card) fits in this process under `ShardedMesh`; a larger
+A world of one (``--data``, ``--fsdp``, ``--tensor`` and ``--pipe`` all
+1, as on a machine with one card) fits in this process under `ShardedMesh`; a larger
 one runs one process per rank through `fit_distributed` (NCCL on the
 cards, gloo with ``--device cpu``). The tokens are synthetic (numpy, from
 a seed): swap in a real tokenized dataset in production.
@@ -56,11 +56,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--tensor", type=int, default=1,
                    help="tensor-parallel degree")
     p.add_argument("--pipe", type=int, default=1,
-                   help="pipeline stages: only 1 (the pipeline axis is "
-                        "not ported)")
+                   help="pipeline stages (GPipe over the pipe mesh axis)")
     p.add_argument("--microbatches", type=int, default=4,
-                   help="pipeline microbatches per step (with --pipe > 1; "
-                        "changes nothing here)")
+                   help="pipeline microbatches per step (with --pipe > 1)")
     p.add_argument("--seq-len", type=int, default=2048)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--max-steps", type=int, default=50)
@@ -118,7 +116,8 @@ def model_config(args):
         remat=not args.no_remat, remat_policy=args.remat_policy,
         fused_ce={"auto": None, "on": True, "off": False}[args.fused_ce],
         ce_inline_bwd=args.ce_inline_bwd,
-        tie_embeddings=args.tie_embeddings)
+        tie_embeddings=args.tie_embeddings,
+        pipeline_microbatches=args.microbatches if args.pipe > 1 else 0)
 
 
 def make_module(args):
@@ -163,9 +162,9 @@ def make_data(args):
 def main(argv=None) -> int:
     p = parser()
     args = p.parse_args(argv)
-    if args.pipe > 1:
-        p.error("--pipe > 1: the pipeline axis is not ported yet (ROADMAP "
-                "Queue 1 item 13 (b))")
+    if args.no_scan_layers and args.pipe > 1:
+        p.error("--no-scan-layers conflicts with --pipe > 1 (the pipeline "
+                "stage-splits the scanned layer stack)")
     if args.smoke_test:
         args.seq_len = min(args.seq_len, 128)
         args.batch_size = 4
@@ -178,8 +177,10 @@ def main(argv=None) -> int:
             p.error("no CUDA device: pass --device cpu")
     else:
         n_dev = 1
-    fsdp = args.fsdp or max(1, n_dev // (args.data * args.tensor))
-    sizes = dict(data=args.data, fsdp=fsdp, tensor=args.tensor)
+    fsdp = args.fsdp or max(1, n_dev // (args.data * args.tensor
+                                         * args.pipe))
+    sizes = dict(data=args.data, fsdp=fsdp, tensor=args.tensor,
+                 pipe=args.pipe)
     world = math.prod(sizes.values())
     seq_len = min(args.seq_len, model_config(args).max_seq_len)
     if world == 1:

@@ -130,8 +130,22 @@ class LlamaConfig:
     #: the fused CE computes its gradients inside the forward's chunk loop
     #: (no logits tile built twice) for a [V, D] f32 residual
     ce_inline_bwd: bool = False
+    #: shard the sequence over the mesh's ``seq`` axis when the strategy's
+    #: mesh has seq > 1 (`parallel.strategy.ShardedMesh(seq=)`)
+    seq_parallel: bool = False
+    #: "ring" (`ops.ring_attention`, any head count) or "ulysses"
+    #: (`ops.ulysses`, heads divisible by the axis)
+    seq_parallel_mode: str = "ring"
+    #: > 0: the GPipe decoder path (`ops.pipeline`) with this many
+    #: microbatches when the mesh has pipe > 1; the layers are owned by
+    #: their stage
+    pipeline_microbatches: int = 0
 
     def __post_init__(self):
+        if self.seq_parallel_mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"seq_parallel_mode must be 'ring' or 'ulysses', got "
+                f"{self.seq_parallel_mode!r}")
         if self.remat_policy not in ("nothing", "dots", "attn_out"):
             raise ValueError(
                 f"remat_policy must be 'nothing', 'dots' or 'attn_out', "
@@ -142,6 +156,10 @@ class LlamaConfig:
             raise ValueError(
                 "ce_inline_bwd requires the fused CE path: set "
                 "fused_ce=True (or leave it auto with vocab >= 64k)")
+        if self.pipeline_microbatches > 0 and self.seq_parallel:
+            raise ValueError(
+                "pipeline_microbatches and seq_parallel are mutually "
+                "exclusive (the pipeline path runs attention per stage)")
 
     @property
     def head_dim(self) -> int:
@@ -178,6 +196,8 @@ class LlamaBlock(nn.Module):
     #: the rank's tensor group (`parallel.tensor.TensorParallel`), or
     #: None off the tensor axis
     tp = None
+    #: the rank's `parallel.comm.AxisGroup` on the ``seq`` axis, or None
+    sp = None
 
     def __init__(self, cfg: LlamaConfig, device: torch.device,
                  param_dtype=None):
@@ -216,7 +236,7 @@ class LlamaBlock(nn.Module):
             # policies "dots" and "attn_out" keep (ops/remat.py)
             q, k, v = qkv_rope(h, local(self.wqkv).to(cfg.dtype), cos, sin,
                                n_q, n_kv, hd, tp)
-            return self._finish(x, flash_attention(q, k, v, causal=True))
+            return self._finish(x, self._attention(q, k, v))
         qkv = column_linear(h, local(self.wqkv).to(cfg.dtype), tp)
         q, k, v = torch.split(qkv, [n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.reshape(B, S, n_q, hd)
@@ -287,6 +307,26 @@ class LlamaBlock(nn.Module):
                                              mask=mask)
         return self._finish(x, attn)
 
+    def _attention(self, q, k, v):
+        """The training path's causal attention: over the ``seq`` axis
+        when the sequence is sharded (ring or Ulysses), else the flash
+        kernels."""
+        cfg = self.cfg
+        if self.sp is not None:
+            if cfg.seq_parallel_mode == "ulysses":
+                from ray_lightning_tpu_torch.ops.ulysses import (
+                    ulysses_attention_local,
+                )
+
+                return ulysses_attention_local(q, k, v, axis=self.sp,
+                                               causal=True)
+            from ray_lightning_tpu_torch.ops.ring_attention import (
+                ring_attention_local,
+            )
+
+            return ring_attention_local(q, k, v, ring=self.sp, causal=True)
+        return flash_attention(q, k, v, causal=True)
+
     def _finish(self, x, attn):
         """The output projection, the residual and the SwiGLU MLP."""
         cfg = self.cfg
@@ -298,6 +338,17 @@ class LlamaBlock(nn.Module):
             h, local(self.w_gate_up).to(cfg.dtype), tp).chunk(2, dim=-1)
         return x + row_linear(F.silu(gate) * up,
                               local(self.w_down).to(cfg.dtype), tp)
+
+
+class AbsentLayer(nn.Module):
+    """A layer that another pipeline stage owns: no weights; their names,
+    shapes and dtypes kept, so the init draws them (and discards them) in
+    the order of the whole model."""
+
+    def __init__(self, layer: nn.Module):
+        super().__init__()
+        self.shapes = [(n, tuple(p.shape), p.dtype)
+                       for n, p in layer.named_parameters()]
 
 
 class Llama(nn.Module):
@@ -325,6 +376,9 @@ class Llama(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.vocab_size, cfg.dim), wd, dev)
         self.tp = None
+        #: the ``seq`` and ``pipe`` axes' `parallel.comm.AxisGroup`s
+        self.sp = None
+        self.pp = None
         self.register_buffer("cos", None, persistent=False)
         self.register_buffer("sin", None, persistent=False)
         self.reset_rope_(dev)
@@ -345,6 +399,52 @@ class Llama(nn.Module):
         self.tp = tp
         for layer in self.layers:
             layer.tp = tp
+
+    def enable_sequence_parallel(self, axis) -> None:
+        """Run the training path on this rank's chunk of the sequence
+        (`seq_chunk`) over the ``seq`` axis ``axis`` (an `AxisGroup`):
+        every op but attention is per token, attention is the ring or
+        Ulysses (``cfg.seq_parallel_mode``), RoPE at the chunk's global
+        positions."""
+        if self.cfg.seq_parallel_mode == "ulysses":
+            from ray_lightning_tpu_torch.ops.ulysses import check_heads
+
+            tp = self.tp.size if self.tp is not None else 1
+            check_heads(self.cfg.n_heads // tp, self.cfg.n_kv_heads // tp,
+                        axis.size)
+        self.sp = axis
+        for layer in self.layers:
+            layer.sp = axis
+
+    def seq_chunk(self, t: Optional[torch.Tensor]):
+        """This rank's chunk of ``t`` [B, S, ...] along the sequence (``t``
+        itself off the ``seq`` axis)."""
+        if t is None or self.sp is None:
+            return t
+        if t.shape[1] % self.sp.size:
+            raise ValueError(f"sequence {t.shape[1]} does not divide by "
+                             f"seq={self.sp.size}")
+        return t.chunk(self.sp.size, dim=1)[self.sp.rank]
+
+    def enable_pipeline(self, axis) -> None:
+        """Keep only this stage's contiguous block of layers (the rest
+        become `AbsentLayer`s) and run the training path's layers as the
+        GPipe pipeline over the ``pipe`` axis ``axis``; the embedding, the
+        final norm and the head stay on every stage."""
+        n, p = self.cfg.n_layers, axis.size
+        if n % p:
+            raise ValueError(f"{n} layers not divisible by pipe={p}")
+        lo, hi = axis.rank * n // p, (axis.rank + 1) * n // p
+        for i in range(n):
+            if not lo <= i < hi and not isinstance(self.layers[i],
+                                                   AbsentLayer):
+                self.layers[i] = AbsentLayer(self.layers[i])
+        self.pp = axis
+
+    @staticmethod
+    def pipeline_owned(name: str) -> bool:
+        """Is the parameter ``name`` owned by one pipeline stage?"""
+        return name.startswith("layers.")
 
     @property
     def head(self) -> torch.Tensor:
@@ -370,11 +470,24 @@ class Llama(nn.Module):
                                      self.tp).to(cfg.dtype)
         if cache is None:
             remat = cfg.remat and torch.is_grad_enabled()
+            cos, sin = self.cos, self.sin
+            if self.sp is not None:
+                # the chunk's global positions
+                off = self.sp.rank * tokens.shape[1]
+                cos, sin = cos[off:], sin[off:]
+            if self.pp is not None:
+                from ray_lightning_tpu_torch.ops.pipeline import gpipe_apply
+
+                x = gpipe_apply(_layer_step, self.layers, x, self.pp,
+                                microbatches=cfg.pipeline_microbatches,
+                                remat=remat, remat_policy=cfg.remat_policy,
+                                extra=(cos, sin))
+                return rms_norm(x, local(self.final_norm), cfg.norm_eps)
             context_fn = checkpoint_context_fn(cfg.remat_policy)
             for layer in self.layers:
-                x = (checkpoint(layer, x, self.cos, self.sin,
+                x = (checkpoint(layer, x, cos, sin,
                                 use_reentrant=False, context_fn=context_fn)
-                     if remat else layer(x, self.cos, self.sin))
+                     if remat else layer(x, cos, sin))
         else:
             ck, cv = cache
             for i, layer in enumerate(self.layers):
@@ -437,6 +550,26 @@ class Llama(nn.Module):
         return loss_sum / denominator
 
 
+def _layer_step(layer: LlamaBlock, h, cos, sin):
+    """One pipeline layer (`ops.pipeline.gpipe_apply`'s stage function)."""
+    return layer(h, cos, sin)
+
+
+def _init_order(model: Llama):
+    """(name, parameter or None, shape, dtype) of every weight of the
+    whole model in its order; None for a weight another pipeline stage
+    owns."""
+    for n, p in model.named_parameters(recurse=False):
+        yield n, p, tuple(p.shape), p.dtype
+    for i, layer in enumerate(model.layers):
+        if isinstance(layer, AbsentLayer):
+            for n, shape, dtype in layer.shapes:
+                yield f"layers.{i}.{n}", None, shape, dtype
+        else:
+            for n, p in layer.named_parameters(prefix=f"layers.{i}"):
+                yield n, p, tuple(p.shape), p.dtype
+
+
 def init_params_(model: Llama, generator: torch.Generator,
                  place=None) -> Llama:
     """Fill ``model``'s weights in place from ``generator`` (which lives
@@ -450,19 +583,22 @@ def init_params_(model: Llama, generator: torch.Generator,
     full)``, which keeps the rank's shard; the full tensor is freed before
     the next. The values are the eager init's, bit for bit."""
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if place is not None:
-                full = torch.empty(tuple(p.shape), dtype=p.dtype,
+        for name, p, shape, dtype in _init_order(model):
+            if place is not None or p is None:
+                full = torch.empty(shape, dtype=dtype,
                                    device=generator.device)
             else:
                 full = p
-            if p.dim() == 1:
+            if len(shape) == 1:
                 full.fill_(1.0)
             else:
-                fan_in = model.cfg.dim if name == "tok_embed" else p.shape[1]
+                fan_in = model.cfg.dim if name == "tok_embed" else shape[1]
                 full.normal_(0.0, 1.0 / math.sqrt(fan_in),
                              generator=generator)
-            if place is not None:
+            if p is None:
+                # another stage's weight: drawn to keep the stream
+                del full
+            elif place is not None:
                 place(name, p, full)
                 del full
     return model
@@ -769,18 +905,53 @@ class LlamaModule(TpuModule):
             return toks[:, :-1], toks[:, 1:], batch.get("mask")
         return batch["inputs"], batch["targets"], batch.get("mask")
 
+    def check_sequence_parallel(self, seq: int) -> None:
+        """`ShardedMesh(seq=)` shards the sequence only under
+        ``cfg.seq_parallel`` (and not with the pipeline path)."""
+        if not self.cfg.seq_parallel:
+            raise ValueError(
+                f"ShardedMesh(seq={seq}): LlamaConfig(seq_parallel=True) "
+                "shards the sequence; without it every seq rank would "
+                "train the same tokens")
+
+    def pipeline_stage(self, name: str, pipe: int) -> Optional[int]:
+        """The pipeline stage that owns the parameter ``name`` over
+        ``pipe`` stages (None: replicated over them)."""
+        if not Llama.pipeline_owned(name):
+            return None
+        return int(name.split(".")[1]) // (self.cfg.n_layers // pipe)
+
+    def check_pipeline(self, pipe: int) -> None:
+        """`ShardedMesh(pipe=)` needs the GPipe path, which composes with
+        data parallelism only (the JAX exclusions)."""
+        if self.cfg.pipeline_microbatches <= 0:
+            raise ValueError(
+                f"ShardedMesh(pipe={pipe}): set LlamaConfig("
+                "pipeline_microbatches=M) for the GPipe decoder path")
+        if self.cfg.n_layers % pipe:
+            raise ValueError(f"{self.cfg.n_layers} layers not divisible by "
+                             f"pipe={pipe}")
+
     def _loss(self, params, inputs, targets, mask):
         """The token mean over the GLOBAL batch, as the JAX module's loss
         over its global array: each rank divides its mask-weighted sum by
-        the token count of every data-parallel rank together, times their
-        number, so the mean over ranks (of the loss, and of the gradients
-        DDP and FSDP average) is the global mean even where the ranks'
-        masks keep different numbers of tokens."""
+        the token count of every rank that holds other tokens (the
+        data-parallel ranks, and under the ``seq`` axis each rank's chunk
+        of the sequence) together, times their number, so the mean over
+        those ranks (of the loss, and of the gradients the strategy
+        averages) is the global mean even where the ranks' masks keep
+        different numbers of tokens."""
+        model = self.model
+        inner = getattr(model, "module", model)
+        if getattr(inner, "sp", None) is not None:
+            inputs, targets, mask = (inner.seq_chunk(inputs),
+                                     inner.seq_chunk(targets),
+                                     inner.seq_chunk(mask))
         count = (mask.float().sum() if mask is not None
                  else torch.tensor(float(targets.numel()),
                                    device=targets.device))
         strategy = getattr(self.trainer, "strategy", None)
-        dp = strategy.dp_size if strategy is not None else 1
+        dp = strategy.loss_ranks if strategy is not None else 1
         if dp > 1:
             count = strategy.reduce_sum(count)
         denominator = torch.clamp_min(count, 1.0) / dp

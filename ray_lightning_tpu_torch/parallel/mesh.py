@@ -16,9 +16,8 @@ Canonical axis names (outer→inner), as in the JAX package:
     seq     — sequence/context parallelism
     tensor  — tensor (Megatron-style) parallelism inside a layer
 
-The port builds ``data``, ``fsdp`` and ``tensor``; a mesh that asks for
-``pipe``, ``expert`` or ``seq`` raises, naming the ROADMAP item that
-brings it.
+Every axis is built; `parallel.comm` holds the collectives of ``seq``,
+``pipe`` and ``expert``.
 """
 from __future__ import annotations
 
@@ -29,13 +28,6 @@ from typing import Mapping
 import torch
 
 AXIS_ORDER = ("data", "pipe", "fsdp", "expert", "seq", "tensor")
-
-#: axis -> the ROADMAP item that brings its collectives to the port
-_NOT_PORTED = {
-    "pipe": "Queue 1 item 13 (ops/pipeline.py on NCCL P2P)",
-    "expert": "Queue 1 item 13 (all_to_all_single for MoE)",
-    "seq": "Queue 1 item 13 (ops/ring_attention.py, ops/ulysses.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +73,6 @@ class MeshSpec:
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
-        for ax, why in _NOT_PORTED.items():
-            if getattr(self, ax) != 1:
-                raise NotImplementedError(
-                    f"a mesh with {ax}={getattr(self, ax)} is not ported "
-                    f"yet (ROADMAP {why}); the port builds the data, "
-                    "fsdp and tensor axes")
         sizes = self.resolve(dist.get_world_size()).sizes()
         names = tuple(ax for ax in AXIS_ORDER
                       if sizes[ax] > 1 or ax in keep) or (primary,)
@@ -137,8 +123,8 @@ def mesh_sizes(mesh) -> dict[str, int]:
 
 
 def dp_axis_names(mesh) -> tuple[str, ...]:
-    """Axes that carry the batch: every non-trivial axis except tensor/seq
-    (of the built ones, data and fsdp)."""
+    """Axes that carry the batch: data, fsdp and expert (ranks that differ
+    only in seq, tensor or pipe read the same rows)."""
     shape = mesh_sizes(mesh)
     return tuple(
         ax for ax in ("data", "fsdp", "expert") if shape.get(ax, 1) > 1

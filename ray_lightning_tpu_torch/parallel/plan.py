@@ -15,6 +15,14 @@ prove a training configuration fits the card BEFORE allocating it.
   * activations are an analytic bound (`llama_activation_bytes`, the JAX
     formula unchanged).
 
+The sequence, pipeline and expert axes are priced as the JAX planner's
+specs price them: parameters replicated over ``seq`` (a seq rank's
+activations are those of its S/seq tokens: pass ``seq // seq_size``),
+a layer stack split over ``pipe`` (the plan is rank 0's: stage 0's
+layers; a Llama's other layers cost it nothing), an expert bank split
+over ``expert``, and the batch divided over data × fsdp × expert
+(`dp_degree`).
+
 The planner runs on the meta device by design: it never touches the card
 or a process group (``torch.cuda.is_initialized()`` stays False), so it
 answers "does this fit?" on a host whose card is busy or absent::
@@ -145,6 +153,9 @@ def optimizer_state_bytes(optimizer, shapes: Mapping[int, tuple]) -> int:
     for group in optimizer.param_groups:
         for p in group["params"]:
             shape = shapes[id(p)]
+            if shape is None:
+                # a layer another pipeline stage owns: no state here
+                continue
             if isinstance(optimizer, MuAdamW):
                 total += (_nbytes(shape, optimizer.mu_dtype)
                           + _nbytes(shape, torch.float32)
@@ -196,7 +207,12 @@ def plan_train_memory(
     local: Dict[int, tuple] = {}
     params_dev = 0
     for name, p in named.items():
-        storage, shape = strategy.planned_shard(name, tuple(p.shape))
+        planned = strategy.planned_shard(name, tuple(p.shape))
+        if planned is None:
+            # another pipeline stage's layer (`ShardedMesh(pipe=)`)
+            local[id(p)] = None
+            continue
+        storage, shape = planned
         local[id(p)] = shape
         params_dev += _nbytes(storage, p.dtype)
     # the optimizer over the meta parameters (its tensor lr on the host:

@@ -11,9 +11,11 @@ collectives run:
   * `FSDP` — FSDP2 `fully_shard`, one unit per block the model marks
     (``fsdp_unit = True``; `LlamaBlock`) plus the root, each parameter
     sharded on the dimension `fsdp_auto_spec` picks (the JAX rule);
-  * `ShardedMesh` — data × fsdp × tensor: the module's `param_specs`
-    (the Megatron layout) over ``mesh["tensor"]`` as DTensors, then
-    `fully_shard` over the data × fsdp sub-mesh (HSDP when data > 1);
+  * `ShardedMesh` — data × pipe × fsdp × expert × seq × tensor: the
+    module's `param_specs` (the Megatron layout) over ``mesh["tensor"]``
+    as DTensors, then `fully_shard` over the data × fsdp sub-mesh (HSDP
+    when data > 1); the sequence, pipeline and expert axes as its
+    docstring sets out;
   * `RayXlaPlugin` — `DataParallel` with the reference's constructor.
 
 `FSDP` and `ShardedMesh` build the model on the meta device, wrap it,
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.parallel import mesh as mesh_lib
+from ray_lightning_tpu_torch.parallel.comm import AxisGroup
 from ray_lightning_tpu_torch.parallel.tensor import (
     TensorParallel,
     full_value,
@@ -280,6 +283,18 @@ class Strategy:
             is not None else 1
 
     @property
+    def loss_ranks(self) -> int:
+        """The ranks whose losses partition the global batch's tokens (the
+        data-parallel ranks; under the ``seq`` axis also each chunk of the
+        sequence): `reduce_sum` and `reduce_mean` run over them."""
+        return self.dp_size
+
+    def finish_grads(self, named_grads, reduce: bool = True) -> None:
+        """After the backward, before the gradients' norm: the reductions
+        the wrapper does not make (none here). ``named_grads``: (name,
+        gradient) pairs of the trainable parameters."""
+
+    @property
     def is_global_zero(self) -> bool:
         return mesh_lib.process_index() == 0
 
@@ -352,7 +367,7 @@ class _GroupStrategy(Strategy):
         return self.mesh.get_group()
 
     def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        if self.dp_size == 1:
+        if self.loss_ranks == 1:
             return t
         import torch.distributed as dist
 
@@ -361,14 +376,14 @@ class _GroupStrategy(Strategy):
         return t
 
     def reduce_mean(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
-        if self.dp_size == 1:
+        if self.loss_ranks == 1:
             return metrics
         keys = [k for k, v in metrics.items()
                 if isinstance(v, torch.Tensor) and v.dim() == 0]
         if not keys:
             return metrics
         stacked = torch.stack([metrics[k].detach().float() for k in keys])
-        mean = self.reduce_sum(stacked) / self.dp_size
+        mean = self.reduce_sum(stacked) / self.loss_ranks
         return {**metrics, **dict(zip(keys, mean.unbind()))}
 
     def local_tensors(self, tensors) -> list:
@@ -552,10 +567,37 @@ class ShardedMesh(FSDP):
          unit a marked block, with ``overlap=``'s prefetch over fsdp.
 
     ``state_dict()``, checkpoints and `state_dicts` keep the
-    canonical row order, so a checkpoint crosses layouts. The loss and
-    metrics are averaged over the data-parallel ranks (data × fsdp); the
-    ranks of one tensor group read the same rows (`data_shard`). The
-    ``pipe``, ``expert`` and ``seq`` axes raise (ROADMAP Queue 1 item 13).
+    canonical row order, so a checkpoint crosses layouts. The ranks of
+    one tensor, seq or pipe group read the same rows (`data_shard`): the
+    batch rides data × fsdp × expert.
+
+    The sequence, pipeline and expert axes (the collectives are
+    `parallel.comm`'s):
+
+      * ``seq``: the module shards the sequence (``check_sequence_parallel``;
+        the model's ``enable_sequence_parallel``: `models.llama` runs each
+        rank's chunk, attention by the ring or Ulysses); the parameters
+        are replicated over ``seq`` and their gradients averaged over it
+        after the wrapper's own reduction; the loss and metrics are
+        averaged over data × fsdp × expert × seq;
+      * ``pipe``: the module has a pipeline path (``check_pipeline``):
+        a model with ``enable_pipeline`` keeps its stage's layers (the
+        rest are never materialised), and a parameter whose spec names
+        ``pipe`` (a layer stack, `ops.pipeline.pipeline_param_spec`)
+        becomes a DTensor sharded over it; the other parameters are
+        replicated over ``pipe``, and their gradients are equal on every
+        stage by construction (`ops.pipeline` replicates its output and
+        sums its input's cotangent), so nothing is reduced over it;
+      * ``expert``: a parameter whose spec names ``expert`` (`models.moe`)
+        becomes a DTensor sharded over it, the rest are replicated; the
+        batch is split over it too, so the replicated parameters'
+        gradients are averaged over ``expert``, and an expert weight's,
+        which its owner sums from every rank's tokens, divided by its
+        size.
+
+    Under ``pipe`` or ``expert`` the model is not wrapped in FSDP2: the
+    gradients are averaged over ``data`` explicitly (``fsdp`` must be
+    one).
     """
 
     primary_axis = "data"
@@ -566,14 +608,18 @@ class ShardedMesh(FSDP):
         super().__init__(min_shard_size=min_shard_size, **kwargs)
         self._spec = mesh_lib.MeshSpec(data, fsdp, expert, seq, tensor,
                                        pipe)
-        for ax, why in mesh_lib._NOT_PORTED.items():
-            if getattr(self._spec, ax) != 1:
-                raise NotImplementedError(
-                    f"ShardedMesh({ax}={getattr(self._spec, ax)}) is not "
-                    f"ported yet (ROADMAP {why}); the port builds the "
-                    "data, fsdp and tensor axes")
+        if fsdp not in (1, -1) and (pipe != 1 or expert != 1):
+            raise NotImplementedError(
+                f"ShardedMesh(fsdp={fsdp}) with pipe={pipe}, "
+                f"expert={expert}: the port reduces the pipeline's and the "
+                "experts' gradients over data replicas, not FSDP2 shards")
         self._module = None
         self.tp: Optional[TensorParallel] = None
+        #: parameter name -> the axes it is split over (`_split_axes`),
+        #: and id(gradient) -> its parameter's, recorded by `finish_grads`
+        #: for `global_norm`
+        self._split: Dict[str, tuple] = {}
+        self._grad_split: Dict[int, tuple] = {}
 
     def build_spec(self, n_devices: int) -> mesh_lib.MeshSpec:
         return self._spec.resolve(n_devices)
@@ -590,15 +636,29 @@ class ShardedMesh(FSDP):
         # leaf's name (the shape rules run when the model is wrapped)
         for path, spec in self._module_specs().items():
             self._require_known_axes(path, spec)
-        tensor = self._sizes()["tensor"]
-        if tensor > 1 and module is not None:
-            check = getattr(module, "check_tensor_parallel", None)
-            if check is None:
-                raise ValueError(
-                    f"ShardedMesh(tensor={tensor}): "
-                    f"{type(module).__name__} has no tensor-parallel "
-                    "forward (check_tensor_parallel, param_specs)")
-            check(tensor)
+        sizes = self._sizes()
+        if module is None:
+            return
+        if sizes["pipe"] > 1 and (sizes["tensor"] > 1 or sizes["seq"] > 1):
+            # the JAX Llama's exclusion, for every module
+            raise ValueError(
+                "the pipeline path composes with data/fsdp only; drop "
+                "tensor/seq from the mesh or disable pipeline_microbatches")
+        for axis, hook, what in (
+                ("tensor", "check_tensor_parallel",
+                 "tensor-parallel forward (check_tensor_parallel, "
+                 "param_specs)"),
+                ("seq", "check_sequence_parallel",
+                 "sequence-parallel forward (check_sequence_parallel)"),
+                ("pipe", "check_pipeline",
+                 "pipeline path (check_pipeline)")):
+            if sizes[axis] > 1:
+                check = getattr(module, hook, None)
+                if check is None:
+                    raise ValueError(
+                        f"ShardedMesh({axis}={sizes[axis]}): "
+                        f"{type(module).__name__} has no {what}")
+                check(sizes[axis])
 
     def shape_only(self, n_devices: int, module=None) -> None:
         super().shape_only(n_devices, module)
@@ -667,38 +727,67 @@ class ShardedMesh(FSDP):
             out.pop()
         return tuple(out)
 
-    def _dims(self, path: str, shape, module_specs=None) -> tuple:
-        """(tensor dim or None, fsdp dim) of one parameter."""
+    def _axis_dims(self, path: str, shape, module_specs=None) -> dict:
+        """{axis: the dimension it splits} of one parameter, for the
+        axes of size above one its composed spec names."""
         spec = self.leaf_spec(path, shape, module_specs)
-        tdim = fdim = None
+        out = {}
         for i, dim in enumerate(spec):
             names = dim if isinstance(dim, tuple) else (dim,)
             if len([n for n in names if n is not None]) > 1:
                 raise NotImplementedError(
                     f"{path}: spec {spec} shards one dimension over "
                     "several axes; the port splits a dimension over one")
-            if "tensor" in names:
-                tdim = i
-            elif "fsdp" in names:
-                fdim = i
+            if names[0] in ("tensor", "fsdp", "expert", "pipe"):
+                out[names[0]] = i
             elif names != (None,):
                 raise NotImplementedError(
-                    f"{path}: the port shards parameters over fsdp and "
-                    f"tensor only, not {names}")
-        return tdim, (0 if fdim is None else fdim)
+                    f"{path}: the port shards parameters over fsdp, "
+                    f"tensor, expert and pipe, not {names}")
+        if len([a for a in ("tensor", "expert", "pipe") if a in out]) > 1:
+            raise NotImplementedError(
+                f"{path}: spec {spec} splits the parameter over more than "
+                "one of tensor, expert and pipe")
+        return out
 
-    def planned_shard(self, path: str, shape, module_specs=None) -> tuple:
+    def planned_shard(self, path: str, shape, module_specs=None):
+        """As the base's; None for a layer another pipeline stage owns
+        (the plan is rank 0's: stage 0's layers)."""
         sizes = self._sizes()
-        tdim, fdim = self._dims(path, shape, module_specs)
+        stage_of = getattr(self._module, "pipeline_stage", None)
+        if sizes["pipe"] > 1 and stage_of is not None and \
+                stage_of(path, sizes["pipe"]) not in (None, 0):
+            return None
+        dims = self._axis_dims(path, shape, module_specs)
         shape = list(shape)
-        if tdim is not None:
-            shape[tdim] //= sizes["tensor"]
+        for axis in ("tensor", "expert", "pipe"):
+            if axis in dims:
+                shape[dims[axis]] //= sizes[axis]
+        if self._replicas():
+            return tuple(shape), tuple(shape)
         # HSDP's data replicas hold the same shard
-        return _fsdp_shard(tuple(shape), fdim, sizes["fsdp"])
+        return _fsdp_shard(tuple(shape), dims.get("fsdp", 0),
+                           sizes["fsdp"])
+
+    def _replicas(self) -> bool:
+        """Is the model left unwrapped, its gradients averaged over the
+        data replicas explicitly (under ``pipe`` or ``expert``)?"""
+        sizes = self._sizes()
+        return sizes["pipe"] > 1 or sizes["expert"] > 1
 
     def data_shard(self, rank: int, world: int) -> tuple:
-        tensor = self.build_spec(world).tensor
-        return rank // tensor, world // tensor
+        """The rank's coordinate over data × fsdp × expert (the batch
+        axes), in mesh order: ranks that differ only in pipe, seq or
+        tensor read the same rows."""
+        sizes = self.build_spec(world).sizes()
+        coords = np.unravel_index(rank, [sizes[a] for a in
+                                         mesh_lib.AXIS_ORDER])
+        batch = [a for a in mesh_lib.AXIS_ORDER
+                 if a in ("data", "fsdp", "expert")]
+        index = int(np.ravel_multi_index(
+            [coords[mesh_lib.AXIS_ORDER.index(a)] for a in batch],
+            [sizes[a] for a in batch]))
+        return index, int(np.prod([sizes[a] for a in batch]))
 
     # ---- wrapping -----------------------------------------------------------
 
@@ -802,21 +891,35 @@ class ShardedMesh(FSDP):
         register_fused_step_meta()
         if isinstance(model, FSDPModule) or getattr(model, "_rlt_wrapped",
                                                     False):
+            self._record_splits(model)
             return model
         sizes = self._sizes()
         specs = self._module_specs()
+        if sizes["pipe"] > 1 and hasattr(model, "enable_pipeline"):
+            # the stage's layers alone are materialised
+            model.enable_pipeline(AxisGroup.of(self.mesh, "pipe"))
         named = dict(model.named_parameters())
-        dims = {n: self._dims(n, p.shape, specs) for n, p in named.items()}
+        dims = {n: self._axis_dims(n, p.shape, specs)
+                for n, p in named.items()}
         if sizes["tensor"] > 1:
             self._shard_tensor(model, named, dims)
+        for axis in ("expert", "pipe"):
+            if sizes[axis] > 1:
+                self._shard_axis(model, axis, dims)
+        if sizes["seq"] > 1:
+            model.enable_sequence_parallel(AxisGroup.of(self.mesh, "seq"))
+        if sizes["expert"] > 1 and hasattr(model, "enable_expert_parallel"):
+            model.enable_expert_parallel(AxisGroup.of(self.mesh, "expert"),
+                                         self._batch_group())
+        self._record_splits(model, dims)
         model._rlt_wrapped = True
         dp = [ax for ax in ("data", "fsdp") if ax in self.mesh_shape]
-        if not dp:
+        if not dp or self._replicas():
             return model
         by_id = {id(p): n for n, p in model.named_parameters()}
 
         def placement(param):
-            return Shard(dims[by_id[id(param)]][1])
+            return Shard(dims[by_id[id(param)]].get("fsdp", 0))
 
         return self._shard_units(
             model, self.mesh[tuple(dp)] if len(dp) > 1 else self.mesh[dp[0]],
@@ -832,7 +935,7 @@ class ShardedMesh(FSDP):
         self.tp = TensorParallel(tp_mesh.get_group(), tp_mesh.size(),
                                  tp_mesh.get_local_rank())
         for name, p in named.items():
-            tdim = dims[name][0]
+            tdim = dims[name].get("tensor")
             value = self.layout_value(name, p.detach())
             if tdim is None:
                 piece, placements = value, [Replicate()]
@@ -851,6 +954,60 @@ class ShardedMesh(FSDP):
             lambda *a: self._state_dict_hook(*a))
         model.register_load_state_dict_pre_hook(
             lambda *a: self._load_hook(*a))
+
+    def _shard_axis(self, model, axis: str, dims) -> None:
+        """Each parameter whose spec names ``axis`` as a DTensor sharded
+        over ``mesh[axis]`` on that dimension (an expert bank, a layer
+        stack); the model runs its local shard (`parallel.tensor.local`)."""
+        from torch import nn
+        from torch.distributed.tensor import DTensor, Shard
+
+        sub = self.mesh[axis]
+        for name, p in list(model.named_parameters()):
+            d = dims.get(name, {}).get(axis)
+            if d is None:
+                continue
+            piece = p.detach().chunk(sub.size(), dim=d)[sub.get_local_rank()]
+            owner, _, attr = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            dt = DTensor.from_local(piece.clone(), sub, [Shard(d)],
+                                    run_check=False)
+            setattr(mod, attr, nn.Parameter(dt,
+                                            requires_grad=p.requires_grad))
+
+    def _batch_group(self) -> AxisGroup:
+        """Every rank holding other rows of the batch (data × fsdp ×
+        expert), ranked as `data_shard` ranks them."""
+        axes = tuple(a for a in ("data", "fsdp", "expert")
+                     if a in self.mesh_shape)
+        sub = self.mesh[axes[0]] if len(axes) == 1 else \
+            self.mesh[axes]._flatten()
+        return AxisGroup(sub.get_group(), sub.size(), sub.get_local_rank())
+
+    def _record_splits(self, model, dims=None) -> None:
+        """Each parameter's split axes, for `finish_grads`; ``dims``: its
+        `_axis_dims` (read from the model's global shapes when None)."""
+        if dims is None:
+            specs = self._module_specs()
+            dims = {n: self._axis_dims(n, p.shape, specs)
+                    for n, p in model.named_parameters()}
+        self._split = {n: self._split_axes(model, n, d)
+                       for n, d in dims.items()}
+
+    def _split_axes(self, model, name: str, dims: dict) -> tuple:
+        """The axes over which a parameter's elements differ between
+        ranks (its shards): ``fsdp`` under FSDP2, and those of tensor,
+        expert and pipe it is split over (a stage-owned layer's whole
+        weight counts as split over ``pipe``)."""
+        sizes = self._sizes()
+        out = [a for a in ("tensor", "expert", "pipe")
+               if a in dims and sizes[a] > 1]
+        owned = getattr(model, "pipeline_owned", None)
+        if sizes["pipe"] > 1 and owned is not None and owned(name):
+            out.append("pipe")
+        if sizes["fsdp"] > 1 and not self._replicas():
+            out.append("fsdp")
+        return tuple(sorted(set(out), key=mesh_lib.AXIS_ORDER.index))
 
     def _state_dict_hook(self, module, state_dict, prefix, local_metadata):
         for key in list(state_dict):
@@ -899,31 +1056,66 @@ class ShardedMesh(FSDP):
             return self.mesh[dp[0]].get_group()
         return self.mesh[dp]._flatten().get_group()
 
-    def global_norm(self, tensors) -> torch.Tensor:
-        """Each element once: the squares of the shards split over the
-        tensor axis summed over fsdp × tensor, those of replicated gains
-        over fsdp only (HSDP's data replicas hold the same values)."""
-        import torch.distributed as dist
-        from torch.distributed.tensor import DTensor
+    @property
+    def loss_ranks(self) -> int:
+        sizes = self._sizes()
+        return self.dp_size * sizes["seq"]
 
-        split, whole = [], []
+    def _over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed in place over each of ``axes`` in turn (their
+        product's sum)."""
+        import torch.distributed as dist
+
+        for ax in axes:
+            if self._sizes()[ax] > 1:
+                dist.all_reduce(t, group=self.mesh[ax].get_group())
+        return t
+
+    def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.loss_ranks == 1:
+            return t
+        return self._over(t.clone(), ("data", "fsdp", "expert", "seq"))
+
+    def finish_grads(self, named_grads, reduce: bool = True) -> None:
+        """Average each gradient over the axes its parameter is
+        replicated on and FSDP2 does not reduce: ``seq``; ``data`` and
+        ``expert`` under the replicas of ``pipe`` and ``expert`` (an
+        expert weight's divided by the expert axis instead). Records each
+        gradient's split axes for `global_norm`."""
+        sizes = self._sizes()
+        self._grad_split = {}
+        for name, g in named_grads:
+            split = self._split.get(name, ())
+            self._grad_split[id(g)] = split
+            if not reduce:
+                continue
+            axes = [a for a in ("data", "expert", "seq") if sizes[a] > 1
+                    and a not in split
+                    and (a == "seq" or self._replicas())]
+            local_g = g.to_local() if hasattr(g, "to_local") else g
+            self._over(local_g, axes)
+            n = int(np.prod([sizes[a] for a in axes])) if axes else 1
+            if "expert" in split:
+                n *= sizes["expert"]
+            if n > 1:
+                local_g.div_(n)
+
+    def global_norm(self, tensors) -> torch.Tensor:
+        """Each element once: the squares of each gradient's local part
+        summed over the axes its parameter is split on (fsdp, tensor,
+        expert, pipe: `finish_grads` recorded them); those of a
+        replicated gradient (HSDP's data replicas, a gain under the
+        tensor axis) are counted once."""
+        buckets: Dict[tuple, list] = {}
         for t in tensors:
-            sharded = False
-            if isinstance(t, DTensor):
-                names = t.device_mesh.mesh_dim_names or ()
-                sharded = any(n == "tensor" and pl.is_shard()
-                              for n, pl in zip(names, t.placements))
-            (split if sharded else whole).append(
-                t.to_local() if isinstance(t, DTensor) else t)
-        sq = torch.stack([global_norm(part).to(self.device).square()
-                          for part in (split, whole)])
-        if "fsdp" in self.mesh_shape and self.mesh_shape["fsdp"] > 1:
-            dist.all_reduce(sq, group=self.mesh["fsdp"].get_group())
-        if self.tp is not None:
-            part = sq[:1].clone()
-            dist.all_reduce(part, group=self.tp.group)
-            sq = torch.cat([part, sq[1:]])
-        return sq.sum().sqrt()
+            split = self._grad_split.get(id(t), ())
+            buckets.setdefault(split, []).append(
+                t.to_local() if hasattr(t, "to_local") else t)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for split in sorted(buckets):
+            sq = global_norm(buckets[split]).to(self.device).square()
+            total = total + self._over(sq.reshape(1), split)[0]
+        return total.sqrt()
 
     def teardown(self) -> None:
         super().teardown()

@@ -48,3 +48,14 @@ def test_bert_faults_are_planted_in_the_sources_bert_builds():
     faults += list(chip_faults.SMALL_FAULTS.values())
     for src, _, _ in faults:
         assert src[:-len(".cu")] in chip_faults.BERT_SOURCES, src
+
+
+def test_axes_faults_are_the_flash_faults_in_the_sources_it_builds():
+    """``--axes`` plants every flash fault and builds only the flash
+    sources, in which each of its faults lies."""
+    assert set(chip_faults.AXES_FAULTS) == {
+        f for f, (src, _, _) in chip_faults.FAULTS.items()
+        if src.startswith("flash")}
+    for fault in chip_faults.AXES_FAULTS:
+        src = chip_faults.FAULTS[fault][0]
+        assert src[:-len(".cu")] in chip_faults.BERT_SOURCES, src

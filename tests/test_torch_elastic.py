@@ -6,9 +6,9 @@ on the CPU.
 `ElasticBudget`'s ladder (`legal`, `legal_worlds`, `largest_legal`,
 `batch_plan`) equals the JAX budget's over a grid of mesh templates,
 worlds and global batches, and `_elastic_decision` the JAX decision over
-a grid of world, launch world, allowed, spent and capacity. A template
-that asks for an axis the port does not build raises naming its ROADMAP
-item. `_begin_reshard` refuses a legacy checkpoint and checks the move
+a grid of world, launch world, allowed, spent and capacity, also for
+templates asking for the sequence, pipeline and expert axes.
+`_begin_reshard` refuses a legacy checkpoint and checks the move
 against the budget's real template; the reshard ledger is the JAX
 file, read by both packages' timeline and report. The supervised shrink
 (two gloo processes, rank 1 killed at step 3 under ``max_restarts=0``,
@@ -75,16 +75,22 @@ def test_budget_ladder_equals_jax(template, knobs):
 
 
 def test_unported_axis_names_its_item():
-    """A template that asks for seq/pipe/expert is a missing port, not
-    an illegal world: it raises naming ROADMAP item 13."""
-    b = ElasticBudget(spec_for=lambda w: pmesh.MeshSpec(data=-1, seq=2))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        b.legal(4, 8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        b.batch_plan(4, 2)
-    # a world at which the template does not even resolve is illegal,
-    # as in JAX: divisibility is checked first
-    assert b.legal(3, 8) is False
+    """A template that asks for seq, pipe or expert now builds: its
+    ladder and batch plan equal the JAX budget's (the batch rides data
+    and expert, not seq or pipe), and a world at which the template does
+    not resolve is illegal, as in JAX."""
+    for sizes in (dict(data=-1, seq=2), dict(data=-1, pipe=2),
+                  dict(data=-1, expert=2)):
+        mine = ElasticBudget(spec_for=lambda w: pmesh.MeshSpec(**sizes))
+        ref = jbudget.ElasticBudget(
+            spec_for=lambda w: jmesh.MeshSpec(**sizes))
+        for launch in (2, 4, 8):
+            assert mine.legal_worlds(launch) == ref.legal_worlds(launch)
+            for w in range(0, launch + 3):
+                assert mine.legal(w, launch) == ref.legal(w, launch)
+        for old, new in itertools.product((2, 4, 8), repeat=2):
+            assert mine.batch_plan(old, new) == ref.batch_plan(old, new)
+        assert mine.legal(3, 8) is False
 
 
 @pytest.fixture

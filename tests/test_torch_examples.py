@@ -6,8 +6,9 @@ steps on synthetic numpy tokens, once per knob of the Llama training
 path (the bf16 first moment, each remat policy, the inline CE, tied
 embeddings) and once across two gloo processes; each must end with a
 finite loss after 4 steps, and its JSON line must say what ran.
-``--pipe > 1`` is refused naming its ROADMAP item, ``--no-scan-layers``
-is accepted and documented as changing nothing.
+``--pipe 2`` runs the GPipe path across two gloo processes (with
+``--no-scan-layers`` it is refused, as in JAX), ``--no-scan-layers``
+alone is accepted and documented as changing nothing.
 
 The other five (`mnist_dp_example` also with ``--tune`` and across two
 gloo processes, `mnist_sweep_example`, `pod_launch_example`,
@@ -48,6 +49,7 @@ KNOBS = {
     "no_remat": ["--no-remat"],
     "fsdp2_mu_bf16": ["--fsdp", "2", "--mu-bf16", "--remat-policy",
                       "attn_out"],
+    "pipe2": ["--pipe", "2", "--microbatches", "2"],
 }
 
 
@@ -60,7 +62,9 @@ def test_llama_fsdp_example_smoke(knob, tmp_path):
     assert summary["steps"] == 4 and np.isfinite(summary["loss"])
     assert out.stdout.strip().splitlines()[-2].startswith("mesh=")
     args = KNOBS[knob]
-    assert summary["world"] == (2 if "--fsdp" in args else 1)
+    assert summary["world"] == (2 if "--fsdp" in args or "--pipe" in args
+                                else 1)
+    assert summary["mesh"]["pipe"] == (2 if "--pipe" in args else 1)
     if summary["world"] == 1:
         assert summary["exp_avg_dtype"] == ("torch.bfloat16"
                                             if "--mu-bf16" in args
@@ -70,9 +74,9 @@ def test_llama_fsdp_example_smoke(knob, tmp_path):
 
 
 def test_llama_fsdp_example_refusals_and_help(tmp_path):
-    out = _run(["--smoke-test", "--device", "cpu", "--pipe", "2"],
-               str(tmp_path))
-    assert out.returncode == 2 and "item 13 (b)" in out.stderr
+    out = _run(["--smoke-test", "--device", "cpu", "--pipe", "2",
+                "--no-scan-layers"], str(tmp_path))
+    assert out.returncode == 2 and "conflicts with --pipe" in out.stderr
     # the inline CE needs the fused CE, as in the JAX config
     out = _run(["--smoke-test", "--device", "cpu", "--ce-inline-bwd"],
                str(tmp_path))

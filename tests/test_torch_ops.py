@@ -636,8 +636,11 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_faults.py")
     yield os.path.join(REPO, "chip_variants.py")
+    yield os.path.join(REPO, "scripts", "flash_truth.py")
+    yield os.path.join(REPO, "scripts", "first_launch.py")
     # the jobs the tests ship to workers
     yield os.path.join(REPO, "tests", "torch_jobs.py")
+    yield os.path.join(REPO, "tests", "torch_axis_jobs.py")
 
 
 def test_port_imports_no_jax():

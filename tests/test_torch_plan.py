@@ -337,6 +337,40 @@ def test_plan_equals_live_bytes(tmp_path, strategy, sizes, n):
         assert opt_bytes == p.opt_bytes_per_device, rank
 
 
+@pytest.mark.parametrize("sizes,cfg_kw", [
+    (dict(seq=2), dict(seq_parallel=True)),
+    (dict(pipe=2), dict(pipeline_microbatches=2))], ids=str)
+def test_plan_equals_live_bytes_on_the_new_axes(tmp_path, sizes, cfg_kw):
+    """Under ``ShardedMesh(seq=2)`` every rank holds the whole model,
+    under ``ShardedMesh(pipe=2)`` its stage's layers and the replicated
+    embedding, norm and head: each rank's bytes after the fit's steps
+    equal the plan's (rank 0's; the stages hold equal layers)."""
+    live = []
+    fit_distributed(
+        functools.partial(torch_jobs.llama_module, None, **cfg_kw),
+        functools.partial(torch_jobs.trainer, strategy="sharded",
+                          extra=("LiveBytes",), max_steps=2, **sizes),
+        functools.partial(torch_jobs.llama_data,
+                          torch_jobs.tokens(8, 12, seed=1), None, 2), 2,
+        device="cpu", timeout=T, log_dir=str(tmp_path / "logs"),
+        return_weights=False,
+        on_queue_item=lambda rank, item: live.append(item)
+        if item[0] == "live" else None)
+    cfg = LlamaConfig(**torch_jobs.TINY, dtype=torch.float32, **cfg_kw)
+    p = plan.plan_train_memory(LlamaModule(cfg), ShardedMesh(**sizes), 2,
+                               None)
+    whole = plan.plan_train_memory(LlamaModule(cfg), SingleDevice(), 1,
+                                   None)
+    assert sorted(r for _, r, _, _ in live) == [0, 1]
+    for _, rank, params_bytes, opt_bytes in live:
+        assert params_bytes == p.params_bytes_per_device, rank
+        assert opt_bytes == p.opt_bytes_per_device, rank
+    if "seq" in sizes:
+        assert p.params_bytes_per_device == whole.params_bytes_per_device
+    else:
+        assert p.params_bytes_per_device < whole.params_bytes_per_device
+
+
 def test_data_parallel_plan_replicates():
     cfg = LlamaConfig.tiny()
     p = plan.plan_train_memory(LlamaModule(cfg), DataParallel(), 4, None)

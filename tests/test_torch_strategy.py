@@ -91,25 +91,25 @@ def test_topology_without_a_group():
                                        ("expert", "item 13"),
                                        ("pipe", "item 13")])
 def test_unported_mesh_axes_raise(axis, item):
-    """The seq, expert and pipe axes raise naming item 13. Item 4 brought
-    the tensor axis: a mesh with it builds (here in a one-rank gloo
-    group, kept at size one), and one the group cannot form raises."""
-    if axis == "tensor":
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1)
-        try:
-            built = mesh.MeshSpec(tensor=-1).build("cpu", keep=("tensor",))
-            assert built.mesh_dim_names == ("tensor",)
-            assert mesh.batch_size_divisor(built) == 1
-            with pytest.raises(ValueError, match="covers 2 devices"):
-                mesh.MeshSpec(tensor=2).build("cpu")
-        finally:
-            dist.destroy_process_group()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        mesh.MeshSpec(**{axis: 2}).build("cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        mesh.make_mesh(device_type="cpu", **{axis: -1})
+    """Every axis builds now (item 4 brought the tensor axis, item 13 (a)-(c)
+    the seq, pipe and expert axes): in a one-rank gloo group a mesh that
+    keeps the axis at size one has it as its only dimension, the batch
+    divisor counts it only for expert (as JAX's), and a size the group
+    cannot form raises."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        built = mesh.MeshSpec(**{axis: -1}).build("cpu", keep=(axis,))
+        assert built.mesh_dim_names == (axis,)
+        assert mesh.batch_size_divisor(built) == 1
+        assert mesh.dp_axis_names({axis: 2}) == (
+            ("expert",) if axis == "expert" else ("data",))
+        with pytest.raises(ValueError, match="covers 2 devices"):
+            mesh.MeshSpec(**{axis: 2}).build("cpu")
+        with pytest.raises(ValueError, match="covers 2 devices"):
+            mesh.make_mesh(device_type="cpu", **{axis: 2})
+    finally:
+        dist.destroy_process_group()
 
 
 def _sharding_outcome(mod, loader, n, i, stage="train"):
@@ -182,16 +182,28 @@ def test_resolve_loaders():
 def test_unported_strategy_knobs_raise():
     """``overlap=`` is ported (FSDP2 prefetch; held bitwise by
     tests/test_torch_overlap.py); an unknown schedule raises. `ShardedMesh`
-    is ported with its tensor axis (item 4); its seq axis still raises,
-    naming item 13."""
+    is ported with its tensor axis (item 4) and its seq, pipe and expert
+    axes (item 13 (a)-(c)): each resolves, its batch shards are those of
+    data x fsdp x expert, and the one composition the port leaves out,
+    fsdp > 1 beside pipe or expert, raises."""
     assert FSDP(overlap="on", device="cpu").overlap == "on"
     assert DataParallel(overlap="serial", device="cpu").overlap == "serial"
     with pytest.raises(ValueError, match="overlap"):
         DataParallel(overlap="sometimes")
     assert ShardedMesh(data=2, tensor=2).build_spec(4).sizes()["tensor"] == 2
     for axis in ("seq", "pipe", "expert"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            ShardedMesh(**{axis: 2}, device="cpu")
+        sm = ShardedMesh(data=2, **{axis: 2}, device="cpu")
+        assert sm.build_spec(4).sizes()[axis] == 2
+        shards = [sm.data_shard(r, 4) for r in range(4)]
+        if axis == "expert":
+            assert shards == [(0, 4), (1, 4), (2, 4), (3, 4)]
+        else:
+            assert shards == [(0, 2), (0, 2), (1, 2), (1, 2)]
+        if axis == "seq":
+            assert ShardedMesh(fsdp=2, seq=2).build_spec(4).fsdp == 2
+        else:
+            with pytest.raises(NotImplementedError, match="fsdp=2"):
+                ShardedMesh(fsdp=2, **{axis: 2}, device="cpu")
     assert not dist.is_initialized()
 
 

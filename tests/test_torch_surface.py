@@ -31,12 +31,11 @@ ITEM = {
     "runtime": {"launch_cpu_spmd": "gloo"},
     # item 8's remainder brought the serving plan: every name resolves
     "serve": {},
-    # item 13 (d) brought BERT, ResNet and hf_interop's BERT half
-    "models": {n: r"item 13 \(c\)" for n in (
-        "MoEClassifierModule", "MoEMLP", "moe_param_specs")},
-    "ops": {n: "item 13" for n in (
-        "ulysses_attention", "ulysses_attention_local", "ring_attention",
-        "ring_attention_local", "gpipe_apply", "pipeline_param_spec")},
+    # item 13 (d) brought BERT, ResNet and hf_interop's BERT half, item
+    # 13 (c) MoE: every name resolves
+    "models": {},
+    # item 13 (a)-(b): ring, Ulysses and the GPipe pipeline
+    "ops": {},
     "pipeline": {},
     "sweep": {"TpuResources": "GpuResources"},
     "resilience": {},
@@ -115,7 +114,8 @@ def test_rest_of_serving_names_resolve():
 def test_slice_13_names_resolve():
     """Item 2 and item 13 (d): `core/text.py`, BERT, ResNet and the BERT
     half of `hf_interop` resolve from their subpackages as the objects
-    their modules define; MoE still names item 13 (c)."""
+    their modules define; so do item 13 (a)-(c)'s ring, Ulysses, GPipe
+    and MoE names."""
     from ray_lightning_tpu_torch import core, models
     from ray_lightning_tpu_torch.core import text
     from ray_lightning_tpu_torch.models import bert, hf_interop, resnet
@@ -132,9 +132,24 @@ def test_slice_13_names_resolve():
         for name in names:
             assert getattr(pkg, name) is getattr(mod, name), name
             assert name in pkg.__all__
-    for name in ("MoEMLP", "MoEClassifierModule", "moe_param_specs"):
-        with pytest.raises(NotPortedError, match=r"item 13 \(c\)"):
-            getattr(models, name)
+    from ray_lightning_tpu_torch import ops
+    from ray_lightning_tpu_torch.models import moe
+
+    # the modules (the package's names of the same spelling are functions)
+    pipeline, ring_attention, ulysses = (
+        importlib.import_module(f"ray_lightning_tpu_torch.ops.{m}")
+        for m in ("pipeline", "ring_attention", "ulysses"))
+
+    for pkg, mod, names in (
+            (models, moe, ("MoEMLP", "MoEClassifierModule",
+                           "moe_param_specs")),
+            (ops, ring_attention, ("ring_attention",
+                                   "ring_attention_local")),
+            (ops, ulysses, ("ulysses_attention", "ulysses_attention_local")),
+            (ops, pipeline, ("gpipe_apply", "pipeline_param_spec"))):
+        for name in names:
+            assert getattr(pkg, name) is getattr(mod, name), name
+            assert name in pkg.__all__
 
 
 def test_top_level_names_are_the_subpackages_objects():
@@ -188,3 +203,18 @@ def test_import_loads_no_torch_and_no_jax(module):
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+def test_ring_attention_name_survives_its_submodule_import():
+    """``ops.ring_attention`` is the function, as in JAX, also when the
+    submodule of that name is imported first (the import system binds a
+    submodule onto its package), in a fresh interpreter."""
+    code = ("import ray_lightning_tpu_torch.ops.ring_attention, sys; "
+            "from ray_lightning_tpu_torch import ops; "
+            "m = sys.modules['ray_lightning_tpu_torch.ops.ring_attention']; "
+            "print(ops.ring_attention is m.ring_attention)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "True"

@@ -442,13 +442,13 @@ def test_unported_trainer_knobs_raise(knob, value, tmp_path, monkeypatch):
 
 def test_unported_entry_points_raise():
     # DataLoader(prefetch=True) is ported (the native batcher): the numpy
-    # path's batches; MoE is not
+    # path's batches; so is MoE (item 13 (c)): the name resolves
     loader = DataLoader({"a": np.arange(4.0)}, batch_size=2, prefetch=True)
     assert [b["a"].tolist() for b in loader] == [[0.0, 1.0], [2.0, 3.0]]
     from ray_lightning_tpu_torch import models
+    from ray_lightning_tpu_torch.models import moe
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.MoEMLP
+    assert models.MoEMLP is moe.MoEMLP
     # the default device is the card: without one, fit raises
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
