@@ -383,10 +383,33 @@ Phases, each of which raises (and so exits nonzero) on failure:
                one-rank fit. ``phase17_s`` in the ``timing`` line;
                ``--axes-only`` runs phase 3's ``FLASH_OWED_17`` rows,
                phase 5 and phase 17 alone.
-  4b. serve profile — last, phase 4's model serves four of its requests
+ 18. analysis — last: (a) the lock-order watcher, armed from the
+               script's first lines (``RLT_LOCKWATCH=1``,
+               ``RLT_LOCKWATCH_MAX_HOLD_S=2.0``, both inherited by every
+               child process), so that every `san_lock` of phases 1-17 in
+               this process was the watcher's: no lock-order cycle
+               (RLT702) or the run fails; the order graph's locks and
+               edges, and every lock held past 2 s with its seconds and
+               site (RLT705, a reading); (b) after that verdict, two fresh
+               lock names nested both ways on one thread must be reported
+               as a cycle naming both (the arming held); (c) the host
+               microseconds of an armed acquire/release pair against a
+               plain ``threading.Lock``'s, 100k pairs each; (d)
+               ``python -m ray_lightning_tpu_torch lint`` through its
+               ``main`` in this process over the port package (threadcheck
+               on, the default gate) on a machine with no JAX: exit 0, its
+               seconds and counts by severity. ``phase18_s`` in the
+               ``timing`` line. 12 (c)'s and 14 (a)'s ranks start ahead of
+               their legs (with phase 12, and before 6 (c)'s save): they
+               import while the legs before them run (`warm_imports`:
+               the port's trainer and strategies, torch.distributed's
+               FSDP, DTensor and checkpoint modules, ``torch._dynamo``)
+               and wait for a gate file (``warm_s`` in their lines), as
+               phase 17's do.
+  4b. serve profile — before 18, phase 4's model serves four of its requests
                again under `torch.profiler`, the device traced alone:
                the device's busy share and the kernels with the most
-               device time. It runs last
+               device time. It runs after every other profiled phase
                because after a profiled serving run at this depth every
                later profiler session of the process loses its first
                kernel records (``--profile-sessions`` shows it).
@@ -429,10 +452,20 @@ import subprocess
 import sys
 import time
 
-import torch
+# Phase 18: the lock-order watcher is armed for the whole run, before
+# anything of the port is imported (`san_lock` decides at creation, and
+# module-level locks are created at import); child processes inherit it.
+# A lock held past 2 s is reported (a reading, not a failure).
+os.environ.setdefault("RLT_LOCKWATCH", "1")
+os.environ.setdefault("RLT_LOCKWATCH_MAX_HOLD_S", "2.0")
 
-from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
-from ray_lightning_tpu_torch.models.llama import LlamaModule
+import torch  # noqa: E402
+
+from ray_lightning_tpu_torch.core.callbacks import (  # noqa: E402
+    Callback,
+    ModelCheckpoint,
+)
+from ray_lightning_tpu_torch.models.llama import LlamaModule  # noqa: E402
 
 #: wall clock when this module's imports (torch and the port's training
 #: modules) ended: the second mark of a sweep trial's start split
@@ -2902,6 +2935,107 @@ def free_card(what: str) -> None:
                           / 2**30)), flush=True)
 
 
+# ---- processes started ahead of their phase ---------------------------
+#
+# A fresh process spends seconds importing torch, the port and torch's
+# compiler stack (`torch._dynamo`, which a torch optimizer imports at its
+# first parameter group) before it touches the card. Phases 12 (c), 14
+# (a) and 17 start their rank processes early: they import while the
+# phase before runs, then wait for a gate file the phase opens; their
+# time limits count from the gate.
+
+
+def await_gate(path: str) -> dict:
+    """Wait for the gate ``path`` to open; the arguments the phase wrote
+    there ({} for none)."""
+    while not os.path.exists(path):
+        time.sleep(0.05)
+    with open(path) as f:
+        return json.load(f)
+
+
+def open_gate(path: str, **args) -> float:
+    """Open the gate ``path`` (atomically, with ``args`` for the waiting
+    processes); returns the time it opened (perf_counter)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(args, f)
+    os.replace(path + ".tmp", path)
+    return time.perf_counter()
+
+
+def warm_imports() -> float:
+    """A fresh rank's imports, paid before its gate opens: the port's
+    trainer, data and strategies, torch.distributed's FSDP, DTensor and
+    checkpoint modules, and `torch._dynamo`. Touches no device. Returns
+    the seconds."""
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+    import torch.distributed.checkpoint  # noqa: F401
+    import torch.distributed.fsdp  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
+
+    from ray_lightning_tpu_torch.core import data, trainer  # noqa: F401
+    from ray_lightning_tpu_torch.parallel import strategy  # noqa: F401
+
+    return time.perf_counter() - t0
+
+
+def _spawn(target: str, args: str, what: str, timeout: float,
+           root_dir: str, ranks: int, env=None) -> list:
+    """Start ``ranks`` processes running ``chip_smoke.<target>(rank,
+    ranks, port, <args>out)`` on the card (each waits for its phase's
+    gate); returns the processes, their outputs, their logs and their
+    time limit, counted from the gate's opening."""
+    from ray_lightning_tpu_torch.utils.dist import find_free_port
+
+    port = find_free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
+           **(env or {}),
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    outs = [os.path.join(root_dir, f"{what}{r}.json") for r in range(ranks)]
+    logs = [os.path.join(root_dir, f"{what}{r}.log") for r in range(ranks)]
+    procs = []
+    for r in range(ranks):
+        # unbuffered, with the fault handler: a rank that dies in native
+        # code leaves its Python stack in the log
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", "-X", "faulthandler", "-c",
+                 f"import chip_smoke; chip_smoke.{target}({r}, "
+                 f"{ranks}, {port}, {args}{outs[r]!r})"],
+                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+    return [procs, outs, logs, timeout]
+
+
+def _reap(spawned, opened: float) -> tuple:
+    """Wait for a `_spawn`'s processes until its time limit from
+    ``opened`` (the gate's opening), kill what is left; (return codes,
+    outputs or None each, log tails)."""
+    procs, outs, logs, timeout = spawned
+    deadline = opened + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    got, tails = [], []
+    for o, lg in zip(outs, logs):
+        if os.path.exists(o):
+            with open(o) as f:
+                got.append(json.load(f))
+        else:
+            got.append(None)
+        with open(lg) as f:
+            tails.append(f.read()[-3000:])
+    return [p.returncode for p in procs], got, tails
+
+
 def run_dist(kind: str, module_factory, trainer_factory, data_factory,
              **kw):
     """One `fit_distributed` / `predict_distributed` on one process (the
@@ -3023,7 +3157,9 @@ def dist_phase(seed: int, ref_rows):
     del probe, strategy
 
     # (c) save at RESUME_AT; 14 (a) resumes it on two tensor ranks and 8
-    # (a) on one FSDP rank (two fresh attempts under the supervisor)
+    # (a) on one FSDP rank (two fresh attempts under the supervisor).
+    # 14 (a)'s ranks start now and import while the save runs
+    grow_ranks = elastic_start(seed)
     free_card("dist_save")
     ckdir = os.path.join(DIST_DIR, "ckpt")
     disk = shutil.disk_usage(DIST_DIR)
@@ -3066,7 +3202,7 @@ def dist_phase(seed: int, ref_rows):
         raise AssertionError("distributed training: " + "; ".join(problems))
     # 14 (a): this checkpoint grown onto two tensor ranks
     for k, v in elastic_phase(seed, path, got1["save_digests"][0],
-                              fsdp_rows[RESUME_AT:]).items():
+                              fsdp_rows[RESUME_AT:], grow_ranks).items():
         total[k] += v
 
     # (d) the reference's matrix: fit, load the best checkpoint, predict
@@ -5092,6 +5228,8 @@ TP_RANKS = 2
 TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "rlt_logs", "chip_smoke_tp")
 TP_TIMEOUT_S = 420
+#: 12 (c)'s ranks start with phase 12 and wait for this file
+TP_GATE = os.path.join(TP_DIR, "go")
 
 
 def live_bytes(trainer, module) -> dict:
@@ -5214,13 +5352,17 @@ def tp_worker(rank: int, world: int, port: int, seed: int,
               out: str) -> None:
     """One rank of 12 (c): phase 5's fit under ``ShardedMesh(tensor=
     world)`` in a gloo group on the visible card; writes its per-step
-    rows, launches, parameter and optimizer bytes and peak to ``out``."""
+    rows, launches, parameter and optimizer bytes and peak to ``out``.
+    Started with phase 12, it imports while (a)-(b) run and waits for
+    TP_GATE."""
+    warm_s = warm_imports()
     import torch.distributed as dist
 
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
 
+    await_gate(TP_GATE)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     cfg, tokens = train_inputs(seed)
@@ -5246,7 +5388,7 @@ def tp_worker(rank: int, world: int, port: int, seed: int,
     with open(out, "w") as f:
         json.dump(dict(
             rank=rank, rows=probe.rows, t=probe.t, t_loop=probe.t_loop,
-            fit_wall_s=time.perf_counter() - t0,
+            fit_wall_s=time.perf_counter() - t0, warm_s=warm_s,
             launches={k.__name__: k.launches for k in all_kernels()},
             peak=torch.cuda.max_memory_allocated(),
             backend=dist.get_backend(), init_path=trainer.init_path,
@@ -5257,61 +5399,34 @@ def tp_worker(rank: int, world: int, port: int, seed: int,
     dist.destroy_process_group()
 
 
-def tp_phase(seed: int, ref_rows, problems: list) -> dict:
-    """12 (c): TP_RANKS processes on the one card, each a rank of
-    ``ShardedMesh(tensor=TP_RANKS)`` over gloo, against phase 5's rows.
-    A correctness lane, not a speed: every all-reduce crosses the host.
-    Returns the kernels' launches, both ranks together."""
-    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
-    from ray_lightning_tpu_torch.utils.dist import find_free_port
-
-    free_card("tensor_parallel")
+def tp_start(seed: int) -> list:
+    """Start 12 (c)'s TP_RANKS processes, which import while phase 12's
+    (a)-(b) run and wait for TP_GATE."""
     shutil.rmtree(TP_DIR, ignore_errors=True)
     os.makedirs(TP_DIR)
-    port = find_free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
-           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
-                                                            "")}
-    outs = [os.path.join(TP_DIR, f"rank{r}.json") for r in range(TP_RANKS)]
-    logs = [open(os.path.join(TP_DIR, f"rank{r}.log"), "w")
-            for r in range(TP_RANKS)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.tp_worker({r}, {TP_RANKS}, "
-         f"{port}, {seed}, {outs[r]!r})"],
-        cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(TP_RANKS)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, TP_TIMEOUT_S
-                               - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        problems.append(f"tensor-parallel ranks still running after "
-                        f"{TP_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+    return _spawn("tp_worker", f"{seed}, ", "rank", TP_TIMEOUT_S, TP_DIR,
+                  TP_RANKS)
+
+
+def tp_phase(seed: int, ref_rows, problems: list, spawned) -> dict:
+    """12 (c): TP_RANKS processes on the one card (``spawned`` by
+    `tp_start`), each a rank of ``ShardedMesh(tensor=TP_RANKS)`` over
+    gloo, against phase 5's rows. A correctness lane, not a speed: every
+    all-reduce crosses the host. Returns the kernels' launches, both
+    ranks together."""
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    free_card("tensor_parallel")
+    t0 = open_gate(TP_GATE)
+    rc, got, tails = _reap(spawned, t0)
     wall = time.perf_counter() - t0
     total = {k.__name__: 0 for k in all_kernels()}
-    if any(p.returncode for p in procs) or not all(map(os.path.exists,
-                                                       outs)):
-        tails = []
-        for r in range(TP_RANKS):
-            with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
-                tails.append(f"rank {r} (rc {procs[r].returncode}): "
-                             + f.read()[-3000:])
-        problems.append("tensor-parallel ranks failed: " + " | ".join(tails))
+    if any(rc) or not all(got):
+        problems.append("tensor-parallel ranks failed: " + " | ".join(
+            f"rank {r} (rc {c}): {t}" for r, (c, t) in enumerate(
+                zip(rc, tails))))
         return total
-    ranks = []
-    for o in outs:
-        with open(o) as f:
-            ranks.append(json.load(f))
+    ranks = got
     plan = _plan(ShardedMesh(tensor=TP_RANKS), TP_RANKS, TB)
     want = expected_launches(TRAIN_STEPS)
     d_loss, d_gn, rel = compare_train(ranks[0]["rows"], ref_rows)
@@ -5353,6 +5468,7 @@ def tp_phase(seed: int, ref_rows, problems: list) -> dict:
         init_peak_gib=[r["init_peak"] / 2**30 for r in ranks],
         step_s_p50=step_s, tokens_per_s=TB * TS / step_s,
         fit_wall_s=[r["fit_wall_s"] for r in ranks], call_wall_s=wall,
+        warm_s=[r["warm_s"] for r in ranks],
         launches=[r["launches"] for r in ranks])), flush=True)
     shutil.rmtree(TP_DIR, ignore_errors=True)
     return total
@@ -5361,9 +5477,10 @@ def tp_phase(seed: int, ref_rows, problems: list) -> dict:
 def planner_phase(seed: int, ref_rows, live: dict) -> dict:
     """Phase 12 (a)-(c); returns the kernels' launches of (b) and (c)."""
     problems = []
+    tp_ranks = tp_start(seed)  # they import while (a)-(b) run
     plan_vs_fit(live, problems)
     total = bmax_phase(seed, problems)
-    for k, v in tp_phase(seed, ref_rows, problems).items():
+    for k, v in tp_phase(seed, ref_rows, problems, tp_ranks).items():
         total[k] += v
     if problems:
         raise AssertionError("the planner and the tensor axis: "
@@ -5842,6 +5959,9 @@ ELASTIC_TIMEOUT_S = 600
 #: (a) keeps its logs and spans here (git-ignored; removed after)
 ELASTIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "rlt_logs", "chip_smoke_elastic")
+#: (a)'s ranks start before 6 (c)'s save and wait for this file, which
+#: names the checkpoint
+GROW_GATE = os.path.join(ELASTIC_DIR, "go")
 #: (c): the trace, in `loadgen.WorkloadConfig` units (the class mix and
 #: the sampled share are the generator's defaults), and its seed offset
 AUTOSCALE_TRACE = dict(n_requests=24, process="mmpp", rate=0.5,
@@ -6115,18 +6235,21 @@ def _read_telemetry(tdir: str, rank: int) -> dict:
                 reshard_s=[lg["buckets"].get("reshard_s") for lg in ledgers])
 
 
-def elastic_worker(rank: int, world: int, port: int, seed: int, ckpt: str,
+def elastic_worker(rank: int, world: int, port: int, seed: int,
                    out: str) -> None:
     """One rank of 14 (a): phase 5's fit resumed from phase 6 (c)'s
     world-1 FSDP checkpoint under ``ShardedMesh(tensor=world)`` in a gloo
     group on the visible card, steps 5-8; writes what its `ElasticProbe`
-    recorded to ``out``."""
+    recorded to ``out``. Started before 6 (c)'s save, it imports while
+    the save runs and waits for GROW_GATE, which names the checkpoint."""
+    warm_s = warm_imports()
     import torch.distributed as dist
 
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
 
+    ckpt = await_gate(GROW_GATE)["ckpt"]
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     cfg, tokens = train_inputs(seed)
@@ -6148,66 +6271,10 @@ def elastic_worker(rank: int, world: int, port: int, seed: int, ckpt: str,
     torch.cuda.synchronize()
     with open(out, "w") as f:
         json.dump(dict(rank=rank, fit_wall_s=time.perf_counter() - t0,
-                       backend=dist.get_backend(),
+                       warm_s=warm_s, backend=dist.get_backend(),
                        mesh=trainer.strategy.mesh_shape,
                        **_read_telemetry(tdir, rank), **probe.rec), f)
     dist.destroy_process_group()
-
-
-def _spawn_ranks(target: str, world: int, args: str, what: str,
-                 problems: list):
-    """Start ``world`` processes running ``chip_smoke.<target>(rank,
-    world, <args>, out)`` on the card, wait, and return each rank's JSON
-    (None when one failed: the tails go into ``problems``)."""
-    from ray_lightning_tpu_torch.utils.dist import find_free_port
-
-    port = find_free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
-           "RLT_CKPT_DIGEST": "size",
-           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
-                                                            "")}
-    outs = [os.path.join(ELASTIC_DIR, f"{what}{r}.json")
-            for r in range(world)]
-    logs = [open(os.path.join(ELASTIC_DIR, f"{what}{r}.log"), "w")
-            for r in range(world)]
-    t0 = time.perf_counter()
-    # unbuffered, with the fault handler: a rank that dies in native
-    # code leaves its Python stack in the log
-    procs = [subprocess.Popen(
-        [sys.executable, "-u", "-X", "faulthandler", "-c",
-         f"import chip_smoke; chip_smoke.{target}({r}, {world}, {port}, "
-         f"{args}, {outs[r]!r})"],
-        cwd=root, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, ELASTIC_TIMEOUT_S
-                               - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        problems.append(f"{what} ranks still running after "
-                        f"{ELASTIC_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    if any(p.returncode for p in procs) or not all(map(os.path.exists,
-                                                       outs)):
-        tails = []
-        for r in range(world):
-            with open(os.path.join(ELASTIC_DIR, f"{what}{r}.log")) as f:
-                tails.append(f"rank {r} (rc {procs[r].returncode}): "
-                             + f.read()[-3000:])
-        problems.append(f"{what} ranks failed: " + " | ".join(tails))
-        return None, time.perf_counter() - t0
-    ranks = []
-    for o in outs:
-        with open(o) as f:
-            ranks.append(json.load(f))
-    return ranks, time.perf_counter() - t0
 
 
 def _reshard_problems(what: str, rec: dict, axes, worlds, steps,
@@ -6238,7 +6305,8 @@ def _reshard_problems(what: str, rec: dict, axes, worlds, steps,
     return d_loss, d_gn
 
 
-def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
+def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list,
+                 spawned):
     """14 (a): phase 6 (c)'s world-1 FSDP step-4 checkpoint (23.08 GB of
     f32 weights and AdamW moments) resumed by ELASTIC_RANKS processes on
     the card, each a rank of ``ShardedMesh(tensor=2)`` over gloo: every
@@ -6248,14 +6316,17 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
     the step and scheduler too; the move ["tensor"] world 1 -> 2 with a
     `reshard` span and goodput reshard_s on each rank, steps 5-8 within
     the train limits of ``ref_rows``, launches by phase 5's formula at
-    H 16 / Hkv 4. Returns the launches."""
+    H 16 / Hkv 4 (the ranks ``spawned`` by `elastic_start`). Returns the
+    launches."""
     free_card("elastic_grow")
-    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
-    os.makedirs(ELASTIC_DIR)
-    ranks, wall = _spawn_ranks("elastic_worker", ELASTIC_RANKS,
-                               f"{seed}, {ckpt!r}", "grow", problems)
+    t0 = open_gate(GROW_GATE, ckpt=ckpt)
+    rc, ranks, tails = _reap(spawned, t0)
+    wall = time.perf_counter() - t0
     total = {k.__name__: 0 for k in all_kernels()}
-    if ranks is None:
+    if any(rc) or not all(ranks):
+        problems.append("grow ranks failed: " + " | ".join(
+            f"rank {r} (rc {c}): {t}" for r, (c, t) in enumerate(
+                zip(rc, tails))))
         return total
     bad, n = restore_mismatches([r["restored"] for r in ranks], [saved])
     want = expected_launches(TRAIN_STEPS - RESUME_AT)
@@ -6289,18 +6360,29 @@ def elastic_grow(seed: int, ckpt: str, saved, ref_rows, problems: list):
         loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
         peak_gib=[r["peak"] / 2**30 for r in ranks],
         fit_wall_s=[r["fit_wall_s"] for r in ranks], call_wall_s=wall,
+        warm_s=[r["warm_s"] for r in ranks],
         launches=[r["launches"] for r in ranks])), flush=True)
     return total
 
 
-def elastic_phase(seed: int, ckpt: str, saved, ref_rows) -> dict:
+def elastic_start(seed: int) -> list:
+    """Start 14 (a)'s ELASTIC_RANKS processes before 6 (c)'s save: they
+    import while it runs and wait for GROW_GATE."""
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    return _spawn("elastic_worker", f"{seed}, ", "grow", ELASTIC_TIMEOUT_S,
+                  ELASTIC_DIR, ELASTIC_RANKS, env={"RLT_CKPT_DIGEST": "size"})
+
+
+def elastic_phase(seed: int, ckpt: str, saved, ref_rows, spawned) -> dict:
     """14 (a), inside phase 6 (c) on its step-4 checkpoint (``saved``:
     the digests its saving rank took; ``ref_rows``: phase 6 (a)'s rows
-    5-8, phase 5's bitwise). Returns the launches."""
+    5-8, phase 5's bitwise; ``spawned``: `elastic_start`'s ranks).
+    Returns the launches."""
     problems = []
     t0 = time.perf_counter()
     try:
-        total = elastic_grow(seed, ckpt, saved, ref_rows, problems)
+        total = elastic_grow(seed, ckpt, saved, ref_rows, problems, spawned)
     finally:
         shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
         PHASE14_S["elastic"] = time.perf_counter() - t0 \
@@ -6878,8 +6960,9 @@ AXES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "rlt_logs", "chip_smoke_axes")
 AXES_TIMEOUT_S = 420
 PROBE_TIMEOUT_S = 60
-#: phase 17's processes start during phase 16 and import there; this file
-#: appearing lets them go on to the card and the process group
+#: phase 17's processes start during phase 16 and import there (and pay
+#: their first flash call); this file appearing lets them go on to the
+#: process group
 AXES_GATE = os.path.join(AXES_DIR, "go")
 #: (b): Llama-3-8B's attention at its max_seq_len, two ranks of 4096
 RING_B, RING_S = 1, 8192
@@ -6889,13 +6972,6 @@ AXES_STEPS = 2
 #: and how far its expert-parallel rows may sit from its one-rank rows
 #: (f32 both: the reductions' order alone differs)
 MOE_ROWS, MOE_BATCH, MOE_STEPS, MOE_RTOL = 256, 64, 4, 1e-4
-
-
-def _await_gate() -> None:
-    """Wait for phase 17 to open AXES_GATE (the processes import while
-    the phase before runs)."""
-    while not os.path.exists(AXES_GATE):
-        time.sleep(0.05)
 
 
 def probe_worker(rank: int, world: int, port: int, out: str) -> None:
@@ -6908,7 +6984,7 @@ def probe_worker(rank: int, world: int, port: int, out: str) -> None:
 
     import torch.distributed as dist
 
-    _await_gate()
+    await_gate(AXES_GATE)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=30))
@@ -7216,8 +7292,8 @@ def axes_worker(rank: int, world: int, port: int, seed: int,
 
     from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
 
-    warm = warm_process()
-    _await_gate()
+    warm = dict(imports=warm_imports(), **warm_process())
+    await_gate(AXES_GATE)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     rec = {"rank": rank, "backend": dist.get_backend(), "warm_s": warm}
@@ -7240,67 +7316,15 @@ def axes_worker(rank: int, world: int, port: int, seed: int,
     dist.destroy_process_group()
 
 
-def _spawn(target: str, args: str, what: str, timeout: float) -> list:
-    """Start AXES_RANKS processes running ``chip_smoke.<target>(rank,
-    world, port, <args>, out)`` on the card (they wait for AXES_GATE);
-    returns the processes, their outputs, their logs and their time
-    limit, counted from the gate's opening."""
-    from ray_lightning_tpu_torch.utils.dist import find_free_port
-
-    port = find_free_port()
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
-           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
-                                                            "")}
-    outs = [os.path.join(AXES_DIR, f"{what}{r}.json")
-            for r in range(AXES_RANKS)]
-    logs = [os.path.join(AXES_DIR, f"{what}{r}.log")
-            for r in range(AXES_RANKS)]
-    procs = []
-    for r in range(AXES_RANKS):
-        with open(logs[r], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-u", "-X", "faulthandler", "-c",
-                 f"import chip_smoke; chip_smoke.{target}({r}, "
-                 f"{AXES_RANKS}, {port}, {args}{outs[r]!r})"],
-                cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
-    return [procs, outs, logs, timeout]
-
-
-def _reap(spawned, opened: float) -> tuple:
-    """Wait for a `_spawn`'s processes until its time limit from
-    ``opened`` (the gate's opening), kill what is left; (return codes,
-    outputs or None each, log tails)."""
-    procs, outs, logs, timeout = spawned
-    deadline = opened + timeout
-    for p in procs:
-        try:
-            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
-        except subprocess.TimeoutExpired:
-            pass
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    got, tails = [], []
-    for o, lg in zip(outs, logs):
-        if os.path.exists(o):
-            with open(o) as f:
-                got.append(json.load(f))
-        else:
-            got.append(None)
-        with open(lg) as f:
-            tails.append(f.read()[-3000:])
-    return [p.returncode for p in procs], got, tails
-
-
 def axes_start(seed: int) -> tuple:
     """Start phase 17's processes, the probe's and the lanes', which
     import and then wait for `axes_phase` to open their gate."""
     shutil.rmtree(AXES_DIR, ignore_errors=True)
     os.makedirs(AXES_DIR)
-    return (_spawn("probe_worker", "", "probe", PROBE_TIMEOUT_S),
-            _spawn("axes_worker", f"{seed}, ", "axes", AXES_TIMEOUT_S))
+    return (_spawn("probe_worker", "", "probe", PROBE_TIMEOUT_S, AXES_DIR,
+                   AXES_RANKS),
+            _spawn("axes_worker", f"{seed}, ", "axes", AXES_TIMEOUT_S,
+                   AXES_DIR, AXES_RANKS))
 
 
 def axes_phase(ref_rows, spawned) -> dict:
@@ -7312,9 +7336,7 @@ def axes_phase(ref_rows, spawned) -> dict:
     problems = []
     probe, lanes = spawned
     free_card("axes")
-    t0 = time.perf_counter()
-    with open(AXES_GATE, "w"):
-        pass
+    t0 = open_gate(AXES_GATE)
     prc, pres, ptails = _reap(probe, t0)
     answers = {}
     for key in ("all_to_all_even", "all_to_all_neighbour",
@@ -7396,6 +7418,122 @@ def axes_phase(ref_rows, spawned) -> dict:
         raise AssertionError("phase 17: " + "; ".join(problems))
     shutil.rmtree(AXES_DIR, ignore_errors=True)
     return total
+
+
+# ---- phase 18: the analysis layer ---------------------------------------
+#
+# The lock-order watcher is armed from the script's first lines (above),
+# so every `san_lock` of phases 1-17 in this process is the watcher's.
+
+#: (c): armed acquire/release pairs timed against a plain lock's
+LOCK_PAIRS = 100_000
+
+
+def _held_too_long(f) -> dict:
+    """An RLT705 finding of the watcher as (lock, seconds held, site)."""
+    import re
+
+    held = re.search(r"held for ([0-9.]+)s", f.message)
+    site = re.search(r"acquired at (.+)$", f.message)
+    return dict(lock=f.symbol, held_s=float(held.group(1)) if held else None,
+                site=site.group(1) if site else None)
+
+
+def analysis_phase() -> None:
+    """Phase 18: (a) the verdict of the lock-order watcher over this
+    process's whole run: no lock-order cycle, or the run fails; the
+    order graph's locks and edges printed, and every lock held past
+    RLT_LOCKWATCH_MAX_HOLD_S with its seconds and site (a reading); (b)
+    after that verdict, two fresh lock names taken in opposite nestings
+    on this thread must be reported as a cycle naming both (the arming
+    held); (c) the host microseconds of an armed acquire/release pair
+    against a plain lock's, LOCK_PAIRS pairs each; (d) ``python -m
+    ray_lightning_tpu_torch lint`` in this process over the port package
+    (threadcheck on, the default gate), on a machine with no JAX: it
+    must exit 0; its seconds and counts by severity."""
+    import contextlib
+    import io
+    import threading
+
+    from ray_lightning_tpu_torch.__main__ import main as cli
+    from ray_lightning_tpu_torch.analysis import lockwatch
+
+    problems, parts = [], {}
+    t0 = time.perf_counter()
+    # (a) the verdict over phases 1-17
+    cycles = lockwatch.lockwatch_cycles()
+    edges = lockwatch.lockwatch_order()
+    held = [_held_too_long(f) for f in lockwatch.lockwatch_findings()
+            if f.rule == "RLT705"]
+    print(json.dumps(dict(
+        phase="lockwatch", armed=lockwatch.lockwatch_armed(),
+        max_hold_s=os.environ.get("RLT_LOCKWATCH_MAX_HOLD_S"),
+        cycles=[list(c) for c in cycles],
+        locks=sorted({n for e in edges for n in e[:2]}),
+        edges=[dict(held=h, then=a, at=site) for h, a, site in edges],
+        held_too_long=held)), flush=True)
+    if cycles:
+        problems.append("lock-order cycles observed: " + "; ".join(
+            f.format() for f in lockwatch.lockwatch_findings()
+            if f.rule == "RLT702"))
+    parts["a"] = time.perf_counter() - t0
+
+    # (b) the arming held: a planted inversion is reported
+    t0 = time.perf_counter()
+    first, second = "chip_smoke.liveness.first", "chip_smoke.liveness.second"
+    a, b = lockwatch.san_lock(first), lockwatch.san_lock(second)
+    with a:
+        with b:
+            pass
+    with b:
+        with a:
+            pass
+    seen = [f for f in lockwatch.lockwatch_findings() if f.rule == "RLT702"
+            and first in f.message and second in f.message]
+    caught = (isinstance(a, lockwatch._SanLock) and len(seen) == 1
+              and len(lockwatch.lockwatch_cycles()) == len(cycles) + 1)
+    if not caught:
+        problems.append(f"the watcher missed a planted inversion of {first} "
+                        f"and {second} (armed: {lockwatch.lockwatch_armed()})")
+    parts["b"] = time.perf_counter() - t0
+
+    # (c) what arming costs a lock
+    t0 = time.perf_counter()
+
+    def pair_us(lock) -> float:
+        t = time.perf_counter()
+        for _ in range(LOCK_PAIRS):
+            with lock:
+                pass
+        return (time.perf_counter() - t) / LOCK_PAIRS * 1e6
+
+    armed_us = pair_us(lockwatch.san_lock("chip_smoke.overhead"))
+    plain_us = pair_us(threading.Lock())
+    parts["c"] = time.perf_counter() - t0
+
+    # (d) lint, here where there is no JAX
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["lint", "--json"])
+    lint_s = time.perf_counter() - t0
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not report["ok"]:
+        problems.append(f"lint exited {rc}: " + "; ".join(
+            f"{f['rule']} {f.get('file')}:{f.get('line')}"
+            for f in report["findings"]))
+    parts["d"] = lint_s
+    jax_absent = sys.modules.get("jax") is None
+    print(json.dumps(dict(
+        phase="analysis", liveness_cycle_reported=caught,
+        lock_pair_us=dict(armed=armed_us, plain=plain_us,
+                          pairs=LOCK_PAIRS),
+        lint=dict(rc=rc, seconds=lint_s, files=report["files"],
+                  counts=report["counts"], fail_on=report["fail_on"],
+                  jax_imported=not jax_absent),
+        card=nvidia_smi(), parts_s=parts)), flush=True)
+    if problems:
+        raise AssertionError("analysis: " + "; ".join(problems))
 
 
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
@@ -7607,6 +7745,11 @@ def main() -> int:
     # 4b. phase 4's serving window under the profiler (see serve_profile)
     serve_profile(SEED, args.layers)
     lap("serve_profile")
+
+    # 18. the analysis layer: the lock-order verdict over the whole run, a
+    # planted inversion, the watcher's cost a lock, and `lint` here
+    analysis_phase()
+    lap("analysis")
     shutil.rmtree(TEL_DIR, ignore_errors=True)
     walls["telemetry_serve"] = t_9b
     walls["driver_inline_generate"] = t_11ab
@@ -7631,6 +7774,7 @@ def main() -> int:
         phase15_s=walls["knobs"],
         phase16_s=walls["baseline"], phase16_parts_s=base_walls,
         phase17_s=walls["axes"],
+        phase18_s=walls["analysis"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:

@@ -8,8 +8,11 @@ loop of `pipeline`), training across processes and hosts
 (`runtime.fit.fit_distributed` under `parallel.strategy.DataParallel` /
 `FSDP`, with `checkpoint.io`; ``hosts=`` with `runtime.SSHTransport`),
 the sweep (`sweep.run`), its supervision (`resilience`, with the elastic
-world-size ladder of `elastic`), telemetry, and the closed-loop serving
-autoscaler (`autoscale`) under trace-driven load (`loadgen`).
+world-size ladder of `elastic`), telemetry, the closed-loop serving
+autoscaler (`autoscale`) under trace-driven load (`loadgen`), and the
+analysis layer (`analysis`: the linter and threadcheck behind ``python -m
+ray_lightning_tpu_torch lint``, the lock-order watcher behind every named
+lock, the plan checker).
 The hand-written Hopper kernels live in `ops/kernels/` and `ops/csrc/`.
 
 The top level mirrors the JAX package's ``__all__`` name for name, so a

@@ -23,6 +23,9 @@
     python -m ray_lightning_tpu_torch loadgen --smoke --device cpu
     python -m ray_lightning_tpu_torch watch --smoke --device cpu
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
+    python -m ray_lightning_tpu_torch lint [targets] [--severity S] \
+        [--fail-on S] [--disable RULES] [--list-rules] \
+        [--concurrency | --no-concurrency] [--json]
 
 ``supervise`` is resilience/cli.py; ``report``, ``monitor``,
 ``timeline`` and ``watch`` read a telemetry-enabled run's directory
@@ -32,7 +35,9 @@ driver and its smoke gate (serve/cli.py); ``plan`` is the pre-flight
 memory plan on the meta device (parallel/cli.py); ``elastic`` is the
 elastic-training gate (elastic/cli.py), ``autoscale`` the closed-loop
 serving autoscaler's demo and gate (autoscale/cli.py), ``loadgen`` the
-trace-driven load harness (loadgen/cli.py). With no subcommand it is the
+trace-driven load harness (loadgen/cli.py), ``lint`` the linter and
+threadcheck (analysis/cli.py; no target: the package itself, threadcheck
+on; it imports no JAX and no torch). With no subcommand it is the
 doctor (twin of the JAX package's): the package, torch and CUDA
 versions, this process's rank, world size and local rank from the
 environment, and each visible CUDA device with its index, name, memory
@@ -118,7 +123,41 @@ def run_doctor(args) -> int:
     return 0
 
 
+def _subcommand(argv) -> str:
+    """The first positional argument (the subcommand), if any."""
+    takes_value = False
+    for a in argv:
+        if takes_value:
+            takes_value = False
+        elif a == "--device":
+            takes_value = True
+        elif not a.startswith("-"):
+            return a
+    return ""
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m ray_lightning_tpu_torch")
+    ap.add_argument("--probe", action="store_true",
+                    help="also time a chain of bf16 matmuls on the device "
+                         "and print the rate beside its spec-sheet peak")
+    ap.add_argument("--device", default=None,
+                    help="cpu: list no CUDA device and probe the CPU "
+                         "(default: the CUDA card)")
+    ap.add_argument("--json", action="store_true", dest="as_json")
+    return ap
+
+
 def main(argv=None) -> int:
+    from ray_lightning_tpu_torch.analysis.cli import add_lint_parser, run_lint
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if _subcommand(argv) == "lint":
+        # the analysis alone: no torch, no other subcommand's imports
+        ap = _parser()
+        add_lint_parser(ap.add_subparsers(dest="command"))
+        return run_lint(ap.parse_args(argv))
+
     from ray_lightning_tpu_torch.autoscale.cli import (
         add_autoscale_parser,
         run_autoscale,
@@ -153,14 +192,7 @@ def main(argv=None) -> int:
         run_watch,
     )
 
-    ap = argparse.ArgumentParser(prog="python -m ray_lightning_tpu_torch")
-    ap.add_argument("--probe", action="store_true",
-                    help="also time a chain of bf16 matmuls on the device "
-                         "and print the rate beside its spec-sheet peak")
-    ap.add_argument("--device", default=None,
-                    help="cpu: list no CUDA device and probe the CPU "
-                         "(default: the CUDA card)")
-    ap.add_argument("--json", action="store_true", dest="as_json")
+    ap = _parser()
     sub = ap.add_subparsers(dest="command")
     add_supervise_parser(sub)
     add_report_parser(sub)
@@ -173,13 +205,14 @@ def main(argv=None) -> int:
     add_elastic_parser(sub)
     add_autoscale_parser(sub)
     add_loadgen_parser(sub)
+    add_lint_parser(sub)
     args = ap.parse_args(argv)
     commands = {"supervise": run_supervise, "report": run_report,
                 "monitor": run_monitor, "timeline": run_timeline,
                 "watch": run_watch, "perf": run_perf,
                 "serve": run_serve, "plan": run_plan,
                 "elastic": run_elastic, "autoscale": run_autoscale,
-                "loadgen": run_loadgen}
+                "loadgen": run_loadgen, "lint": run_lint}
     if args.command in commands:
         return commands[args.command](args)
     return run_doctor(args)

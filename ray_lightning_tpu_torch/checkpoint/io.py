@@ -39,6 +39,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
+
 log = logging.getLogger(__name__)
 
 _STATE_DIR = "state"
@@ -47,7 +49,7 @@ _META_FILE = "meta.json"
 # meta.json writes deferred until their async state write commits;
 # _META_LOCK guards the list.
 _PENDING_META: List[Tuple[str, Dict[str, Any]]] = []
-_META_LOCK = threading.Lock()
+_META_LOCK = san_lock("checkpoint.io.meta")
 
 #: paths whose meta/digest the finalizer thread is writing right now:
 #: pruning must not remove such a directory mid-digest. Guarded by

@@ -14,7 +14,8 @@ topology-change vocabulary.
             batch replanning.
 
 The JAX package's third leg (DCN-aware multi-slice planning) lives in
-its analysis layer, which comes with ROADMAP Queue 1 item 13. Names
+its analysis layer's graph walks, which come with ROADMAP Queue 1 item
+13 (f). Names
 resolve on first use.
 """
 from ray_lightning_tpu_torch._lazy import lazy_exports

@@ -20,10 +20,11 @@ import ctypes
 import logging
 import os
 import subprocess
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 log = logging.getLogger(__name__)
 
@@ -32,7 +33,7 @@ _SRC = os.path.join(_HERE, "batcher.cpp")
 _BUILD_DIR = os.path.join(_HERE, "build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "librlt_batcher.so")
 
-_lib_lock = threading.Lock()
+_lib_lock = san_lock("native.lib")
 _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
 
@@ -69,9 +70,10 @@ def load_library() -> Optional[ctypes.CDLL]:
         try:
             stale = (not os.path.exists(_LIB_PATH)
                      or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC))
-            # held through the build: every other caller waits for it
-            # rather than load a torn library
-            if stale and not _compile():
+            # Once-only init lock, deliberately held through the build:
+            # the first caller compiles while every other caller WANTS
+            # to wait rather than dlopen a torn .so.
+            if stale and not _compile():  # rlt: disable=RLT705
                 _lib_failed = True
                 return None
             lib = ctypes.CDLL(_LIB_PATH)

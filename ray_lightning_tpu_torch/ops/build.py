@@ -21,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict, Iterable, Optional, Tuple
+
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,7 +32,7 @@ BUILD = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = san_lock("ops.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each fresh build
 build_logs: Dict[str, str] = {}
@@ -114,9 +115,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            # held through the build, deliberately: a second caller waits
+            # for this nvcc rather than start its own of the same source
+            # and load a library that is not yet in place
             t0 = time.perf_counter()
-            build_all([name])
-            lib = ctypes.CDLL(_lib_path(name))
+            build_all([name])  # rlt: disable=RLT705
+            lib = ctypes.CDLL(_lib_path(name))  # rlt: disable=RLT705
             _libs[name] = lib
             _build_s += time.perf_counter() - t0
         return lib

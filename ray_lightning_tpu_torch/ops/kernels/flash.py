@@ -266,7 +266,16 @@ flash_bwd_dkv_kernel.launches = 0
 flash_bwd_dq_kernel.launches = 0
 
 
-@torch.library.custom_op("rltt::flash_fwd", mutates_args=())
+#: the ``rltt`` operators of this module. Defined through
+#: `torch.library.Library`, not `torch.library.custom_op`: a custom op's
+#: first call imports torch's compiler stack (`torch._dynamo`, inductor,
+#: sympy) to wrap its kernel, seconds in every fresh process; an operator
+#: defined here runs its function as it is.
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int q_offset, float scale) -> (Tensor, Tensor)")
+
+
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, q_offset: int, scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -275,13 +284,21 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(o, lse)`` and skip it in the recomputation (remat policy
     "attn_out", `ops/remat.py`). It launches the kernel on CUDA tensors
     and runs the plain version on CPU tensors, as the wrapper does."""
+    return torch.ops.rltt.flash_fwd.default(q, k, v, causal, q_offset,
+                                            scale)
+
+
+def _flash_fwd_impl(q, k, v, causal, q_offset, scale):
     return flash_fwd_kernel(q, k, v, causal, q_offset, scale)
 
 
-@flash_fwd_op.register_fake
-def _(q, k, v, causal, q_offset, scale):
+def _flash_fwd_meta(q, k, v, causal, q_offset, scale):
     b, sq, h, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+_LIB.impl("flash_fwd", _flash_fwd_impl, "CompositeExplicitAutograd")
+_LIB.impl("flash_fwd", _flash_fwd_meta, "Meta")
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -48,14 +48,20 @@ from torch.utils.checkpoint import (
 )
 
 from ray_lightning_tpu_torch.ops import dispatch
-from ray_lightning_tpu_torch.ops.kernels import flash  # rltt::flash_fwd
+from ray_lightning_tpu_torch.ops.kernels import flash  # noqa: F401 (defines rltt::flash_fwd)
 from ray_lightning_tpu_torch.ops.precision import linear_f32_acc
 from ray_lightning_tpu_torch.ops.rope import apply_rope
 
 aten = torch.ops.aten
 
 
-@torch.library.custom_op("rltt::qkv_rope", mutates_args=())
+#: ``rltt::qkv_rope``, defined through `torch.library.Library` for the
+#: reason `ops/kernels/flash.py` gives for ``rltt::flash_fwd``
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("qkv_rope(Tensor h, Tensor w, Tensor cos, Tensor sin, int n_q, "
+            "int n_kv, int hd) -> (Tensor, Tensor, Tensor)")
+
+
 def qkv_rope_op(h: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, n_q: int, n_kv: int, hd: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -63,6 +69,10 @@ def qkv_rope_op(h: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
     one rounding) split into q [B, S, n_q, hd], k and v [B, S, n_kv, hd],
     with RoPE on q and k: the computation of `models.llama.LlamaBlock`'s
     training path, as one operator."""
+    return torch.ops.rltt.qkv_rope.default(h, w, cos, sin, n_q, n_kv, hd)
+
+
+def _qkv_rope_impl(h, w, cos, sin, n_q, n_kv, hd):
     B, S = h.shape[0], h.shape[1]
     qkv = linear_f32_acc(h, w)
     q, k, v = torch.split(qkv, [n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
@@ -71,11 +81,14 @@ def qkv_rope_op(h: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
     return q.contiguous(), k.contiguous(), v.reshape(B, S, n_kv, hd).clone()
 
 
-@qkv_rope_op.register_fake
-def _(h, w, cos, sin, n_q, n_kv, hd):
+def _qkv_rope_meta(h, w, cos, sin, n_q, n_kv, hd):
     B, S = h.shape[0], h.shape[1]
     return (h.new_empty((B, S, n_q, hd)), h.new_empty((B, S, n_kv, hd)),
             h.new_empty((B, S, n_kv, hd)))
+
+
+_LIB.impl("qkv_rope", _qkv_rope_impl, "CompositeExplicitAutograd")
+_LIB.impl("qkv_rope", _qkv_rope_meta, "Meta")
 
 
 def _rope_bwd(dy: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -139,7 +152,7 @@ GEMMS = frozenset(op for op in (
 DOTS = GEMMS | {torch.ops.rltt.qkv_rope.default}
 #: the attention residuals "attn_out" keeps
 ATTN_OUT = frozenset((torch.ops.rltt.qkv_rope.default,
-                      flash.flash_fwd_op._opoverload))
+                      torch.ops.rltt.flash_fwd.default))
 
 
 def _saves(ops: frozenset):

@@ -32,7 +32,7 @@ import sys
 
 #: what the JAX CLI's legs need, by ROADMAP item
 NOT_PORTED = {
-    "trace": "ROADMAP Queue 1 item 13 (analysis/tracecheck.py as a "
+    "trace": "ROADMAP Queue 1 item 13 (f) (analysis/tracecheck.py as a "
              "torch.fx walk)",
 }
 

@@ -704,7 +704,9 @@ class ShardedMesh(FSDP):
 
     def _require_well_formed(self, path: str, spec, shape) -> None:
         """RLT102-104 on the composed spec, at setup, by the leaf's name."""
-        from ray_lightning_tpu_torch.parallel.spec_check import spec_findings
+        from ray_lightning_tpu_torch.analysis.plan_checker import (
+            spec_findings,
+        )
 
         errors = [f for f in spec_findings(spec, tuple(shape), self._sizes(),
                                            path=path)

@@ -9,7 +9,7 @@ The perf CLI's overlap leg proves the schedule two ways:
      unit i's forward list names unit i+1, under ``"serial"`` and
      ``"off"`` no forward list names anything. The JAX package proves
      this with tracecheck over the jaxpr (`trace_overlap_schedule`),
-     which the port has not yet (ROADMAP Queue 1 item 13).
+     which the port has not yet (ROADMAP Queue 1 item 13 (f)).
 
   2. **A throttled interleave** (`simulate_overlap_schedule`): the same
      double-buffer discipline run on the host with a fake collective (a
@@ -34,8 +34,8 @@ def trace_overlap_schedule(n_devices: int = 8) -> Dict[str, Any]:
     not ported; `check_overlap_schedule` reads the schedule instead."""
     raise NotImplementedError(
         "trace_overlap_schedule needs tracecheck, which is not ported yet "
-        "(ROADMAP Queue 1 item 13); check_overlap_schedule reads the FSDP "
-        "strategy's prefetch lists instead")
+        "(ROADMAP Queue 1 item 13 (f)); check_overlap_schedule reads the "
+        "FSDP strategy's prefetch lists instead")
 
 
 def _schedule(overlap: str, device: Any) -> Dict[str, list]:

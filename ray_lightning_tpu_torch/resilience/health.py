@@ -26,6 +26,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 from ray_lightning_tpu_torch.core.callbacks import Callback
 from ray_lightning_tpu_torch.resilience.policy import StallError
 from ray_lightning_tpu_torch.telemetry.spans import NULL_RECORDER
@@ -138,7 +139,7 @@ class HealthMonitor:
         self.stall_timeout_s = stall_timeout_s
         self.startup_grace_s = startup_grace_s
         self.step_stall_note_s = step_stall_note_s
-        self._lock = threading.Lock()
+        self._lock = san_lock("resilience.health.monitor")
         self.reset()
 
     def reset(self) -> None:

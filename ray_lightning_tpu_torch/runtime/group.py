@@ -42,6 +42,7 @@ from multiprocessing.connection import Connection, Listener
 from multiprocessing.connection import wait as conn_wait
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 from ray_lightning_tpu_torch.runtime.transport import (
     LocalTransport,
     Transport,
@@ -134,7 +135,7 @@ class _HelloAcceptor:
         self._open = True
         # serializes enqueue-vs-close so a connection that authenticates
         # concurrently with close() is closed, never stranded
-        self._lock = threading.Lock()
+        self._lock = san_lock("runtime.group.accept")
         self._conns: "queue.Queue" = queue.Queue()
         threading.Thread(target=self._accept_loop, daemon=True).start()
 

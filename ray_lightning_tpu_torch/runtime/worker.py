@@ -39,10 +39,11 @@ import os
 import pickle
 import socket
 import sys
-import threading
 import time
 import traceback
 from multiprocessing.connection import Client
+
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 #: stamped at import — the earliest observable moment of this worker
 _PROC_START = time.time()
@@ -59,7 +60,7 @@ class _WorkerChannel:
         self.conn = conn
         self.rank = rank
         self.world = world
-        self._lock = threading.Lock()
+        self._lock = san_lock("runtime.worker.channel")
 
     def send(self, msg) -> None:
         with self._lock:

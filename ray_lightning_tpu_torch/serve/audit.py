@@ -17,7 +17,8 @@ so a term is the live engine's bytes exactly: the serving model stores
 its matmul weights and embedding in ``cfg.dtype`` and its norm gains in
 f32, where the JAX plan counts every parameter in its param dtype. The
 JAX module's decode-step audit (``trace_decode_step``,
-``audit_decode_step``, jaxpr walks) waits for ROADMAP Queue 1 item 13.
+``audit_decode_step``, jaxpr walks) waits for ROADMAP Queue 1 item 13
+(f).
 """
 from __future__ import annotations
 

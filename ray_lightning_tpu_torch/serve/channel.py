@@ -53,9 +53,10 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 log = logging.getLogger(__name__)
 
@@ -91,7 +92,7 @@ class ChannelWriter:
         # (submit routing, eviction rerouting) while the respawn thread
         # rolls epochs. The append body stays INLINE in every locked
         # section — this lock exists to serialize exactly that I/O.
-        self._lock = threading.Lock()
+        self._lock = san_lock("serve.channel")
         self._f = open(epoch_path(run_dir, replica, 0), "a",
                        encoding="utf-8")
 

@@ -42,7 +42,7 @@ fit. ``--autotune OUT.json`` sweeps the paged kernels' block size at the
 preset's shape (`serve/sweep.py`; timed on the card only) and writes the
 artifact `serve.sweep.apply_autotune` reads. Left out, reported as
 ``not_ported`` with its ROADMAP item: the decode-step audit (tracecheck,
-item 13).
+item 13 (f)).
 """
 from __future__ import annotations
 
@@ -55,7 +55,8 @@ import tempfile
 
 #: the legs the port leaves out, with the ROADMAP item each waits for
 NOT_PORTED = {
-    "audit": "ROADMAP Queue 1 item 13 (tracecheck's decode-step audit)",
+    "audit": "ROADMAP Queue 1 item 13 (f) (tracecheck's decode-step "
+             "audit)",
 }
 
 

@@ -78,7 +78,7 @@ from ray_lightning_tpu_torch.serve.scheduler import (
     Scheduler,
     SLOConfig,
 )
-from ray_lightning_tpu_torch.utils.locks import san_lock
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 log = logging.getLogger(__name__)
 
@@ -771,8 +771,9 @@ def _replica_session_main(model_cfg, params_path: str,
             apply(cmd)
         if rec.get("tick"):
             run_tick()
-        # the leader owns the shed records; a follower drops its copies
-        sched.take_sheds()
+        # lockstep state only: the LEADER owns shed emission; a
+        # follower drains its identical records to bound the list
+        sched.take_sheds()  # rlt: disable=RLT505
     _record_drain(recorder, sched, replica)
     recorder.flush()
     recorder.close()

@@ -15,9 +15,10 @@ them (``CUDA_VISIBLE_DEVICES``). Two concurrent trials that both land on
 """
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 
 @dataclass(frozen=True)
@@ -60,7 +61,7 @@ class ResourcePool:
         self._free: List[int] = list(range(total_gpus))
         #: held block (its card indices) -> the CPUs it reserved
         self._held: Dict[Tuple[int, ...], int] = {}
-        self._lock = threading.Lock()
+        self._lock = san_lock("sweep.resources.pool")
 
     def max_concurrent(self, per_trial: GpuResources) -> int:
         """floor(pool / per-trial block), jointly over every accounted

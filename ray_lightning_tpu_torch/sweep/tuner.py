@@ -46,6 +46,7 @@ from multiprocessing.connection import (
 )
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 from ray_lightning_tpu_torch.resilience.policy import classify_failure
 from ray_lightning_tpu_torch.runtime.group import (
     WorkerError,
@@ -76,7 +77,7 @@ class _HostPool:
 
     def __init__(self, hosts):
         self._free = list(hosts)
-        self._lock = threading.Lock()
+        self._lock = san_lock("sweep.tuner.hosts")
 
     def try_acquire(self, n: int):
         with self._lock:
@@ -301,7 +302,7 @@ class TrialRunner:
                 f"pool has {pool.total_gpus}"
             )
         self.max_concurrent = min(max_concurrent or cap, cap)
-        self._lock = threading.Lock()
+        self._lock = san_lock("sweep.tuner.runner")
         self._cond = threading.Condition(self._lock)
         self.trials: List[Trial] = []
         for i, cfg in enumerate(configs):

@@ -37,7 +37,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-from ray_lightning_tpu_torch.utils.locks import san_lock
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 INCIDENTS_NAME = "incidents.jsonl"
 INCIDENTS_VERSION = "rlt-incidents-v1"

@@ -49,7 +49,7 @@ import os
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-from ray_lightning_tpu_torch.utils.locks import san_lock
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 METRICS_VERSION = "rlt-metrics-v1"
 FLIGHT_VERSION = "rlt-flight-v1"

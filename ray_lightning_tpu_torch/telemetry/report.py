@@ -18,7 +18,7 @@ telemetry-enabled run left under ``<run_dir>/telemetry`` and prints:
 
 ``--preset`` asks for the DRIFT section, which joins the measured step
 against a static prediction. The prediction needs the JAX package's
-tracecheck cost model, which is not ported (ROADMAP Queue 1 item 13),
+tracecheck cost model, which is not ported (ROADMAP Queue 1 item 13 (f)),
 so the section carries the structured "prediction unavailable" flag
 beside the measured step — never a guessed number.
 
@@ -52,7 +52,8 @@ RESHARD_LEDGER = "reshards.jsonl"
 
 #: where the drift section's prediction would come from
 DRIFT_UNAVAILABLE = ("the static step prediction needs analysis/"
-                     "tracecheck, not ported (ROADMAP Queue 1 item 13)")
+                     "tracecheck, not ported (ROADMAP Queue 1 item 13 "
+                     "(f))")
 
 
 # ---------------------------------------------------------------- timeline

@@ -39,7 +39,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-from ray_lightning_tpu_torch.utils.locks import san_lock
+from ray_lightning_tpu_torch.analysis.lockwatch import san_lock
 
 #: per-process recorder sequence: a second fit in the same process (or
 #: two trainers sharing one telemetry dir — the sweep inline executor)

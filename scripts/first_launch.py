@@ -19,8 +19,8 @@ Run from the repo root on a machine with the card:
     python3 scripts/first_launch.py
 
 ``--cpu`` times instead, in a fresh process on CPU tensors, the first
-and second calls of the ``rltt::flash_fwd`` custom op (its plain
-version there) and counts the modules its first call imports.
+and second calls of the ``rltt::flash_fwd`` operator (its plain version
+there) and counts the modules its first call imports.
 """
 from __future__ import annotations
 
@@ -85,7 +85,7 @@ def wait(procs) -> None:
 
 
 def cpu_child() -> None:
-    """The custom op's first and second calls on CPU tensors, and the
+    """The operator's first and second calls on CPU tensors, and the
     modules the first imports (JSON)."""
     import torch
 

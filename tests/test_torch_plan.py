@@ -419,8 +419,8 @@ def test_plan_cli_matches_the_jax_cli(capsys, argv, rc):
     assert set(got) - {"trace"} == set(want)
     if rc != 2:
         assert got["trace"] == {"not_ported": "ROADMAP Queue 1 item 13 "
-                                "(analysis/tracecheck.py as a torch.fx "
-                                "walk)"}
+                                "(f) (analysis/tracecheck.py as a "
+                                "torch.fx walk)"}
         assert got["fits"] == want["fits"]
     _, bare = _cli(pmain, ["plan", *argv, *kind, "--json", "--no-trace"],
                    capsys)

@@ -190,7 +190,7 @@ def test_plan_serve_cli_matches_the_jax_cli(capsys, argv, rc):
     if rc == 2:
         return
     assert got["fits"] == want["fits"]
-    assert got["trace"] == {"not_ported": "ROADMAP Queue 1 item 13 "
+    assert got["trace"] == {"not_ported": "ROADMAP Queue 1 item 13 (f) "
                             "(analysis/tracecheck.py as a torch.fx walk)"}
     assert got["prefix_sharing"] == want["prefix_sharing"]
     assert got["serve"]["pool_bytes"] == want["serve"]["pool_bytes"]

@@ -43,6 +43,12 @@ ITEM = {
     "elastic": {},
     "autoscale": {},
     "loadgen": {},
+    # item 13 (e) brought the framework-free analysis and the plan
+    # checker; tracecheck and the cost model are item 13 (f)
+    "analysis": {n: "item 13 \\(f\\)" for n in (
+        "ICI_SPECS", "CollectiveCost", "Topology", "collective_cost",
+        "parse_topology", "topology_for_kind", "CollectiveEvent",
+        "TraceReport", "audit_step", "check_permutation", "trace_step")},
 }
 
 
@@ -192,7 +198,7 @@ def test_a_script_switches_packages_with_its_import():
     "ray_lightning_tpu_torch.parallel", "ray_lightning_tpu_torch.models",
     "ray_lightning_tpu_torch.ops", "ray_lightning_tpu_torch.serve",
     "ray_lightning_tpu_torch.pipeline", "ray_lightning_tpu_torch.runtime",
-    "ray_lightning_tpu_torch.native"])
+    "ray_lightning_tpu_torch.native", "ray_lightning_tpu_torch.analysis"])
 def test_import_loads_no_torch_and_no_jax(module):
     code = (f"import sys, {module}, ray_lightning_tpu_torch as r; "
             "r.__all__; "
@@ -218,3 +224,44 @@ def test_ring_attention_name_survives_its_submodule_import():
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "True"
+
+
+def test_analysis_names_resolve_and_its_engines_import_light():
+    """Item 13 (e): the analysis names resolve from
+    ``ray_lightning_tpu_torch.analysis`` as their modules' objects;
+    numcheck's names raise naming item 13 (f); and the linter,
+    threadcheck, the watcher and the CLI import neither torch nor numpy
+    (nor JAX), in a fresh interpreter."""
+    from ray_lightning_tpu_torch import analysis
+    from ray_lightning_tpu_torch.analysis import (
+        findings,
+        linter,
+        plan_checker,
+    )
+
+    for mod, names in ((findings, ("RULES", "SEVERITY_RANK", "Finding",
+                                   "Rule", "max_severity", "meets")),
+                       (linter, ("KNOWN_MESH_AXES", "TRACED_STEP_HOOKS",
+                                 "lint_paths", "lint_source")),
+                       (plan_checker, ("check_donation", "check_plan",
+                                       "check_opt_state_dtypes",
+                                       "check_param_specs",
+                                       "spec_findings"))):
+        for name in names:
+            assert getattr(analysis, name) is getattr(mod, name), name
+    for name in ("numcheck_jaxpr", "check_numerics_paths",
+                 "LOW_PRECISION_EXTENT", "classify_overlap"):
+        with pytest.raises(NotImplementedError, match=r"item 13 \(f\)"):
+            getattr(analysis, name)
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import ray_lightning_tpu_torch.analysis.linter, "
+            "ray_lightning_tpu_torch.analysis.concurrency, "
+            "ray_lightning_tpu_torch.analysis.lockwatch, "
+            "ray_lightning_tpu_torch.analysis.cli; "
+            "print(sorted(m for m in ('torch', 'numpy', 'jax') "
+            "if sys.modules.get(m) is not None))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
