@@ -383,7 +383,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
                one-rank fit. ``phase17_s`` in the ``timing`` line;
                ``--axes-only`` runs phase 3's ``FLASH_OWED_17`` rows,
                phase 5 and phase 17 alone.
- 18. analysis — last: (a) the lock-order watcher, armed from the
+ 18. analysis — (a) the lock-order watcher, armed from the
                script's first lines (``RLT_LOCKWATCH=1``,
                ``RLT_LOCKWATCH_MAX_HOLD_S=2.0``, both inherited by every
                child process), so that every `san_lock` of phases 1-17 in
@@ -406,6 +406,25 @@ Phases, each of which raises (and so exits nonzero) on failure:
                FSDP, DTensor and checkpoint modules, ``torch._dynamo``)
                and wait for a gate file (``warm_s`` in their lines), as
                phase 17's do.
+ 19. graph walks — last: (a) each ``rltt`` operator (flash forward,
+               dK/dV, dQ, RMSNorm, paged decode, paged prefill, AdamW) at
+               phase 3's shapes against its wrapper on the same inputs:
+               bitwise, its launch counter up by one a call, both calls'
+               host microseconds (AdamW's untimed); (b)
+               `analysis.tracecheck.audit_step` of phase 5's step on fake
+               CUDA tensors: the flash and RMSNorm operators in its kernel
+               list, its traced peak within ``TRACE_PEAK_RTOL`` of phase
+               5's ``max_memory_allocated``, its modelled step beside
+               phase 5's measured step (the drift, a reading); (c)
+               `serve.audit.audit_decode_step` at phase 4's engine, both
+               lanes: the kernel lane runs the paged decode, paged prefill
+               and RMSNorm operators and is clean of RLT307/RLT308, the
+               reference lane flags both; (d) ``python -m
+               ray_lightning_tpu_torch trace llama3-8b --topo h100-8
+               --json`` in a process of its own with JAX blocked and no
+               card visible, started with phase 17's ranks (before phase
+               16): exit 0 and a report (its collectives counted). ``phase19_s`` in the
+               ``timing`` line.
   4b. serve profile — before 18, phase 4's model serves four of its requests
                again under `torch.profiler`, the device traced alone:
                the device's busy share and the kernels with the most
@@ -2385,9 +2404,10 @@ def serve_plan_phase(model, ecfg, live: dict, increment: int) -> None:
                         f" is not above the peak increment {increment}")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
+        # the plan only: its decode-step audit is phase 19 (c)'s
         rc = cli(["plan", "--serve", "--preset", "llama3-8b", "--seq",
                   str(ecfg.max_slot_len), "--serve-slots",
-                  str(ecfg.capacity), "--json"])
+                  str(ecfg.capacity), "--json", "--no-trace"])
     full = json.loads(out.getvalue().strip().splitlines()[-1])
     if rc != 0 or not full["fits"]:
         problems.append(f"plan --serve at 32 layers: rc {rc}")
@@ -7536,6 +7556,266 @@ def analysis_phase() -> None:
         raise AssertionError("analysis: " + "; ".join(problems))
 
 
+# ---- phase 19: the graph walks ------------------------------------------
+#
+# Every hand-written kernel is an ``rltt`` operator with a Meta
+# implementation; tracecheck runs the trainer's own step, and the decode
+# audit the engine's own step, on fake CUDA tensors.
+
+#: 19 (d): the trace CLI in a process of its own with JAX blocked and no
+#: card visible (the trace touches none), started early: it imports and
+#: traces while other phases run
+TRACE_CLI_CODE = ("import sys; sys.modules['jax'] = None; "
+                  "from ray_lightning_tpu_torch.__main__ import main; "
+                  "sys.exit(main(['trace', 'llama3-8b', '--topo', "
+                  "'h100-8', '--json']))")
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "rlt_logs", "chip_smoke_trace")
+#: 19 (b): the traced peak within this share of phase 5's measured peak
+TRACE_PEAK_RTOL = 0.10
+#: 19 (a): host microseconds are taken over this many calls
+OP_HOST_CALLS = 200
+
+
+def trace_cli_start() -> dict:
+    """Start 19 (d)'s ``trace llama3-8b --topo h100-8 --json``."""
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    out = open(os.path.join(TRACE_DIR, "stdout.json"), "w")
+    err = open(os.path.join(TRACE_DIR, "stderr.txt"), "w")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TRACE_CLI_CODE], stdout=out, stderr=err,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    return dict(proc=proc, out=out, err=err, t0=time.perf_counter())
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def ops_check(gen: torch.Generator, problems: list) -> list:
+    """19 (a): each ``rltt`` operator at phase 1's and phase 3's shapes
+    against its wrapper on the same inputs: bitwise equal, its launch
+    counter up by one a call, and both calls' host microseconds."""
+    from ray_lightning_tpu_torch.ops.kernels import adamw as A
+    from ray_lightning_tpu_torch.ops.kernels import flash as F
+    from ray_lightning_tpu_torch.ops.kernels import paged_attention as PA
+    from ray_lightning_tpu_torch.ops.kernels import paged_prefill as PP
+    from ray_lightning_tpu_torch.ops.kernels import rmsnorm as R
+
+    inp = KernelInputs(gen)
+    dargs, dkw = inp.decode(DECODE_LENGTHS, [0] * C)
+    pargs, pkw = inp.prefill(PREFILL_POS[-1], [0])
+    fc = FlashCase(gen, TB, TS, TS, TH, THKV, HD, True, 0)
+    scale = HD ** -0.5
+    bwd = (fc.q, fc.k, fc.v, fc.do, fc.lse, fc.delta, True, 0, scale)
+    x = inp.randn(4096, 4096)
+    w = torch.randn(4096, generator=gen, device="cuda")
+
+    shapes = [(4096, 4096), (4096,), (1024, 4096)]
+
+    def adamw_state():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 19)
+        mk = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+        return ([t.clone() for t in mk],
+                [torch.randn(s, generator=g, device="cuda") * 1e-2
+                 for s in shapes],
+                [(torch.randn(s, generator=g, device="cuda") * 1e-3)
+                 .to(torch.bfloat16) for s in shapes],
+                [torch.rand(s, generator=g, device="cuda") * 1e-6
+                 for s in shapes],
+                [torch.full((), 3.0, device="cuda") for _ in shapes],
+                torch.full((), 1e-4, device="cuda"), None,
+                0.9, 0.95, 1e-8, 0.1)
+
+    def adamw_run(fn):
+        st = adamw_state()
+        fn(*st)
+        return st[0] + st[2] + st[3] + st[4]
+
+    cases = [
+        ("paged_decode", PA.paged_attention_kernel,
+         lambda: PA.paged_attention_kernel(*dargs, **dkw),
+         lambda: PA.paged_attention_op(*dargs, **dkw)),
+        ("paged_prefill", PP.paged_prefill_kernel,
+         lambda: PP.paged_prefill_kernel(*pargs, **pkw),
+         lambda: PP.paged_prefill_op(*pargs, **pkw)),
+        ("rms_norm", R.rms_norm_kernel,
+         lambda: R.rms_norm_kernel(x, w, 1e-5),
+         lambda: R.rms_norm_op(x, w, 1e-5)),
+        ("flash_fwd", F.flash_fwd_kernel,
+         lambda: F.flash_fwd_kernel(fc.q, fc.k, fc.v, True, 0, scale),
+         lambda: F.flash_fwd_op(fc.q, fc.k, fc.v, True, 0, scale)),
+        ("flash_bwd_dkv", F.flash_bwd_dkv_kernel,
+         lambda: F.flash_bwd_dkv_kernel(*bwd),
+         lambda: F.flash_bwd_dkv_op(*bwd)),
+        ("flash_bwd_dq", F.flash_bwd_dq_kernel,
+         lambda: F.flash_bwd_dq_kernel(*bwd),
+         lambda: F.flash_bwd_dq_op(*bwd)),
+        ("adamw_step", A.adamw_step_kernel,
+         lambda: adamw_run(A.adamw_step_kernel),
+         lambda: adamw_run(A.adamw_step_op)),
+    ]
+    rows = []
+    for name, wrapper, direct, op in cases:
+        want = direct()
+        before = wrapper.launches
+        got = op()
+        torch.cuda.synchronize()
+        counted = wrapper.launches - before
+        bitwise = _same(got, want)
+        if not bitwise:
+            problems.append(f"{name}: the operator differs from its wrapper")
+        if counted != 1:
+            problems.append(f"{name}: one operator call counted {counted} "
+                            "launches")
+        row = dict(op=name, bitwise=bitwise, launches_per_call=counted)
+        if name != "adamw_step":
+            row["op_host_us"] = host_us(op, OP_HOST_CALLS)
+            row["wrapper_host_us"] = host_us(direct, OP_HOST_CALLS)
+        rows.append(row)
+    return rows
+
+
+def graph_phase(train_live: dict, train_step_s: float, trace_cli: dict
+                ) -> None:
+    """Phase 19: (a) `ops_check`; (b) `analysis.tracecheck.audit_step`
+    of phase 5's step (Llama-3-8B width, 4 layers, B 2, S 2048,
+    `SingleDevice`, the kernel lane) on fake CUDA tensors: its kernel list
+    names the flash forward, dK/dV, dQ and RMSNorm operators, its traced
+    peak is within TRACE_PEAK_RTOL of phase 5's `max_memory_allocated`,
+    and its modelled step is printed beside phase 5's measured step (the
+    drift, a reading); (c) `serve.audit.audit_decode_step` at phase 4's
+    engine, both lanes: the kernel lane runs the paged decode, paged
+    prefill and RMSNorm operators and is clean of RLT307/308, the
+    reference lane flags both; (d) the trace CLI's process (started
+    before phase 16) exits 0 with a report."""
+    from ray_lightning_tpu_torch.analysis.tracecheck import audit_step
+    from ray_lightning_tpu_torch.models.llama import LlamaModule
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+    from ray_lightning_tpu_torch.serve.audit import audit_decode_step
+    from ray_lightning_tpu_torch.telemetry.report import (
+        build_drift,
+        prediction_of,
+    )
+
+    import torch.distributed as dist
+
+    # an in-process fit under a group strategy (15 (c)-(d), 16's
+    # examples) leaves its one-rank NCCL group live: a Trainer does not
+    # tear its strategy down. The trace refuses a live real group, so
+    # the phase ends it first
+    if dist.is_available() and dist.is_initialized():
+        log(f"phase 19: ending the live {dist.get_backend()} group of "
+            f"world {dist.get_world_size()} before the trace")
+        dist.destroy_process_group()
+    problems, parts = [], {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    t0 = time.perf_counter()
+    op_rows = ops_check(gen, problems)
+    parts["a"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phase 5's step, traced
+    t0 = time.perf_counter()
+    cfg, tokens = train_inputs(SEED)
+    report = audit_step(
+        LlamaModule(cfg, lr=TRAIN_LR, warmup_steps=2,
+                    total_steps=TRAIN_STEPS), SingleDevice(),
+        {"tokens": tokens[:TB]}, topology="h100-1", device="cuda",
+        label="phase 5's step")
+    parts["b"] = time.perf_counter() - t0
+    want = {"rltt.flash_fwd", "rltt.flash_bwd_dkv", "rltt.flash_bwd_dq",
+            "rltt.rms_norm"}
+    if not want <= set(report.kernels):
+        problems.append(f"(b) the traced step ran {report.kernels}, not "
+                        f"every one of {sorted(want)}")
+    peak_ratio = report.peak_hbm_bytes / train_live["peak"]
+    if abs(peak_ratio - 1) > TRACE_PEAK_RTOL:
+        problems.append(f"(b) traced peak {report.peak_hbm_bytes} bytes is "
+                        f"{peak_ratio:.3f}x phase 5's measured "
+                        f"{train_live['peak']}")
+    timeline = {"step_stats": {"p50_s": train_step_s,
+                               "mean_s": train_step_s, "steps": 1}}
+    drift = build_drift(prediction_of(report, "phase 5's step", "h100-1"),
+                        timeline)
+
+    # (c) phase 4's engine
+    t0 = time.perf_counter()
+    lanes = {}
+    for lane, fused in (("kernel", True), ("reference", False)):
+        r = audit_decode_step(serve_config(SERVE_LAYERS), engine_config(),
+                              topology="h100-1", fused=fused,
+                              device="cuda", numerics=False,
+                              label=f"phase 4 {lane} lane")
+        lanes[lane] = dict(kernels=r.kernels, peak_bytes=r.peak_hbm_bytes,
+                           rules=sorted({f.rule for f in r.findings}))
+    parts["c"] = time.perf_counter() - t0
+    kern, ref = lanes["kernel"], lanes["reference"]
+    for k in ("rltt.paged_decode", "rltt.paged_prefill", "rltt.rms_norm"):
+        if k not in kern["kernels"]:
+            problems.append(f"(c) the kernel lane ran no {k}: "
+                            f"{kern['kernels']}")
+    if {"RLT307", "RLT308"} & set(kern["rules"]):
+        problems.append(f"(c) the kernel lane fired {kern['rules']}")
+    if not {"RLT307", "RLT308"} <= set(ref["rules"]):
+        problems.append(f"(c) the reference lane fired {ref['rules']}")
+
+    # (d) the CLI's process
+    t0 = time.perf_counter()
+    proc = trace_cli["proc"]
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    trace_cli["out"].close()
+    trace_cli["err"].close()
+    cli_s = time.perf_counter() - trace_cli["t0"]
+    parts["d_wait"] = time.perf_counter() - t0
+    with open(os.path.join(TRACE_DIR, "stdout.json")) as f:
+        lines = f.read().strip().splitlines()
+    cli = json.loads(lines[-1]) if lines else {}
+    ag = sum(c["count"] for c in cli.get("collectives", ())
+             if c["kind"] == "all_gather")
+    rs = sum(c["count"] for c in cli.get("collectives", ())
+             if c["kind"] == "reduce_scatter")
+    if rc != 0 or not cli.get("kernels"):
+        with open(os.path.join(TRACE_DIR, "stderr.txt")) as f:
+            tail = f.read()[-2000:]
+        problems.append(f"(d) trace CLI exited {rc}: {tail}")
+    print(json.dumps(dict(
+        phase="graph", ops=op_rows,
+        train_trace=dict(kernels=report.kernels,
+                         peak_bytes=report.peak_hbm_bytes,
+                         measured_peak_bytes=train_live["peak"],
+                         peak_ratio=peak_ratio,
+                         params_bytes=report.params_bytes_per_device,
+                         opt_bytes=report.opt_bytes_per_device,
+                         flops=report.flops, compute_us=report.compute_us,
+                         predicted_step_us=report.step_us,
+                         measured_step_us=train_step_s * 1e6,
+                         drift=dict(ratio=drift.get("step_time_ratio"),
+                                    verdict=drift["verdict"],
+                                    flags=drift["flags"]),
+                         findings=[f.rule for f in report.findings]),
+        decode_audit=lanes,
+        trace_cli=dict(rc=rc, seconds=cli_s, all_gathers=ag,
+                       reduce_scatters=rs, kernels=cli.get("kernels"),
+                       peak_bytes=cli.get("peak_hbm_bytes"),
+                       params_bytes=cli.get("params_bytes_per_device"),
+                       findings=[f["rule"] for f in
+                                 cli.get("findings", ())]),
+        card=nvidia_smi(), parts_s=parts)), flush=True)
+    if problems:
+        raise AssertionError("graph: " + "; ".join(problems))
+
+
 SOURCES = ["paged_attention", "paged_prefill", "flash_fwd", "flash_bwd",
            "rmsnorm", "adamw"]
 
@@ -7703,8 +7983,10 @@ def main() -> int:
     rows.append(adamw_row)
     lap("knobs")
 
-    # 17's processes start here and import while phase 16 runs
+    # 17's processes start here and import while phase 16 runs; so does
+    # 19 (d)'s, which imports and traces on one core meanwhile
     axes_spawned = axes_start(SEED)
+    trace_cli = trace_cli_start()
 
     # 16. the BASELINE's ResNet and BERT: the flash kernels at BERT's
     # shape, BERT-base's lanes, ResNet-50, the in-process examples, the
@@ -7750,6 +8032,11 @@ def main() -> int:
     # planted inversion, the watcher's cost a lock, and `lint` here
     analysis_phase()
     lap("analysis")
+
+    # 19. the graph walks: every kernel as an rltt operator, phase 5's step
+    # and phase 4's engine traced on fake CUDA tensors, the trace CLI
+    graph_phase(train_live, train_step_s, trace_cli)
+    lap("graph")
     shutil.rmtree(TEL_DIR, ignore_errors=True)
     walls["telemetry_serve"] = t_9b
     walls["driver_inline_generate"] = t_11ab
@@ -7775,6 +8062,7 @@ def main() -> int:
         phase16_s=walls["baseline"], phase16_parts_s=base_walls,
         phase17_s=walls["axes"],
         phase18_s=walls["analysis"],
+        phase19_s=walls["graph"],
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:

@@ -23,6 +23,8 @@
     python -m ray_lightning_tpu_torch loadgen --smoke --device cpu
     python -m ray_lightning_tpu_torch watch --smoke --device cpu
     python -m ray_lightning_tpu_torch --probe [--device cpu] [--json]
+    python -m ray_lightning_tpu_torch trace llama3-8b [--topo h100-8] \
+        [--overlap on] [--json]
     python -m ray_lightning_tpu_torch lint [targets] [--severity S] \
         [--fail-on S] [--disable RULES] [--list-rules] \
         [--concurrency | --no-concurrency] [--json]
@@ -157,6 +159,15 @@ def main(argv=None) -> int:
         ap = _parser()
         add_lint_parser(ap.add_subparsers(dest="command"))
         return run_lint(ap.parse_args(argv))
+    if _subcommand(argv) == "trace":
+        from ray_lightning_tpu_torch.analysis.cli import (
+            add_trace_parser,
+            run_trace,
+        )
+
+        ap = _parser()
+        add_trace_parser(ap.add_subparsers(dest="command"))
+        return run_trace(ap.parse_args(argv))
 
     from ray_lightning_tpu_torch.autoscale.cli import (
         add_autoscale_parser,

@@ -16,14 +16,17 @@ runtime lock-order watcher.
   plan_checker.py  a module's sharding plan and optimizer-state dtypes,
                    on the meta device over a shape-only mesh
                    (RLT101-105, RLT107)
-  cli.py           ``python -m ray_lightning_tpu_torch lint``
+  costmodel.py     the H100 deployments (NVLink, InfiniBand), the ring
+                   algebra and the ``rltt`` operators' FLOPs and bytes
+  tracecheck.py    the real train step on fake tensors: its kernels,
+                   collectives, peak memory (RLT301-303, RLT305-306)
+  numcheck.py      the dtype audit of the same stream (RLT801-805) and
+                   the static pass of ``lint --numerics``
+  cli.py           ``python -m ray_lightning_tpu_torch lint`` and ``trace``
 
 The linter, threadcheck and the watcher import neither torch nor numpy,
 and importing this package imports nothing of its modules: each name
-resolves on first use. tracecheck, numcheck and the cost model (the
-graph walks of the train step, and the ``trace`` CLI) are not ported
-yet: their names raise `NotPortedError` naming ROADMAP Queue 1 item 13
-(f).
+resolves on first use.
 """
 from ray_lightning_tpu_torch._lazy import lazy_exports
 
@@ -37,23 +40,19 @@ _NAMES = {
     **{n: "plan_checker" for n in (
         "check_donation", "check_opt_state_dtypes", "check_param_specs",
         "check_plan", "spec_findings")},
+    **{n: "costmodel" for n in (
+        "ICI_SPECS", "CollectiveCost", "Topology", "collective_cost",
+        "parse_topology", "topology_for_kind")},
+    **{n: "tracecheck" for n in (
+        "CollectiveEvent", "TraceReport", "audit_step",
+        "check_permutation", "trace_step", "classify_overlap")},
+    **{n: "numcheck" for n in (
+        "LOW_PRECISION_EXTENT", "numcheck_jaxpr",
+        "check_gradient_collectives", "check_numerics_sources",
+        "check_numerics_paths")},
 }
 
-_ITEM_13F = ("its engine (tracecheck, numcheck or the cost model: a graph "
-             "walk of the train step) waits for ROADMAP Queue 1 item 13 (f)")
-
-#: the JAX analysis names the port does not have yet
-_MISSING = {n: _ITEM_13F for n in (
-    # costmodel
-    "ICI_SPECS", "CollectiveCost", "Topology", "collective_cost",
-    "parse_topology", "topology_for_kind",
-    # tracecheck
-    "CollectiveEvent", "TraceReport", "audit_step", "check_permutation",
-    "trace_step", "classify_overlap",
-    # numcheck
-    "LOW_PRECISION_EXTENT", "numcheck_jaxpr", "check_gradient_collectives",
-    "check_numerics_sources", "check_numerics_paths")}
 
 __all__ = list(_NAMES)
 
-__getattr__, __dir__ = lazy_exports(__name__, _NAMES, _MISSING)
+__getattr__, __dir__ = lazy_exports(__name__, _NAMES)

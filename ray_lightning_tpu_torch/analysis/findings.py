@@ -12,9 +12,9 @@ default severities and summaries. A summary differs only where the port
 flags the torch defect of the rule's class (RLT201, RLT202, RLT204,
 RLT304, RLT402, RLT502). A rule the port does not flag keeps its row and
 carries the reason in `Rule.not_flagged`: the JAX idioms it reads have
-no torch counterpart (RLT106, RLT203, RLT205), or its engine is not
-ported yet (tracecheck's RLT301-303 and RLT305-308, numcheck's RLT8xx:
-ROADMAP Queue 1 item 13 (f)). ``lint --list-rules`` prints the reason.
+no torch counterpart (RLT106, RLT203, RLT205). tracecheck flags RLT301-303
+and RLT305-308, numcheck RLT801-805 (`tracecheck.py`, `numcheck.py`,
+`serve/audit.py`). ``lint --list-rules`` prints the reason.
 
 Severity contract:
   error   — the training job will fail, silently mis-shard, or stall the
@@ -292,8 +292,8 @@ _ROWS = (
          "EVERY critical section is the same I/O (a dedicated "
          "append-serialization lock) is sanctioned — the hazard is a "
          "lock that also guards in-memory state"),
-    # RLT8xx — numcheck (a dtype walk of the train step; not ported
-    # yet: NOT_FLAGGED).
+    # RLT8xx — numcheck (a dtype walk of the train step's operator
+    # stream).
     Rule("RLT801", "low-precision-accumulation", "error",
          "a dot_general or reduce-sum accumulates in bf16/f16 over a "
          "large contraction extent (missing "
@@ -331,13 +331,6 @@ _ROWS = (
 )
 
 
-_TRACECHECK = ("not flagged in the port: its engine, tracecheck (a graph "
-               "walk of the train step), is not ported yet (ROADMAP Queue "
-               "1 item 13 (f))")
-_NUMCHECK = ("not flagged in the port: its engine, numcheck (a dtype "
-             "walk of the train step), is not ported yet (ROADMAP Queue 1 "
-             "item 13 (f))")
-
 #: rule id -> why the port does not flag it
 NOT_FLAGGED: Dict[str, str] = {
     "RLT106": ("not flagged in the port: a torch step updates parameters "
@@ -350,10 +343,6 @@ NOT_FLAGGED: Dict[str, str] = {
     "RLT205": ("not flagged in the port: torch.compile takes no static "
                "arguments and the port compiles nothing, so there is no "
                "jit static-argument contract to break"),
-    **{rid: _TRACECHECK for rid in ("RLT301", "RLT302", "RLT303", "RLT305",
-                                    "RLT306", "RLT307", "RLT308")},
-    **{rid: _NUMCHECK for rid in ("RLT801", "RLT802", "RLT803", "RLT804",
-                                  "RLT805")},
 }
 
 #: every rule, by id

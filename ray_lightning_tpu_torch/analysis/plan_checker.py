@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+from ray_lightning_tpu_torch.analysis.costmodel import dtype_width
 from ray_lightning_tpu_torch.analysis.findings import NOT_FLAGGED, Finding
 
 __all__ = [
@@ -127,20 +128,6 @@ def _nearest(path: str, named_params: Mapping[str, Any], k: int = 3) -> str:
     return ", ".join(hits) if hits else "(none share the leaf name)"
 
 
-def _width(dtype) -> Optional[int]:
-    """Bytes an element of ``dtype`` (a torch dtype, or anything numpy
-    reads as a dtype); None for neither."""
-    width = getattr(dtype, "itemsize", None)
-    if isinstance(width, int):
-        return width
-    import numpy as np
-
-    try:
-        return np.dtype(dtype).itemsize
-    except TypeError:
-        return None
-
-
 def check_opt_state_dtypes(named_params: Mapping[str, Any],
                            named_opt: Mapping[str, Any]) -> List[Finding]:
     """Dtype-widening hazards: an optimizer-state leaf stored WIDER than
@@ -166,8 +153,8 @@ def check_opt_state_dtypes(named_params: Mapping[str, Any],
         if match is None:
             continue
         ppath, pleaf = match
-        p_size = _width(getattr(pleaf, "dtype", None))
-        o_size = _width(odtype)
+        p_size = dtype_width(getattr(pleaf, "dtype", None))
+        o_size = dtype_width(odtype)
         if p_size and o_size and o_size > p_size:
             findings.append(Finding(
                 "RLT105",

@@ -105,6 +105,14 @@ class TpuModule:
                 m.reset_parameters()
         return dict(self.model.named_parameters())
 
+    def audit_step(self, strategy, example_batch, *, topology="h100-8",
+                   **kw):
+        """tracecheck this module's real train step under ``strategy`` on
+        ``topology`` (see `Strategy.audit_step`); the strategy is
+        consumed, and a live real process group refuses the trace."""
+        return strategy.audit_step(self, example_batch, topology=topology,
+                                   **kw)
+
     def apply(self, params, *args, **kwargs):
         """Run the inner model. ``params`` is the model's own parameter
         dict (``self.params``, as the trainer passes it): the weights live

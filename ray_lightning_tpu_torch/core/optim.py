@@ -29,7 +29,7 @@ import torch
 
 from ray_lightning_tpu_torch.ops import dispatch
 from ray_lightning_tpu_torch.ops.kernels.adamw import (
-    adamw_step_kernel,
+    adamw_step_op,
     adamw_step_plain,
 )
 from ray_lightning_tpu_torch.parallel.tensor import local
@@ -88,7 +88,7 @@ class MuAdamW(torch.optim.Optimizer):
                              "train in bf16 without loss scaling")
         found_inf = getattr(self, "found_inf", None)
         step_fn = (adamw_step_plain if dispatch.reference_forced()
-                   else adamw_step_kernel)
+                   else adamw_step_op)
         for group in self.param_groups:
             cols = ([], [], [], [], [])
             for p in group["params"]:
@@ -105,7 +105,7 @@ class MuAdamW(torch.optim.Optimizer):
                 continue
             dev = cols[0][0].device
             kw = {}
-            if step_fn is adamw_step_kernel and dev.type == "cuda":
+            if step_fn is adamw_step_op and dev.type == "cuda":
                 if self._done is None or self._done.numel() < len(cols[0]):
                     self._done = torch.zeros(len(cols[0]),
                                              dtype=torch.int32, device=dev)

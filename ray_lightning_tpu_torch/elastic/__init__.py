@@ -13,10 +13,13 @@ topology-change vocabulary.
             instead of dying, grow back when capacity returns, honest
             batch replanning.
 
-The JAX package's third leg (DCN-aware multi-slice planning) lives in
-its analysis layer's graph walks, which come with ROADMAP Queue 1 item
-13 (f). Names
-resolve on first use.
+  second tier  the network between nodes lives in the cost model
+            (`analysis.costmodel.parse_topology("2xh100-8")`: two nodes
+            over InfiniBand); tracecheck itemizes NVLink and InfiniBand
+            bytes a step, and RLT306 flags a mesh axis other than
+            ``data`` that crosses nodes.
+
+Names resolve on first use.
 """
 from ray_lightning_tpu_torch._lazy import lazy_exports
 

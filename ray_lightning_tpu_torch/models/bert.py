@@ -39,7 +39,10 @@ from ray_lightning_tpu_torch.ops.attention import (
     dot_product_attention,
     flash_attention,
 )
-from ray_lightning_tpu_torch.ops.precision import dense_f32_acc
+from ray_lightning_tpu_torch.ops.precision import (
+    dense_f32_acc,
+    pin_f32_accumulation,
+)
 
 #: the ROADMAP item BERT under the tensor axis waits for
 TENSOR_ITEM = "ROADMAP Queue 1 item 16"
@@ -149,10 +152,12 @@ class BertLayer(nn.Module):
 
 class BertEncoder(nn.Module):
     """[B, S] token ids (+ optional type ids and padding mask) -> [B, S, D]
-    in ``cfg.dtype``."""
+    in ``cfg.dtype``. Building one pins f32 accumulation for the dense
+    layers' bf16 backward GEMMs, as the Llama does."""
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
+        pin_f32_accumulation()
         self.cfg = cfg
         d = cfg.dim
         self.tok_embed = nn.Parameter(torch.empty(cfg.vocab_size, d,

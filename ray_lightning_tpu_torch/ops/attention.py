@@ -33,11 +33,11 @@ from ray_lightning_tpu_torch.ops.kernels.flash import (
     flash_shapes_supported,
 )
 from ray_lightning_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention_kernel,
+    paged_attention_op,
     paged_shapes_supported,
 )
 from ray_lightning_tpu_torch.ops.kernels.paged_prefill import (
-    paged_prefill_kernel,
+    paged_prefill_op,
     paged_prefill_shapes_supported,
 )
 
@@ -258,8 +258,8 @@ def paged_attention(q, pool_k, pool_v, tables, lengths, pad=None,
     reference was asked for."""
     if paged_attention_uses_kernel(q.shape, pool_k.shape, use_kernel,
                                    q.device):
-        return paged_attention_kernel(q, pool_k, pool_v, tables, lengths,
-                                      pad=pad, scale=scale)
+        return paged_attention_op(q, pool_k, pool_v, tables, lengths,
+                                  pad=pad, scale=scale)
     return paged_attention_reference(q, pool_k, pool_v, tables, lengths,
                                      pad=pad, scale=scale)
 
@@ -270,7 +270,7 @@ def paged_prefill(q, pool_k, pool_v, tables, pos: int, pad=None,
     chunk token j at cache position ``pos + j`` -> [B, CH, H, hd]."""
     if paged_prefill_uses_kernel(q.shape, pool_k.shape, use_kernel,
                                  q.device):
-        return paged_prefill_kernel(q, pool_k, pool_v, tables, pos,
-                                    pad=pad, scale=scale)
+        return paged_prefill_op(q, pool_k, pool_v, tables, pos, pad=pad,
+                                scale=scale)
     return paged_prefill_reference(q, pool_k, pool_v, tables, pos,
                                    pad=pad, scale=scale)

@@ -167,6 +167,39 @@ def adamw_step_kernel(params: List[torch.Tensor], grads, exp_avgs,
 #: wrapper calls' kernel launches since the last reset
 adamw_step_kernel.launches = 0
 
+#: ``rltt::adamw_step``, defined through `torch.library.Library` for the
+#: reason `ops/kernels/flash.py` gives for ``rltt::flash_fwd``; its schema
+#: names the lists it updates in place
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("adamw_step(Tensor(a!)[] params, Tensor[] grads, "
+            "Tensor(b!)[] exp_avgs, Tensor(c!)[] exp_avg_sqs, "
+            "Tensor(d!)[] steps, Tensor lr, Tensor? found_inf, float beta1, "
+            "float beta2, float eps, float weight_decay, Tensor(e!)? done) "
+            "-> ()")
+
+
+def adamw_step_op(params: List[torch.Tensor], grads, exp_avgs, exp_avg_sqs,
+                  steps, lr: torch.Tensor, found_inf: Optional[torch.Tensor],
+                  beta1: float, beta2: float, eps: float,
+                  weight_decay: float,
+                  done: Optional[torch.Tensor] = None) -> None:
+    """`adamw_step_kernel` as the operator ``rltt::adamw_step``. Takes
+    plain (local) tensors: a DTensor has no sharding rule here, so
+    `core.optim.MuAdamW` passes each shard."""
+    torch.ops.rltt.adamw_step.default(
+        params, grads, exp_avgs, exp_avg_sqs, steps, lr, found_inf,
+        float(beta1), float(beta2), float(eps), float(weight_decay), done)
+
+
+def _adamw_step_impl(params, grads, exp_avgs, exp_avg_sqs, steps, lr,
+                     found_inf, beta1, beta2, eps, weight_decay, done):
+    adamw_step_kernel(params, grads, exp_avgs, exp_avg_sqs, steps, lr,
+                      found_inf, beta1, beta2, eps, weight_decay, done=done)
+
+
+_LIB.impl("adamw_step", _adamw_step_impl, "CompositeExplicitAutograd")
+_LIB.impl("adamw_step", lambda *args: None, "Meta")
+
 
 def adamw_bytes(params: Sequence[torch.Tensor],
                 exp_avgs: Sequence[torch.Tensor]) -> int:

@@ -274,6 +274,12 @@ flash_bwd_dq_kernel.launches = 0
 _LIB = torch.library.Library("rltt", "FRAGMENT")
 _LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
             "int q_offset, float scale) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, bool causal, int q_offset, "
+            "float scale) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, bool causal, int q_offset, "
+            "float scale) -> Tensor")
 
 
 def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -301,6 +307,44 @@ _LIB.impl("flash_fwd", _flash_fwd_impl, "CompositeExplicitAutograd")
 _LIB.impl("flash_fwd", _flash_fwd_meta, "Meta")
 
 
+def flash_bwd_dkv_op(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_bwd_dkv_kernel` as the operator ``rltt::flash_bwd_dkv``."""
+    return torch.ops.rltt.flash_bwd_dkv.default(q, k, v, do, lse, delta,
+                                                causal, q_offset, scale)
+
+
+def flash_bwd_dq_op(q, k, v, do, lse, delta, causal: bool, q_offset: int,
+                    scale: float) -> torch.Tensor:
+    """`flash_bwd_dq_kernel` as the operator ``rltt::flash_bwd_dq``."""
+    return torch.ops.rltt.flash_bwd_dq.default(q, k, v, do, lse, delta,
+                                               causal, q_offset, scale)
+
+
+def _flash_bwd_dkv_meta(q, k, v, do, lse, delta, causal, q_offset, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_bwd_dq_meta(q, k, v, do, lse, delta, causal, q_offset, scale):
+    return torch.empty_like(q)
+
+
+def _flash_bwd_dkv_impl(q, k, v, do, lse, delta, causal, q_offset, scale):
+    return flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal, q_offset,
+                                scale)
+
+
+def _flash_bwd_dq_impl(q, k, v, do, lse, delta, causal, q_offset, scale):
+    return flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal, q_offset,
+                               scale)
+
+
+_LIB.impl("flash_bwd_dkv", _flash_bwd_dkv_impl, "CompositeExplicitAutograd")
+_LIB.impl("flash_bwd_dkv", _flash_bwd_dkv_meta, "Meta")
+_LIB.impl("flash_bwd_dq", _flash_bwd_dq_impl, "CompositeExplicitAutograd")
+_LIB.impl("flash_bwd_dq", _flash_bwd_dq_meta, "Meta")
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with the kernels' backward (twin of the custom-vjp
     `_flash_bhsd`): the forward saves ``(q, k, v, o, lse)``, as
@@ -308,7 +352,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     pass 1 (dK, dV) and pass 2 (dQ). Under `torch.utils.checkpoint` the
     forward runs again in the backward, launching its kernel again,
     unless the checkpoint's policy saved the ``rltt::flash_fwd``
-    operator's outputs ("attn_out")."""
+    operator's outputs ("attn_out"). The backward's two passes are the
+    operators ``rltt::flash_bwd_dkv`` and ``rltt::flash_bwd_dq``, so a
+    fake-tensor trace walks them too (`analysis.tracecheck`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int, scale: float):
@@ -323,8 +369,8 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = flash_delta(o, do)
-        dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *ctx.args)
-        dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, *ctx.args)
+        dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, *ctx.args)
+        dq = flash_bwd_dq_op(q, k, v, do, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

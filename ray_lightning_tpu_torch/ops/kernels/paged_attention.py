@@ -172,3 +172,29 @@ def paged_attention_kernel(q: torch.Tensor, pool_k: torch.Tensor,
 
 #: wrapper calls that launched the kernel since the last reset
 paged_attention_kernel.launches = 0
+
+#: ``rltt::paged_decode``, defined through `torch.library.Library` for the
+#: reason `ops/kernels/flash.py` gives for ``rltt::flash_fwd``
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("paged_decode(Tensor q, Tensor pool_k, Tensor pool_v, "
+            "Tensor tables, Tensor lengths, Tensor? pad, float? scale) "
+            "-> Tensor")
+
+
+def paged_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
+                       pool_v: torch.Tensor, tables: torch.Tensor,
+                       lengths: torch.Tensor,
+                       pad: Optional[torch.Tensor] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """`paged_attention_kernel` as the operator ``rltt::paged_decode``."""
+    return torch.ops.rltt.paged_decode.default(q, pool_k, pool_v, tables,
+                                               lengths, pad, scale)
+
+
+def _paged_decode_impl(q, pool_k, pool_v, tables, lengths, pad, scale):
+    return paged_attention_kernel(q, pool_k, pool_v, tables, lengths,
+                                  pad=pad, scale=scale)
+
+
+_LIB.impl("paged_decode", _paged_decode_impl, "CompositeExplicitAutograd")
+_LIB.impl("paged_decode", lambda q, *_: torch.empty_like(q), "Meta")

@@ -180,3 +180,27 @@ def paged_prefill_kernel(q: torch.Tensor, pool_k: torch.Tensor,
 
 #: wrapper calls that launched the kernel since the last reset
 paged_prefill_kernel.launches = 0
+
+#: ``rltt::paged_prefill``, defined through `torch.library.Library` for the
+#: reason `ops/kernels/flash.py` gives for ``rltt::flash_fwd``
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("paged_prefill(Tensor q, Tensor pool_k, Tensor pool_v, "
+            "Tensor tables, int pos, Tensor? pad, float? scale) -> Tensor")
+
+
+def paged_prefill_op(q: torch.Tensor, pool_k: torch.Tensor,
+                     pool_v: torch.Tensor, tables: torch.Tensor, pos: int,
+                     pad: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """`paged_prefill_kernel` as the operator ``rltt::paged_prefill``."""
+    return torch.ops.rltt.paged_prefill.default(q, pool_k, pool_v, tables,
+                                                int(pos), pad, scale)
+
+
+def _paged_prefill_impl(q, pool_k, pool_v, tables, pos, pad, scale):
+    return paged_prefill_kernel(q, pool_k, pool_v, tables, pos, pad=pad,
+                                scale=scale)
+
+
+_LIB.impl("paged_prefill", _paged_prefill_impl, "CompositeExplicitAutograd")
+_LIB.impl("paged_prefill", lambda q, *_: torch.empty_like(q), "Meta")

@@ -80,6 +80,27 @@ def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor,
 #: wrapper calls that launched the kernel since the last reset
 rms_norm_kernel.launches = 0
 
+#: ``rltt::rms_norm``, defined through `torch.library.Library` for the
+#: reason `ops/kernels/flash.py` gives for ``rltt::flash_fwd``
+_LIB = torch.library.Library("rltt", "FRAGMENT")
+_LIB.define("rms_norm(Tensor x, Tensor weight, float eps) -> Tensor")
+
+
+def rms_norm_op(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """`rms_norm_kernel` as the operator ``rltt::rms_norm``: the kernel on
+    CUDA tensors, the plain version on CPU tensors, output shapes only
+    on the meta device and under a fake-tensor trace."""
+    return torch.ops.rltt.rms_norm.default(x, weight, float(eps))
+
+
+def _rms_norm_impl(x, weight, eps):
+    return rms_norm_kernel(x, weight, eps)
+
+
+_LIB.impl("rms_norm", _rms_norm_impl, "CompositeExplicitAutograd")
+_LIB.impl("rms_norm", lambda x, weight, eps: torch.empty_like(x), "Meta")
+
 
 def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
                  eps: float = 1e-5):
@@ -108,7 +129,7 @@ class RMSNormFunction(torch.autograd.Function):
     def forward(ctx, x, weight, eps: float):
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
-        return rms_norm_kernel(x, weight, eps)
+        return rms_norm_op(x, weight, eps)
 
     @staticmethod
     def backward(ctx, g):

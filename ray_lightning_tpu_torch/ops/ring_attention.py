@@ -10,8 +10,8 @@ an earlier rank is seen whole, and a block from a later rank is in every
 query's future: JAX computes it and gets zeros, the port skips it.
 
 On CUDA tensors each block is one launch of the hand-written flash
-forward (`ops.kernels.flash.flash_fwd_kernel`), which returns the block's
-``(o, lse)``; the pairs merge in f32 by their lse. The next block's send
+forward, called through its operator (`ops.kernels.flash.flash_fwd_op`,
+``rltt::flash_fwd``), which returns the block's ``(o, lse)``; the pairs merge in f32 by their lse. The next block's send
 is posted before this block's kernel runs, so the copy runs under it.
 There are n - 1 rotations forward, as in JAX.
 
@@ -95,9 +95,11 @@ def _visible(causal: bool, src: int, rank: int) -> bool:
 
 
 def _block_fns(reference: bool) -> tuple:
-    """(forward, dK/dV, dQ) of one lane: the kernels' wrappers (which run
-    their plain versions on CPU tensors), or the plain versions."""
-    kind = "plain" if reference else "kernel"
+    """(forward, dK/dV, dQ) of one lane: the kernels' ``rltt`` operators
+    (whose wrappers run the plain versions on CPU tensors and count the
+    launches), so a fake-tensor trace walks the kernels the card runs;
+    or the plain versions."""
+    kind = "plain" if reference else "op"
     return tuple(getattr(fk, f"flash_{step}_{kind}")
                  for step in ("fwd", "bwd_dkv", "bwd_dq"))
 

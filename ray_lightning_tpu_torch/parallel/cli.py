@@ -21,8 +21,13 @@ the prefix-sharing and speculative pricing), one rank of it with
 ``--mu-bf16`` plans the bf16 first moment (`core.optim.MuAdamW`),
 ``--ce-inline-bwd`` the fused CE's inline backward and its residuals,
 ``--remat-policy`` the blocks' checkpoint policy (a port option: the JAX
-CLI plans "nothing"). The trace section (the JAX CLI's jaxpr audit)
-reports ``not_ported``.
+CLI plans "nothing"). The trace section runs tracecheck on the planned
+step (`analysis.tracecheck.audit_step`: rank 0 of the planned mesh on
+fake tensors; ``--no-trace`` skips it): the plan's byte math says
+whether the weights fit, the trace what the step will do — its
+collectives' NVLink bytes and its peak. ``plan --serve`` traces the
+replica's decode step (`serve.audit.audit_decode_step`). A failing
+audit degrades to a ``trace_error`` field; the plan's verdict stands.
 """
 from __future__ import annotations
 
@@ -30,11 +35,47 @@ import argparse
 import json
 import sys
 
-#: what the JAX CLI's legs need, by ROADMAP item
-NOT_PORTED = {
-    "trace": "ROADMAP Queue 1 item 13 (f) (analysis/tracecheck.py as a "
-             "torch.fx walk)",
-}
+def _trace_section(args, module_factory, strategy_factory,
+                   n_devices: int, global_batch: int) -> dict:
+    """tracecheck of the planned step, as the JAX CLI's section reads."""
+    import numpy as np
+
+    try:
+        from ray_lightning_tpu_torch.analysis.costmodel import (
+            topology_for_kind,
+        )
+        from ray_lightning_tpu_torch.analysis.tracecheck import audit_step
+
+        topo = topology_for_kind(args.device_kind, n_devices,
+                                 hbm_bytes=args.hbm_bytes)
+        report = audit_step(
+            module_factory(), strategy_factory(),
+            {"tokens": np.zeros((global_batch, args.seq + 1), np.int64)},
+            topology=topo, label=f"{args.preset} plan")
+        return _report_section(report)
+    except Exception as exc:  # noqa: BLE001 — an advisory section
+        return {"trace_error": f"{type(exc).__name__}: {str(exc)[:300]}"}
+
+
+def _report_section(report) -> dict:
+    counts = {"error": 0, "warning": 0, "note": 0}
+    for f in report.findings:
+        counts[f.severity] += 1
+    return {
+        "ici_bytes_per_step": report.ici_bytes_per_step,
+        "ici_time_us": round(report.ici_time_us, 1),
+        "ici_hidden_us": round(report.ici_hidden_us, 1),
+        "ici_exposed_us": round(report.ici_exposed_us, 1),
+        "overlap_hidden_fraction": round(report.overlap_hidden_fraction,
+                                         4),
+        "overlap_scheduled": bool((report.overlap or {}).get("scheduled")),
+        "kernels": dict(report.kernels),
+        "peak_hbm_bytes": report.peak_hbm_bytes,
+        "hbm_budget_bytes": report.hbm_budget_bytes,
+        "fits": report.fits,
+        "finding_counts": counts,
+        "findings": [f.to_dict() for f in report.findings],
+    }
 
 
 def add_plan_parser(sub) -> None:
@@ -149,7 +190,7 @@ def run_plan(args) -> int:
             f"global batch {args.batch} is not divisible by the "
             f"data-parallel degree {dp} (data x fsdp); the job could "
             f"not shard this batch. Pick batch = k x {dp}.", as_json)
-    trace = None if args.no_trace else {"not_ported": NOT_PORTED["trace"]}
+    trace = None
     try:
         if args.find_max_batch:
             local, plan = find_max_local_batch(
@@ -168,8 +209,9 @@ def run_plan(args) -> int:
                       "fits": local >= 1, "overlap": args.overlap,
                       "overlap_buffer_bytes": overlap_bytes,
                       "summary": summary}
-            if trace is not None:
-                result["trace"] = trace
+            if local >= 1 and not args.no_trace:
+                trace = result["trace"] = _trace_section(
+                    args, module, strategy, n_devices, local * dp)
             if as_json:
                 print(json.dumps(result))
             else:
@@ -189,6 +231,9 @@ def run_plan(args) -> int:
     except ValueError as exc:
         # a mesh the strategy rejects, a planner refusal: the same contract
         return _invalid(str(exc), as_json)
+    if not args.no_trace:
+        trace = _trace_section(args, module, strategy, n_devices,
+                               args.batch)
     if as_json:
         out = {"mesh": plan.mesh_axes, "n_devices": plan.n_devices,
                "per_device_bytes": plan.per_device_total,
@@ -209,8 +254,27 @@ def _print_extra(overlap_bytes: int, trace) -> None:
     if overlap_bytes:
         print(f"overlap prefetch buffers: {overlap_bytes / 1024**2:.1f} "
               "MiB/device charged in the activation bound")
-    if trace is not None:
-        print(f"trace: not ported ({trace['not_ported']})")
+    if trace is None:
+        return
+    if "trace_error" in trace:
+        print(f"tracecheck: unavailable ({trace['trace_error']})")
+        return
+    gib = 1024**3
+    if "ici_bytes_per_step" in trace:
+        print(f"tracecheck: NVLink {trace['ici_bytes_per_step'] / gib:.2f} "
+              f"GiB/step (~{trace['ici_time_us'] / 1e3:.1f} ms "
+              "serialized), ", end="")
+    else:
+        print(f"tracecheck ({trace.get('attention_path')}): ", end="")
+    print(f"est. peak {trace['peak_hbm_bytes'] / gib:.2f} GiB vs budget "
+          f"{trace['hbm_budget_bytes'] / gib:.2f} GiB "
+          f"({'fits' if trace['fits'] else 'DOES NOT FIT'})")
+    if trace.get("kernels"):
+        print("  kernels: " + ", ".join(
+            f"{k} x{n}" for k, n in trace["kernels"].items()))
+    for f in trace["findings"]:
+        print(f"  {f['severity']} {f['rule']} ({f['name']}): "
+              f"{f['message']}")
 
 
 def _run_serve_plan(args, as_json: bool) -> int:
@@ -251,7 +315,27 @@ def _run_serve_plan(args, as_json: bool) -> int:
         spec = speculative_plan(cfg, draft_cfg, ecfg)
     except ValueError as exc:
         return _invalid(str(exc), as_json)
-    trace = None if args.no_trace else {"not_ported": NOT_PORTED["trace"]}
+    trace = None
+    if not args.no_trace:
+        try:
+            from ray_lightning_tpu_torch.analysis.costmodel import (
+                topology_for_kind,
+            )
+            from ray_lightning_tpu_torch.serve.audit import (
+                audit_decode_step,
+            )
+
+            topo = topology_for_kind(args.device_kind, args.tp,
+                                     hbm_bytes=args.hbm_bytes)
+            fused = summary["attention_path"] == "paged-kernel"
+            report = audit_decode_step(cfg, ecfg, topology=topo,
+                                       label=f"{args.preset} serve",
+                                       fused=fused, tp=args.tp)
+            trace = {"attention_path": summary["attention_path"],
+                     **_report_section(report)}
+        except Exception as exc:  # noqa: BLE001 — an advisory section
+            trace = {"trace_error":
+                     f"{type(exc).__name__}: {str(exc)[:300]}"}
     if as_json:
         out = {"serve": summary, "fits": summary["fits"],
                "prefix_sharing": prefix, "speculative": spec}

@@ -160,6 +160,25 @@ class Strategy:
         """The model whose parameter names are the state dict's."""
         return model
 
+    def audit_step(self, module, example_batch, *, topology="h100-8",
+                   n_devices: Optional[int] = None,
+                   reserve_fraction: float = 0.10, label: str = "",
+                   **kw):
+        """tracecheck this strategy's real train step for ``module`` on
+        ``topology`` (a name like ``"h100-8"`` or an
+        `analysis.costmodel.Topology`): rank 0's step on fake tensors,
+        no device touched. Returns an `analysis.tracecheck.TraceReport`
+        (its kernels, collectives, peak, RLT301-306 and the RLT8xx
+        numerics). The strategy is consumed: pass a fresh one, not the
+        instance a live Trainer holds. Refused in a process where a real
+        process group is live (`analysis.tracecheck.fake_world`)."""
+        from ray_lightning_tpu_torch.analysis.tracecheck import audit_step
+
+        return audit_step(module, self, example_batch, topology=topology,
+                          n_devices=n_devices,
+                          reserve_fraction=reserve_fraction, label=label,
+                          **kw)
+
     def teardown(self) -> None:
         self.mesh = None
 

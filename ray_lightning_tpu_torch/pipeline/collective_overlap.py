@@ -7,9 +7,13 @@ The perf CLI's overlap leg proves the schedule two ways:
      tiny Llama wrapped by ``FSDP(overlap=...)`` in a one-rank process
      group, its units' explicit prefetch lists read back: under ``"on"``
      unit i's forward list names unit i+1, under ``"serial"`` and
-     ``"off"`` no forward list names anything. The JAX package proves
-     this with tracecheck over the jaxpr (`trace_overlap_schedule`),
-     which the port has not yet (ROADMAP Queue 1 item 13 (f)).
+     ``"off"`` no forward list names anything. `trace_overlap_schedule`
+     is the proof from the traced step, as the JAX package gives it:
+     tracecheck runs the tiny Llama's train step under ``"on"`` and
+     ``"off"`` over a fake ``h100-8`` group and reads the order of the
+     stream: the "on" trace carries the prefetch fingerprint (each
+     unit's all-gather issued by the unit before it), the "off" trace
+     does not and flags the exposed gathers (RLT305).
 
   2. **A throttled interleave** (`simulate_overlap_schedule`): the same
      double-buffer discipline run on the host with a fake collective (a
@@ -30,12 +34,44 @@ __all__ = ["trace_overlap_schedule", "check_overlap_schedule",
 
 
 def trace_overlap_schedule(n_devices: int = 8) -> Dict[str, Any]:
-    """The JAX proof walks the traced program with tracecheck, which is
-    not ported; `check_overlap_schedule` reads the schedule instead."""
-    raise NotImplementedError(
-        "trace_overlap_schedule needs tracecheck, which is not ported yet "
-        "(ROADMAP Queue 1 item 13 (f)); check_overlap_schedule reads the "
-        "FSDP strategy's prefetch lists instead")
+    """tracecheck the tiny Llama's train step under ``FSDP(overlap="on")``
+    and ``"off"`` on ``h100-<n_devices>`` (fake tensors, no device
+    touched) and return the verdict: the "on" trace must carry the
+    prefetch fingerprint, the "off" trace must not and must flag its
+    exposed gathers (RLT305)."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.analysis.costmodel import parse_topology
+    from ray_lightning_tpu_torch.analysis.tracecheck import audit_step
+    from ray_lightning_tpu_torch.models.llama import LlamaConfig, LlamaModule
+    from ray_lightning_tpu_torch.parallel.strategy import FSDP
+
+    # big enough that the compute window is not trivial against the
+    # NVLink model, small enough to trace in a second
+    cfg = LlamaConfig.tiny(dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+                           hidden_dim=1024, max_seq_len=512)
+    batch = {"tokens": np.zeros((n_devices, 513), np.int64)}
+    topo = parse_topology(f"h100-{n_devices}")
+
+    def audit(overlap: str):
+        return audit_step(LlamaModule(cfg),
+                          FSDP(overlap=overlap, device="cpu"), batch,
+                          topology=topo, label=f"perf overlap={overlap}",
+                          numerics=False)
+
+    on, off = audit("on"), audit("off")
+    on_ov, off_ov = on.overlap or {}, off.overlap or {}
+    return {
+        "scheduled": bool(on_ov.get("scheduled")),
+        "off_scheduled": bool(off_ov.get("scheduled")),
+        "hidden_fraction_on": round(on.overlap_hidden_fraction, 4),
+        "hidden_fraction_off": round(off.overlap_hidden_fraction, 4),
+        "exposed_findings_on": sum(1 for f in on.findings
+                                   if f.rule == "RLT305"),
+        "exposed_findings_off": sum(1 for f in off.findings
+                                    if f.rule == "RLT305"),
+        "per_scope_on": on_ov.get("per_scope", []),
+    }
 
 
 def _schedule(overlap: str, device: Any) -> Dict[str, list]:
@@ -56,7 +92,9 @@ def _schedule(overlap: str, device: Any) -> Dict[str, list]:
 
 def check_overlap_schedule(device: Any = None) -> Dict[str, Any]:
     """The structural verdict over ``"on"``, ``"serial"`` and ``"off"``
-    (``device``: None is the card)."""
+    (``device``: None is the card): the prefetch lists as the strategy
+    sets them. That the step then issues each gather one unit ahead is
+    `trace_overlap_schedule`'s proof, from the traced step itself."""
     sched = {o: _schedule(o, device) for o in ("on", "serial", "off")}
     on = sched["on"]["forward"]
     n = len(on)

@@ -10,20 +10,25 @@ priced before anything is allocated, for ``plan --serve`` and
     tensor-parallel replica;
   * `speculative_plan` — the draft's and the k-wide verify's cost;
   * `shared_prefix_plan` — what prefix sharing saves;
-  * `format_serve_summary` — the table ``plan --serve`` prints.
+  * `format_serve_summary` — the table ``plan --serve`` prints;
+  * `trace_decode_step` / `audit_decode_step` — the engine's step
+    (`serve.engine.DecodeEngine`) on fake tensors: the ``rltt`` kernel
+    operators it runs, the dense views of the pool it gathers (RLT307,
+    RLT308), its peak, and under ``tp > 1`` its collectives.
 
 The model is built on the meta device (shapes and dtypes, no storage),
 so a term is the live engine's bytes exactly: the serving model stores
 its matmul weights and embedding in ``cfg.dtype`` and its norm gains in
-f32, where the JAX plan counts every parameter in its param dtype. The
-JAX module's decode-step audit (``trace_decode_step``,
-``audit_decode_step``, jaxpr walks) waits for ROADMAP Queue 1 item 13
-(f).
+f32, where the JAX plan counts every parameter in its param dtype.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from ray_lightning_tpu_torch.analysis.costmodel import (  # noqa: F401
+    paged_decode_traffic_bytes,
+    paged_prefill_traffic_bytes,
+)
 from ray_lightning_tpu_torch.serve.engine import (
     EngineConfig,
     serving_param_specs,
@@ -40,27 +45,6 @@ from ray_lightning_tpu_torch.serve.kv_cache import (
 #: (the JAX plan's: allocator fragmentation and the step's transients
 #: live in the rest)
 USABLE_FRACTION = 0.90
-
-
-def paged_decode_traffic_bytes(pool_bytes: int, gathered_view_bytes: int,
-                               fused: bool) -> int:
-    """The decode lane's KV bytes moved a tick (the JAX cost model's): the
-    paged kernel reads the pool once; the reference lane also writes the
-    dense gathered view and reads it back. Conservative: the whole pool
-    is charged even when slots are idle."""
-    if fused:
-        return int(pool_bytes)
-    return int(pool_bytes + 2 * gathered_view_bytes)
-
-
-def paged_prefill_traffic_bytes(group_view_bytes: int, chunk_bytes: int,
-                                fused: bool) -> int:
-    """The prefill lane's KV bytes moved a chunk: the group's blocks read
-    once and the chunk's K/V written; the reference lane also writes the
-    group's view and reads it back."""
-    if fused:
-        return int(group_view_bytes + chunk_bytes)
-    return int(3 * group_view_bytes + chunk_bytes)
 
 
 def _meta_model(model_cfg):
@@ -326,3 +310,239 @@ def format_serve_summary(s: dict) -> str:
         f"{s['budget_bytes'] / gib:.2f} GiB — "
         f"{'fits' if s['fits'] else 'DOES NOT FIT'}")
     return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# the decode-step audit
+# --------------------------------------------------------------------------
+
+
+def _pool_views(events, pool_shape) -> list:
+    """Shapes of the dense slot views the stream gathered from a pool
+    ``[L, N, P, Hkv, hd]``: ``[L, rows, M, P, Hkv, hd]`` (the decode
+    lane's capacity-wide view, the prefill lane's group view)."""
+    L, _, P, HKV, HD = pool_shape
+    hits = []
+    for ev in events:
+        if ev.name != "aten.index" or not ev.in_shapes or \
+                tuple(ev.in_shapes[0]) != tuple(pool_shape):
+            continue
+        out = tuple(ev.out_shapes[0]) if ev.out_shapes else ()
+        if len(out) == 6 and out[0] == L and out[3:] == (P, HKV, HD):
+            hits.append(out)
+    return hits
+
+
+def trace_decode_step(model_cfg, engine_cfg: EngineConfig,
+                      fused: bool = False,
+                      fused_prefill: Optional[bool] = None, tp: int = 1,
+                      device="cpu"):
+    """``(recorder, meta)`` of the engine's continuous-batching step on
+    fake tensors: a `DecodeEngine` built over a meta-built model given
+    fake storage, then two ticks of its own step, one where every slot
+    decodes and one where a prefill group's chunk runs, each recorded
+    (`analysis.tracecheck.record_ops`). ``fused`` picks the decode lane
+    (the engine's ``use_kernels``), ``fused_prefill`` the prefill lane;
+    None follows ``fused`` where the prefill kernel's gate takes the
+    shape, as the engine decides it. ``tp > 1`` traces rank 0 of a
+    tensor-parallel replica over a fake group of ``tp``. ``meta`` holds
+    ``kernels`` (the ``rltt`` kernel operators of each tick) and the
+    gathered views: ``dense_paged_gathers`` (decode tick, RLT307's
+    evidence) and ``prefill_paged_gathers`` (prefill tick, RLT308's)."""
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.analysis.tracecheck import (
+        Recorder,
+        fake_world,
+        kernel_calls,
+        record_ops,
+    )
+    from ray_lightning_tpu_torch.models.llama import Llama
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+    if fused_prefill is None:
+        fused_prefill = fused and _shape_fused_prefill_available(
+            model_cfg, engine_cfg, tp)
+    validate_pool_tp(model_cfg, tp)
+    dev = torch.device(device)
+    model = Llama(model_cfg, device="meta")
+    C, B, CH = (engine_cfg.capacity, engine_cfg.prefill_batch,
+                engine_cfg.prefill_chunk)
+    spec = engine_cfg.pool_spec
+    M = spec.blocks_per_slot
+    with fake_world(tp) as fake, fake:
+        model.to_empty(device=dev)
+        model.reset_rope_(dev)
+        mesh = None
+        if tp > 1:
+            import torch.distributed as dist
+
+            from ray_lightning_tpu_torch.parallel.tensor import (
+                TensorParallel,
+            )
+
+            mesh = TensorParallel(group=dist.group.WORLD, size=tp, rank=0)
+        engine = DecodeEngine(model, engine_cfg, use_kernels=bool(fused),
+                              device=dev, mesh=mesh,
+                              max_seq_len_check=False)
+        # the lanes as the engine decided them, then the prefill lane as
+        # asked (the engine keys both on `use_kernels`)
+        if engine.fused_prefill != bool(fused_prefill):
+            from ray_lightning_tpu_torch.serve.engine import build_step
+
+            engine.fused_prefill = bool(fused_prefill)
+            engine._step = build_step(engine.model, engine_cfg,
+                                      fused=engine.fused,
+                                      fused_prefill=engine.fused_prefill)
+        tables = (1 + np.arange(C * M, dtype=np.int32) % max(
+            1, spec.n_blocks - 1)).reshape(C, M)
+        pos = np.full(C, M * spec.block_size // 2, np.int32)  # mid-slot
+        zeros_f = np.zeros(C, np.float32)
+        zeros_i = np.zeros(C, np.int32)
+        rngs = np.zeros((C, 2), np.uint32)
+        decode_rec, prefill_rec = Recorder(), Recorder()
+        for t in (engine.pool_k, engine.pool_v, engine.last_logits,
+                  *engine.model.parameters()):
+            decode_rec.track(t)
+            prefill_rec.track(t)
+        from ray_lightning_tpu_torch.serve.engine import idle_prefill
+
+        with torch.no_grad():
+            with record_ops(decode_rec):
+                engine._step(engine.pool_k, engine.pool_v,
+                             engine.last_logits, tables, pos,
+                             np.ones(C, bool), zeros_f, zeros_i, rngs,
+                             idle_prefill(engine_cfg),
+                             zeros_i if B > 1 else None)
+            if B > 1:
+                prefill = (np.arange(B, dtype=np.int32) % C,
+                           np.zeros((B, CH), np.int32), np.int32(0),
+                           np.int32(CH - 1), np.zeros(B, np.int32))
+            else:
+                prefill = (np.int32(0), np.zeros(CH, np.int32),
+                           np.int32(0), np.int32(CH - 1))
+            with record_ops(prefill_rec):
+                engine._step(engine.pool_k, engine.pool_v,
+                             engine.last_logits, tables, pos,
+                             np.zeros(C, bool), zeros_f, zeros_i, rngs,
+                             prefill, zeros_i if B > 1 else None)
+        pool_shape = tuple(engine.pool_k.shape)
+        dense = _pool_views(decode_rec.events, pool_shape)
+        params_by: dict = {}
+        for p in engine.model.parameters():
+            dt = str(p.dtype).replace("torch.", "")
+            params_by[dt] = params_by.get(dt, 0) + p.numel() * \
+                p.element_size()
+        pool_by = {str(engine.pool_k.dtype).replace("torch.", ""):
+                   2 * engine.pool_k.numel() * engine.pool_k.element_size()}
+        meta = {
+            "fused": engine.fused,
+            "fused_prefill": engine.fused_prefill,
+            "pool_shape": pool_shape,
+            "params_bytes": sum(params_by.values()),
+            "params_by": params_by,
+            "pool_by": pool_by,
+            "kernels": kernel_calls(decode_rec.events
+                                    + prefill_rec.events),
+            "dense_paged_gathers": dense,
+            # the prefill tick runs the decode lane first (every step
+            # does): its views are the decode's, the rest the prefill's
+            "prefill_paged_gathers": _pool_views(
+                prefill_rec.events, pool_shape)[len(dense):],
+            "tp": tp,
+            "groups": ({} if tp == 1 else {str(dist.group.WORLD.group_name):
+                                           ("tensor",)}),
+            "mesh_sizes": {"tensor": tp},
+        }
+    return (decode_rec, prefill_rec), meta
+
+
+def audit_decode_step(model_cfg, engine_cfg: EngineConfig,
+                      topology="h100-1", reserve_fraction: float = 0.10,
+                      label: str = "serve decode step",
+                      fused: bool = False,
+                      fused_prefill: Optional[bool] = None,
+                      traced=None, numerics: bool = True, tp: int = 1,
+                      device="cpu"):
+    """The decode-step audit (the JAX `audit_decode_step`'s rules) as a
+    `tracecheck.TraceReport`: the ``rltt`` kernels the step runs, its
+    collectives under ``tp > 1`` (the row-parallel all-reduces a tick),
+    RLT302 (the traced peak against the device's memory), RLT307 (the
+    decode lane gathers a dense capacity-wide view of the pool on a shape
+    the paged decode kernel's gate takes) and RLT308 (the prefill lane's
+    dense group view on a shape the paged prefill kernel takes). The
+    kernel lanes have neither view; shapes the kernels do not take are
+    sanctioned. ``traced`` reuses a `trace_decode_step` result with the
+    same configuration and lanes."""
+    from ray_lightning_tpu_torch.analysis.costmodel import (
+        Topology,
+        parse_topology,
+    )
+    from ray_lightning_tpu_torch.analysis.findings import Finding
+    from ray_lightning_tpu_torch.analysis.tracecheck import Recorder, audit_ops
+
+    topo = (topology if isinstance(topology, Topology)
+            else parse_topology(topology))
+    (dec, pre), meta = traced if traced is not None else trace_decode_step(
+        model_cfg, engine_cfg, fused=fused, fused_prefill=fused_prefill,
+        tp=tp, device=device)
+    merged = Recorder()
+    merged.events = list(dec.events) + list(pre.events)
+    merged.peak = max(dec.peak, pre.peak)
+    merged.peak_by = dict(dec.peak_by if dec.peak >= pre.peak
+                          else pre.peak_by)
+    precision = None
+    found = []
+    if numerics:
+        from ray_lightning_tpu_torch.analysis.numcheck import numcheck_stream
+
+        found += numcheck_stream(dec.events)[0]
+        found += numcheck_stream(pre.events)[0]
+        params_by, pool_by = meta["params_by"], meta["pool_by"]
+        act_by = {dt: b - params_by.get(dt, 0) - pool_by.get(dt, 0)
+                  for dt, b in merged.peak_by.items()
+                  if b - params_by.get(dt, 0) - pool_by.get(dt, 0) > 0}
+        precision = {"params": params_by, "opt_state": {},
+                     "activations": act_by, "kv_pool": pool_by,
+                     "loss_widest_dtype": None}
+    report = audit_ops(
+        merged, {**meta, "named_params": {}, "n_devices": tp}, topo,
+        params_bytes=meta["params_bytes"], opt_bytes=0,
+        reserve_fraction=reserve_fraction, label=label,
+        mesh_axes={"tensor": tp} if tp > 1 else {}, precision=precision)
+    gib = 1024**3
+    itemsize = _itemsize(model_cfg.dtype)
+
+    def view_gib(shape) -> float:
+        n = 2 * itemsize
+        for d in shape:
+            n *= d
+        return n / gib
+
+    if meta["dense_paged_gathers"] and _shape_fused_available(
+            model_cfg, engine_cfg, tp):
+        shape = meta["dense_paged_gathers"][0]
+        report.findings.append(Finding(
+            "RLT307",
+            f"the decode lane gathers a dense {list(shape)} slot view of "
+            f"the paged pool every tick (~{view_gib(shape):.2f} GiB of "
+            "memory + a full copy of traffic) on a shape the paged "
+            "decode kernel (rltt::paged_decode) takes: the kernel reads "
+            "the pool through the block tables and retires the view "
+            "(DecodeEngine(use_kernels=True), the default on the card)",
+            symbol=label))
+    if meta["prefill_paged_gathers"] and _shape_fused_prefill_available(
+            model_cfg, engine_cfg, tp):
+        shape = meta["prefill_paged_gathers"][0]
+        report.findings.append(Finding(
+            "RLT308",
+            f"the prefill lane gathers a dense {list(shape)} group view "
+            f"of the paged pool every chunk (~{view_gib(shape):.2f} GiB "
+            "of memory + a copy of traffic a chunk) on a shape the paged "
+            "prefill kernel (rltt::paged_prefill) takes: the kernel "
+            "attends causally through the block tables and retires the "
+            "view", symbol=label))
+    report.findings.extend(found)
+    report.kernels = dict(meta["kernels"])
+    return report

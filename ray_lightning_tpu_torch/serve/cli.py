@@ -40,9 +40,12 @@ bitwise; it exits 1 unless ALL of:
 flagship configuration on the card's memory; exit 1 when it does not
 fit. ``--autotune OUT.json`` sweeps the paged kernels' block size at the
 preset's shape (`serve/sweep.py`; timed on the card only) and writes the
-artifact `serve.sweep.apply_autotune` reads. Left out, reported as
-``not_ported`` with its ROADMAP item: the decode-step audit (tracecheck,
-item 13 (f)).
+artifact `serve.sweep.apply_autotune` reads. Both report the decode-step
+audit (`serve.audit.audit_decode_step`: the engine's step on fake
+tensors): ``serve --smoke``'s ``audit`` leg holds the kernel lanes clean
+and listing the paged decode, paged prefill and RMSNorm operators, and
+the reference lanes flagging RLT307 and RLT308; ``serve llama3-8b``
+audits the flagship's kernel lanes.
 """
 from __future__ import annotations
 
@@ -53,11 +56,23 @@ import os
 import sys
 import tempfile
 
-#: the legs the port leaves out, with the ROADMAP item each waits for
-NOT_PORTED = {
-    "audit": "ROADMAP Queue 1 item 13 (f) (tracecheck's decode-step "
-             "audit)",
-}
+#: the kernel operators a kernel-lane decode step must run
+AUDIT_KERNELS = ("rltt.paged_decode", "rltt.paged_prefill", "rltt.rms_norm")
+
+
+def audit_lanes(cfg, ecfg) -> dict:
+    """The decode-step audit of both lanes: ``{"kernel": ..., "reference":
+    ...}``, each the rules fired and the ``rltt`` kernels run."""
+    from ray_lightning_tpu_torch.serve.audit import audit_decode_step
+
+    out = {}
+    for lane, fused in (("kernel", True), ("reference", False)):
+        report = audit_decode_step(cfg, ecfg, fused=fused,
+                                   label=f"serve {lane} lane")
+        out[lane] = {"rules": sorted({f.rule for f in report.findings}),
+                     "kernels": dict(report.kernels),
+                     "peak_bytes": report.peak_hbm_bytes}
+    return out
 
 
 def add_serve_parser(sub) -> None:
@@ -183,9 +198,9 @@ class KernelCalls:
     the calls of each hand-written kernel's wrapper (on the card each
     call is one launch; on the CPU it runs the plain version)."""
 
-    WRAPPERS = (("ray_lightning_tpu_torch.ops.attention",
+    WRAPPERS = (("ray_lightning_tpu_torch.ops.kernels.paged_attention",
                  "paged_attention_kernel"),
-                ("ray_lightning_tpu_torch.ops.attention",
+                ("ray_lightning_tpu_torch.ops.kernels.paged_prefill",
                  "paged_prefill_kernel"),
                 ("ray_lightning_tpu_torch.ops.attention",
                  "flash_attention_kernel"),
@@ -289,8 +304,7 @@ def run_smoke(args) -> int:
         prompt_mod=7)
     leg("prefix_sharing", _smoke_prefix_leg, model)
     leg("speculative", _smoke_spec_leg, model, reqs[:6], device)
-    for name, item in NOT_PORTED.items():
-        legs[name] = {"status": "not_ported", "item": item}
+    leg("audit", _smoke_audit_leg, device)
     verdict = {"legs": legs, "ok": not failures}
     if failures:
         verdict["failures"] = failures
@@ -485,6 +499,27 @@ def _smoke_flight(failures: list, run_dir: str) -> dict:
     return leg
 
 
+def _smoke_audit_leg(failures: list, device) -> dict:
+    """The decode-step audit on a kernel-tiling tiny shape (head_dim 64):
+    the kernel lanes run the paged decode, paged prefill and RMSNorm
+    operators and gather no dense view; the reference lanes flag RLT307
+    and RLT308."""
+    from ray_lightning_tpu_torch.serve.engine import EngineConfig
+
+    lanes = audit_lanes(_tiny_cfg(device),
+                        EngineConfig(capacity=4, block_size=8,
+                                     blocks_per_slot=4, prefill_chunk=8,
+                                     prefill_batch=2))
+    kern, ref = lanes["kernel"], lanes["reference"]
+    missing = [k for k in AUDIT_KERNELS if k not in kern["kernels"]]
+    if missing or {"RLT307", "RLT308"} & set(kern["rules"]):
+        failures.append(f"audit: kernel lane runs {kern['kernels']}, "
+                        f"rules {kern['rules']}")
+    if not {"RLT307", "RLT308"} <= set(ref["rules"]):
+        failures.append(f"audit: reference lane rules {ref['rules']}")
+    return lanes
+
+
 def _smoke_lanes_leg(failures: list, ecfg, *, seed: int, temp: float,
                      top_k: int, seed_base: int, prompt_floor: int,
                      prompt_mod: int) -> dict:
@@ -656,22 +691,35 @@ def _flagship(args):
 def _run_flagship(args) -> int:
     """``serve llama3-8b``: the static plan of the flagship configuration
     against the card's memory (no weights ship with the repo; with a
-    params file this configuration serves through the same driver). Its
-    decode-step audit is reported ``not_ported``."""
+    params file this configuration serves through the same driver), and
+    the decode-step audit of its kernel lanes."""
     from ray_lightning_tpu_torch.serve.audit import (
         format_serve_summary,
         serve_memory_summary,
     )
 
     cfg, ecfg = _flagship(args)
+    from ray_lightning_tpu_torch.serve.audit import audit_decode_step
+
     summary = serve_memory_summary(cfg, ecfg)
-    audit = {"not_ported": NOT_PORTED["audit"]}
+    report = audit_decode_step(
+        cfg, ecfg, fused=summary["attention_path"] == "paged-kernel",
+        label="llama3-8b serve")
+    audit = {"attention_path": summary["attention_path"],
+             "kernels": dict(report.kernels),
+             "peak_hbm_bytes": report.peak_hbm_bytes,
+             "findings": [f.to_dict() for f in report.findings]}
     if getattr(args, "as_json", False):
         print(json.dumps({"preset": "llama3-8b", "plan": summary,
                           "audit": audit}))
     else:
         print(format_serve_summary(summary))
-        print(f"decode-step audit: not ported ({audit['not_ported']})")
+        print(f"decode-step audit: kernels "
+              + ", ".join(f"{k} x{n}" for k, n in audit["kernels"].items())
+              + f"; est. peak {report.peak_hbm_bytes / 1024**3:.2f} GiB; "
+              f"{len(report.findings)} finding(s)")
+        for f in report.findings:
+            print("  " + f.format())
     return 0 if summary["fits"] else 1
 
 

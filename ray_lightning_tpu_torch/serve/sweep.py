@@ -147,14 +147,14 @@ def case_inputs(model_cfg, engine_cfg, cand: SweepCandidate, device,
 
 
 def kernel_calls(x: dict, use_kernel: bool = True) -> dict:
-    """The case's four calls, ``{name: thunk}``: the kernel wrappers
+    """The case's four calls, ``{name: thunk}``: the kernels' operators
     (``use_kernel``) or their plain versions."""
     from ray_lightning_tpu_torch.ops.kernels import paged_attention as pa
     from ray_lightning_tpu_torch.ops.kernels import paged_prefill as pp
 
-    dec = pa.paged_attention_kernel if use_kernel else \
+    dec = pa.paged_attention_op if use_kernel else \
         pa.paged_attention_plain
-    pre = pp.paged_prefill_kernel if use_kernel else \
+    pre = pp.paged_prefill_op if use_kernel else \
         pp.paged_prefill_plain
     B = x["qc"].shape[0]
     return {

@@ -16,11 +16,20 @@ telemetry-enabled run left under ``<run_dir>/telemetry`` and prints:
   * the incident ledger's summary, and which evidence streams the run
     dir holds and which it lacks.
 
-``--preset`` asks for the DRIFT section, which joins the measured step
-against a static prediction. The prediction needs the JAX package's
-tracecheck cost model, which is not ported (ROADMAP Queue 1 item 13 (f)),
-so the section carries the structured "prediction unavailable" flag
-beside the measured step — never a guessed number.
+``--preset [--topo h100-8]`` asks for the DRIFT section, which joins the
+measured step against tracecheck's prediction of that step
+(`predicted_step_composition`: the compute window at the derated peak
+plus the collective time not hidden behind it, `analysis/tracecheck.py`
+on fake tensors). With no measured spans the measured slot is a
+structured skip, never a missing section.
+
+``monitor --smoke [--device cpu]`` is the CPU gate of this layer, in
+three legs: (1) the telemetry-off pin — two tiny fits, recorder off and
+on, train bitwise alike and their traced train steps run the same
+operator stream; (2) a supervised CPU run with an injected worker kill
+whose goodput report is parseable, sums to the wall time within 5% and
+has nonzero backoff and replay; (3) the flagship drift section emits
+against tracecheck's prediction.
 
 ``monitor <run_dir>`` is the live view: last span + current phase per
 rank and the partial goodput, one shot (or ``--follow``).
@@ -50,10 +59,6 @@ DRIFT_THRESHOLD = 0.25
 AUTOSCALE_LEDGER = "autoscale.jsonl"
 RESHARD_LEDGER = "reshards.jsonl"
 
-#: where the drift section's prediction would come from
-DRIFT_UNAVAILABLE = ("the static step prediction needs analysis/"
-                     "tracecheck, not ported (ROADMAP Queue 1 item 13 "
-                     "(f))")
 
 
 # ---------------------------------------------------------------- timeline
@@ -136,6 +141,50 @@ def _step_stats(ranks: Dict[int, Dict[str, Any]]) -> Optional[dict]:
 # ------------------------------------------------------------------ drift
 
 
+def predicted_step_composition(preset: str, topo_str: str,
+                               overlap: str = "off") -> Dict[str, Any]:
+    """tracecheck's prediction of one (preset, topology) step: the
+    modelled compute window, the exposed and hidden collective time, the
+    static overlap fraction. Degrades to ``{"error": ...}`` rather than
+    raising: the drift section is advisory."""
+    try:
+        from ray_lightning_tpu_torch.analysis.cli import resolve_trace_target
+        from ray_lightning_tpu_torch.analysis.costmodel import parse_topology
+        from ray_lightning_tpu_torch.analysis.tracecheck import audit_step
+
+        topo = parse_topology(topo_str)
+        built = resolve_trace_target(preset, topo, overlap=overlap)
+        if built is None:
+            return {"error": f"unknown preset {preset!r}"}
+        module, strategy, batch, label = built
+        report = audit_step(module, strategy, batch, topology=topo,
+                            label=label, numerics=False)
+        return prediction_of(report, label, topo.name)
+    except Exception as exc:  # noqa: BLE001 — advisory section
+        return {"error": f"{type(exc).__name__}: {str(exc)[:300]}"}
+
+
+def prediction_of(report, label: str, topology: str) -> Dict[str, Any]:
+    """The drift section's prediction from a `tracecheck.TraceReport`."""
+    return {
+        "label": label,
+        "topology": topology,
+        "ici_time_us": round(report.ici_time_us, 1),
+        "ici_exposed_us": round(report.ici_exposed_us, 1),
+        "ici_hidden_us": round(report.ici_hidden_us, 1),
+        "overlap_hidden_fraction": round(report.overlap_hidden_fraction,
+                                         4),
+        "compute_us": round(report.compute_us, 1) or None,
+        "step_us": round(report.step_us, 1) or None,
+        "peak_bytes": report.peak_hbm_bytes,
+        "assumptions": (
+            "roofline compute window (costmodel.compute_time_us at the "
+            "matmul-probe-derated peak, or the operators' bytes at the "
+            "memory rate) + exposed collective time serialized with "
+            "compute; host time not modelled"),
+    }
+
+
 def build_drift(predicted: Dict[str, Any],
                 timeline: Optional[Dict[str, Any]],
                 threshold: float = DRIFT_THRESHOLD) -> Dict[str, Any]:
@@ -202,9 +251,11 @@ def add_report_parser(sub) -> None:
                    help="run dir (or its telemetry/ subdir) holding "
                         "rank*.spans.jsonl / goodput ledgers")
     p.add_argument("--preset", default=None,
-                   help="ask for the drift section (measured step against "
-                        "a static prediction; the prediction is not "
-                        "ported, so the section says so)")
+                   help="ask for the drift section: the measured step "
+                        "against tracecheck's prediction for this preset "
+                        "(llama3-8b or a trace target)")
+    p.add_argument("--topo", default="h100-8",
+                   help="the topology the prediction is for")
     p.add_argument("--drift-threshold", type=float,
                    default=DRIFT_THRESHOLD)
     p.add_argument("--json", action="store_true", dest="as_json",
@@ -528,7 +579,8 @@ def build_reshard_section(run_dir: str,
 
 
 def build_report(run_dir: str, preset: Optional[str] = None,
-                 threshold: float = DRIFT_THRESHOLD) -> Dict[str, Any]:
+                 threshold: float = DRIFT_THRESHOLD,
+                 topo: str = "h100-8") -> Dict[str, Any]:
     timeline = load_timeline(run_dir)
     out: Dict[str, Any] = {
         "run_dir": run_dir,
@@ -552,8 +604,7 @@ def build_report(run_dir: str, preset: Optional[str] = None,
         out["reshards"] = reshards
     if preset:
         out["drift"] = build_drift(
-            {"label": preset, "error": DRIFT_UNAVAILABLE}, timeline,
-            threshold)
+            predicted_step_composition(preset, topo), timeline, threshold)
     return out
 
 
@@ -698,7 +749,8 @@ def _print_report(out: Dict[str, Any]) -> None:
             print(f"  predicted step floor "
                   f"{pred['step_us'] / 1e3:.2f} ms (compute "
                   f"{(pred.get('compute_us') or 0) / 1e3:.2f} ms + "
-                  f"exposed ICI {pred['ici_exposed_us'] / 1e3:.2f} ms; "
+                  f"exposed collectives {pred['ici_exposed_us'] / 1e3:.2f}"
+                  " ms; "
                   f"static overlap_hidden_fraction "
                   f"{pred['overlap_hidden_fraction']})")
         for flag in drift["flags"]:
@@ -712,7 +764,8 @@ def run_report(args) -> int:
               file=sys.stderr)
         return 2
     out = build_report(args.run_dir, preset=args.preset,
-                       threshold=args.drift_threshold)
+                       threshold=args.drift_threshold,
+                       topo=getattr(args, "topo", "h100-8"))
     if getattr(args, "as_json", False):
         print(json.dumps(out))
     else:
@@ -727,7 +780,17 @@ def add_monitor_parser(sub) -> None:
     p = sub.add_parser(
         "monitor",
         help="live per-rank phase view of a telemetry-enabled run")
-    p.add_argument("run_dir")
+    p.add_argument("run_dir", nargs="?", default=None)
+    p.add_argument("--smoke", action="store_true",
+                   help="the CPU gate: the telemetry-off pin, a "
+                        "supervised kill's goodput, the flagship drift")
+    p.add_argument("--device", default=None,
+                   help="cpu: run the smoke's fits on the CPU")
+    p.add_argument("--processes", type=int, default=2,
+                   help="processes of the smoke's supervised run")
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument("--flagship-topo", default="h100-8",
+                   help="the topology of the smoke's drift leg")
     p.add_argument("--follow", action="store_true",
                    help="refresh every --interval seconds until ^C")
     p.add_argument("--interval", type=float, default=5.0)
@@ -871,6 +934,12 @@ def _print_serve_view(view: Dict[str, Any]) -> None:
 
 def run_monitor(args) -> int:
     as_json = getattr(args, "as_json", False)
+    if getattr(args, "smoke", False):
+        return _run_smoke(args)
+    if args.run_dir is None:
+        print("error: monitor needs a run dir (or --smoke)",
+              file=sys.stderr)
+        return 2
     # --follow polls on a cadence: every ledger read is tail-bounded
     # (the one-shot view reads everything — it runs once)
     tail = MONITOR_TAIL_BYTES if args.follow else None
@@ -904,3 +973,202 @@ def run_monitor(args) -> int:
         if not args.follow:
             return 0
         time.sleep(max(0.2, args.interval))
+
+
+# ------------------------------------------------------------------ smoke
+
+
+def _smoke_off_pin(args, out: Dict[str, Any]) -> bool:
+    """Leg 1: telemetry off and on train bitwise alike, and the traced
+    train step (`analysis.tracecheck.trace_step`, the trainer's own step
+    on fake tensors) runs the same operator stream either way: telemetry
+    is host-side bookkeeping, never step content. The port's counterpart
+    of the JAX leg's byte-identical lowered programs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.analysis.tracecheck import trace_step
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.mlp import MLPClassifier
+    from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    y = rng.integers(0, 4, size=(64,))
+
+    def module():
+        return MLPClassifier(features=(16,), num_classes=4, lr=1e-2,
+                             in_features=8)
+
+    def fit(telemetry):
+        trainer = Trainer(max_epochs=1, max_steps=4, seed=0,
+                          strategy=SingleDevice(device=args.device),
+                          enable_checkpointing=False,
+                          enable_progress_bar=False,
+                          default_root_dir=tempfile.mkdtemp(
+                              prefix="rlt_offpin_"),
+                          telemetry=telemetry)
+        mod = module()
+        trainer.fit(mod, DataLoader({"x": x, "y": y}, batch_size=16))
+        rec, _ = trace_step(
+            module(), SingleDevice(device="cpu"), 1,
+            {"x": x[:16], "y": y[:16]},
+            trainer_kwargs={"telemetry": telemetry,
+                            "default_root_dir": trainer.default_root_dir})
+        return ({k: v.detach().cpu() for k, v in mod.params.items()},
+                [(e.name, e.out_shapes, e.out_dtypes) for e in rec.events])
+
+    params_off, ops_off = fit(False)
+    params_on, ops_on = fit(True)
+    identical = all(torch.equal(params_off[k], params_on[k])
+                    for k in params_off)
+    out["off_pin"] = {"params_bitwise_identical": identical,
+                      "op_stream_identical": ops_off == ops_on,
+                      "ops": len(ops_on),
+                      "ok": identical and ops_off == ops_on}
+    return out["off_pin"]["ok"]
+
+
+def _smoke_goodput_trainer(device, telemetry_dir):
+    """The supervise smoke's trainer with its ledger flushed every step
+    (workers import this module by name)."""
+    from ray_lightning_tpu_torch.resilience.cli import _smoke_trainer
+    from ray_lightning_tpu_torch.telemetry import TelemetryConfig
+
+    trainer = _smoke_trainer(device)
+    trainer.telemetry = TelemetryConfig(dir=telemetry_dir,
+                                        flush_every_n_steps=1)
+    return trainer
+
+
+def _smoke_goodput_leg(args, out: Dict[str, Any]) -> bool:
+    """Leg 2: a supervised CPU fit with an injected worker kill and
+    telemetry on: the goodput report must parse, sum to the wall time
+    within 5% and show nonzero backoff and replay."""
+    import tempfile
+
+    from ray_lightning_tpu_torch.resilience.cli import (
+        _smoke_data,
+        _smoke_module,
+    )
+    from ray_lightning_tpu_torch.resilience.policy import RetryPolicy
+    from ray_lightning_tpu_torch.resilience.supervisor import (
+        ResilienceConfig,
+        fit_supervised,
+    )
+
+    base = tempfile.mkdtemp(prefix="rlt_monitor_smoke_")
+    cfg = ResilienceConfig(
+        checkpoint_dir=os.path.join(base, "ckpts"),
+        policy=RetryPolicy(max_restarts=2, backoff_base_s=0.5, jitter=0.0),
+        # a save every 3 steps, the ledger flushed every step: the kill
+        # at step 5 resumes from step 3, behind the dead attempt's
+        # frontier, so the replay bucket is not zero
+        save_every_n_steps=3, heartbeat_interval_s=1.0,
+        stall_timeout_s=0.0, faults="kill:rank=0,step=5")
+    leg: Dict[str, Any] = {"checkpoint_dir": base}
+    out["goodput_leg"] = leg
+    try:
+        import functools
+
+        supervised = fit_supervised(
+            _smoke_module, functools.partial(
+                _smoke_goodput_trainer, args.device,
+                os.path.join(cfg.checkpoint_dir, "telemetry")),
+            _smoke_data, args.processes, resilience=cfg,
+            device=args.device, return_weights=False,
+            timeout=args.timeout, log_dir=os.path.join(base, "workers"))
+    except Exception as exc:  # noqa: BLE001 — the gate reports, not raises
+        leg["ok"] = False
+        leg["error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+        return False
+    report = supervised.goodput
+    leg["restarts"] = supervised.restarts
+    leg["goodput"] = report
+    if not report:
+        leg["ok"] = False
+        leg["error"] = "supervisor assembled no goodput report"
+        return False
+    problems = []
+    if supervised.restarts < 1:
+        problems.append("injected kill never fired (0 restarts)")
+    if not gp.buckets_consistent(report, tolerance=0.05):
+        problems.append(f"buckets sum {report['buckets_sum_s']}s != wall "
+                        f"{report['wall_s']}s within 5%")
+    for cls in gp.LOST_CLASSES:
+        if report["buckets"].get(cls, 0.0) <= 0.0:
+            problems.append(f"lost-time class {cls} is zero — the "
+                            "restart's cost went unattributed")
+    leg["ok"] = not problems
+    if problems:
+        leg["error"] = "; ".join(problems)
+    return leg["ok"]
+
+
+def _smoke_flagship_drift(args, out: Dict[str, Any]) -> bool:
+    """Leg 3: the flagship drift section emits: tracecheck's predicted
+    step, the measured slot a structured skip (no run to join)."""
+    predicted = predicted_step_composition("llama3-8b", args.flagship_topo)
+    drift = build_drift(predicted, timeline=None)
+    out["flagship_drift"] = drift
+    ok = ("error" not in predicted
+          and predicted.get("ici_time_us", 0) > 0
+          and (predicted.get("step_us") or 0) > 0
+          and isinstance(drift.get("measured"), dict)
+          and "skipped" in drift["measured"]
+          and drift.get("verdict") == "not-measured")
+    out["flagship_drift_ok"] = ok
+    return ok
+
+
+def _run_smoke(args) -> int:
+    from ray_lightning_tpu_torch.utils.devices import resolve_device
+
+    if resolve_device(args.device).type != "cpu":
+        print("monitor --smoke is the CPU gate: pass --device cpu",
+              file=sys.stderr)
+        return 2
+    out: Dict[str, Any] = {"gate": "monitor --smoke"}
+    ok = True
+    legs = (("off_pin", lambda: _smoke_off_pin(args, out)),
+            ("goodput", lambda: _smoke_goodput_leg(args, out)),
+            ("flagship_drift", lambda: _smoke_flagship_drift(args, out)))
+    for name, leg in legs:
+        try:
+            ok = leg() and ok
+        except Exception as exc:  # noqa: BLE001 — a crashed leg is a
+            # failed gate with a named cause, never a bare traceback
+            ok = False
+            out.setdefault("errors", []).append(
+                f"{name}: {type(exc).__name__}: {str(exc)[:300]}")
+    out["ok"] = ok
+    print(json.dumps(out) if getattr(args, "as_json", False)
+          else _smoke_text(out))
+    return 0 if ok else 1
+
+
+def _smoke_text(out: Dict[str, Any]) -> str:
+    lines = [f"monitor --smoke: {'ok' if out['ok'] else 'FAILED'}"]
+    op = out.get("off_pin") or {}
+    lines.append(f"  off-pin: {'ok' if op.get('ok') else 'FAILED'} "
+                 f"(params identical={op.get('params_bitwise_identical')}"
+                 f", op stream identical={op.get('op_stream_identical')})")
+    leg = out.get("goodput_leg") or {}
+    g = leg.get("goodput") or {}
+    lines.append(
+        f"  goodput: {'ok' if leg.get('ok') else 'FAILED'} "
+        f"(restarts={leg.get('restarts')}, wall={g.get('wall_s')}s, "
+        f"sum={g.get('buckets_sum_s')}s, "
+        f"backoff={(g.get('buckets') or {}).get('backoff_s')}s, "
+        f"replay={(g.get('buckets') or {}).get('rollback_replay_s')}s)"
+        + (f" — {leg.get('error')}" if leg.get("error") else ""))
+    lines.append(f"  flagship drift: "
+                 f"{'ok' if out.get('flagship_drift_ok') else 'FAILED'} "
+                 f"(verdict="
+                 f"{(out.get('flagship_drift') or {}).get('verdict')})")
+    for err in out.get("errors", ()):
+        lines.append(f"  error: {err}")
+    return "\n".join(lines)

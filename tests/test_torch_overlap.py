@@ -145,8 +145,15 @@ def test_simulate_overlap_schedule_beats_serial():
 
 
 def test_trace_overlap_schedule_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        co.trace_overlap_schedule()
+    """The traced proof (the JAX `trace_overlap_schedule`): tracecheck of
+    the tiny Llama's step under overlap "on" carries the prefetch
+    fingerprint and no RLT305; under "off" neither fingerprint nor
+    hiding, and RLT305 flags the exposed gathers."""
+    r = co.trace_overlap_schedule()
+    assert r["scheduled"] is True and r["off_scheduled"] is False
+    assert r["exposed_findings_on"] == 0 and r["exposed_findings_off"] == 1
+    assert r["hidden_fraction_on"] > r["hidden_fraction_off"] == 0.0
+    assert [s["scheduled"] for s in r["per_scope_on"]] == [True] * 4
 
 
 def test_perf_smoke_cli_on_cpu(tmp_path):

@@ -177,12 +177,17 @@ def _cli(main, argv, capsys):
 def test_plan_serve_cli_matches_the_jax_cli(capsys, argv, rc):
     """Exit codes (0 fits, 1 does not, 2 invalid) and the JSON sections
     are the JAX CLI's (both plan the same TPU kind); the prefix and
-    speculative blocks price alike; the trace section is not ported."""
+    speculative blocks price alike. The trace section (the decode-step
+    audit on fake tensors) runs on the tiny preset; the 8B cases skip it
+    (``--no-trace``), as the JAX side does."""
     from ray_lightning_tpu.__main__ import main as jmain
     from ray_lightning_tpu_torch.__main__ import main as pmain
 
     args = ["plan", "--serve", *argv, "--device-kind", "TPU v5p",
             "--json"]
+    traced = "tiny" in argv
+    if not traced:
+        args.append("--no-trace")
     got_rc, got = _cli(pmain, args, capsys)
     want_rc, want = _cli(jmain, [*args, "--no-trace"], capsys)
     assert got_rc == want_rc == rc
@@ -190,15 +195,21 @@ def test_plan_serve_cli_matches_the_jax_cli(capsys, argv, rc):
     if rc == 2:
         return
     assert got["fits"] == want["fits"]
-    assert got["trace"] == {"not_ported": "ROADMAP Queue 1 item 13 (f) "
-                            "(analysis/tracecheck.py as a torch.fx walk)"}
+    if traced:
+        trace = got["trace"]
+        assert "trace_error" not in trace, trace
+        assert trace["attention_path"] == got["serve"]["attention_path"]
+        assert trace["peak_hbm_bytes"] > 0
+    else:
+        assert "trace" not in got
     assert got["prefix_sharing"] == want["prefix_sharing"]
     assert got["serve"]["pool_bytes"] == want["serve"]["pool_bytes"]
     for key in ("verify_step_flops", "k", "expected_tokens_per_tick",
                 "draft_pool_bytes"):
         assert got["speculative"][key] == want["speculative"][key], key
-    _, text = _cli(pmain, args[:-1], capsys)
-    assert "serve plan:" in text and "trace: not ported" in text
+    _, text = _cli(pmain, [a for a in args if a != "--json"], capsys)
+    assert "serve plan:" in text
+    assert ("tracecheck" in text) == traced
 
 
 def test_serve_llama3_8b_prints_the_plan(capsys):
@@ -208,7 +219,12 @@ def test_serve_llama3_8b_prints_the_plan(capsys):
     assert rc == 0 and out["preset"] == "llama3-8b"
     assert out["plan"]["fits"] is True
     assert out["plan"]["attention_path"] == "paged-kernel"
-    assert "item 13" in out["audit"]["not_ported"]
+    audit = out["audit"]  # the flagship's kernel lanes, traced
+    assert audit["attention_path"] == "paged-kernel"
+    assert set(audit["kernels"]) >= {"rltt.paged_decode",
+                                     "rltt.paged_prefill", "rltt.rms_norm"}
+    assert not {f["rule"] for f in audit["findings"]} & {"RLT307",
+                                                         "RLT308"}
     rc, text = _cli(main, ["serve", "llama3-8b", "--slots", "256",
                            "--seq-budget", "8192"], capsys)
     assert rc == 1 and "DOES NOT FIT" in text

@@ -17,8 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORTED = ("inline_churn", "metrics_emission", "replica_kill",
           "metrics_merge", "flight_recorder", "fused_paged",
-          "fused_prefill", "prefix_sharing", "speculative")
-LEFT_OUT = {"audit": "item 13"}
+          "fused_prefill", "prefix_sharing", "speculative", "audit")
+LEFT_OUT = {}
 
 
 def _serve(*argv, timeout=240):
@@ -39,6 +39,11 @@ def test_smoke_gate_passes_on_the_cpu():
     for name, item in LEFT_OUT.items():
         assert legs[name]["status"] == "not_ported", name
         assert item in legs[name]["item"], name
+    audit = legs["audit"]  # the decode-step audit, both lanes
+    assert set(audit["kernel"]["kernels"]) >= {
+        "rltt.paged_decode", "rltt.paged_prefill", "rltt.rms_norm"}
+    assert not {"RLT307", "RLT308"} & set(audit["kernel"]["rules"])
+    assert {"RLT307", "RLT308"} <= set(audit["reference"]["rules"])
     churn = legs["inline_churn"]
     assert churn["bitwise_mismatches"] == []
     assert churn["compile_count"] == -1 and churn["kernel_build_s"] == 0.0

@@ -44,11 +44,9 @@ ITEM = {
     "autoscale": {},
     "loadgen": {},
     # item 13 (e) brought the framework-free analysis and the plan
-    # checker; tracecheck and the cost model are item 13 (f)
-    "analysis": {n: "item 13 \\(f\\)" for n in (
-        "ICI_SPECS", "CollectiveCost", "Topology", "collective_cost",
-        "parse_topology", "topology_for_kind", "CollectiveEvent",
-        "TraceReport", "audit_step", "check_permutation", "trace_step")},
+    # checker, item 13 (f) tracecheck, numcheck and the cost model: every
+    # name resolves
+    "analysis": {},
 }
 
 
@@ -227,16 +225,19 @@ def test_ring_attention_name_survives_its_submodule_import():
 
 
 def test_analysis_names_resolve_and_its_engines_import_light():
-    """Item 13 (e): the analysis names resolve from
-    ``ray_lightning_tpu_torch.analysis`` as their modules' objects;
-    numcheck's names raise naming item 13 (f); and the linter,
-    threadcheck, the watcher and the CLI import neither torch nor numpy
-    (nor JAX), in a fresh interpreter."""
+    """Items 13 (e)-(f): the analysis names resolve from
+    ``ray_lightning_tpu_torch.analysis`` as their modules' objects (the
+    graph walks' too); and the linter, threadcheck, the watcher, the CLI,
+    the cost model and numcheck (``lint --numerics``) import neither
+    torch nor numpy (nor JAX), in a fresh interpreter."""
     from ray_lightning_tpu_torch import analysis
     from ray_lightning_tpu_torch.analysis import (
+        costmodel,
         findings,
         linter,
+        numcheck,
         plan_checker,
+        tracecheck,
     )
 
     for mod, names in ((findings, ("RULES", "SEVERITY_RANK", "Finding",
@@ -249,12 +250,18 @@ def test_analysis_names_resolve_and_its_engines_import_light():
                                        "spec_findings"))):
         for name in names:
             assert getattr(analysis, name) is getattr(mod, name), name
-    for name in ("numcheck_jaxpr", "check_numerics_paths",
-                 "LOW_PRECISION_EXTENT", "classify_overlap"):
-        with pytest.raises(NotImplementedError, match=r"item 13 \(f\)"):
-            getattr(analysis, name)
+    for mod, names in ((numcheck, ("numcheck_jaxpr",
+                                   "check_numerics_paths",
+                                   "LOW_PRECISION_EXTENT")),
+                       (tracecheck, ("classify_overlap", "audit_step",
+                                     "trace_step")),
+                       (costmodel, ("Topology", "parse_topology"))):
+        for name in names:
+            assert getattr(analysis, name) is getattr(mod, name), name
     code = ("import sys; sys.modules['jax'] = None; "
             "import ray_lightning_tpu_torch.analysis.linter, "
+            "ray_lightning_tpu_torch.analysis.costmodel, "
+            "ray_lightning_tpu_torch.analysis.numcheck, "
             "ray_lightning_tpu_torch.analysis.concurrency, "
             "ray_lightning_tpu_torch.analysis.lockwatch, "
             "ray_lightning_tpu_torch.analysis.cli; "

@@ -748,19 +748,25 @@ def test_build_drift_matches_jax(case):
 
 
 def test_report_and_monitor_cli(fits, capsys):
-    """``report --preset`` carries the drift section with the measured
-    step and the prediction named unavailable; ``monitor`` shows rank
-    0's last phase."""
+    """``report --preset`` carries the drift section: the measured step
+    against tracecheck's prediction for the preset (here the tiny Llama
+    of the example on ``cpu-2``, cheap to trace), its ratio and verdict;
+    ``monitor`` shows rank 0's last phase."""
     from ray_lightning_tpu_torch.__main__ import main
 
     run = str(fits[0] / "on")
-    assert main(["report", run, "--json", "--preset", "llama3-8b"]) == 0
+    assert main(["report", run, "--json", "--preset",
+                 "llama_fsdp_example.py", "--topo", "cpu-2"]) == 0
     out = json.loads(capsys.readouterr().out.strip())
     assert out["step_stats"]["steps"] == STEPS - 1
     drift = out["drift"]
     assert drift["measured"]["steps"] == STEPS - 1
-    assert drift["verdict"] == "partial-model"
-    assert any("tracecheck" in f for f in drift["flags"])
+    assert drift["predicted"]["step_us"] > 0
+    assert drift["step_time_ratio"] == pytest.approx(
+        drift["measured"]["step_us"] / drift["predicted"]["step_us"],
+        rel=1e-2)
+    assert drift["verdict"] in ("ok", "drift")
+    assert (drift["verdict"] == "drift") == bool(drift["flags"])
     assert main(["report", run]) == 0
     assert "warm step time" in capsys.readouterr().out
     assert main(["monitor", run, "--json"]) == 0
