@@ -66,8 +66,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
                `fit_distributed` run that saves at step 4
                (`ModelCheckpoint`, 23 GB of f32 weights and AdamW moments,
                the script's one save of this size: the card's machine may
-               write 45 GiB a run), with the bytes and the save and
-               verify seconds; 14 (a) and 8 (a) resume it; (d) the
+               write 45 GiB a run; `checkpoint.io` writes it from
+               eight threads, one a GiB of a rank's share, at most eight),
+               with the bytes and the save and verify seconds; 14 (a)
+               and 8 (a) resume it; (d) the
                reference's MNIST matrix: fit with
                `EarlyStopping` and `ModelCheckpoint` under `RayXlaPlugin`,
                predict from the best checkpoint in a worker, load it here
@@ -204,8 +206,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
                and grad_norm within the train limits of phase 5's rows,
                each rank's flash and RMSNorm launches by phase 5's
                formula at H 16 / Hkv 4, its parameter and optimizer bytes
-               equal to the plan's; a correctness lane, not a speed
-               (every all-reduce crosses the host); (d) phases 6-8 and
+               equal to the plan's; then, on the same ranks, 16 (b)'s
+               BERT-base fit under ``ShardedMesh(tensor=2)`` for
+               ``TP_BERT_STEPS`` steps (6 heads a rank; each rank's
+               flash launches by 16 (b)'s formula, its bytes the plan's;
+               16 (b) holds its rows against its own kernel lane); a
+               correctness lane, not a speed (every all-reduce crosses
+               the host); (d) phases 6-8 and
                10 (b) build their FSDP models on the meta device and
                stay bitwise phase 5's; 6 (a)'s worker prints its init
                path and the init's peak. ``FLASH_OWED`` holds the
@@ -325,8 +332,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
                (``"replaces": null``, with a note).
  16. the BASELINE's ResNet and BERT and the examples — after phase
                15: (a) the flash forward, dK/dV and dQ at BERT-base's
-               attention (B 32, S 128, H = Hkv = 12, hd 64, full),
-               timed as phase 3's rows against SDPA and the bound
+               attention (B 32, S 128, H = Hkv = 12, hd 64, full) and
+               at a tensor=2 rank's (H = Hkv = 6), timed as phase 3's
+               rows against SDPA and the bound
                (``BERT_FLASH_CASES``; S 512 at B 8 untimed in
                ``FLASH_OWED``); (b) BERT-base at full width (12 layers,
                dim 768, vocab 30522; seeded f32 masters, bf16 compute,
@@ -342,7 +350,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
                then one batch's logits on the trained weights
                without a mask (the flash kernels) and with an all-ones
                mask (the dense path: no flash launch) within
-               ``BERT_LOGIT_TOL``; step ms, tokens/s, peak; (c)
+               ``BERT_LOGIT_TOL``; step ms, tokens/s, peak; and 12
+               (c)'s ``tensor=2`` rows against this kernel lane's first
+               ``TP_BERT_STEPS`` within the same limits; (c)
                ResNet-50 with the CIFAR stem, 8 steps at B 128 on
                seeded 32x32x3 images: a finite, falling loss, none of
                the seven kernels launched; step ms, images/s, peak; (d)
@@ -379,8 +389,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
                steps each, within the train limits of phase 5's rows,
                with each step's gradient reduction timed; (e)
                `MoEClassifierModule` at its JAX defaults under
-               ``ShardedMesh(expert=2)`` within ``MOE_RTOL`` of its
-               one-rank fit. ``phase17_s`` in the ``timing`` line;
+               ``ShardedMesh(expert=2)`` and under
+               ``ShardedMesh(tensor=2)`` (half of every expert's columns
+               a rank), each within ``MOE_RTOL`` of its one-rank fit. ``phase17_s`` in the ``timing`` line;
                ``--axes-only`` runs phase 3's ``FLASH_OWED_17`` rows,
                phase 5 and phase 17 alone.
  18. analysis — (a) the lock-order watcher, armed from the
@@ -1252,12 +1263,14 @@ def check_empty_rows(c: FlashCase):
 def check_flash(gen: torch.Generator, cases=None):
     """The three flash kernels against their plain versions at every
     shape of ``cases`` (FLASH_CASES); one JSON row per (kernel, shape),
-    timed."""
+    timed, each with its shape's seconds (``case_s``)."""
     import torch.nn.functional as F
 
     rows = []
     for name, (B, Sq, Sk, H, Hkv, hd, causal, off) in (
             cases or FLASH_CASES).items():
+        t0 = time.perf_counter()
+        case_rows = []
         c = FlashCase(gen, B, Sq, Sk, H, Hkv, hd, causal, off)
         shares = c.shares()
         bad = {k: v for k, v in shares.items() if not v[1] <= 1.0}
@@ -1309,8 +1322,12 @@ def check_flash(gen: torch.Generator, cases=None):
                        bound_ms=b_ms, bound_by=b_by)
             if kernel != "flash_fwd":
                 row["library_fwd_bwd_ms"] = lib_fb
+            case_rows.append(row)
+        case_s = time.perf_counter() - t0
+        for row in case_rows:
+            row["case_s"] = case_s
             print(json.dumps(row), flush=True)
-            rows.append(row)
+        rows += case_rows
         del c
         torch.cuda.empty_cache()
     return rows
@@ -5250,6 +5267,15 @@ TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 TP_TIMEOUT_S = 420
 #: 12 (c)'s ranks start with phase 12 and wait for this file
 TP_GATE = os.path.join(TP_DIR, "go")
+#: 12 (c)'s BERT leg: steps of 16 (b)'s fit (its schedule: warmup 2 of
+#: BERT_STEPS) under ShardedMesh(tensor=TP_RANKS); the first BERT_EARLY
+#: are held to 16 (b)'s early limits, the rest to its whole-fit ones
+TP_BERT_STEPS = 4
+#: 12 (c)'s BERT rows, for 16 (b) to hold against its kernel lane
+TP_BERT = {}
+#: the seconds of the legs slice 17 added (12 (c)'s BERT fit, 16 (a)'s
+#: H 6 flash row, 17 (e)'s tensor=2 fit), for the timing line
+LEGS_S = {}
 
 
 def live_bytes(trainer, module) -> dict:
@@ -5368,12 +5394,56 @@ def bmax_phase(seed: int, problems: list) -> dict:
     return launches
 
 
+def tp_bert(seed: int, world: int) -> dict:
+    """12 (c)'s BERT leg on this rank: 16 (b)'s BERT-base fit (its
+    inputs, module and seed) under ``ShardedMesh(tensor=world)`` for
+    TP_BERT_STEPS steps, H 12 / world heads a rank: its rows, launches,
+    peak and bytes."""
+    from ray_lightning_tpu_torch.core.data import DataLoader
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.bert import BertClassifierModule
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    cfg, data = bert_inputs(seed)
+    probe = StepProbe()
+
+    class Zero(Callback):
+        def on_fit_start(self, trainer, module):
+            for k in all_kernels():
+                k.launches = 0
+
+    module = BertClassifierModule(cfg, num_classes=2, lr=BERT_LR,
+                                  warmup_steps=2, total_steps=BERT_STEPS)
+    trainer = Trainer(strategy=ShardedMesh(tensor=world),
+                      max_steps=TP_BERT_STEPS, log_every_n_steps=1,
+                      enable_checkpointing=False, enable_progress_bar=False,
+                      seed=seed, callbacks=[Zero(), probe.callback])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probe.t.append(t0)
+    # both ranks of the tensor group read every row
+    trainer.fit(module, DataLoader(data, batch_size=BERT_B))
+    torch.cuda.synchronize()
+    rec = dict(rows=probe.rows, t=probe.t,
+               fit_wall_s=time.perf_counter() - t0,
+               launches={k.__name__: k.launches for k in all_kernels()},
+               peak=torch.cuda.max_memory_allocated(),
+               init_path=trainer.init_path,
+               layers=cfg.n_layers, heads_a_rank=cfg.n_heads // world,
+               **live_bytes(trainer, module))
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def tp_worker(rank: int, world: int, port: int, seed: int,
               out: str) -> None:
     """One rank of 12 (c): phase 5's fit under ``ShardedMesh(tensor=
-    world)`` in a gloo group on the visible card; writes its per-step
-    rows, launches, parameter and optimizer bytes and peak to ``out``.
-    Started with phase 12, it imports while (a)-(b) run and waits for
+    world)`` in a gloo group on the visible card, then 16 (b)'s BERT-base
+    under the same mesh (`tp_bert`); writes each fit's per-step rows,
+    launches, parameter and optimizer bytes and peak to ``out``. Started
+    with phase 12, it imports while (a)-(b) run and waits for
     TP_GATE."""
     warm_s = warm_imports()
     import torch.distributed as dist
@@ -5405,17 +5475,22 @@ def tp_worker(rank: int, world: int, port: int, seed: int,
     # both ranks of the tensor group read every row
     trainer.fit(module, DataLoader({"tokens": tokens}, batch_size=TB))
     torch.cuda.synchronize()
+    rec = dict(
+        rank=rank, rows=probe.rows, t=probe.t, t_loop=probe.t_loop,
+        fit_wall_s=time.perf_counter() - t0, warm_s=warm_s,
+        launches={k.__name__: k.launches for k in all_kernels()},
+        peak=torch.cuda.max_memory_allocated(),
+        backend=dist.get_backend(), init_path=trainer.init_path,
+        init_peak=trainer.init_peak_bytes,
+        device=str(trainer.strategy.device),
+        mesh=trainer.strategy.mesh_shape,
+        **live_bytes(trainer, module))
+    del trainer, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["bert"] = tp_bert(seed, world)
     with open(out, "w") as f:
-        json.dump(dict(
-            rank=rank, rows=probe.rows, t=probe.t, t_loop=probe.t_loop,
-            fit_wall_s=time.perf_counter() - t0, warm_s=warm_s,
-            launches={k.__name__: k.launches for k in all_kernels()},
-            peak=torch.cuda.max_memory_allocated(),
-            backend=dist.get_backend(), init_path=trainer.init_path,
-            init_peak=trainer.init_peak_bytes,
-            device=str(trainer.strategy.device),
-            mesh=trainer.strategy.mesh_shape,
-            **live_bytes(trainer, module)), f)
+        json.dump(rec, f)
     dist.destroy_process_group()
 
 
@@ -5470,6 +5545,7 @@ def tp_phase(seed: int, ref_rows, problems: list, spawned) -> dict:
                             f"{r['init_path']} init")
         for k, v in r["launches"].items():
             total[k] += v
+    tp_bert_check(ranks, problems, total)
     t = ranks[0]["t"]
     step_s = statistics.median(b - a for a, b in zip(t[2:], t[3:]))
     print(json.dumps(dict(
@@ -5492,6 +5568,69 @@ def tp_phase(seed: int, ref_rows, problems: list, spawned) -> dict:
         launches=[r["launches"] for r in ranks])), flush=True)
     shutil.rmtree(TP_DIR, ignore_errors=True)
     return total
+
+
+def bert_plan(world: int):
+    """`plan_train_memory` of 16 (b)'s BERT-base under ``ShardedMesh(
+    tensor=world)`` (no card touched)."""
+    from ray_lightning_tpu_torch.models.bert import (
+        BertClassifierModule,
+        BertConfig,
+    )
+    from ray_lightning_tpu_torch.parallel.plan import plan_train_memory
+    from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
+
+    cfg = BertConfig.base(max_seq_len=BERT_S, dropout=0.0)
+    return plan_train_memory(BertClassifierModule(cfg, num_classes=2),
+                             ShardedMesh(tensor=world), world, None)
+
+
+def tp_bert_check(ranks, problems: list, total: dict) -> None:
+    """12 (c)'s BERT leg: the ranks' rows alike, each rank's flash
+    launches by 16 (b)'s formula at H 12 / TP_RANKS (12 forwards, 12
+    dK/dV and 12 dQ a step and the warm-up) and its bytes the plan's;
+    keeps the rows in TP_BERT for 16 (b), adds the launches to
+    ``total``."""
+    bert = [r["bert"] for r in ranks]
+    L, n = bert[0]["layers"], TP_BERT_STEPS + 1
+    want = {k.__name__: 0 for k in all_kernels()}
+    want.update(flash_fwd_kernel=L * n, flash_bwd_dkv_kernel=L * n,
+                flash_bwd_dq_kernel=L * n)
+    plan = bert_plan(TP_RANKS)
+    for rank, b in enumerate(bert):
+        if b["rows"] != bert[0]["rows"]:
+            problems.append(f"BERT: rank {rank}'s rows differ from rank 0's")
+        if b["launches"] != want:
+            problems.append(f"BERT rank {rank} launches {b['launches']} != "
+                            f"{want} (H {b['heads_a_rank']} a launch)")
+        if (b["params"], b["opt"]) != (plan.params_bytes_per_device,
+                                       plan.opt_bytes_per_device):
+            problems.append(
+                f"BERT rank {rank} holds {b['params']} parameter and "
+                f"{b['opt']} optimizer bytes, the plan "
+                f"{plan.params_bytes_per_device} and "
+                f"{plan.opt_bytes_per_device}")
+        for k, v in b["launches"].items():
+            total[k] += v
+    losses = [x[0] for x in bert[0]["rows"]]
+    if len(losses) != TP_BERT_STEPS or not all(map(math.isfinite, losses)):
+        problems.append(f"BERT tensor lane losses {losses}")
+    TP_BERT.update(rows=bert[0]["rows"])
+    t = bert[0]["t"]
+    step_s = statistics.median(b - a for a, b in zip(t[2:], t[3:]))
+    LEGS_S["tp_bert"] = max(b["fit_wall_s"] for b in bert)
+    print(json.dumps(dict(
+        phase="tensor_parallel_bert", ranks=TP_RANKS, backend="gloo",
+        lane="correctness (every all-reduce crosses the host)",
+        layers=L, heads_a_rank=bert[0]["heads_a_rank"], batch=BERT_B,
+        seq=BERT_S, steps=TP_BERT_STEPS, losses=losses,
+        grad_norms=[x[1] for x in bert[0]["rows"]],
+        plan=plan_terms(plan), params_bytes=[b["params"] for b in bert],
+        opt_bytes=[b["opt"] for b in bert],
+        peak_gib=[b["peak"] / 2**30 for b in bert],
+        init_path=[b["init_path"] for b in bert], step_s_p50=step_s,
+        fit_wall_s=[b["fit_wall_s"] for b in bert],
+        launches=[b["launches"] for b in bert])), flush=True)
 
 
 def planner_phase(seed: int, ref_rows, live: dict) -> dict:
@@ -6587,9 +6726,12 @@ def autoscale_phase(model, ecfg) -> dict:
 # ---- phase 16: the BASELINE's ResNet and BERT, the examples, the doctor -----
 
 #: 16 (a): the flash kernels at BERT-base's attention in a training step
-#: (B 32, S 128, H = Hkv = 12, hd 64, bidirectional), timed as phase 3's
-#: rows; its S 512 (`max_seq_len`) twin is in FLASH_OWED
-BERT_FLASH_CASES = {"bert full": (32, 128, 128, 12, 12, 64, False, 0)}
+#: (B 32, S 128, H = Hkv = 12, hd 64, bidirectional), and at a tensor=2
+#: rank's 6 heads, timed as phase 3's rows; its S 512 (`max_seq_len`)
+#: twin is in FLASH_OWED
+BERT_FLASH_CASES = {"bert full": (32, 128, 128, 12, 12, 64, False, 0),
+                    # a tensor=2 rank's heads (12 (c)'s BERT leg)
+                    "bert tp2": (32, 128, 128, 6, 6, 64, False, 0)}
 #: 16 (b): BERT-base's fit: batch, sequence, steps, learning rate (the
 #: JAX module's default; at 1e-4 a fit from random weights parts the two
 #: lanes' grad norms by up to 31% within 8 steps)
@@ -6789,6 +6931,14 @@ def bert_phase(seed: int, problems: list) -> dict:
     if not r["d_logit"] <= BERT_LOGIT_TOL:
         problems.append(f"(b) logits, flash vs dense, differ by "
                         f"{r['d_logit']:.4g} > {BERT_LOGIT_TOL}")
+    # 12 (c)'s tensor=2 lane against this kernel lane, step for step
+    tp_gaps = None
+    if not TP_BERT:
+        problems.append("(b) 12 (c)'s BERT tensor lane left no rows")
+    else:
+        tp_gaps, tp_problems = compare_bert(
+            TP_BERT["rows"], r["probe"].rows[:len(TP_BERT["rows"])])
+        problems += [f"(b) tensor lane: {p}" for p in tp_problems]
     t = r["probe"].t
     step_s = statistics.median(b - a for a, b in zip(t[2:], t[3:]))
     rt = r["ref"].t
@@ -6804,8 +6954,11 @@ def bert_phase(seed: int, problems: list) -> dict:
         step_ms_p50=step_s * 1e3, tokens_per_s=BERT_B * BERT_S / step_s,
         peak_gib=r["peak"] / 2**30, fit_wall_s=r["wall"],
         ref_step_ms_p50=ref_step_s * 1e3, ref_peak_gib=r["ref_peak"] / 2**30,
-        launches=r["launches"], masked_launches=r["dense_launches"])),
-        flush=True)
+        launches=r["launches"], masked_launches=r["dense_launches"],
+        tensor_lane=dict(mesh={"tensor": TP_RANKS},
+                         losses=[x[0] for x in TP_BERT.get("rows", [])],
+                         grad_norms=[x[1] for x in TP_BERT.get("rows", [])],
+                         gaps=tp_gaps))), flush=True)
     return r["launches"]
 
 
@@ -6946,6 +7099,8 @@ def baseline_phase(seed: int, gen: torch.Generator):
     problems, walls = [], {}
     t0 = time.perf_counter()
     rows = check_flash(gen, BERT_FLASH_CASES)
+    LEGS_S["bert_tp2_flash"] = next(r["case_s"] for r in rows
+                                    if r["shape"]["case"] == "bert tp2")
     walls["a"] = time.perf_counter() - t0
     free_card("bert")
     total = bert_phase(seed, problems)
@@ -7231,8 +7386,10 @@ def moe_data(seed: int):
 def moe_lane(seed: int, rank: int) -> dict:
     """(e) on this rank: `MoEClassifierModule` at its JAX defaults under
     ``ShardedMesh(expert=2)`` (each rank two of the four experts and half
-    of each global batch), then on rank 0 the same module's one-rank fit
-    over the same global batches."""
+    of each global batch), then under ``ShardedMesh(tensor=2)`` (each rank
+    half of every expert's gate and up columns and all of each global
+    batch), then on rank 0 the same module's one-rank fit over the same
+    global batches."""
     import numpy as np
 
     from ray_lightning_tpu_torch.core.data import DataLoader
@@ -7257,18 +7414,24 @@ def moe_lane(seed: int, rank: int) -> dict:
         trainer.fit(module, loader)
         w = dict(trainer.strategy.unwrap(module.model).named_parameters())[
             "moe.w_gate_up"]
-        return probe.rows, (w.to_local() if hasattr(w, "to_local")
-                            else w).shape[0]
+        return probe.rows, tuple((w.to_local() if hasattr(w, "to_local")
+                                  else w).shape)
 
     strategy = ShardedMesh(expert=AXES_RANKS)
     mine = {k: v[rank * half:(rank + 1) * half] for k, v in data.items()}
     rows, local = fit(strategy, DataLoader(mine, batch_size=per))
-    out = dict(rows=rows, local_experts=local)
+    out = dict(rows=rows, local_experts=local[0])
+    # the global batches in the expert lane's order, whole
+    order = np.concatenate([
+        np.r_[s * per:(s + 1) * per] + r * half
+        for s in range(MOE_STEPS) for r in range(AXES_RANKS)])
+    one = {k: v[order] for k, v in data.items()}
+    t0 = time.perf_counter()
+    out["tp_rows"], local = fit(ShardedMesh(tensor=AXES_RANKS),
+                                DataLoader(one, batch_size=MOE_BATCH))
+    out["tp_s"] = time.perf_counter() - t0
+    out["tp_local_columns"] = local[2]
     if rank == 0:
-        order = np.concatenate([
-            np.r_[s * per:(s + 1) * per] + r * half
-            for s in range(MOE_STEPS) for r in range(AXES_RANKS)])
-        one = {k: v[order] for k, v in data.items()}
         out["one_rank_rows"], _ = fit(SingleDevice(),
                                       DataLoader(one, batch_size=MOE_BATCH))
     return out
@@ -7414,11 +7577,25 @@ def axes_phase(ref_rows, spawned) -> dict:
             problems.append(f"17 (e) rank {r['rank']}: rows "
                             f"{r['moe']['rows']}, "
                             f"{r['moe']['local_experts']} experts")
-    moe_rel = max(abs(a - b) / abs(b) for x, y in zip(
-        moe["rows"], moe["one_rank_rows"]) for a, b in zip(x, y))
+    def rel(rows):
+        return max(abs(a - b) / abs(b) for x, y in zip(
+            rows, moe["one_rank_rows"]) for a, b in zip(x, y))
+
+    moe_rel, tp_rel = rel(moe["rows"]), rel(moe["tp_rows"])
     if not moe_rel <= MOE_RTOL:
         problems.append(f"17 (e): expert-parallel rows {moe['rows']} vs "
                         f"one-rank {moe['one_rank_rows']}")
+    if not tp_rel <= MOE_RTOL or len(moe["tp_rows"]) != MOE_STEPS:
+        problems.append(f"17 (e): tensor-parallel rows {moe['tp_rows']} vs "
+                        f"one-rank {moe['one_rank_rows']}")
+    for r in ranks:
+        # 128 hidden columns a rank: half of gate and half of up
+        if (r["moe"]["tp_rows"] != moe["tp_rows"]
+                or r["moe"]["tp_local_columns"] != 128):
+            problems.append(f"17 (e) tensor rank {r['rank']}: rows "
+                            f"{r['moe']['tp_rows']}, "
+                            f"{r['moe']['tp_local_columns']} columns")
+    LEGS_S["moe_tp"] = max(r["moe"]["tp_s"] for r in ranks)
     print(json.dumps(dict(
         phase="axes", ranks=AXES_RANKS, backend="gloo",
         lane="correctness (every collective crosses the host)",
@@ -7428,7 +7605,9 @@ def axes_phase(ref_rows, spawned) -> dict:
         seq_fit={r["rank"]: r["seq_fit"] for r in ranks},
         pipe_fit={r["rank"]: r["pipe_fit"] for r in ranks},
         moe=dict(rows=moe["rows"], one_rank_rows=moe["one_rank_rows"],
-                 max_rel_diff=moe_rel, rtol=MOE_RTOL),
+                 max_rel_diff=moe_rel, rtol=MOE_RTOL,
+                 tensor_rows=moe["tp_rows"], tensor_max_rel_diff=tp_rel,
+                 tensor_s=[r["moe"]["tp_s"] for r in ranks]),
         loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
         lane_s={k: [r[f"{k}_s"] for r in ranks]
                 for k in ("ring", "seq", "pipe", "moe")},
@@ -8063,6 +8242,10 @@ def main() -> int:
         phase17_s=walls["axes"],
         phase18_s=walls["analysis"],
         phase19_s=walls["graph"],
+        # slice 17's legs: 12 (c)'s BERT fit (inside phase12_s), 16
+        # (a)'s H 6 flash row (inside phase16_s), 17 (e)'s tensor=2 fit
+        # (inside phase17_s)
+        slice17_legs_s=LEGS_S,
         since_import_s=time.time() - IMPORTED_AT)), flush=True)
     left = stop_descendants("at the end of the run")
     if left:

@@ -163,7 +163,8 @@ def save_checkpoint(path: str, state: Dict[str, Any],
     state_dir = os.path.join(path, _STATE_DIR)
     if block:
         _STATS["blocking_saves"] += 1
-        dcp.save(state, checkpoint_id=state_dir)
+        dcp.save(state, storage_writer=dcp.FileSystemWriter(
+            state_dir, thread_count=_write_threads(state)))
         # the drain above finished every earlier async write: publish
         # their deferred metas too, then ours once every rank is done
         _flush_pending_meta()
@@ -181,6 +182,33 @@ def save_checkpoint(path: str, state: Dict[str, Any],
         _ensure_finalizer()
         _FIN_QUEUE.put((path, fut))
     return path
+
+
+#: a blocking save writes a rank's items from one thread a GiB of its
+#: share, at most eight (DCP's ``FileSystemWriter(thread_count=)``, each
+#: thread its own file); a small state stays one file a rank. The restore
+#: reads any such layout.
+_BYTES_A_THREAD = 1 << 30
+_MAX_WRITE_THREADS = 8
+
+
+def _write_threads(state: Any) -> int:
+    return max(1, min(_MAX_WRITE_THREADS,
+                      _local_bytes(state) // _BYTES_A_THREAD))
+
+
+def _local_bytes(tree: Any) -> int:
+    """Bytes of this rank's tensors in ``tree`` (a DTensor's local shard)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        local = tree.to_local() if hasattr(tree, "to_local") else tree
+        return local.numel() * local.element_size()
+    return 0
 
 
 #: digest policy (env RLT_CKPT_DIGEST): "full" hashes file contents (the

@@ -69,6 +69,18 @@ class DeviceLambdaLR:
         self._apply()
 
 
+def cosine_span(warmup_steps: int, decay_steps: int) -> int:
+    """The steps the cosine of `warmup_cosine_decay` spans, ``decay_steps
+    - warmup_steps``; where it is not positive, optax's
+    ``cosine_decay_schedule`` refuses the schedule, and so does this,
+    with its words."""
+    span = decay_steps - warmup_steps
+    if not span > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={span}.")
+    return span
+
+
 def warmup_cosine_decay(step, init_value: float, peak_value: float,
                         warmup_steps: int, decay_steps: int,
                         end_value: float = 0.0):
@@ -76,9 +88,11 @@ def warmup_cosine_decay(step, init_value: float, peak_value: float,
     ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
     to ``end_value`` at ``decay_steps`` (counted from step 0, warmup
     included), flat after. ``step`` an int gives a float; a device
-    tensor gives an f64 device tensor, computed there (no host read)."""
+    tensor gives an f64 device tensor, computed there (no host read).
+    ``decay_steps`` must exceed ``warmup_steps``: optax's ValueError
+    otherwise, on either lane."""
+    span = cosine_span(warmup_steps, decay_steps)
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    span = decay_steps - warmup_steps
     if isinstance(step, torch.Tensor):
         s = step.double()
         warm = init_value + (peak_value - init_value) * s / max(
@@ -98,7 +112,11 @@ def scheduled(optimizer: torch.optim.Optimizer, schedule: Callable,
               peak_lr: float) -> DeviceLambdaLR:
     """A `DeviceLambdaLR` that runs ``optimizer`` (built with the tensor
     lr ``peak_lr``) at ``schedule(step)``, a function of the device step
-    count (`warmup_cosine_decay` with its constants bound)."""
+    count (`warmup_cosine_decay` with its constants bound). The schedule
+    is evaluated once at update 0 on the host, so one it refuses raises
+    here, as optax raises where the JAX modules build theirs, whatever
+    ``peak_lr``."""
+    schedule(0)
 
     def factor(step: torch.Tensor) -> torch.Tensor:
         if not peak_lr:

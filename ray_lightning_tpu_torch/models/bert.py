@@ -15,6 +15,17 @@ mask (or ``use_flash=False``) the dense reference, as in JAX. No layer
 is rematerialised (JAX BERT has no remat). Dropout draws its masks from
 the explicit `torch.Generator` the trainer passes each step.
 
+Under the tensor axis (`parallel.strategy.ShardedMesh(tensor=n)`, the
+Megatron table `bert_param_specs`) each rank runs ``n_heads / n`` heads:
+``wqkv`` and ``w_up`` are column-parallel (their bias shards added to
+the f32 local product before its one rounding), ``wo`` and ``w_down``
+row-parallel (the replicated bias added once, after the f32 all-reduce),
+the token table vocab-parallel; the fused ``wqkv``'s rows (weight and
+bias) are put head-aligned (`bert_fused_rows`) and back in the canonical
+order in every state dict. Every dropout mask is drawn on a replicated
+tensor, from the step's generator, which every tensor rank holds in the
+same state: the masks are the one-card fit's.
+
 Weights live in one state dict whose keys mirror the flax tree:
 ``encoder.{tok_embed,pos_embed,type_embed}`` ([rows, D] tables),
 ``encoder.embed_ln``, ``encoder.layers.{i}.{wqkv,wo,attn_ln,w_up,
@@ -43,9 +54,12 @@ from ray_lightning_tpu_torch.ops.precision import (
     dense_f32_acc,
     pin_f32_accumulation,
 )
-
-#: the ROADMAP item BERT under the tensor axis waits for
-TENSOR_ITEM = "ROADMAP Queue 1 item 16"
+from ray_lightning_tpu_torch.parallel.tensor import (
+    column_linear,
+    local,
+    row_linear,
+    vocab_parallel_embedding,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,15 +94,27 @@ class BertConfig:
 
 class Dense(nn.Module):
     """A dense layer's f32 weight ``[out, in]`` and bias; `dense_f32_acc`
-    in the activations' dtype."""
+    in the activations' dtype. Under the tensor group ``tp`` a ``split``
+    of "column" (this rank's output rows) or "row" (its input columns)
+    runs `parallel.tensor`'s column- or row-parallel linear; None is
+    replicated."""
 
-    def __init__(self, d_in: int, d_out: int, device=None):
+    #: the rank's tensor group (`parallel.tensor.TensorParallel`), or None
+    tp = None
+
+    def __init__(self, d_in: int, d_out: int, device=None,
+                 split: Optional[str] = None):
         super().__init__()
+        self.split = split
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
 
     def forward(self, x):
-        return dense_f32_acc(x, self.weight, self.bias)
+        w, b = local(self.weight), local(self.bias)
+        if self.tp is None or self.split is None:
+            return dense_f32_acc(x, w, b)
+        linear = column_linear if self.split == "column" else row_linear
+        return linear(x, w.to(x.dtype), self.tp, b)
 
 
 class LayerNorm(nn.Module):
@@ -102,8 +128,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), (x.shape[-1],), self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), (x.shape[-1],), local(self.weight),
+                            local(self.bias), self.eps).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
@@ -120,27 +146,34 @@ def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
 class BertLayer(nn.Module):
     #: `parallel.strategy.FSDP` shards each layer as its own unit
     fsdp_unit = True
+    #: the rank's tensor group, or None off the tensor axis
+    tp = None
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.dim
-        self.wqkv = Dense(d, 3 * d, device)
-        self.wo = Dense(d, d, device)
+        self.wqkv = Dense(d, 3 * d, device, split="column")
+        self.wo = Dense(d, d, device, split="row")
         self.attn_ln = LayerNorm(d, cfg.norm_eps, device)
-        self.w_up = Dense(d, cfg.hidden_dim, device)
-        self.w_down = Dense(cfg.hidden_dim, d, device)
+        self.w_up = Dense(d, cfg.hidden_dim, device, split="column")
+        self.w_down = Dense(cfg.hidden_dim, d, device, split="row")
         self.mlp_ln = LayerNorm(d, cfg.norm_eps, device)
 
     def forward(self, x, mask=None, generator=None):
         cfg = self.cfg
-        b, s, d = x.shape
-        shape = (b, s, cfg.n_heads, cfg.head_dim)
+        b, s, _ = x.shape
+        # this rank's heads: its q|k|v rows are head-aligned
+        heads = cfg.n_heads // (1 if self.tp is None else self.tp.size)
+        d = heads * cfg.head_dim
+        shape = (b, s, heads, cfg.head_dim)
         q, k, v = (t.reshape(shape) for t in self.wqkv(x).split(d, dim=-1))
         if cfg.use_flash:
             attn = flash_attention(q, k, v, causal=False, mask=mask)
         else:
             attn = dot_product_attention(q, k, v, causal=False, mask=mask)
+        # the dropouts follow the row-parallel all-reduces: each mask is
+        # drawn on the replicated output
         attn = dropout(self.wo(attn.reshape(b, s, d)), cfg.dropout,
                        generator)
         x = self.attn_ln(x + attn)
@@ -154,6 +187,10 @@ class BertEncoder(nn.Module):
     """[B, S] token ids (+ optional type ids and padding mask) -> [B, S, D]
     in ``cfg.dtype``. Building one pins f32 accumulation for the dense
     layers' bf16 backward GEMMs, as the Llama does."""
+
+    #: the rank's tensor group (the token table's vocabulary split), or
+    #: None
+    tp = None
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
@@ -181,9 +218,15 @@ class BertEncoder(nn.Module):
         def embed(table, ids):
             # the row is taken from the f32 table, then rounded, so its
             # gradient scatters into the table in f32
-            return F.embedding(ids, table).to(cfg.dtype)
+            return F.embedding(ids, local(table)).to(cfg.dtype)
 
-        x = embed(self.tok_embed, input_ids)
+        if self.tp is None:
+            x = embed(self.tok_embed, input_ids)
+        else:
+            # the f32 rows summed over the vocabulary's ranks, then
+            # rounded once
+            x = vocab_parallel_embedding(input_ids, local(self.tok_embed),
+                                         self.tp).to(cfg.dtype)
         x = x + embed(self.pos_embed,
                       torch.arange(s, device=input_ids.device))[None]
         if cfg.type_vocab_size:
@@ -205,6 +248,15 @@ class BertForSequenceClassification(nn.Module):
         self.pooler = Dense(cfg.dim, cfg.dim, device)
         self.classifier = nn.Linear(cfg.dim, num_classes, device=device)
 
+    def enable_tensor_parallel(self, tp) -> None:
+        """Run on this rank's shards of the tensor group ``tp``
+        (`parallel.tensor.TensorParallel`); the strategy has made the
+        weights those shards (`parallel.strategy.ShardedMesh`)."""
+        check_tensor_parallel(self.cfg, tp.size)
+        for m in self.modules():
+            if isinstance(m, (BertEncoder, BertLayer, Dense)):
+                m.tp = tp
+
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 generator=None):
         x = self.encoder(input_ids, attention_mask, token_type_ids,
@@ -213,7 +265,8 @@ class BertForSequenceClassification(nn.Module):
         # then only the bounded tanh input widened
         pooled = torch.tanh(self.pooler(x[:, 0]).float())
         pooled = dropout(pooled, self.cfg.dropout, generator)
-        return self.classifier(pooled)
+        return F.linear(pooled, local(self.classifier.weight),
+                        local(self.classifier.bias))
 
 
 #: per-layer tensor-parallel placement (the JAX table) in the port's
@@ -243,6 +296,27 @@ def bert_param_specs(cfg: BertConfig) -> Dict[str, tuple]:
         for k, v in _PER_LAYER_SPECS.items():
             specs[f"encoder.layers.{i}.{k}"] = v
     return specs
+
+
+def bert_fused_rows(cfg: BertConfig) -> Dict[str, tuple]:
+    """The fused ``wqkv``'s row groups, weight and bias: q|k|v along
+    dimension 0, {name: (parts, 0)}. A tensor split keeps each rank's
+    share of q, k and v together (`parallel.tensor.fused_row_permutation`)."""
+    parts = (cfg.dim, cfg.dim, cfg.dim)
+    return {f"encoder.layers.{i}.wqkv.{leaf}": (parts, 0)
+            for i in range(cfg.n_layers) for leaf in ("weight", "bias")}
+
+
+def check_tensor_parallel(cfg: BertConfig, tensor: int) -> None:
+    """``tensor`` must divide every dimension a rank's shard splits: the
+    heads, the MLP width and the vocabulary. Raises naming the first that
+    it does not."""
+    for what, n in (("n_heads", cfg.n_heads), ("hidden_dim", cfg.hidden_dim),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tensor:
+            raise ValueError(
+                f"tensor={tensor} does not divide {what}={n}: a tensor "
+                "rank holds whole heads, MLP columns and vocabulary rows")
 
 
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -326,8 +400,10 @@ class BertClassifierModule(TpuModule):
     ``adamw`` (betas 0.9 / 0.999, eps 1e-8, every parameter decayed)
     under its warmup-cosine schedule, step 0 at lr 0: torch's fused
     AdamW with a tensor lr under `DeviceLambdaLR`. Runs under
-    `SingleDevice`, `DataParallel` and `FSDP`; the tensor axis raises
-    (`check_tensor_parallel`)."""
+    `SingleDevice`, `DataParallel`, `FSDP` and `ShardedMesh`, the tensor
+    axis included (`bert_param_specs`, `bert_fused_rows`; a ``tensor``
+    that does not divide the heads, the MLP width or the vocabulary
+    raises, `check_tensor_parallel`)."""
 
     def __init__(self, cfg: Optional[BertConfig] = None,
                  num_classes: int = 2, lr: float = 2e-5,
@@ -360,11 +436,12 @@ class BertClassifierModule(TpuModule):
     def param_specs(self, params=None) -> Dict[str, tuple]:
         return bert_param_specs(self.cfg)
 
+    def fused_rows(self) -> Dict[str, tuple]:
+        """The fused ``wqkv``'s row groups (`bert_fused_rows`)."""
+        return bert_fused_rows(self.cfg)
+
     def check_tensor_parallel(self, tensor: int) -> None:
-        raise NotImplementedError(
-            f"BertClassifierModule under ShardedMesh(tensor={tensor}): the "
-            "fused wqkv needs the head-aligned row permutation Llama has "
-            f"({TENSOR_ITEM}); use SingleDevice, DataParallel or FSDP")
+        check_tensor_parallel(self.cfg, tensor)
 
     def schedule(self, step):
         """The learning rate of update ``step`` (an int or a device

@@ -866,8 +866,10 @@ class LlamaModule(TpuModule):
         return llama_param_specs(self.cfg)
 
     def fused_rows(self) -> Dict[str, tuple]:
-        """The fused weights' row groups (`llama_fused_rows`)."""
-        return llama_fused_rows(self.cfg)
+        """The fused weights' row groups (`llama_fused_rows`), each fused
+        along dimension 0: {name: (parts, 0)}."""
+        return {n: (parts, 0)
+                for n, parts in llama_fused_rows(self.cfg).items()}
 
     def check_tensor_parallel(self, tensor: int) -> None:
         check_tensor_parallel(self.cfg, tensor)

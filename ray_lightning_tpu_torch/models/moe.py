@@ -17,6 +17,17 @@ experts' owners through `parallel.comm.all_to_all` and comes back the
 same way before the combine. The batch is split over the axis too, so
 the aux loss's routing fraction and mean probability are averaged over
 the batch ranks, as JAX takes them over the global batch.
+
+Under the ``tensor`` axis (alone or beside ``expert``: the spec's
+``P("expert", None, "tensor")``) each rank holds F/tp of every local
+expert's columns: ``w_gate_up``'s last dimension, gate|up, in the
+head-aligned order (`moe_fused_rows`; the strategy keeps the canonical
+one in every state dict), so a rank's block is its own gate and up
+columns; ``w_down``'s F rows alike. The gate/up einsum is
+column-parallel (its input's gradient summed over the tensor group),
+the down einsum row-parallel (its f32 partials summed before the one
+rounding); the router, the dispatch, the combine and the aux loss are
+replicated over the tensor ranks, which read the same rows.
 """
 from __future__ import annotations
 
@@ -34,7 +45,12 @@ from ray_lightning_tpu_torch.parallel.comm import (
     all_to_all,
     mean_over,
 )
-from ray_lightning_tpu_torch.parallel.tensor import local
+from ray_lightning_tpu_torch.parallel.tensor import (
+    TensorParallel,
+    copy_to,
+    local,
+    reduce_from,
+)
 
 
 def _fit_group(total: int, target: int) -> int:
@@ -45,11 +61,23 @@ def _fit_group(total: int, target: int) -> int:
     return max(1, g)
 
 
-def _ein(eq: str, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+def _ein(eq: str, a: torch.Tensor, b: torch.Tensor, dtype,
+         tp: Optional[TensorParallel] = None,
+         reduce: bool = False) -> torch.Tensor:
     """``einsum`` of operands rounded to ``dtype``, accumulated in f32 and
-    rounded once to ``dtype``."""
-    return torch.einsum(eq, a.to(dtype).float(), b.to(dtype).float()).to(
-        dtype)
+    rounded once to ``dtype``. Under the tensor group ``tp`` a
+    column-parallel contraction (``b`` this rank's output columns) sums
+    ``a``'s f32 gradient over the group before its rounding; with
+    ``reduce``, a row-parallel one (both operands this rank's share of
+    the contracted dimension) sums the f32 partial products before the
+    one rounding."""
+    a32 = a.to(dtype).float()
+    if not reduce:
+        a32 = copy_to(a32, tp)
+    out = torch.einsum(eq, a32, b.to(dtype).float())
+    if reduce and tp is not None:
+        out = reduce_from(out, tp)
+    return out.to(dtype)
 
 
 class MoEMLP(nn.Module):
@@ -77,6 +105,8 @@ class MoEMLP(nn.Module):
         #: here)
         self.ep: Optional[AxisGroup] = None
         self.batch: Optional[AxisGroup] = None
+        #: the tensor group splitting every expert's F columns, or None
+        self.tp: Optional[TensorParallel] = None
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
@@ -152,11 +182,14 @@ class MoEMLP(nn.Module):
             # [ng, E, C, D] -> [n * ng, E/n, C, D]
             expert_in = all_to_all(expert_in.contiguous(), self.ep,
                                    split_dim=1, concat_dim=0)
+        # this rank's F/tp gate and up columns (head-aligned), then its
+        # share of the down contraction, summed over the tensor group
         gate_up = _ein("necd,edf->necf", expert_in, local(self.w_gate_up),
-                       dt)
+                       dt, self.tp)
         gate, up = gate_up.chunk(2, dim=-1)
         h = (F.silu(gate.float()).to(dt) * up).to(dt)
-        expert_out = _ein("necf,efd->necd", h, local(self.w_down), dt)
+        expert_out = _ein("necf,efd->necd", h, local(self.w_down), dt,
+                          self.tp, reduce=True)
         if self.ep is not None:
             expert_out = all_to_all(expert_out.contiguous(), self.ep,
                                     split_dim=0, concat_dim=1)
@@ -174,12 +207,29 @@ class MoEMLP(nn.Module):
 
 def moe_param_specs(prefix: str = "") -> Dict[str, tuple]:
     """Expert-parallel placement: the stacked expert weights split on
-    dimension 0 over ``expert``, the router replicated."""
+    dimension 0 over ``expert`` and on their F dimension over ``tensor``
+    (Megatron within each expert), the router replicated."""
     return {
         f"{prefix}router": (),
         f"{prefix}w_gate_up": ("expert", None, "tensor"),
         f"{prefix}w_down": ("expert", "tensor", None),
     }
+
+
+def moe_fused_rows(hidden_dim: int, prefix: str = "") -> Dict[str, tuple]:
+    """``w_gate_up``'s fused groups, gate|up along dimension 2:
+    {name: (parts, 2)}, which a tensor split keeps together on every rank
+    (`parallel.tensor.fused_row_permutation`)."""
+    return {f"{prefix}w_gate_up": ((hidden_dim, hidden_dim), 2)}
+
+
+def check_tensor_parallel(hidden_dim: int, tensor: int) -> None:
+    """``tensor`` must divide the experts' ``hidden_dim`` (each rank
+    whole gate and up columns); raises naming it otherwise."""
+    if hidden_dim % tensor:
+        raise ValueError(
+            f"tensor={tensor} does not divide hidden_dim={hidden_dim}: a "
+            "tensor rank holds whole gate and up columns of every expert")
 
 
 class _MoENet(nn.Module):
@@ -193,15 +243,25 @@ class _MoENet(nn.Module):
         self.moe = MoEMLP(dim, n_experts, hidden_dim, top_k, dtype=dtype)
         self.head = nn.Linear(dim, num_classes)
 
-    def enable_expert_parallel(self, ep: AxisGroup,
+    def enable_expert_parallel(self, ep: Optional[AxisGroup],
                                batch: AxisGroup) -> None:
+        """Split the bank over ``ep`` (None: every expert here) and take
+        the router's statistics over the batch ranks ``batch``."""
         self.moe.ep = ep
         self.moe.batch = batch
 
+    def enable_tensor_parallel(self, tp: TensorParallel) -> None:
+        """Run every expert on this rank's F/tp columns (the strategy has
+        made ``w_gate_up`` and ``w_down`` those shards)."""
+        check_tensor_parallel(self.moe.hidden_dim, tp.size)
+        self.moe.tp = tp
+
     def forward(self, x):
-        h = self.embed(x.float())[:, None, :]
+        h = F.linear(x.float(), local(self.embed.weight),
+                     local(self.embed.bias))[:, None, :]
         y, aux = self.moe(h)
-        return self.head((h + y)[:, 0]).float(), aux
+        return F.linear((h + y)[:, 0], local(self.head.weight),
+                        local(self.head.bias)).float(), aux
 
 
 def params_from_jax(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -224,7 +284,8 @@ def params_from_jax(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 class MoEClassifierModule(TpuModule):
     """Small expert-parallel classifier (twin of the JAX module): the
     ``expert`` mesh axis end to end (router, aux loss, expert weights
-    split over it) on {"x": [B, in_features], "y": [B]} batches. The JAX
+    split over it), and the ``tensor`` axis within each expert, alone or
+    beside it, on {"x": [B, in_features], "y": [B]} batches. The JAX
     module infers the input width at init; here it is an argument."""
 
     def __init__(self, dim: int = 64, n_experts: int = 4,
@@ -254,6 +315,13 @@ class MoEClassifierModule(TpuModule):
 
     def param_specs(self, params=None) -> Dict[str, tuple]:
         return moe_param_specs("moe.")
+
+    def fused_rows(self) -> Dict[str, tuple]:
+        """``w_gate_up``'s gate|up groups (`moe_fused_rows`)."""
+        return moe_fused_rows(self.hidden_dim, "moe.")
+
+    def check_tensor_parallel(self, tensor: int) -> None:
+        check_tensor_parallel(self.hidden_dim, tensor)
 
     def _out(self, params, x):
         return self.apply(params, x)

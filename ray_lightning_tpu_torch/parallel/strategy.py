@@ -56,6 +56,7 @@ from ray_lightning_tpu_torch.parallel import mesh as mesh_lib
 from ray_lightning_tpu_torch.parallel.comm import AxisGroup
 from ray_lightning_tpu_torch.parallel.tensor import (
     TensorParallel,
+    exchange_rows,
     full_value,
     fused_row_permutation,
     local_piece,
@@ -612,7 +613,10 @@ class ShardedMesh(FSDP):
         batch is split over it too, so the replicated parameters'
         gradients are averaged over ``expert``, and an expert weight's,
         which its owner sums from every rank's tokens, divided by its
-        size.
+        size. A spec may name ``expert`` and ``tensor`` on two dimensions
+        (the expert bank's Megatron split): one DTensor over
+        ``mesh["expert", "tensor"]``, its fused dimension head-aligned as
+        under ``tensor`` alone.
 
     Under ``pipe`` or ``expert`` the model is not wrapped in FSDP2: the
     gradients are averaged over ``data`` explicitly (``fsdp`` must be
@@ -765,10 +769,12 @@ class ShardedMesh(FSDP):
                 raise NotImplementedError(
                     f"{path}: the port shards parameters over fsdp, "
                     f"tensor, expert and pipe, not {names}")
-        if len([a for a in ("tensor", "expert", "pipe") if a in out]) > 1:
+        split = {a for a in ("tensor", "expert", "pipe") if a in out}
+        if len(split) > 1 and split != {"expert", "tensor"}:
             raise NotImplementedError(
-                f"{path}: spec {spec} splits the parameter over more than "
-                "one of tensor, expert and pipe")
+                f"{path}: spec {spec} splits the parameter over pipe and "
+                "tensor or expert; of these axes only expert and tensor "
+                "split one parameter together")
         return out
 
     def planned_shard(self, path: str, shape, module_specs=None):
@@ -813,18 +819,33 @@ class ShardedMesh(FSDP):
     # ---- wrapping -----------------------------------------------------------
 
     def _fused(self) -> Dict[str, tuple]:
+        """{name: (parts, dimension)} of the module's fused weights (its
+        `fused_rows`): the sizes of the parts fused along that
+        dimension."""
         fn = getattr(self._module, "fused_rows", None)
         return dict(fn()) if fn is not None else {}
 
     def _perm(self, name: str):
-        parts = self._fused().get(name)
-        if parts is None or self._sizes()["tensor"] <= 1:
+        """The head-aligned order of a fused weight's fused dimension
+        under the tensor axis (`fused_row_permutation`), or None."""
+        entry = self._fused().get(name)
+        if entry is None or self._sizes()["tensor"] <= 1:
             return None
-        return fused_row_permutation(parts, self._sizes()["tensor"])
+        return fused_row_permutation(entry[0], self._sizes()["tensor"])
+
+    def _reorder(self, name: str, full, inverse: bool = False):
+        """``full`` with its fused dimension in the wrapped order (or,
+        ``inverse``, back in the canonical one)."""
+        perm = self._perm(name)
+        if perm is None:
+            return full
+        if inverse:
+            perm = torch.argsort(perm)
+        return full.index_select(self._fused()[name][1],
+                                 perm.to(full.device))
 
     def layout_value(self, name: str, full):
-        perm = self._perm(name)
-        return full if perm is None else full[perm.to(full.device)]
+        return self._reorder(name, full)
 
     def restore_target(self, model, optimizer) -> tuple:
         # `state_dicts`' keys and layout, built here: the model's
@@ -875,12 +896,10 @@ class ShardedMesh(FSDP):
         (a collective: the whole value is gathered)."""
         from torch.distributed.tensor import DTensor
 
-        perm = self._perm(name)
-        if perm is None or not isinstance(value, DTensor):
+        if self._perm(name) is None or not isinstance(value, DTensor):
             return value
         placements = self._canonical_placements(value)
-        full = full_value(value)
-        canon = full[torch.argsort(perm).to(full.device)]
+        canon = self._reorder(name, full_value(value), inverse=True)
         piece = local_piece(canon, value.device_mesh, placements).clone()
         return DTensor.from_local(piece, value.device_mesh, placements,
                                   run_check=False, shape=canon.shape,
@@ -888,16 +907,33 @@ class ShardedMesh(FSDP):
 
     def _as_param_layout(self, name: str, value, param):
         """``value`` (canonical: a DTensor or a whole tensor) as a DTensor
-        laid out like the wrapped ``param``."""
-        from torch.distributed.tensor import DTensor
+        laid out like the wrapped ``param``. A fused leaf split over the
+        tensor axis alone, on its fused dimension, is re-dealt rank to
+        rank (`exchange_rows`: only the rows that change rank move);
+        other layouts gather the whole value."""
+        from torch.distributed.tensor import DTensor, Shard
 
-        if isinstance(value, DTensor):
-            if (self._perm(name) is None
-                    and value.device_mesh == param.device_mesh
-                    and value.placements == param.placements):
-                return value
-            value = full_value(value)
         ploc = param.to_local()
+        if isinstance(value, DTensor):
+            same = (value.device_mesh == param.device_mesh
+                    and value.placements == param.placements)
+            perm = self._perm(name)
+            if perm is None and same:
+                return value
+            mesh = param.device_mesh
+            if (perm is not None and same and mesh.ndim == 1
+                    and param.placements[0] == Shard(self._fused()[name][1])
+                    and value.shape[param.placements[0].dim]
+                    % mesh.size() == 0):
+                piece = exchange_rows(
+                    value.to_local().to(ploc.device),
+                    perm.view(mesh.size(), -1), param.placements[0].dim,
+                    mesh.get_group(), mesh.get_local_rank(), mesh.size())
+                return DTensor.from_local(
+                    piece.to(ploc.dtype).contiguous(), mesh,
+                    param.placements, run_check=False, shape=param.shape,
+                    stride=param.stride())
+            value = full_value(value)
         full = self.layout_value(name, value.to(ploc.device))
         piece = local_piece(full, param.device_mesh, param.placements)
         return DTensor.from_local(piece.to(ploc.dtype).clone(),
@@ -922,16 +958,23 @@ class ShardedMesh(FSDP):
         named = dict(model.named_parameters())
         dims = {n: self._axis_dims(n, p.shape, specs)
                 for n, p in named.items()}
+        self._shard_params(model, named, dims)
         if sizes["tensor"] > 1:
-            self._shard_tensor(model, named, dims)
-        for axis in ("expert", "pipe"):
-            if sizes[axis] > 1:
-                self._shard_axis(model, axis, dims)
+            model.enable_tensor_parallel(self.tp)
+            # functions, not bound methods: the hook API marks its hooks
+            model.register_state_dict_post_hook(
+                lambda *a: self._state_dict_hook(*a))
+            model.register_load_state_dict_pre_hook(
+                lambda *a: self._load_hook(*a))
         if sizes["seq"] > 1:
             model.enable_sequence_parallel(AxisGroup.of(self.mesh, "seq"))
-        if sizes["expert"] > 1 and hasattr(model, "enable_expert_parallel"):
-            model.enable_expert_parallel(AxisGroup.of(self.mesh, "expert"),
-                                         self._batch_group())
+        if hasattr(model, "enable_expert_parallel") and (
+                sizes["expert"] > 1 or self.dp_size > 1):
+            # the router's statistics span the global batch whenever it
+            # is split, over the expert axis or the data axes
+            model.enable_expert_parallel(
+                AxisGroup.of(self.mesh, "expert") if sizes["expert"] > 1
+                else None, self._batch_group())
         self._record_splits(model, dims)
         model._rlt_wrapped = True
         dp = [ax for ax in ("data", "fsdp") if ax in self.mesh_shape]
@@ -946,59 +989,46 @@ class ShardedMesh(FSDP):
             model, self.mesh[tuple(dp)] if len(dp) > 1 else self.mesh[dp[0]],
             placement)
 
-    def _shard_tensor(self, model, named, dims) -> None:
-        """Each parameter as a DTensor over ``mesh["tensor"]``: its shard
-        of the (head-aligned) value, or the whole value replicated."""
+    def _shard_params(self, model, named, dims) -> None:
+        """Each parameter that tensor, expert or pipe splits as one DTensor
+        over the sub-mesh of those axes (``Shard`` of each one's
+        dimension, in mesh order: an expert bank split over expert and
+        tensor lies on ``mesh["expert", "tensor"]``), cut from its value
+        in the wrapped layout (`layout_value`); under the tensor axis
+        every other parameter replicated over ``mesh["tensor"]``. The
+        model runs its local pieces (`parallel.tensor.local`)."""
         from torch import nn
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
-        tp_mesh = self.mesh["tensor"]
-        self.tp = TensorParallel(tp_mesh.get_group(), tp_mesh.size(),
-                                 tp_mesh.get_local_rank())
+        sizes = self._sizes()
+        if sizes["tensor"] > 1:
+            tp_mesh = self.mesh["tensor"]
+            self.tp = TensorParallel(tp_mesh.get_group(), tp_mesh.size(),
+                                     tp_mesh.get_local_rank())
         for name, p in named.items():
-            tdim = dims[name].get("tensor")
-            value = self.layout_value(name, p.detach())
-            if tdim is None:
-                piece, placements = value, [Replicate()]
+            axes = tuple(a for a in mesh_lib.AXIS_ORDER
+                         if a in ("expert", "pipe", "tensor")
+                         and a in dims[name] and sizes[a] > 1)
+            if axes:
+                placements = [Shard(dims[name][a]) for a in axes]
+            elif sizes["tensor"] > 1:
+                axes, placements = ("tensor",), [Replicate()]
             else:
-                piece = value.chunk(self.tp.size, dim=tdim)[self.tp.rank]
-                placements = [Shard(tdim)]
-            owner, _, attr = name.rpartition(".")
-            mod = model.get_submodule(owner) if owner else model
-            dt = DTensor.from_local(piece.clone(), tp_mesh, placements,
-                                    run_check=False)
-            setattr(mod, attr, nn.Parameter(dt,
-                                            requires_grad=p.requires_grad))
-        model.enable_tensor_parallel(self.tp)
-        # functions, not bound methods: the hook API marks its hooks
-        model.register_state_dict_post_hook(
-            lambda *a: self._state_dict_hook(*a))
-        model.register_load_state_dict_pre_hook(
-            lambda *a: self._load_hook(*a))
-
-    def _shard_axis(self, model, axis: str, dims) -> None:
-        """Each parameter whose spec names ``axis`` as a DTensor sharded
-        over ``mesh[axis]`` on that dimension (an expert bank, a layer
-        stack); the model runs its local shard (`parallel.tensor.local`)."""
-        from torch import nn
-        from torch.distributed.tensor import DTensor, Shard
-
-        sub = self.mesh[axis]
-        for name, p in list(model.named_parameters()):
-            d = dims.get(name, {}).get(axis)
-            if d is None:
                 continue
-            piece = p.detach().chunk(sub.size(), dim=d)[sub.get_local_rank()]
+            sub = self.mesh[axes] if len(axes) > 1 else self.mesh[axes[0]]
+            piece = local_piece(self.layout_value(name, p.detach()), sub,
+                                placements)
             owner, _, attr = name.rpartition(".")
             mod = model.get_submodule(owner) if owner else model
-            dt = DTensor.from_local(piece.clone(), sub, [Shard(d)],
+            dt = DTensor.from_local(piece.clone(), sub, placements,
                                     run_check=False)
             setattr(mod, attr, nn.Parameter(dt,
                                             requires_grad=p.requires_grad))
 
     def _batch_group(self) -> AxisGroup:
         """Every rank holding other rows of the batch (data × fsdp ×
-        expert), ranked as `data_shard` ranks them."""
+        expert), ranked as `data_shard` ranks them; the mesh has at least
+        one of these axes."""
         axes = tuple(a for a in ("data", "fsdp", "expert")
                      if a in self.mesh_shape)
         sub = self.mesh[axes[0]] if len(axes) == 1 else \

@@ -12,7 +12,12 @@ tensor group, so autograd sees every one of them:
   * `row_linear` — a row-parallel projection (its input features split):
     the f32 partial products all-reduced in f32 and rounded once, so the
     output keeps the single rounding of the one-card
-    `ops.precision.linear_f32_acc` (Megatron's "g");
+    `ops.precision.linear_f32_acc` (Megatron's "g"). Both take an f32
+    bias, added before the one rounding (`ops.precision.dense_f32_acc`'s
+    contract): a column-parallel layer's shard to its local product, a
+    row-parallel layer's replicated bias once, after the all-reduce;
+  * `copy_to` — Megatron's "f" alone, for a column-parallel contraction
+    that is not a linear (the MoE expert bank's einsums);
   * `reduce_from` — an all-reduce forward, identity backward (the
     vocab-split embedding and cross-entropy sums);
   * `vocab_parallel_embedding` — a masked local lookup, then a sum;
@@ -29,8 +34,10 @@ rows, ``w_gate_up`` gate|up), so a plain row split would hand one rank
 only q heads. `fused_row_permutation` orders such a weight's rows
 rank-major ([q_0 k_0 v_0 | q_1 k_1 v_1 | ...]) before the split: each
 rank's contiguous block holds its own q heads, its KV groups and its own
-gate and up columns. The strategy applies it once at wrap and undoes it
-in the state dict (`parallel.strategy.ShardedMesh`), so checkpoints and
+gate and up columns. The same order applies along whichever dimension
+the weight is fused on (a bias's only one; the MoE bank's ``w_gate_up``
+its last). The strategy applies it once at wrap and undoes it in the
+state dict (`parallel.strategy.ShardedMesh`), so checkpoints and
 ``state_dict()`` keep the canonical layout.
 """
 from __future__ import annotations
@@ -43,6 +50,7 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from ray_lightning_tpu_torch.ops.precision import (
     _mm_f32_out,
+    dense_f32_acc,
     linear_f32_acc,
     linear_f32_out,
 )
@@ -69,27 +77,45 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def _add_bias_once(part: torch.Tensor, b, dtype) -> torch.Tensor:
+    """The f32 product ``part`` plus the f32 bias ``b`` (or none), rounded
+    once to ``dtype``: `ops.precision.dense_f32_acc`'s one rounding."""
+    return (part if b is None else part + b.float()).to(dtype)
+
+
+def _bias_grad(g2: torch.Tensor, b):
+    """A bias's gradient: the f32 sum of its output's cotangents (the
+    one-card ``dense_f32_acc``'s), or None without a bias."""
+    return None if b is None else g2.float().sum(0).to(b.dtype)
+
+
 class _ColumnLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, tp):
-        ctx.save_for_backward(x, w)
+    def forward(ctx, x, w, b, tp):
+        ctx.save_for_backward(x, w, b)
         ctx.tp = tp
-        return linear_f32_acc(x, w)
+        if b is None:
+            return linear_f32_acc(x, w)
+        part = _mm_f32_out(x.reshape(-1, x.shape[-1]), w)
+        return _add_bias_once(part, b, x.dtype).reshape(*x.shape[:-1],
+                                                        w.shape[0])
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, b = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
         x2 = x.reshape(-1, x.shape[-1])
         gx = _all_reduce(_mm_f32_out(g2, w.t()), ctx.tp).to(x.dtype)
         gw = torch.mm(g2.t(), x2)
-        return gx.reshape(x.shape), gw, None
+        # the bias shard's output columns are this rank's alone: its
+        # gradient is complete here, with no collective
+        return gx.reshape(x.shape), gw, _bias_grad(g2, b), None
 
 
 class _RowLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, tp):
-        ctx.save_for_backward(x, w)
+    def forward(ctx, x, w, b, tp):
+        ctx.save_for_backward(x, w, b)
         x2 = x.reshape(-1, x.shape[-1])
         part = _mm_f32_out(x2, w)
         if _get_current_dispatch_mode_stack():
@@ -98,16 +124,32 @@ class _RowLinear(torch.autograd.Function):
             # recomputation, which must find it unreduced: the all-reduce
             # works on a copy
             part = part.clone()
-        out = _all_reduce(part, tp).to(x.dtype)
+        # the replicated bias is added once, after the f32 sum and before
+        # its one rounding
+        out = _add_bias_once(_all_reduce(part, tp), b, x.dtype)
         return out.reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, b = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
         x2 = x.reshape(-1, x.shape[-1])
+        # the output (so its cotangent) is replicated over the group: the
+        # replicated bias's gradient is the same on every rank, with no
+        # collective
         return (torch.mm(g2, w).reshape(x.shape), torch.mm(g2.t(), x2),
-                None)
+                _bias_grad(g2, b), None)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.tp), None
 
 
 class _ReduceFrom(torch.autograd.Function):
@@ -147,23 +189,38 @@ class _GatherLogits(torch.autograd.Function):
 
 
 def column_linear(x: torch.Tensor, w: torch.Tensor,
-                  tp: Optional[TensorParallel] = None) -> torch.Tensor:
-    """``x @ w.T`` for a replicated ``x`` and this rank's output rows
-    ``w`` [out/tp, in]; the input's gradient is summed over the group in
-    f32 and rounded once."""
+                  tp: Optional[TensorParallel] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w.T (+ bias)`` for a replicated ``x`` and this rank's output
+    rows ``w`` [out/tp, in] (and ``bias`` [out/tp], f32): the bias added
+    to the f32 product before its one rounding; the input's gradient is
+    summed over the group in f32 and rounded once. Off the tensor axis
+    with a bias it is `ops.precision.dense_f32_acc`."""
     if tp is None:
-        return linear_f32_acc(x, w)
-    return _ColumnLinear.apply(x, w, tp)
+        return linear_f32_acc(x, w) if bias is None else \
+            dense_f32_acc(x, w, bias)
+    return _ColumnLinear.apply(x, w, bias, tp)
 
 
 def row_linear(x: torch.Tensor, w: torch.Tensor,
-               tp: Optional[TensorParallel] = None) -> torch.Tensor:
-    """``x @ w.T`` summed over the group, for this rank's input columns
-    ``x`` [..., in/tp] and ``w`` [out, in/tp]: the f32 partials are
-    all-reduced in f32 and rounded once to ``x.dtype``."""
+               tp: Optional[TensorParallel] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w.T (+ bias)`` summed over the group, for this rank's input
+    columns ``x`` [..., in/tp] and ``w`` [out, in/tp]: the f32 partials
+    are all-reduced in f32, the replicated f32 ``bias`` [out] added once,
+    and the sum rounded once to ``x.dtype``. Off the tensor axis with a
+    bias it is `ops.precision.dense_f32_acc`."""
     if tp is None:
-        return linear_f32_acc(x, w)
-    return _RowLinear.apply(x, w, tp)
+        return linear_f32_acc(x, w) if bias is None else \
+            dense_f32_acc(x, w, bias)
+    return _RowLinear.apply(x, w, bias, tp)
+
+
+def copy_to(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the group (Megatron's "f"
+    in front of a column-parallel contraction that is not a linear, such
+    as an expert bank's einsum); ``x`` itself off the tensor axis."""
+    return x if tp is None else _CopyTo.apply(x, tp)
 
 
 def reduce_from(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
@@ -211,6 +268,40 @@ def fused_row_permutation(parts: Sequence[int], tp: int) -> torch.Tensor:
             k = n // tp
             order.append(torch.arange(start + r * k, start + (r + 1) * k))
     return torch.cat(order)
+
+
+def exchange_rows(local: torch.Tensor, rows: torch.Tensor, dim: int,
+                  group, rank: int, size: int) -> torch.Tensor:
+    """Re-deal the rows (along ``dim``) of a tensor that the group holds
+    in equal contiguous chunks (rank ``r`` rows ``[r * c, (r + 1) * c)``,
+    ``local`` this rank's): ``rows[r]`` ([size, c], long) lists the rows
+    rank ``r``'s new block holds, in order. Returns this rank's new
+    block. Each rank keeps the rows it already holds and sends each other
+    rank the rows that rank's block needs, in one ``all_to_all_single``
+    (which gloo carries for CUDA tensors): only the rows that change rank
+    move, where `full_value` would gather every row to every rank."""
+    import torch.distributed as dist
+
+    x = local.movedim(dim, 0)
+    c = x.shape[0]
+    rows = rows.to(x.device)
+    owner = rows // c
+    src = owner[rank]
+    out = torch.empty_like(x)
+    keep = src == rank
+    out[keep] = x[rows[rank][keep] - rank * c]
+    sends = [x[rows[r][owner[r] == rank] - rank * c] if r != rank
+             else x[:0] for r in range(size)]
+    in_splits = [len(t) for t in sends]
+    out_splits = [0 if s == rank else int((src == s).sum())
+                  for s in range(size)]
+    recv = x.new_empty((sum(out_splits), *x.shape[1:]))
+    dist.all_to_all_single(recv, torch.cat(sends).contiguous(), out_splits,
+                           in_splits, group=group)
+    # the received rows come source by source, each in this block's order
+    out[torch.cat([torch.nonzero(src == s).flatten() for s in range(size)
+                   if s != rank])] = recv
+    return out.movedim(0, dim)
 
 
 def _chunk_sizes(length: int, n: int) -> list:

@@ -16,8 +16,10 @@ resuming from the latest valid checkpoint going to help? Four answers:
   CORRUPTION — a trainguard escalation (anomaly streak or a silent-data-
                corruption verdict), matched by exception name. Restartable
                from the last *blessed* checkpoint, from its own small
-               ``max_rollbacks`` budget. (The port's trainguard is ROADMAP
-               Queue 1 item 10; the names are kept so the verdicts match.)
+               ``max_rollbacks`` budget. The port's trainguard raises
+               them: `resilience.guard`'s ``TrainingAnomalyError`` and
+               its subclass ``SDCDetectedError``, which
+               ``_CORRUPTION_MARKERS`` matches by name.
   FATAL      — a deterministic Python exception in user/model code (a
                shape error, an assert), and the card's own verdicts on the
                program: ``CUDA error: ...`` (an illegal address, a bad

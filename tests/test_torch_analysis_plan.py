@@ -168,6 +168,20 @@ CLEAN = {
         lambda: (jax_bert.BertClassifierModule(
             jax_bert.BertConfig.tiny(dropout=0.0), num_classes=2),
                  jax_strategy.ShardedMesh(fsdp=8), 8, _bert_batch())),
+    "bert fsdp=2 x tensor=2": (
+        lambda: (BertClassifierModule(BertConfig.tiny(dropout=0.0),
+                                      num_classes=2),
+                 ShardedMesh(fsdp=2, tensor=2, device="cpu"), 4),
+        lambda: (jax_bert.BertClassifierModule(
+            jax_bert.BertConfig.tiny(dropout=0.0), num_classes=2),
+                 jax_strategy.ShardedMesh(fsdp=2, tensor=2), 4,
+                 _bert_batch())),
+    "moe expert=2 x tensor=2": (
+        lambda: (MoEClassifierModule(in_features=16),
+                 ShardedMesh(expert=2, tensor=2, device="cpu"), 4),
+        lambda: (jax_moe.MoEClassifierModule(),
+                 jax_strategy.ShardedMesh(expert=2, tensor=2), 4,
+                 _moe_batch())),
 }
 
 

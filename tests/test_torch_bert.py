@@ -14,8 +14,9 @@ through both:
     torch's fused AdamW under `DeviceLambdaLR`) within 2e-5 of the JAX
     fit's loss and grad_norm a step, for both layouts;
   * dropout drawn from the step's generator; `DataParallel` and `FSDP`
-    in one process bitwise `SingleDevice`; the tensor axis refused
-    naming its ROADMAP item; `bert_param_specs` against the JAX table.
+    in one process bitwise `SingleDevice`; ``tensor=3`` refused naming
+    the heads it does not divide; `bert_param_specs` against the JAX
+    table (the tensor axis itself: `tests/test_torch_bert_tensor.py`).
 """
 from __future__ import annotations
 
@@ -273,18 +274,21 @@ def test_dropout_draws_from_the_step_generator():
 
 
 def test_tensor_axis_refused_and_specs_match_jax():
-    """The tensor axis raises naming its ROADMAP item (the fused wqkv has
-    no head-aligned permutation yet); the spec table is the JAX one in
-    the port's names and ``[out, in]`` layout."""
+    """A ``tensor`` that does not divide the heads raises naming them
+    (the module's check and the strategy's bind alike); the spec table is
+    the JAX one in the port's names and ``[out, in]`` layout."""
     from ray_lightning_tpu_torch.parallel.strategy import ShardedMesh
 
     _, pc = _cfgs()
     module = bert.BertClassifierModule(pc)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        module.check_tensor_parallel(2)
-    mesh = ShardedMesh(tensor=2, device="cpu")
-    mesh.shape_only(2, module)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    module.check_tensor_parallel(2)
+    with pytest.raises(ValueError, match="tensor=3 does not divide "
+                                         "n_heads=2"):
+        module.check_tensor_parallel(3)
+    mesh = ShardedMesh(tensor=3, device="cpu")
+    mesh.shape_only(3, module)
+    with pytest.raises(ValueError, match="tensor=3 does not divide "
+                                         "n_heads=2"):
         mesh.bind_module(module)
     jc = jbert.BertConfig.tiny(scan_layers=False, **FLASH64)
     jspecs = jbert.bert_param_specs(jc)

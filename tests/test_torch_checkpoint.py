@@ -359,6 +359,29 @@ def test_digest_modes(tmp_path, monkeypatch, mode):
     assert verify_checkpoint(path) == (True, "ok")
 
 
+@pytest.mark.parametrize("bytes_a_thread,threads",
+                         [(1 << 30, 1), (4096, 3), (1, 8)])
+def test_write_threads_split_the_state_and_restore_it(tmp_path, monkeypatch,
+                                                      bytes_a_thread, threads):
+    """A blocking save writes a rank's items from one thread for each
+    ``_BYTES_A_THREAD`` of its share (at least one, at most eight), each
+    into its own file; the checkpoint verifies and loads back the same
+    values. The share is 12 KiB here, so the rule is scaled down to it."""
+    from ray_lightning_tpu_torch.checkpoint import io as ckpt_io
+
+    monkeypatch.setattr(ckpt_io, "_BYTES_A_THREAD", bytes_a_thread)
+    state = {f"w{i}": torch.randn(64, 8, generator=torch.Generator()
+                                  .manual_seed(i)) for i in range(6)}
+    path = save_checkpoint(str(tmp_path / "ck"), dict(state))
+    files = [f for f in os.listdir(os.path.join(path, "state"))
+             if f.endswith(".distcp")]
+    assert len(files) == threads
+    assert verify_checkpoint(path) == (True, "ok")
+    got = load_checkpoint(path)
+    for k, v in state.items():
+        assert torch.equal(got[k], v), k
+
+
 def test_provenance_stamps_are_verified(tmp_path):
     """A mesh's stamps are recorded, and a checkpoint whose stamps
     contradict themselves does not verify."""

@@ -7,10 +7,17 @@ weights, with ample and with starved capacity. Over four gloo processes
 (one group for the whole file, `tests/torch_axis_jobs.py` `moe_job`):
 the classifier's loss (its aux loss taken over the global batch),
 logits, every gradient and the global norm under
-``ShardedMesh(data=2, expert=2)`` and ``ShardedMesh(expert=4)`` against
-`jax.grad` of the JAX module on the whole batch, each rank holding
-E / expert of the experts; and a 3-step fit under
-``ShardedMesh(data=2, expert=2)`` against the JAX fit. f32, 2e-5.
+``ShardedMesh(data=2, expert=2)``, ``ShardedMesh(expert=4)``,
+``ShardedMesh(expert=2, tensor=2)`` and ``ShardedMesh(tensor=2,
+data=2)`` against `jax.grad` of the JAX module on the whole batch, each
+rank holding E / expert of the experts and F / tensor of their columns;
+a 3-step fit under ``ShardedMesh(data=2, expert=2)``, ``ShardedMesh(
+expert=2, tensor=2)`` and ``ShardedMesh(tensor=2, data=2)`` against the
+JAX fit; and checkpoints across layouts bitwise: one written under
+``ShardedMesh(expert=2, tensor=2)`` restored on one rank and under
+``ShardedMesh(data=2, expert=2)``, a one-rank one restored under
+``ShardedMesh(expert=2, tensor=2)``. f32, 2e-5. The JAX test's own eight-rank
+``data=2 x expert=2 x tensor=2`` is not run here (eight gloo processes).
 """
 from __future__ import annotations
 
@@ -31,6 +38,13 @@ from ray_lightning_tpu_torch.models.moe import (
     _MoENet,
     params_from_jax,
 )
+from ray_lightning_tpu_torch.checkpoint import load_checkpoint
+from ray_lightning_tpu_torch.checkpoint.io import read_meta
+from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
+from ray_lightning_tpu_torch.core.data import DataLoader
+from ray_lightning_tpu_torch.core.trainer import Trainer
+from ray_lightning_tpu_torch.models.moe import MoEClassifierModule
+from ray_lightning_tpu_torch.parallel.strategy import SingleDevice
 from ray_lightning_tpu_torch.runtime.launch import launch
 from tests import torch_axis_jobs
 
@@ -97,7 +111,7 @@ def _data(n=256, seed=0):
     return {"x": x, "y": y}
 
 
-def _inputs():
+def _inputs(tmp=None):
     jm = JaxMoEModule(**MODULE_KW)
     jm.setup()
     data = _data()
@@ -106,12 +120,33 @@ def _inputs():
     return {"module_kw": dict(MODULE_KW, in_features=32), "params": params,
             "batch": {k: v[:32] for k, v in data.items()},
             "fit_data": {k: v[:96] for k, v in data.items()},
-            "fit_batch": 32}
+            "fit_batch": 32,
+            "ckpt_dir": None if tmp is None else str(tmp / "ck"),
+            "single_ckpt": None if tmp is None else str(
+                tmp / "single_ck" / "step=2")}
+
+
+def _single_fit(inp, steps, callbacks=(), **fit_kw):
+    """The classifier's one-rank fit on the global batches of
+    ``inp["fit_data"]``."""
+    mod = MoEClassifierModule(**inp["module_kw"])
+    mod.params = params_from_jax(inp["params"])
+    Trainer(strategy=SingleDevice(device="cpu"), max_steps=steps,
+            callbacks=list(callbacks), log_every_n_steps=1,
+            enable_checkpointing=False, enable_progress_bar=False,
+            seed=0).fit(mod, DataLoader(inp["fit_data"],
+                                        batch_size=inp["fit_batch"]),
+                        **fit_kw)
 
 
 @pytest.fixture(scope="module")
-def run():
-    inp = _inputs()
+def run(tmp_path_factory):
+    """The four-rank group, after the one-rank checkpoint it restores."""
+    tmp = tmp_path_factory.mktemp("moe")
+    inp = _inputs(tmp)
+    _single_fit(inp, 2, [ModelCheckpoint(
+        dirpath=str(tmp / "single_ck"), every_n_train_steps=2,
+        save_top_k=-1)])
     return inp, launch(torch_axis_jobs.moe_job, 4, device="cpu",
                        args=(inp,), timeout=T)
 
@@ -132,22 +167,27 @@ def _jax_loss_grads(params, batch):
             jax.tree.map(np.asarray, grads))
 
 
-@pytest.mark.parametrize("mesh", ["data2_expert2", "expert4"])
+@pytest.mark.parametrize("mesh", list(torch_axis_jobs.MOE_MESHES))
 def test_expert_parallel_step_matches_jax(run, mesh):
     inp, ranks = run
     loss, logits, aux, jgrads = _jax_loss_grads(inp["params"], inp["batch"])
     want = {k: v.numpy() for k, v in params_from_jax(jgrads).items()}
     norm = float(np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
                              for g in want.values())))
-    n_expert = 2 if mesh == "data2_expert2" else 4
+    sizes = torch_axis_jobs.MOE_MESHES[mesh]
     for r in ranks:
         got = r[mesh]
         assert got["loss"] == pytest.approx(loss, rel=2e-5, abs=2e-5)
         # the aux loss over the global batch, on every rank
         assert got["aux"] == pytest.approx(aux, rel=2e-5, abs=2e-5)
-        rows = np.array_split(np.arange(32), 4)[got["index"]]
+        assert got["count"] == 4 // sizes.get("tensor", 1)
+        rows = np.array_split(np.arange(32), got["count"])[got["index"]]
         np.testing.assert_allclose(got["logits"], logits[rows], **TOL)
-        assert got["local_experts"] == MODULE_KW["n_experts"] // n_expert
+        assert got["local_experts"] == (MODULE_KW["n_experts"]
+                                        // sizes.get("expert", 1))
+        # this rank's gate and up columns of each local expert
+        assert got["local_columns"] == (2 * MODULE_KW["hidden_dim"]
+                                        // sizes.get("tensor", 1))
         for name, g in want.items():
             np.testing.assert_allclose(
                 got["grads"][name], g, rtol=2e-5,
@@ -164,17 +204,21 @@ class _Rows(JaxCallback):
                           float(metrics["grad_norm"])))
 
 
-def test_expert_parallel_fit_matches_jax(run):
+@pytest.mark.parametrize("mesh", list(torch_axis_jobs.MOE_FITS))
+def test_expert_parallel_fit_matches_jax(run, mesh):
+    """3 steps under each mesh against the JAX fit of the same global
+    batches (each data shard's rows in shard order)."""
     inp, ranks = run
     data, b = inp["fit_data"], inp["fit_batch"]
-    share = len(data["y"]) // 4
-    per = b // 4
+    n = 4 // torch_axis_jobs.MOE_MESHES[mesh].get("tensor", 1)
+    share = len(data["y"]) // n
+    per = b // n
     batches = []
     for k in range(3):
         rows = np.concatenate([np.arange(r * share + k * per,
                                          r * share + (k + 1) * per)
-                               for r in range(4)])
-        batches.append({n: v[rows] for n, v in data.items()})
+                               for r in range(n)])
+        batches.append({n_: v[rows] for n_, v in data.items()})
     rec = _Rows()
     jm = JaxMoEModule(**MODULE_KW)
     jm.params = jax.tree.map(jnp.asarray, inp["params"])
@@ -182,11 +226,16 @@ def test_expert_parallel_fit_matches_jax(run):
                log_every_n_steps=1, enable_checkpointing=False,
                enable_progress_bar=False, seed=0).fit(jm, batches)
     for r in ranks:
-        fit = r["fit"]
+        fit = r["fit"][mesh]
         np.testing.assert_allclose(np.asarray(fit["rows"]),
                                    np.asarray(rec.rows), **TOL)
-        assert "Shard(dim=0)" in fit["placements"]
-        assert fit["mesh"] == {"data": 2, "fsdp": 1, "expert": 2}
+        assert {"data2_expert2": "Shard(dim=0)",
+                "expert2_tensor2": "Shard(dim=0), Shard(dim=2)",
+                "tensor2_data2": "Shard(dim=2)"}[mesh] in fit["placements"]
+        assert fit["mesh"] == {
+            "data2_expert2": {"data": 2, "fsdp": 1, "expert": 2},
+            "expert2_tensor2": {"expert": 2, "tensor": 2},
+            "tensor2_data2": {"data": 2, "fsdp": 1, "tensor": 2}}[mesh]
 
 
 def test_params_from_jax_round_trip():
@@ -207,3 +256,38 @@ def test_params_from_jax_round_trip():
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jl),
                                **TOL)
     assert float(aux.detach()) == pytest.approx(float(jaux), rel=2e-5)
+
+
+def _bitwise(state, ck):
+    params, opt = state
+    for k, v in ck["params"].items():
+        assert np.array_equal(params[k], v.numpy()), k
+    for name, entry in ck["opt_state"]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert np.array_equal(opt[name][key], entry[key].numpy()), name
+
+
+def test_expert_tensor_checkpoint_restores_on_one_rank(run):
+    """A checkpoint of the bank split over ``expert=2 x tensor=2`` (one
+    DTensor over both axes, gate|up head-aligned on the tensor ranks)
+    holds the canonical layout: every rank's gathered state equals it
+    bit for bit, and so does the state a one-rank fit and an ``expert=2``
+    fit restore from it; a one-rank checkpoint restores bitwise under
+    ``expert=2 x tensor=2``."""
+    inp, ranks = run
+    path = ranks[0]["ckpt"]["path"]
+    meta = read_meta(path)
+    assert meta["mesh_spec"] == {"expert": 2, "tensor": 2}
+    assert meta["param_specs"]["moe.w_gate_up"] == ["expert", None,
+                                                    "tensor"]
+    ck = load_checkpoint(path)
+    for r in ranks:
+        assert "Shard(dim=0), Shard(dim=2)" in r["ckpt"]["placements"]
+        assert r["ckpt"]["local_shape"] == (2, 64, 128)
+        _bitwise(r["ckpt"]["state"], ck)
+        _bitwise(r["into_expert2"], ck)
+        _bitwise(r["single_into_expert2_tensor2"],
+                 load_checkpoint(inp["single_ckpt"]))
+    keep = torch_axis_jobs.AtStart()
+    _single_fit(inp, 3, [keep.callback], ckpt_path=path)
+    _bitwise(keep.state, ck)

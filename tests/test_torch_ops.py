@@ -638,6 +638,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_variants.py")
     yield os.path.join(REPO, "scripts", "flash_truth.py")
     yield os.path.join(REPO, "scripts", "first_launch.py")
+    yield os.path.join(REPO, "scripts", "ckpt_save_threads.py")
     # the jobs the tests ship to workers
     yield os.path.join(REPO, "tests", "torch_jobs.py")
     yield os.path.join(REPO, "tests", "torch_axis_jobs.py")

@@ -28,7 +28,9 @@ from ray_lightning_tpu.parallel.strategy import ShardedMesh as JaxSharded
 from ray_lightning_tpu.parallel.strategy import (
     fsdp_auto_spec as jax_fsdp_auto_spec,
 )
+from ray_lightning_tpu_torch.models.bert import BertClassifierModule, BertConfig
 from ray_lightning_tpu_torch.models.llama import LlamaConfig, LlamaModule
+from ray_lightning_tpu_torch.models.moe import MoEClassifierModule
 from ray_lightning_tpu_torch.parallel import plan
 from ray_lightning_tpu_torch.parallel.mesh import MeshSpec
 from ray_lightning_tpu_torch.parallel.strategy import (
@@ -38,7 +40,8 @@ from ray_lightning_tpu_torch.parallel.strategy import (
     SingleDevice,
 )
 from ray_lightning_tpu_torch.runtime import fit_distributed
-from tests import torch_jobs
+from ray_lightning_tpu_torch.runtime.launch import launch
+from tests import torch_axis_jobs, torch_jobs
 
 GIB = 1024**3
 T = 180
@@ -369,6 +372,49 @@ def test_plan_equals_live_bytes_on_the_new_axes(tmp_path, sizes, cfg_kw):
         assert p.params_bytes_per_device == whole.params_bytes_per_device
     else:
         assert p.params_bytes_per_device < whole.params_bytes_per_device
+
+
+#: the other models' live-bytes fits: name -> (module, ShardedMesh sizes)
+LIVE_MODELS = {"bert fsdp=2 x tensor=2": ("bert", dict(fsdp=2, tensor=2)),
+               "moe expert=2 x tensor=2": ("moe", dict(expert=2, tensor=2))}
+
+
+@pytest.fixture(scope="module")
+def live_models():
+    """One group of four ranks fitting each of ``LIVE_MODELS`` 2 steps."""
+    rng = np.random.default_rng(3)
+    bert_rows = [{"input_ids": rng.integers(0, 256, (4, 16)),
+                  "labels": rng.integers(0, 2, 4)} for _ in range(2)]
+    moe_rows = [{"x": rng.standard_normal((8, 16)).astype(np.float32),
+                 "y": rng.integers(0, 4, 8)} for _ in range(2)]
+    inp = {name: (kind, sizes, bert_rows if kind == "bert" else moe_rows)
+           for name, (kind, sizes) in LIVE_MODELS.items()}
+    return launch(torch_axis_jobs.live_bytes_job, 4, device="cpu",
+                  args=(inp,), timeout=T)
+
+
+@pytest.mark.parametrize("name", list(LIVE_MODELS))
+def test_plan_equals_live_bytes_of_bert_and_moe(live_models, name):
+    """BERT under fsdp=2 x tensor=2 (its q|k|v rows and bias split by
+    tensor, the rest by fsdp) and the MoE bank under expert=2 x tensor=2
+    (one DTensor over both axes): each rank's bytes after the fit's steps
+    equal the plan's, from the meta device. The MoE classifier's Adam is
+    not fused: its ``step`` scalars live on the host (the planner's
+    rule), which here is the device, so the live count adds 4 bytes for
+    each of its 7 parameters."""
+    kind, sizes = LIVE_MODELS[name]
+    module = (BertClassifierModule(BertConfig.tiny(dtype=torch.float32))
+              if kind == "bert" else MoEClassifierModule(in_features=16))
+    p = plan.plan_train_memory(module, ShardedMesh(**sizes), 4, None)
+    whole = plan.plan_train_memory(
+        BertClassifierModule(BertConfig.tiny(dtype=torch.float32))
+        if kind == "bert" else MoEClassifierModule(in_features=16),
+        SingleDevice(), 1, None)
+    assert p.params_bytes_per_device < whole.params_bytes_per_device
+    host_steps = 0 if kind == "bert" else 7 * 4
+    for rank, got in enumerate(live_models):
+        assert got[name] == (p.params_bytes_per_device,
+                             p.opt_bytes_per_device + host_steps), rank
 
 
 def test_data_parallel_plan_replicates():

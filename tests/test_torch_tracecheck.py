@@ -10,7 +10,10 @@ budget` (RLT302), `test_fsdp_weight_gathers_and_grad_reduce_scatters`,
 `test_fsdp_across_slices_flags_rlt306`, `test_hsdp_placement_keeps_fsdp_
 on_ici` and `test_single_slice_reports_zero_dcn` (on JAX's own
 ``2xcpu-2`` and ``cpu-4``), and `test_overlap.py`'s `test_on_is_
-scheduled_and_hides` (the prefetch schedule detected, nothing flagged).
+scheduled_and_hides` (the prefetch schedule detected, nothing flagged);
+and two steps no JAX test audits, BERT under ``tensor=2`` (RLT803, the
+GELU's round trip, as on one card) and the MoE bank under ``expert=2 x
+tensor=2`` (nothing flagged).
 
 The JAX tests that are red on this CPU, and what holds the port to
 their intent instead:
@@ -46,8 +49,10 @@ from torch import nn
 
 from ray_lightning_tpu.analysis import costmodel as jcm
 from ray_lightning_tpu.analysis import tracecheck as jtc
+from ray_lightning_tpu.models import bert as jbert
 from ray_lightning_tpu.models import llama as jllama
 from ray_lightning_tpu.models import mlp as jmlp
+from ray_lightning_tpu.models import moe as jmoe
 from ray_lightning_tpu.parallel import strategy as js
 from ray_lightning_tpu_torch.analysis.costmodel import (
     parse_topology,
@@ -58,8 +63,10 @@ from ray_lightning_tpu_torch.analysis.tracecheck import (
     trace_step,
 )
 from ray_lightning_tpu_torch.core.module import TpuModule
+from ray_lightning_tpu_torch.models.bert import BertClassifierModule, BertConfig
 from ray_lightning_tpu_torch.models.llama import LlamaConfig, LlamaModule
 from ray_lightning_tpu_torch.models.mlp import MLPClassifier
+from ray_lightning_tpu_torch.models.moe import MoEClassifierModule
 from ray_lightning_tpu_torch.parallel.plan import plan_train_memory
 from ray_lightning_tpu_torch.parallel.strategy import (
     FSDP,
@@ -360,6 +367,24 @@ TWINS = {
          ShardedMesh(fsdp=8, overlap="on", **CPU),
          {"tokens": np.zeros((8, 513), np.int64)},
          topology_for_kind("NVIDIA H100 80GB HBM3", 8))),
+    "bert-tensor": lambda: (
+        (jbert.BertClassifierModule(jbert.BertConfig.tiny(dropout=0.0),
+                                    num_classes=2),
+         js.ShardedMesh(tensor=2),
+         {"input_ids": np.ones((8, 16), np.int32),
+          "labels": np.zeros(8, np.int32)}, jcm.parse_topology("cpu-2")),
+        (BertClassifierModule(BertConfig.tiny(dropout=0.0), num_classes=2),
+         ShardedMesh(tensor=2, **CPU),
+         {"input_ids": np.ones((8, 16), np.int64),
+          "labels": np.zeros(8, np.int64)}, parse_topology("cpu-2"))),
+    "moe-expert-tensor": lambda: (
+        (jmoe.MoEClassifierModule(), js.ShardedMesh(expert=2, tensor=2),
+         {"x": np.zeros((8, 16), np.float32), "y": np.zeros(8, np.int32)},
+         jcm.parse_topology("cpu-4")),
+        (MoEClassifierModule(in_features=16),
+         ShardedMesh(expert=2, tensor=2, **CPU),
+         {"x": np.zeros((8, 16), np.float32), "y": np.zeros(8, np.int64)},
+         parse_topology("cpu-4"))),
 }
 
 

@@ -253,6 +253,62 @@ def test_schedule_matches_optax():
     assert warmup_cosine_decay(0, 0.0, 3e-4, 2, 8, 3e-5) == 0.0
 
 
+def _schedule_modules(warmup, total):
+    """(the port's module, the JAX module) of each model whose
+    `configure_optimizers` builds a warmup-cosine schedule."""
+    from ray_lightning_tpu.models.bert import BertClassifierModule as JaxBert
+    from ray_lightning_tpu.models.bert import BertConfig as JaxBertConfig
+    from ray_lightning_tpu_torch.models.bert import (
+        BertClassifierModule,
+        BertConfig,
+    )
+
+    kw = dict(lr=1e-3, warmup_steps=warmup, total_steps=total)
+    return {"llama": (LlamaModule(LlamaConfig.tiny(), **kw),
+                      JaxLlamaModule(JaxConfig.tiny(), **kw)),
+            "bert": (BertClassifierModule(BertConfig.tiny(), **kw),
+                     JaxBert(JaxBertConfig.tiny(), **kw))}
+
+
+@pytest.mark.parametrize("model", ["llama", "bert"])
+@pytest.mark.parametrize("warmup,total", [(4, 4), (100, 50)])
+def test_schedule_without_decay_steps_raises_as_optax(model, warmup, total):
+    """A run no longer than its warmup leaves the cosine no steps: optax
+    refuses to build the schedule where the JAX module configures its
+    optimizer, and the port raises the same ValueError there (not a NaN
+    learning rate, nor a schedule JAX never runs), whatever the peak."""
+    port, jm = _schedule_modules(warmup, total)[model]
+    with pytest.raises(ValueError) as want:
+        jm.configure_optimizers()
+    port.device = torch.device("cpu")
+    port.setup()
+    with pytest.raises(ValueError) as got:
+        port.configure_optimizers()
+    assert str(got.value) == str(want.value)
+    assert f"got decay_steps={total - warmup}." in str(got.value)
+    port.lr = 0.0
+    with pytest.raises(ValueError, match="requires positive decay_steps"):
+        port.configure_optimizers()
+
+
+@pytest.mark.parametrize("model", ["llama", "bert"])
+def test_valid_schedule_matches_optax_on_both_lanes(model):
+    """(warmup, total) = (4, 12): the module's schedule at every update
+    0-14, as an int and as a device tensor, is the JAX module's optax
+    schedule."""
+    port, _ = _schedule_modules(4, 12)[model]
+    end = 1e-4 if model == "llama" else 0.0
+    sched = optax.warmup_cosine_decay_schedule(0.0, 1e-3, 4, 12,
+                                               end_value=end)
+    for step in range(15):
+        want = float(sched(step))
+        assert np.isfinite(port.schedule(step))
+        np.testing.assert_allclose(port.schedule(step), want, rtol=1e-5,
+                                   atol=1e-12)
+        np.testing.assert_allclose(float(port.schedule(torch.tensor(step))),
+                                   want, rtol=1e-5, atol=1e-12)
+
+
 # ---- Trainer.fit against the JAX Trainer.fit --------------------------------
 
 

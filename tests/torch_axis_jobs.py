@@ -1,9 +1,10 @@
 """Worker jobs of the sequence, pipeline and expert axes' tests
 (`tests/test_torch_ring_attention.py`, `test_torch_gpipe.py`,
-`test_torch_moe.py`). Each file spawns one gloo group of four CPU
-processes and runs every case of its file in one job, which returns this
-rank's readings; the tests assemble the ranks' pieces. Workers import
-this module by name, so it imports no JAX.
+`test_torch_moe.py`) and of BERT under the tensor axis
+(`test_torch_bert_tensor.py`). Each file spawns one gloo group of CPU
+processes a mesh and runs every case of its file in one job, which
+returns this rank's readings; the tests assemble the ranks' pieces.
+Workers import this module by name, so it imports no JAX.
 """
 from __future__ import annotations
 
@@ -329,13 +330,45 @@ def pipe_job(inp):
 # ---- the expert axis -------------------------------------------------------
 
 
+
+#: `moe_job`'s meshes for one loss and backward, by name
+MOE_MESHES = {"data2_expert2": dict(data=2, expert=2),
+              "expert4": dict(expert=4),
+              "expert2_tensor2": dict(expert=2, tensor=2),
+              "tensor2_data2": dict(tensor=2, data=2)}
+#: those `moe_job` also fits 3 steps
+MOE_FITS = ("data2_expert2", "expert2_tensor2", "tensor2_data2")
+
+
+def _wrap(module, sizes):
+    """``module`` with its ``params`` wrapped under ``ShardedMesh(
+    **sizes)``, as the trainer wraps it (its trainer a stand-in holding
+    the strategy): returns the strategy."""
+    import torch
+
+    strategy = torch_jobs.make_strategy("sharded", **sizes)
+    strategy.setup(module)
+    module.setup()
+    with torch.no_grad():
+        module.model.load_state_dict(module.params)
+    module.model = strategy.wrap_model(module.model)
+    module.params = dict(strategy.unwrap(module.model).named_parameters())
+    module.trainer = types.SimpleNamespace(strategy=strategy)
+    return strategy
+
+
 def moe_job(inp):
     """Every multi-process case of `tests/test_torch_moe.py` on four
-    ranks: the expert-parallel layer against its inputs, and the
-    classifier's fit under ``ShardedMesh(data=2, expert=2)``."""
+    ranks: the classifier's loss and gradients under each of
+    ``MOE_MESHES``, its 3-step fit under each of ``MOE_FITS``, a
+    checkpoint written by a fit under ``ShardedMesh(expert=2, tensor=2)``
+    with that fit's whole state, that checkpoint restored under
+    ``ShardedMesh(data=2, expert=2)`` and the one-rank checkpoint
+    ``inp["single_ckpt"]`` under ``ShardedMesh(expert=2, tensor=2)``."""
     import torch
     import torch.distributed as dist
 
+    from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
     from ray_lightning_tpu_torch.core.data import DataLoader
     from ray_lightning_tpu_torch.core.trainer import Trainer
     from ray_lightning_tpu_torch.models.moe import (
@@ -345,18 +378,10 @@ def moe_job(inp):
 
     out = {}
     # the classifier's loss and gradients, one step, and a fit
-    for name, sizes in (("data2_expert2", dict(data=2, expert=2)),
-                        ("expert4", dict(expert=4))):
+    for name, sizes in MOE_MESHES.items():
         mod = MoEClassifierModule(**inp["module_kw"])
         mod.params = params_from_jax(inp["params"])
-        strategy = torch_jobs.make_strategy("sharded", **sizes)
-        strategy.setup(mod)
-        mod.setup()
-        with torch.no_grad():
-            mod.model.load_state_dict(mod.params)
-        mod.model = strategy.wrap_model(mod.model)
-        mod.params = dict(strategy.unwrap(mod.model).named_parameters())
-        mod.trainer = types.SimpleNamespace(strategy=strategy)
+        strategy = _wrap(mod, sizes)
         index, count = strategy.data_shard(dist.get_rank(),
                                            dist.get_world_size())
         x, y = (np.array_split(inp["batch"][k], count)[index]
@@ -366,29 +391,209 @@ def moe_job(inp):
             logits, torch.from_numpy(y).long()) + mod.aux_weight * aux
         loss.backward()
         strategy.finish_grads([(n, p.grad) for n, p in mod.params.items()])
+        w = mod.params["moe.w_gate_up"]
         out[name] = {
             "loss": float(strategy.reduce_mean(
                 {"loss": loss.detach()})["loss"]),
-            "aux": float(aux), "index": index, "logits": _np(logits),
-            "grads": {n: _np(p.grad) for n, p in mod.params.items()},
+            "aux": float(aux), "index": index, "count": count,
+            "logits": _np(logits),
+            "grads": {n: _np(strategy.canonical_value(n, p.grad))
+                      for n, p in mod.params.items()},
             "norm": float(strategy.global_norm(
                 [p.grad for p in mod.params.values()])),
-            "local_experts": mod.params["moe.w_gate_up"].to_local().shape[0]}
+            "local_experts": w.to_local().shape[0],
+            "local_columns": w.to_local().shape[2]}
 
-    mod = MoEClassifierModule(**inp["module_kw"])
-    mod.params = params_from_jax(inp["params"])
+    def fit(sizes, steps, callbacks=(), **fit_kw):
+        mod = MoEClassifierModule(**inp["module_kw"])
+        mod.params = params_from_jax(inp["params"])
+        rec = torch_jobs.StepRecorder()
+        trainer = Trainer(strategy=torch_jobs.make_strategy(
+            "sharded", **sizes), max_steps=steps, callbacks=[rec, *callbacks],
+            log_every_n_steps=1, enable_checkpointing=False,
+            enable_progress_bar=False, seed=0)
+        index, count = trainer.strategy.data_shard(dist.get_rank(),
+                                                   dist.get_world_size())
+        share = {k: np.array_split(v, count)[index]
+                 for k, v in inp["fit_data"].items()}
+        trainer.fit(mod, DataLoader(share,
+                                    batch_size=inp["fit_batch"] // count),
+                    **fit_kw)
+        w = dict(trainer.strategy.unwrap(mod.model).named_parameters())[
+            "moe.w_gate_up"]
+        return rec.rows, trainer, mod, w
+
+    out["fit"] = {}
+    for name in MOE_FITS:
+        rows, trainer, _, w = fit(MOE_MESHES[name], 3)
+        out["fit"][name] = {"rows": rows, "placements": str(w.placements),
+                            "mesh": trainer.strategy.mesh_shape}
+    # a checkpoint of the expert bank split over expert and tensor, and
+    # the fit's state at its end, gathered in the canonical layout
+    _, trainer, mod, w = fit(dict(expert=2, tensor=2), 2, [ModelCheckpoint(
+        dirpath=inp["ckpt_dir"], every_n_train_steps=2, save_top_k=-1)])
+    path = trainer.checkpoint_callback.best_model_path
+    out["ckpt"] = {"path": path,
+                   "state": torch_jobs.full_state(trainer, mod),
+                   "placements": str(w.placements),
+                   "local_shape": tuple(w.to_local().shape)}
+    # the layouts crossed: that checkpoint restored under expert=2 alone,
+    # and the one-rank checkpoint under expert=2 x tensor=2, each state as
+    # the restore left it
+    for key, sizes, ck in (("into_expert2", dict(data=2, expert=2), path),
+                           ("single_into_expert2_tensor2",
+                            dict(expert=2, tensor=2), inp["single_ckpt"])):
+        keep = AtStart()
+        fit(sizes, 3, [keep.callback], ckpt_path=ck)
+        out[key] = keep.state
+    return out
+
+
+# ---- BERT under the tensor axis --------------------------------------------
+
+
+def bert_module(inp, dropout=0.0):
+    """The tiny BERT classifier of `tests/test_torch_bert_tensor.py` with
+    the JAX init's weights (``inp["params"]``) and ``dropout``."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.bert import (
+        BertClassifierModule,
+        BertConfig,
+        params_from_jax,
+    )
+
+    cfg = BertConfig.tiny(dtype=torch.float32, dropout=dropout,
+                          **inp["cfg_kw"])
+    module = BertClassifierModule(cfg, **inp["module_kw"])
+    if inp.get("params") is not None:
+        module.params = params_from_jax(inp["params"])
+    return module
+
+
+class AtStart:
+    """Keeps `torch_jobs.full_state` at the fit's start (after a
+    restore) in ``state``; ``callback`` is the trainer's callback."""
+
+    def __init__(self):
+        from ray_lightning_tpu_torch.core.callbacks import Callback
+
+        keep = self
+
+        class Keep(Callback):
+            def on_fit_start(self, trainer, module):
+                keep.state = torch_jobs.full_state(trainer, module)
+
+        self.callback = Keep()
+
+
+def _bert_fit(inp, sizes, steps, dropout=0.0, callbacks=(), **fit_kw):
+    """A fit of `bert_module` under ``ShardedMesh(**sizes)`` on this
+    rank's share of each of ``inp["batches"]``: (rows, trainer,
+    module)."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+
+    module = bert_module(inp, dropout)
     rec = torch_jobs.StepRecorder()
-    trainer = Trainer(strategy=torch_jobs.make_strategy(
-        "sharded", data=2, expert=2), max_steps=3, callbacks=[rec],
-        log_every_n_steps=1, enable_checkpointing=False,
-        enable_progress_bar=False, seed=0)
+    trainer = Trainer(strategy=torch_jobs.make_strategy("sharded", **sizes),
+                      max_steps=steps, log_every_n_steps=1,
+                      enable_checkpointing=False, enable_progress_bar=False,
+                      seed=0, callbacks=[rec, *callbacks])
     index, count = trainer.strategy.data_shard(dist.get_rank(),
                                                dist.get_world_size())
-    share = {k: np.array_split(v, count)[index]
-             for k, v in inp["fit_data"].items()}
-    trainer.fit(mod, DataLoader(share, batch_size=inp["fit_batch"] // count))
-    w = dict(trainer.strategy.unwrap(mod.model).named_parameters())[
-        "moe.w_gate_up"]
-    out["fit"] = {"rows": rec.rows, "placements": str(w.placements),
-                  "mesh": trainer.strategy.mesh_shape}
+    shares = [{k: np.array_split(v, count)[index] for k, v in b.items()}
+              for b in inp["batches"]]
+    trainer.fit(module, shares, **fit_kw)
+    return rec.rows, trainer, module
+
+
+def _live_bytes(trainer, module):
+    """(parameter, optimizer state) storage bytes this rank holds: what
+    the planner plans."""
+    from ray_lightning_tpu_torch.parallel.tensor import local
+
+    opt = trainer.state.optimizer
+    return (sum(local(p).untyped_storage().nbytes()
+                for p in module.params.values()),
+            sum(local(t).untyped_storage().nbytes()
+                for st in opt.state.values() for t in st.values()))
+
+
+def bert_tensor_job(inp):
+    """Every multi-process case of `tests/test_torch_bert_tensor.py` for
+    the mesh ``inp["sizes"]``: the fit (its rows, final state and bytes)
+    and one loss and backward (every gradient in the canonical layout);
+    on the ``tensor=2`` mesh also a checkpoint written at step 2, the
+    restore of the `SingleDevice` checkpoint ``inp["single_ckpt"]``, and
+    the fit at dropout 0.5."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.core.callbacks import ModelCheckpoint
+
+    sizes = inp["sizes"]
+    out = {}
+    rows, trainer, module = _bert_fit(inp, sizes, inp["steps"])
+    layer = trainer.strategy.unwrap(module.model).encoder.layers[0]
+    out["fit"] = {"rows": rows,
+                  "state": torch_jobs.full_state(trainer, module)[0],
+                  "tp": layer.tp.size,
+                  "wqkv_local": tuple(layer.wqkv.weight.to_local().shape),
+                  "bytes": _live_bytes(trainer, module)}
+
+    module = bert_module(inp)
+    strategy = _wrap(module, sizes)
+    index, count = strategy.data_shard(dist.get_rank(),
+                                       dist.get_world_size())
+    batch = {k: torch.from_numpy(np.array_split(v, count)[index])
+             for k, v in inp["grad_batch"].items()}
+    loss, _ = module._loss_acc(module._forward(module.params, batch),
+                               batch["labels"])
+    loss.backward()
+    strategy.finish_grads([(n, p.grad) for n, p in module.params.items()])
+    out["grads"] = {
+        "loss": float(strategy.reduce_mean({"loss": loss.detach()})["loss"]),
+        "grads": {n: _np(strategy.canonical_value(n, p.grad))
+                  for n, p in module.params.items()}}
+    if sizes != {"tensor": 2}:
+        return out
+
+    _, trainer, module = _bert_fit(inp, sizes, 2, callbacks=[
+        ModelCheckpoint(dirpath=inp["ckpt_dir"], every_n_train_steps=2,
+                        save_top_k=-1)])
+    out["ckpt"] = {"path": trainer.checkpoint_callback.best_model_path,
+                   "state": torch_jobs.full_state(trainer, module)}
+    keep = AtStart()
+    _bert_fit(inp, sizes, 3, callbacks=[keep.callback],
+              ckpt_path=inp["single_ckpt"])
+    out["restored"] = keep.state
+    rows, _, _ = _bert_fit(inp, sizes, inp["steps"], dropout=0.5)
+    out["dropout_rows"] = rows
+    return out
+
+
+def live_bytes_job(inp):
+    """`tests/test_torch_plan.py`'s four ranks: each of ``inp``'s fits
+    ({name: (module kind, ShardedMesh sizes, rows)}), 2 steps, and this
+    rank's parameter and optimizer bytes after them, by name."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.core.trainer import Trainer
+    from ray_lightning_tpu_torch.models.moe import MoEClassifierModule
+
+    out = {}
+    for name, (kind, sizes, batches) in inp.items():
+        module = (bert_module(dict(cfg_kw={}, module_kw={}))
+                  if kind == "bert" else MoEClassifierModule(in_features=16))
+        trainer = Trainer(
+            strategy=torch_jobs.make_strategy("sharded", **sizes),
+            max_steps=2, enable_checkpointing=False,
+            enable_progress_bar=False, seed=0)
+        index, count = trainer.strategy.data_shard(dist.get_rank(),
+                                                   dist.get_world_size())
+        trainer.fit(module, [{k: np.array_split(v, count)[index]
+                              for k, v in b.items()} for b in batches])
+        out[name] = _live_bytes(trainer, module)
     return out
